@@ -1,0 +1,99 @@
+// K4 (forward) and K7: per-ray reductions over a ray-major sample stream.
+//
+// Both take ray offsets [N+1] (int64): ray r owns samples offsets[r] ..
+// offsets[r+1]-1, as the marcher (march.cu) and the significance
+// compaction emit them.  Neither needs atomics, and both sum in stream order,
+// so results are deterministic.
+//
+// K4 replaces nerfstyle_tpu/ops/compositing.py:sample_weights (significance,
+// segment_exclusive_cumsum) plus the per-ray weights_sum and depth sums of
+// render/renderer.py:make_two_phase_renderer.  Per ray, front to back:
+//     sdt_i = min(sigma_i * dt, 100), alpha_i = 1 - exp(-sdt_i),
+//     T_i = exp(-sum_{j<i} sdt_j), w_i = alpha_i * T_i while T_i >= t_thresh,
+//     weights_sum = sum w_i, depth = sum w_i * tau_i.
+// The JAX form takes a flat fp32 cumsum over the whole stream minus per-ray
+// totals, which loses digits as the stream grows; this kernel accumulates
+// each ray's optical depth on its own, front to back, and stops at the first
+// sample with T < t_thresh (T never rises again, so every later w is 0).
+//
+// K7 replaces the phase-B segment sum of make_two_phase_renderer
+// (render/renderer.py:648-659): out[r, c] = sum_i w_i * ch[i, c] over ray r's
+// significant samples.
+//
+// Bound on the H100: bytes (a few flops per 4-byte sample value).  Design:
+// one thread per ray (K4) or per (ray, channel) (K7) walking its contiguous
+// segment.  A warp's threads read different segments, so loads coalesce
+// poorly; a warp-per-ray scan is the faster form, left for later.
+#include "common.cuh"
+
+namespace {
+
+__global__ void composite_weights_kernel(const float* __restrict__ sigmas,
+                                         const float* __restrict__ tau,
+                                         const long long* __restrict__ offsets, int num_rays,
+                                         float dt, float t_thresh, float* __restrict__ w,
+                                         float* __restrict__ weights_sum,
+                                         float* __restrict__ depth) {
+    const int r = blockIdx.x * blockDim.x + threadIdx.x;
+    if (r >= num_rays) return;
+    const long long begin = offsets[r];
+    const long long end = offsets[r + 1];
+    float od = 0.f;  // optical depth in front of sample i
+    float ws = 0.f;
+    float dep = 0.f;
+    long long i = begin;
+    for (; i < end; ++i) {
+        const float trans = expf(-od);
+        if (!(trans >= t_thresh)) break;
+        const float sdt = fminf(__fmul_rn(sigmas[i], dt), 100.f);
+        const float wi = __fmul_rn(__fsub_rn(1.f, expf(-sdt)), trans);
+        w[i] = wi;
+        ws = __fadd_rn(ws, wi);
+        dep = __fadd_rn(dep, __fmul_rn(wi, tau[i]));
+        od = __fadd_rn(od, sdt);
+    }
+    for (; i < end; ++i) w[i] = 0.f;
+    weights_sum[r] = ws;
+    depth[r] = dep;
+}
+
+__global__ void segment_sum_kernel(const float* __restrict__ w, const float* __restrict__ ch,
+                                   const long long* __restrict__ offsets, int num_rays,
+                                   int channels, float* __restrict__ out) {
+    const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (i >= static_cast<long long>(num_rays) * channels) return;
+    const int r = static_cast<int>(i / channels);
+    const int c = static_cast<int>(i - static_cast<long long>(r) * channels);
+    float acc = 0.f;
+    for (long long j = offsets[r]; j < offsets[r + 1]; ++j) {
+        acc = __fadd_rn(acc, __fmul_rn(w[j], ch[j * channels + c]));
+    }
+    out[i] = acc;
+}
+
+}  // namespace
+
+// sigmas, tau [M] f32; offsets [N+1] i64; w [M], weights_sum [N], depth [N] f32.
+NST_API int nst_composite_weights(const void* sigmas, const void* tau, const void* offsets,
+                                  int num_rays, float dt, float t_thresh, void* w,
+                                  void* weights_sum, void* depth, void* stream) {
+    if (num_rays <= 0) return 0;
+    composite_weights_kernel<<<nst::blocks_for(num_rays), nst::kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(sigmas), static_cast<const float*>(tau),
+        static_cast<const long long*>(offsets), num_rays, dt, t_thresh, static_cast<float*>(w),
+        static_cast<float*>(weights_sum), static_cast<float*>(depth));
+    return nst::launch_status();
+}
+
+// w [S] f32, ch [S, C] f32, offsets [N+1] i64, out [N, C] f32.
+NST_API int nst_segment_sum(const void* w, const void* ch, const void* offsets, int num_rays,
+                            int channels, void* out, void* stream) {
+    if (num_rays <= 0 || channels <= 0) return 0;
+    const long long n = static_cast<long long>(num_rays) * channels;
+    segment_sum_kernel<<<nst::blocks_for(n), nst::kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(w), static_cast<const float*>(ch),
+        static_cast<const long long*>(offsets), num_rays, channels, static_cast<float*>(out));
+    return nst::launch_status();
+}

@@ -1,0 +1,150 @@
+// K1: multiresolution hash-grid encode, forward.
+//
+// Replaces the JAX encoder nerfstyle_tpu/ops/hashgrid.py:hashgrid_encode ->
+// _encode_fast -> _encode_flat (_flat_block_tri), trilinear levels only.
+//
+// out[b, l*C + c] = sum over the 8 cell corners s of
+//     table[(hash_s % size_l) + offset_l, c] * w_s,
+// hash_s = XOR_d (uint32(pg_d + bit_d(s)) * prime_d) with uint32 wraparound,
+// w_s = prod_d (bit ? frac_d : 1 - frac_d); rows of points outside [0, 1]^3
+// are zero.  The arithmetic follows the JAX order step for step and rounds
+// every product and sum on its own (__fmul_rn / __fadd_rn: no FMA
+// contraction), so the kernel gives the plain PyTorch version's bits.
+//
+// Bound on the H100: bytes.  Each (point, level) reads 8 random [C]-wide
+// table rows (8 or 16 bytes) and does ~60 flops, far below the card's
+// flop/byte balance.  A level's table is at most 2^19 rows (4 MB at C=2), the
+// whole density or color table ~50 MB, about the 50 MB L2, so most corner
+// reads hit L2.  Design: one thread per (point, level), consecutive threads
+// on consecutive levels of one point, so a warp writes whole contiguous
+// output rows and shares its point's coordinates; each corner row is one
+// vector load through the read-only path.  Corner dedup and shared-memory
+// staging of coarse levels are left for a later, faster version.
+#include "common.cuh"
+
+namespace {
+
+// Spatial primes of the hash, per axis.
+__device__ __forceinline__ unsigned int prime(int d) {
+    return d == 0 ? 1u : (d == 1 ? 2654435761u : 805459861u);
+}
+
+template <int C>
+struct Row;
+
+template <>
+struct Row<1> {
+    float v[1];
+    __device__ __forceinline__ void load(const float* p) { v[0] = __ldg(p); }
+};
+template <>
+struct Row<2> {
+    float v[2];
+    __device__ __forceinline__ void load(const float* p) {
+        const float2 r = __ldg(reinterpret_cast<const float2*>(p));
+        v[0] = r.x;
+        v[1] = r.y;
+    }
+};
+template <>
+struct Row<4> {
+    float v[4];
+    __device__ __forceinline__ void load(const float* p) {
+        const float4 r = __ldg(reinterpret_cast<const float4*>(p));
+        v[0] = r.x;
+        v[1] = r.y;
+        v[2] = r.z;
+        v[3] = r.w;
+    }
+};
+
+// levels: int32 [3, L] = resolutions, table sizes (rows), row offsets.
+template <int C>
+__global__ void hashgrid_encode_kernel(const float* __restrict__ x,
+                                       const float* __restrict__ table,
+                                       const int* __restrict__ levels,
+                                       float* __restrict__ out, long long num_points,
+                                       int num_levels) {
+    const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (i >= num_points * num_levels) return;
+    const long long b = i / num_levels;
+    const int l = static_cast<int>(i - b * num_levels);
+    float* o = out + i * C;  // == b * L * C + l * C
+
+    const float p[3] = {x[3 * b], x[3 * b + 1], x[3 * b + 2]};
+    const bool oob = (p[0] < 0.f) | (p[0] > 1.f) | (p[1] < 0.f) | (p[1] > 1.f) |
+                     (p[2] < 0.f) | (p[2] > 1.f);
+    if (oob) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) o[c] = 0.f;
+        return;
+    }
+
+    const int res = levels[l];
+    const unsigned int size = static_cast<unsigned int>(levels[num_levels + l]);
+    const int offset = levels[2 * num_levels + l];
+    const float scale = static_cast<float>(res);
+    const float resm1 = __fsub_rn(scale, 1.f);
+
+    float frac[3];
+    unsigned int pg[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+        const float pos = __fmul_rn(p[d], scale);
+        const float g = fminf(fmaxf(floorf(pos), 0.f), resm1);
+        frac[d] = __fsub_rn(pos, g);
+        pg[d] = static_cast<unsigned int>(g);
+    }
+
+    float acc[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[c] = 0.f;
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+        float w = 1.f;
+        unsigned int h = 0u;
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+            const unsigned int bit = (s >> d) & 1u;
+            w = __fmul_rn(w, bit ? frac[d] : __fsub_rn(1.f, frac[d]));
+            h ^= (pg[d] + bit) * prime(d);
+        }
+        const long long row = static_cast<long long>(h % size) + offset;
+        Row<C> r;
+        r.load(table + row * C);
+#pragma unroll
+        for (int c = 0; c < C; ++c) acc[c] = __fadd_rn(acc[c], __fmul_rn(r.v[c], w));
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) o[c] = acc[c];
+}
+
+template <int C>
+void launch(const float* x, const float* table, const int* levels, float* out,
+            long long num_points, int num_levels, cudaStream_t stream) {
+    const long long n = num_points * num_levels;
+    hashgrid_encode_kernel<C><<<nst::blocks_for(n), nst::kThreads, 0, stream>>>(
+        x, table, levels, out, num_points, num_levels);
+}
+
+}  // namespace
+
+// x [B, 3] f32, table [T, C] f32, levels int32 [3, L], out [B, L*C] f32.
+// Returns cudaErrorInvalidValue for an unsupported row width C.
+NST_API int nst_hashgrid_encode(const void* x, const void* table, const void* levels, void* out,
+                                long long num_points, int num_levels, int channels,
+                                void* stream) {
+    if (num_points <= 0) return 0;
+    const float* xf = static_cast<const float*>(x);
+    const float* tf = static_cast<const float*>(table);
+    const int* lv = static_cast<const int*>(levels);
+    float* of = static_cast<float*>(out);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    switch (channels) {
+        case 1: launch<1>(xf, tf, lv, of, num_points, num_levels, s); break;
+        case 2: launch<2>(xf, tf, lv, of, num_points, num_levels, s); break;
+        case 4: launch<4>(xf, tf, lv, of, num_points, num_levels, s); break;
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return nst::launch_status();
+}

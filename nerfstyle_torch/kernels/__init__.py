@@ -1,0 +1,312 @@
+"""Loader and launch wrappers of the hand-written Hopper kernels.
+
+The CUDA sources in ``nerfstyle_torch/csrc/*.cu`` are compiled by ``nvcc``
+for ``sm_90a`` into one shared library with a plain C interface, on first
+use, under ``build/`` at the repository root (one ``nvcc -c`` per source,
+all started together, then one link).  The library is keyed by a hash of the
+sources, so a rebuilt checkout reuses it and an edited source rebuilds.  It
+is loaded with ``ctypes``; every pointer and the stream travel as
+``c_void_p``.
+
+Each wrapper checks device, dtype, shape and contiguity, allocates its
+outputs, launches on PyTorch's current stream without synchronising, raises
+if the launch returns a nonzero CUDA status, and adds one to its entry of
+:data:`launch_counts` per launch.  The wrappers take CUDA tensors only: the
+plain PyTorch versions live beside their callers in ``nerfstyle_torch.ops``.
+
+Nothing here runs at import: the CPU test suite imports this module on a
+machine without ``nvcc`` or a GPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xcompiler", "-fPIC",
+)
+
+# Launches per kernel since the last reset_launch_counts().
+launch_counts: Dict[str, int] = {
+    "hashgrid_encode": 0,
+    "march_count": 0,
+    "march_write": 0,
+    "composite_weights": 0,
+    "segment_sum": 0,
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_F = ctypes.c_float
+_SIGNATURES = {
+    "nst_hashgrid_encode": (_P, _P, _P, _P, _LL, _I, _I, _P),
+    "nst_march_count": (_P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _I, _P, _P),
+    "nst_march_write": (
+        _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+    ),
+    "nst_composite_weights": (_P, _P, _P, _I, _F, _F, _P, _P, _P, _P),
+    "nst_segment_sum": (_P, _P, _P, _I, _I, _P, _P),
+}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the kernel library if it is not built yet; return its path.
+
+    ``verbose`` adds ``-Xptxas -v`` and prints the compiler's output
+    (registers, shared memory and spills of every kernel)."""
+    sources = sorted(CSRC.glob("*.cu"))
+    lib = BUILD_DIR / f"libnerfstyle_kernels_{_digest()}.so"
+    if lib.exists():
+        return lib
+    nvcc = _nvcc()
+    obj_dir = BUILD_DIR / f"obj_{os.getpid()}"
+    obj_dir.mkdir(parents=True, exist_ok=True)
+    extra = ("-Xptxas", "-v") if verbose else ()
+    procs: List[Tuple[Path, subprocess.Popen]] = []
+    for src in sources:
+        obj = obj_dir / (src.stem + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", str(src), "-o", str(obj)]
+        procs.append((obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )))
+    failed = []
+    for obj, proc in procs:
+        out, _ = proc.communicate()
+        if verbose and out:
+            print(out, end="")
+        if proc.returncode != 0:
+            failed.append(f"{obj.stem}.cu (rc {proc.returncode}):\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    tmp = lib.with_name(lib.name + f".{os.getpid()}.tmp")
+    link = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-shared", *(str(o) for o, _ in procs), "-o", str(tmp)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed (rc {link.returncode}):\n{link.stdout}")
+    os.replace(tmp, lib)
+    shutil.rmtree(obj_dir, ignore_errors=True)
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """Build (once) and load the kernel library."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            lib.nst_error_string.argtypes = [ctypes.c_int]
+            lib.nst_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: Tuple) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got device {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != len(shape) or any(s is not None and s != d for s, d in zip(shape, t.shape)):
+        raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def _same_device(*ts: torch.Tensor) -> None:
+    dev = ts[0].device
+    if any(t.device != dev for t in ts[1:]):
+        raise ValueError("all tensors must lie on one device")
+
+
+def _launched(lib: ctypes.CDLL, status: int, what: str) -> None:
+    if status != 0:
+        raise RuntimeError(f"{what} launch failed: {lib.nst_error_string(status).decode()}")
+    launch_counts[what] += 1
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def hashgrid_encode(x: torch.Tensor, table: torch.Tensor, levels: torch.Tensor) -> torch.Tensor:
+    """K1: [B, 3] points in [0, 1] -> [B, L*C] features (see csrc/hashgrid.cu).
+
+    ``levels`` is the int32 [3, L] table of level resolutions, table sizes
+    and row offsets (``ops.hashgrid.level_table``)."""
+    b = x.shape[0]
+    _check("x", x, torch.float32, (None, 3))
+    _check("table", table, torch.float32, (None, None))
+    _check("levels", levels, torch.int32, (3, None))
+    _same_device(x, table, levels)
+    num_levels, c = levels.shape[1], table.shape[1]
+    if c not in (1, 2, 4):
+        raise ValueError(f"table rows of width {c} are not supported (1, 2 or 4)")
+    out = torch.empty((b, num_levels * c), dtype=torch.float32, device=x.device)
+    if b == 0:
+        return out
+    lib = library()
+    status = lib.nst_hashgrid_encode(
+        x.data_ptr(), table.data_ptr(), levels.data_ptr(), out.data_ptr(),
+        b, num_levels, c, _stream(x),
+    )
+    _launched(lib, status, "hashgrid_encode")
+    return out
+
+
+def _march_args(origins, dirs, nears, fars, bitfield, dt, bound, t_lattice, cascade,
+                grid_size, mip_dt_level, max_steps) -> Tuple[tuple, tuple]:
+    """Check the inputs of both K3 passes; return their pointer and geometry
+    arguments."""
+    n = origins.shape[0]
+    _check("origins", origins, torch.float32, (n, 3))
+    _check("dirs", dirs, torch.float32, (n, 3))
+    _check("nears", nears, torch.float32, (n,))
+    _check("fars", fars, torch.float32, (n,))
+    _check("bitfield", bitfield, torch.bool, (cascade * grid_size**3,))
+    _same_device(origins, dirs, nears, fars, bitfield)
+    ptrs = (origins.data_ptr(), dirs.data_ptr(), nears.data_ptr(), fars.data_ptr(),
+            bitfield.data_ptr())
+    geom = (dt, bound, t_lattice, cascade, grid_size, mip_dt_level, max_steps, n)
+    return ptrs, geom
+
+
+def march_count(origins, dirs, nears, fars, bitfield, **geom) -> torch.Tensor:
+    """K3 pass 1: the kept-sample count [N] i32 of each ray (see
+    csrc/march.cu).  ``geom`` holds dt, bound, t_lattice, cascade,
+    grid_size, mip_dt_level and max_steps."""
+    ptrs, args = _march_args(origins, dirs, nears, fars, bitfield, **geom)
+    n = origins.shape[0]
+    counts = torch.zeros((n,), dtype=torch.int32, device=origins.device)
+    if n > 0:
+        lib = library()
+        status = lib.nst_march_count(*ptrs, *args, counts.data_ptr(), _stream(origins))
+        _launched(lib, status, "march_count")
+    return counts
+
+
+def march_write(origins, dirs, nears, fars, bitfield, offsets, num_kept: int, **geom):
+    """K3 pass 2: (xyz [M,3], dirs [M,3], tau [M], ray_id [M] i32, step [M]
+    i32) at the ray ``offsets`` [N+1] i64 that pass 1's counts give, M =
+    ``num_kept``."""
+    ptrs, args = _march_args(origins, dirs, nears, fars, bitfield, **geom)
+    _check("offsets", offsets, torch.int64, (origins.shape[0] + 1,))
+    _same_device(origins, offsets)
+    m, dev = num_kept, origins.device
+    xyz = torch.empty((m, 3), dtype=torch.float32, device=dev)
+    sdirs = torch.empty((m, 3), dtype=torch.float32, device=dev)
+    tau = torch.empty((m,), dtype=torch.float32, device=dev)
+    ray_id = torch.empty((m,), dtype=torch.int32, device=dev)
+    step = torch.empty((m,), dtype=torch.int32, device=dev)
+    if m > 0:
+        lib = library()
+        status = lib.nst_march_write(
+            *ptrs, *args, offsets.data_ptr(), xyz.data_ptr(), sdirs.data_ptr(),
+            tau.data_ptr(), ray_id.data_ptr(), step.data_ptr(), _stream(origins),
+        )
+        _launched(lib, status, "march_write")
+    return xyz, sdirs, tau, ray_id, step
+
+
+def march_rays(origins, dirs, nears, fars, bitfield, **geom):
+    """K3: march N rays; returns (xyz [M,3], dirs [M,3], tau [M], ray_id [M]
+    i32, step [M] i32, offsets [N+1] i64), ray-major (see csrc/march.cu).
+
+    Pass 1, an exclusive scan of its counts, and pass 2.  Synchronises once,
+    to size the outputs from the count pass."""
+    counts = march_count(origins, dirs, nears, fars, bitfield, **geom)
+    offsets = torch.zeros((counts.shape[0] + 1,), dtype=torch.int64, device=counts.device)
+    offsets[1:] = torch.cumsum(counts, 0, dtype=torch.int64)
+    m = int(offsets[-1])
+    return (*march_write(origins, dirs, nears, fars, bitfield, offsets, m, **geom), offsets)
+
+
+def composite_weights(
+    sigmas: torch.Tensor,
+    tau: torch.Tensor,
+    offsets: torch.Tensor,
+    dt: float,
+    t_thresh: float,
+):
+    """K4 forward: per-sample weights w [M] and per-ray weights_sum [N] and
+    depth [N] over ray-major segments (see csrc/composite.cu)."""
+    m = sigmas.shape[0]
+    n = offsets.shape[0] - 1
+    _check("sigmas", sigmas, torch.float32, (m,))
+    _check("tau", tau, torch.float32, (m,))
+    _check("offsets", offsets, torch.int64, (n + 1,))
+    _same_device(sigmas, tau, offsets)
+    w = torch.empty_like(sigmas)
+    ws = torch.empty((n,), dtype=torch.float32, device=sigmas.device)
+    depth = torch.empty((n,), dtype=torch.float32, device=sigmas.device)
+    if n > 0:
+        lib = library()
+        status = lib.nst_composite_weights(
+            sigmas.data_ptr(), tau.data_ptr(), offsets.data_ptr(), n, dt, t_thresh,
+            w.data_ptr(), ws.data_ptr(), depth.data_ptr(), _stream(sigmas),
+        )
+        _launched(lib, status, "composite_weights")
+    return w, ws, depth
+
+
+def segment_sum(w: torch.Tensor, ch: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """K7: out[r] = sum of w[i] * ch[i] over ray r's segment -> [N, C]."""
+    s = w.shape[0]
+    n = offsets.shape[0] - 1
+    _check("w", w, torch.float32, (s,))
+    _check("ch", ch, torch.float32, (s, None))
+    _check("offsets", offsets, torch.int64, (n + 1,))
+    _same_device(w, ch, offsets)
+    c = ch.shape[1]
+    out = torch.empty((n, c), dtype=torch.float32, device=w.device)
+    if n > 0 and c > 0:
+        lib = library()
+        status = lib.nst_segment_sum(
+            w.data_ptr(), ch.data_ptr(), offsets.data_ptr(), n, c, out.data_ptr(),
+            _stream(w),
+        )
+        _launched(lib, status, "segment_sum")
+    return out

@@ -1,0 +1,124 @@
+"""Volume-rendering compositor over a ray-major sample stream (counterpart
+of ``nerfstyle_tpu/ops/compositing.py``).
+
+A stream is described by ray offsets ``[N+1]``: ray r owns samples
+``offsets[r] .. offsets[r+1]-1`` in front-to-back order (what the marcher
+emits).  Per ray, sample i gets
+
+    sdt_i = min(sigma_i * dt, 100),  alpha_i = 1 - exp(-sdt_i),
+    T_i = exp(-sum_{j<i} sdt_j),     w_i = alpha_i * T_i  if T_i >= t_thresh else 0,
+
+and the per-ray outputs are ``weights_sum = sum w_i``, ``depth = sum w_i *
+tau_i`` and, for channels ``ch``, ``sum w_i * ch_i``.
+
+:func:`sample_weights` launches kernel K4 (forward) and :func:`segment_sum`
+kernel K7 (``csrc/composite.cu``) on CUDA tensors.  Their plain versions
+keep the JAX formula — the exclusive in-ray cumsum as a flat cumsum minus
+the sum in front of the segment, and segment sums — but accumulate in
+float64: on a frame-sized stream a flat fp32 cumsum reaches ~1e6 and loses
+the digits of a late ray's optical depth.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from .. import kernels, use_kernel
+
+# Optical-depth cap: alpha == 1 and T == 0 exactly in fp32 above ~88, so the
+# cap changes nothing but keeps an inf density from making inf - inf.
+OPTICAL_DEPTH_CAP = 100.0
+
+
+def ray_ids(offsets: torch.Tensor) -> torch.Tensor:
+    """[M] ray index of every sample of a stream with the given offsets."""
+    n = offsets.shape[0] - 1
+    counts = offsets[1:] - offsets[:-1]
+    return torch.repeat_interleave(torch.arange(n, device=offsets.device), counts)
+
+
+def weight_cutoffs(w: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """[N] int64: the number of samples of each ray up to and including its
+    last nonzero weight (0 for a ray without one): where the ray stopped."""
+    n = offsets.shape[0] - 1
+    rid = ray_ids(offsets)
+    local = torch.arange(w.shape[0], device=w.device) - offsets[:-1][rid]
+    last = torch.where(w != 0, local + 1, torch.zeros_like(local))
+    return torch.zeros(n, dtype=torch.int64, device=w.device).scatter_reduce_(0, rid, last, "amax")
+
+
+def segment_totals_plain(v: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """Per-ray sums [N, ...] of the stream rows v [M, ...], as differences of
+    a float64 running sum, returned in v's dtype."""
+    cs = torch.zeros((v.shape[0] + 1,) + tuple(v.shape[1:]), dtype=torch.float64, device=v.device)
+    cs[1:] = torch.cumsum(v.to(torch.float64), dim=0)
+    return (cs[offsets[1:]] - cs[offsets[:-1]]).to(v.dtype)
+
+
+def entering_transmittance_plain(
+    sigmas: torch.Tensor, offsets: torch.Tensor, dt: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sdt [M], T [M]): each sample's capped optical depth and the
+    transmittance entering it, by the JAX formula ``excl = cumsum(sdt) - sdt
+    - (sum of the rays in front)[ray]`` with float64 sums."""
+    rid = ray_ids(offsets)
+    sdt = torch.clamp(sigmas * dt, max=OPTICAL_DEPTH_CAP)
+    sdt64 = sdt.to(torch.float64)
+    seg_totals = segment_totals_plain(sdt64, offsets)
+    prev_total = torch.cumsum(seg_totals, dim=0) - seg_totals
+    excl = (torch.cumsum(sdt64, dim=0) - sdt64 - prev_total[rid]).to(sigmas.dtype)
+    return sdt, torch.exp(-excl)
+
+
+def sample_weights_plain(
+    sigmas: torch.Tensor,
+    tau: torch.Tensor,
+    offsets: torch.Tensor,
+    dt: float,
+    t_thresh: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain K4: (w [M], weights_sum [N], depth [N])."""
+    sdt, trans = entering_transmittance_plain(sigmas, offsets, dt)
+    alpha = 1.0 - torch.exp(-sdt)
+    w = alpha * trans * (trans >= t_thresh).to(sigmas.dtype)
+    return w, segment_totals_plain(w, offsets), segment_totals_plain(w * tau, offsets)
+
+
+def sample_weights(
+    sigmas: torch.Tensor,
+    tau: torch.Tensor,
+    offsets: torch.Tensor,
+    dt: float,
+    t_thresh: float,
+    *,
+    plain: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Compositing weights ``w`` [M] (already density_scale-multiplied
+    ``sigmas``) with the per-ray ``weights_sum`` and ``depth`` [N].
+
+    CUDA tensors go through kernel K4; CPU tensors (or ``plain=True``)
+    through :func:`sample_weights_plain`."""
+    if not use_kernel(sigmas, plain):
+        return sample_weights_plain(sigmas, tau, offsets, dt, t_thresh)
+    return kernels.composite_weights(
+        sigmas.contiguous(), tau.contiguous(), offsets.contiguous(), dt, t_thresh
+    )
+
+
+def segment_sum_plain(w: torch.Tensor, ch: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """Plain K7: [N, C] per-ray sums of w[:, None] * ch (float64 sums)."""
+    return segment_totals_plain(w[:, None] * ch, offsets)
+
+
+def segment_sum(
+    w: torch.Tensor, ch: torch.Tensor, offsets: torch.Tensor, *, plain: bool = False
+) -> torch.Tensor:
+    """Per-ray weighted channel sums ``sum_i w_i * ch_i`` -> [N, C].
+
+    CUDA tensors go through kernel K7; CPU tensors (or ``plain=True``)
+    through :func:`segment_sum_plain`."""
+    if not use_kernel(w, plain):
+        return segment_sum_plain(w, ch, offsets)
+    return kernels.segment_sum(w.contiguous(), ch.contiguous(), offsets.contiguous())

@@ -23,6 +23,19 @@
 5. Checks the frame: finite, of the expected shape, its opacity matching
    the spheres' analytic silhouette, and a 4096-ray crop matching the plain
    path on the card.
+6. The train path: ``python -m nerfstyle_torch.train`` in-process at the
+   default configs (4096 rays a step, two 2^19-row tables, grid 128, AMP)
+   on the synthetic scene for 300 steps, past update_thres, so that both
+   occupancy updates run; launch counters set to 0 just before and read
+   just after, each train kernel (K1-K4b, K6, K7) must have launched, no
+   step may be non-finite, and the EMA params' test PSNR must rise 5 dB
+   above the untrained field's on the same views.  Prints step times early
+   and late, train rays/s, occupancy-update times, samples per ray and peak
+   memory.
+7. One more step with the kernels against the same step with every plain
+   version, from the same state and rays (tolerances at step_vs_plain);
+   K2, K4b and K6 against their plain versions at the step's shapes, timed;
+   one late step under the profiler.
 
 Prints the kernel table as one JSON line, then the last line
 ``{"ok": true, "device": {...}}``.  Exits nonzero, printing no result,
@@ -48,6 +61,11 @@ WORK = ROOT / "build" / "smoke"
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 OUT_DIMS = (1008, 756)
+# Train steps of the train path: past update_thres (256), so that both
+# occupancy updates (full sweep, then random) run.
+TRAIN_STEPS = 300
+RENDER_COUNTERS = ("hashgrid_encode", "march_count", "march_write", "composite_weights",
+                   "segment_sum")
 K1_POINTS = 1 << 20
 DENSITY_OFFSET = 6.0
 DEVICE = "cuda"
@@ -268,9 +286,9 @@ def kernel_phases(renderer, params, rays_o, rays_d):
     # t_thresh: atol 1e-4, 1e-4 * max(tau).
     s = renderer.settings
     sig = field_density(spec, params, bbox, sb.xyz, renderer.compute_dtype) * s.density_scale
-    w, ws, dep = compositing.sample_weights(sig, sb.tau, sb.offsets, plan.dt, s.t_thresh)
-    w64, ws64, dep64 = compositing.sample_weights(sig.double(), sb.tau.double(), sb.offsets,
-                                                  plan.dt, s.t_thresh, plain=True)
+    w, ws, dep, _ = compositing.sample_weights(sig, sb.tau, sb.offsets, plan.dt, s.t_thresh)
+    w64, ws64, dep64, _ = compositing.sample_weights(sig.double(), sb.tau.double(), sb.offsets,
+                                                     plan.dt, s.t_thresh, plain=True)
     _, trans64 = compositing.entering_transmittance_plain(sig.double(), sb.offsets, plan.dt)
     near = (trans64 - s.t_thresh).abs() <= 1e-4 * s.t_thresh
     edge = compositing.segment_totals_plain(near.double(), sb.offsets) > 0
@@ -338,6 +356,355 @@ def kernel_phases(renderer, params, rays_o, rays_d):
 
 
 # ---------------------------------------------------------------------------
+# The train path
+# ---------------------------------------------------------------------------
+
+
+def train_argv(steps: int, *extra: str):
+    """Flags of ``python -m nerfstyle_torch.train`` at the default configs on
+    the synthetic scene (24 train views of 128x96, 6 test views)."""
+    return ["--device", DEVICE, "--log-dir", str(WORK / "train"),
+            "--data-cfg", str(WORK / "data.yaml"), "--num_iterations", str(steps),
+            "--intervals.print", "50", "--intervals.log", "0", "--intervals.test", "0",
+            "--intervals.ckpt", str(steps), "--yes", *extra]
+
+
+def clone_tree(t):
+    """A copy of a tree of tensors (dicts, lists, tuples, NamedTuples)."""
+    if isinstance(t, torch.Tensor):
+        return t.detach().clone()
+    if isinstance(t, dict):
+        return {k: clone_tree(v) for k, v in t.items()}
+    if isinstance(t, list):
+        return [clone_tree(v) for v in t]
+    if isinstance(t, tuple):
+        items = [clone_tree(v) for v in t]
+        return type(t)(*items) if hasattr(t, "_fields") else tuple(items)
+    return t
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    """||a - b|| / ||b|| in float64 (||a - b|| when b is 0)."""
+    a, b = a.detach().double().reshape(-1), b.detach().double().reshape(-1)
+    num, den = float(torch.linalg.vector_norm(a - b)), float(torch.linalg.vector_norm(b))
+    return num / den if den > 0 else num
+
+
+def step_vs_plain(trainer, fails):
+    """One train step with the kernels and the same step with ``plain=True``
+    (the plain PyTorch version of every kernel, on the card) from the same
+    state and the same rays; the trainer keeps the kernel step's state.
+
+    Tolerances: the kernels sum in fp32 where the plain versions sum in
+    float64 (K4, K4b, K7) or in another order (K2's atomics), and under AMP
+    a cotangent that lands on the other side of a bf16 rounding step moves by
+    2^-8 of itself.  Loss terms: 1e-5 relative.  Marched samples equal; kept
+    samples within 1e-3 (a ray whose entering T lies within rounding of
+    t_thresh keeps one sample more or less).  Each gradient leaf, each
+    Adam moment leaf and each param and EMA update (new - old): relative L2
+    error 5e-3 (measured up to 6.2e-4 on an H100)."""
+    from nerfstyle_torch import kernels
+    from nerfstyle_torch.training.checkpoint import tree_flatten
+
+    frame, idx = trainer.sample_batch()
+    o, d, target = trainer.ray_batch(frame, idx)
+    start = clone_tree((trainer.params, trainer.opt_state, trainer.ema_state))
+    runs = {}
+    for plain in (False, True):
+        params, opt_state, ema_state = clone_tree(start)
+        trainer.params = trainer._trainable(params)
+        trainer.opt_state, trainer.ema_state = opt_state, ema_state
+        kernels.reset_launch_counts()
+        losses, grads, counts = trainer.loss_and_grads(o, d, target, plain=plain)
+        applied = trainer.apply_grads(grads)
+        torch.cuda.synchronize()
+        runs[plain] = dict(losses=losses, grads=grads, counts=counts, applied=applied,
+                           state=(trainer.params, trainer.opt_state, trainer.ema_state),
+                           launches=dict(kernels.launch_counts))
+    k, p = runs[False], runs[True]
+    trainer.params, trainer.opt_state, trainer.ema_state = k["state"]
+
+    step_kernels = ("hashgrid_encode", "hashgrid_backward", "march_count", "march_write",
+                    "composite_weights", "composite_backward", "segment_sum")
+    missing = [c for c in step_kernels if k["launches"][c] <= 0]
+    if missing:
+        fails.append(f"the kernel step launched no {missing}")
+    if any(p["launches"].values()):
+        fails.append(f"the plain step launched kernels: {p['launches']}")
+    if not (k["applied"] and p["applied"]):
+        fails.append("a compared step was skipped as non-finite")
+    loss_err = {name: abs(float(k["losses"][name]) - float(v)) / max(abs(float(v)), 1e-30)
+                for name, v in p["losses"].items()}
+    kc, pc = k["counts"], p["counts"]
+    sig_err = abs(kc["num_sig"] - pc["num_sig"]) / max(pc["num_sig"], 1)
+    (p0, o0, e0), (pk, ok, ek), (pp, op, ep) = start, k["state"], p["state"]
+    errs = {
+        "grads": max(rel_l2(a, b) for a, b in zip(tree_flatten(k["grads"]),
+                                                  tree_flatten(p["grads"]))),
+        "param_update": max(rel_l2(a - z, b - z) for a, b, z in zip(
+            tree_flatten(pk), tree_flatten(pp), tree_flatten(p0))),
+        "adam_state": max(rel_l2(a, b) for a, b in zip(tree_flatten(ok), tree_flatten(op))
+                          if a.is_floating_point()),
+        "ema_update": max(rel_l2(a - z, b - z) for a, b, z in zip(
+            tree_flatten(ek.shadow), tree_flatten(ep.shadow), tree_flatten(e0.shadow))),
+    }
+    log(f"train step with kernels vs plain, same state and rays: loss relative errors "
+        f"{loss_err}; samples marched {kc['num_points']} vs {pc['num_points']}, kept "
+        f"{kc['num_sig']} vs {pc['num_sig']}; relative L2 errors (worst leaf) {errs}")
+    if not all(e <= 1e-5 for e in loss_err.values()):
+        fails.append(f"train step losses differ from the plain step: {loss_err}")
+    if kc["num_points"] != pc["num_points"] or sig_err > 1e-3:
+        fails.append(f"train step sample counts differ from the plain step: {kc} vs {pc}")
+    if not all(e <= 5e-3 for e in errs.values()):
+        fails.append(f"train step gradients or state differ from the plain step: {errs}")
+
+
+def train_kernel_phases(trainer, fails):
+    """K2, K4b and K6 at the train step's shapes (a batch of the trained
+    state; the random occupancy update's probe count) against their plain
+    versions; returns their kernel-table entries."""
+    from nerfstyle_torch import kernels
+    from nerfstyle_torch.models.fields import _encoder_input, field_apply, field_density
+    from nerfstyle_torch.ops import compositing, hashgrid, marching, occupancy
+    from nerfstyle_torch.ops.aabb import near_far_from_aabb
+    from nerfstyle_torch.render.pipeline import kept_prefix
+
+    table = {}
+    r, spec, s = trainer.renderer, trainer.field_spec, trainer.settings
+    plan, bbox, dev = r.plan, r.bbox, trainer.device
+    gen = torch.Generator(device=dev).manual_seed(5)
+    frame, idx = trainer.sample_batch()
+    o, d, _ = trainer.ray_batch(frame, idx)
+    n = o.shape[0]
+    nears, fars = near_far_from_aabb(o, d, plan.aabb(dev), plan.min_near)
+    sb = marching.march_rays(plan, r.occ_state.bitfield, o, d, nears, fars)
+    with torch.no_grad():
+        sig_a = field_density(spec, trainer.params, bbox, sb.xyz, trainer.compute_dtype)
+        *_, n_inc = compositing.sample_weights(sig_a * s.density_scale, sb.tau, sb.offsets,
+                                               plan.dt, s.t_thresh)
+        keep, offsets = kept_prefix(sb, n_inc)
+        xyz, tau = sb.xyz[keep], sb.tau[keep].contiguous()
+        ch, sig = field_apply(spec, trainer.params, bbox, xyz, trainer.compute_dtype)
+    k = keep.shape[0]
+
+    # K2: the table gradient of phase B's encode (the [T, 4] fused tables)
+    # for a random cotangent.  The fp32 atomics add in an order that varies
+    # from run to run, up to ~10^5 contributions a row on the coarse levels;
+    # against the plain version's float64 sums: 1e-4 of the largest row.
+    x = _encoder_input(bbox, xyz).contiguous()
+    lvl, c, rows = spec.grid.num_levels, 2 * spec.grid.level_dim, spec.grid.total_params
+    lv = hashgrid.level_table(spec.grid, dev)
+
+    def k2_check(pts, what):
+        cot = torch.randn((pts.shape[0], lvl * c), generator=gen, device=dev)
+        ref = hashgrid.hashgrid_backward_plain(spec.grid, pts, cot.double(), rows)
+        got = kernels.hashgrid_backward(pts, cot, lv, rows)
+        err = float((got.double() - ref).abs().max())
+        tol = 1e-4 * float(ref.abs().max())
+        if not err <= tol:
+            fails.append(f"K2 table gradient error {err} > {tol} ({what})")
+        return cot, err, tol
+
+    # At an early step's shape first: with every cell occupied (the grid
+    # before the first updates prune it) a batch marches all its lattice
+    # samples, and phase B keeps them all.
+    sb0 = marching.march_rays(plan, torch.ones_like(r.occ_state.bitfield), o, d, nears, fars)
+    x0 = _encoder_input(bbox, sb0.xyz).contiguous()
+    del sb0
+    g0, err0, tol0 = k2_check(x0, "early shape")
+    ms0 = cuda_ms(lambda: kernels.hashgrid_backward(x0, g0, lv, rows), reps=3, warmup=1)
+    log(f"K2 hashgrid_backward at an early step's shape: {x0.shape[0]} samples "
+        f"({x0.shape[0] / n:.1f} a ray) x {lvl} levels x 8 corners; max_abs_err {err0:.3e} "
+        f"(tol {tol0:.3e}); ms {ms0:.3f}")
+    del x0, g0
+    g, err, tol = k2_check(x, "late shape")
+    ms = cuda_ms(lambda: kernels.hashgrid_backward(x, g, lv, rows), reps=10)
+    plain_ms = cuda_ms(lambda: hashgrid.hashgrid_backward_plain(spec.grid, x, g, rows), reps=3)
+    corners, oob = hashgrid._corners(spec.grid, x)
+    g3 = torch.where(oob[:, None, None], 0.0, g.reshape(k, lvl, c))
+    flat_rows = torch.cat([cr.reshape(-1) for cr, _ in corners])
+    vals = torch.cat([(w[..., None] * g3).reshape(-1, c) for _, w in corners])
+    del corners, g3
+    acc = torch.zeros((rows, c), device=dev)
+    lib_ms = cuda_ms(lambda: acc.zero_().index_add_(0, flat_rows, vals), reps=10)
+    del flat_rows, vals, acc
+    # Bytes: points, cotangent, the [T, C] gradient written once.
+    # Operations: per (point, level, corner) 5 for the weight, 2C for w * g
+    # and the add.
+    b_ms, b_by = bound_ms(nbytes=k * 12 + k * lvl * c * 4 + rows * c * 4,
+                          flops=k * lvl * 8 * (5 + 2 * c))
+    table["K2"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                       bound_by=b_by, library_ms=lib_ms)
+    log(f"K2 hashgrid_backward: {k} kept samples x {lvl} levels x 8 corners into [{rows}, {c}]; "
+        f"max_abs_err {err:.3e} (tol {tol:.3e}); ms {ms:.3f}, plain_ms {plain_ms:.3f}, "
+        f"index_add_ ms {lib_ms:.3f}, bound_ms {b_ms:.4f} ({b_by})")
+
+    # K4b: the compositor's backward on phase B's stream for random
+    # cotangents, against the plain backward on float64 inputs.  Rays with
+    # an entering T within 1e-4 relative of t_thresh may include one sample
+    # more or less in fp32 and are left out.  d ch = w * gI: 1e-5 of the
+    # largest (w's fp32 rounding); d sigma = dt (T_{i+1} v - suffix) loses
+    # digits to the difference: 1e-4 of the largest.
+    sigmas = (sig * s.density_scale).contiguous()
+    chc = ch.contiguous()
+    gi = torch.randn((n, chc.shape[1]), generator=gen, device=dev)
+    gw = torch.randn((n,), generator=gen, device=dev)
+    gd = torch.randn((n,), generator=gen, device=dev)
+    w, _, _, n_inc_b = kernels.composite_weights(sigmas, tau, offsets, plan.dt, s.t_thresh)
+    d_s, d_c = kernels.composite_backward(sigmas, chc, tau, w, offsets, n_inc_b, gi, gw, gd,
+                                          plan.dt)
+    ref_s, ref_c = compositing.composite_backward_plain(
+        sigmas.double(), chc.double(), tau.double(), offsets, gi.double(), gw.double(),
+        gd.double(), plan.dt, s.t_thresh)
+    _, trans64 = compositing.entering_transmittance_plain(sigmas.double(), offsets, plan.dt)
+    near = (trans64 - s.t_thresh).abs() <= 1e-4 * s.t_thresh
+    edge = compositing.segment_totals_plain(near.double(), offsets) > 0
+    inner = ~edge[compositing.ray_ids(offsets)]
+    err_s = float((d_s.double() - ref_s)[inner].abs().max()) if bool(inner.any()) else 0.0
+    err_c = float((d_c.double() - ref_c)[inner].abs().max()) if bool(inner.any()) else 0.0
+    tol_s, tol_c = 1e-4 * float(ref_s.abs().max()), 1e-5 * float(ref_c.abs().max())
+    if not (err_s <= tol_s and err_c <= tol_c):
+        fails.append(f"K4b errors d_sigma {err_s} (tol {tol_s}), d_ch {err_c} (tol {tol_c})")
+    ms = cuda_ms(lambda: kernels.composite_backward(sigmas, chc, tau, w, offsets, n_inc_b, gi,
+                                                    gw, gd, plan.dt), reps=20)
+    plain_ms = cuda_ms(lambda: compositing.composite_backward_plain(
+        sigmas, chc, tau, offsets, gi, gw, gd, plan.dt, s.t_thresh), reps=5)
+    cc = chc.shape[1]
+    # Bytes: sigma, tau, w and ch of every sample, offsets, n_inc and the
+    # cotangents of every ray; d sigma and d ch written once.
+    b_ms, b_by = bound_ms(nbytes=k * 4 * (3 + cc) + (n + 1) * 8 + n * 4 * (3 + cc)
+                          + k * 4 * (1 + cc), flops=k * (4 * cc + 12))
+    table["K4b"] = dict(max_abs_err=max(err_s, err_c), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=None)
+    log(f"K4b composite_backward: {k} kept samples x {cc} channels, {int(edge.sum())} edge rays "
+        f"left out; max_abs_err d_sigma {err_s:.3e} (tol {tol_s:.3e}), d_ch {err_c:.3e} "
+        f"(tol {tol_c:.3e}); ms {ms:.3f}, plain_ms {plain_ms:.3f}, bound_ms {b_ms:.4f} ({b_by})")
+
+    # K6: the random update's probes (H^3/4 uniform and H^3/4 occupied cells a
+    # cascade) scatter-maxed into a -1 grid, then the merge and threshold of
+    # the trained grid.  Both exact (a max and elementwise arithmetic); the
+    # mean sums float64 partials in another order: 1e-6 relative.
+    grid = r.occ_state.density_grid
+    cascade, ncell = grid.shape
+    num = ncell // 4
+    pidx = torch.cat([torch.cat([torch.randint(0, ncell, (num,), generator=gen, device=dev),
+                                 occupancy.draw_occupied_cells(grid[cas], num, gen)]) + cas * ncell
+                      for cas in range(cascade)])
+    psig = torch.rand((pidx.shape[0],), generator=gen, device=dev) * 20.0
+    tmp = occupancy.scatter_max(torch.full((cascade * ncell,), -1.0, device=dev), pidx, psig)
+    tmp_ref = occupancy.scatter_max(torch.full((cascade * ncell,), -1.0, device=dev), pidx, psig,
+                                    plain=True)
+    if not torch.equal(tmp, tmp_ref):
+        fails.append("K6 scatter-max differs from scatter_reduce_")
+    scratch = torch.full((cascade * ncell,), -1.0, device=dev)
+    ms = cuda_ms(lambda: kernels.occupancy_scatter_max(scratch, pidx, psig), reps=20)
+    plain_ms = cuda_ms(lambda: occupancy.scatter_max_plain(scratch, pidx, psig), reps=20)
+    lib_ms = cuda_ms(lambda: scratch.scatter_reduce_(0, pidx, psig, "amax"), reps=20)
+    p, kc = pidx.shape[0], cascade * ncell
+    b_ms, b_by = bound_ms(nbytes=p * 12 + kc * 8, flops=p)
+    table["K6s"] = dict(max_abs_err=float((tmp - tmp_ref).abs().max()), ms=ms, plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    log(f"K6 occupancy_scatter_max: {p} probes into {kc} cells; equal to plain: "
+        f"{torch.equal(tmp, tmp_ref)}; ms {ms:.3f}, plain_ms {plain_ms:.3f}, scatter_reduce_ ms "
+        f"{lib_ms:.3f}, bound_ms {b_ms:.4f} ({b_by})")
+
+    flat = grid.reshape(-1).contiguous()
+    merged, bits, mean = kernels.occupancy_merge(flat, tmp, s.density_decay, s.density_thresh)
+    merged_p, bits_p, mean_p = occupancy.merge_and_threshold_plain(flat, tmp, s.density_decay,
+                                                                   s.density_thresh)
+    mean_err = abs(float(mean) - float(mean_p)) / max(abs(float(mean_p)), 1e-30)
+    if not (torch.equal(merged, merged_p) and torch.equal(bits, bits_p) and mean_err <= 1e-6):
+        fails.append(f"K6 merge differs from plain (mean relative error {mean_err})")
+    ms = cuda_ms(lambda: kernels.occupancy_merge(flat, tmp, s.density_decay, s.density_thresh),
+                 reps=20)
+    plain_ms = cuda_ms(lambda: occupancy.merge_and_threshold_plain(
+        flat, tmp, s.density_decay, s.density_thresh), reps=20)
+    # Bytes: grid and probe grid read, merged grid and bitfield written.
+    b_ms, b_by = bound_ms(nbytes=kc * 13 + 4, flops=kc * 5)
+    table["K6m"] = dict(max_abs_err=float((merged - merged_p).abs().max()), ms=ms,
+                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log(f"K6 occupancy_merge + threshold: {kc} cells, {int(bits.sum())} occupied, mean "
+        f"{float(mean):.5f} (relative error {mean_err:.2e}); ms {ms:.3f}, plain_ms "
+        f"{plain_ms:.3f}, bound_ms {b_ms:.4f} ({b_by})")
+    return table
+
+
+def profile_once(fn, label: str, card: str) -> None:
+    """One call of fn under torch.profiler: the kernel table by device time
+    and the device's idle share of the call's wall time."""
+    try:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        events = prof.key_averages()
+        log(events.table(sort_by="cuda_time_total", row_limit=20, max_name_column_width=60))
+        # Device events only: an operator's row repeats its kernels' time.
+        busy_ms = sum(e.self_device_time_total for e in events
+                      if e.device_type == DeviceType.CUDA) / 1e3
+        log(f"profiled {label} ({card}): device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms wall, "
+            f"idle share {1 - busy_ms / wall_ms:.3f}")
+    except Exception as e:  # the profiler is a diagnostic only; report and go on
+        log(f"profiler unavailable: {type(e).__name__}: {e}")
+
+
+def train_phase(card: str, fails):
+    """The train path through ``python -m nerfstyle_torch.train`` (in-process)
+    at the default configs; returns the trainer and its kernel launches."""
+    from nerfstyle_torch import kernels, train
+
+    (WORK / "data.yaml").write_text(
+        f"root_path: {WORK / 'scene'}\ntype: Synthetic\nbound: 2.0\nscale: 1.0\n")
+    # The untrained field's test PSNR, as the trainer reports it before its
+    # first step (same seed, same views).
+    untrained = train.main(train_argv(0, "--test_before_train")).test_history[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer = train.main(train_argv(TRAIN_STEPS))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    for name, count in launches.items():
+        if count <= 0:
+            fails.append(f"train path launched no {name} kernel")
+    notfinite = int(trainer.opt_state.total_notfinite)
+    if notfinite or not all(bool(torch.isfinite(v)) for v in trainer.last_losses.values()):
+        fails.append(f"non-finite losses: {notfinite} steps skipped, last {trainer.last_losses}")
+    rays = trainer.train_cfg.num_rays_per_batch
+    ms = trainer.iter_ms
+    early, late = float(np.median(ms[1:16])), float(np.median(ms[-50:]))
+    cnt = trainer.iter_counts
+    per_ray = {f"{what} {k}": float(np.mean([c[k] for c in part])) / rays
+               for what, part in (("early", cnt[1:16]), ("late", cnt[-50:]))
+               for k in ("num_points", "num_sig")}
+    upd = trainer.renderer.update_ms
+    if not (upd["full"] and upd["random"]):
+        fails.append(f"the run did not take both occupancy updates: {upd}")
+    log(f"train ({card}): {TRAIN_STEPS} steps of {rays} rays in {wall_s:.1f} s (first step "
+        f"{ms[0]:.1f} ms); step ms median early (steps 1-15) {early:.2f}, late (last 50) "
+        f"{late:.2f}; {rays / late * 1e3:.0f} train rays/s late; occupancy update ms full "
+        f"median {np.median(upd['full']):.2f} of {len(upd['full'])}, random median "
+        f"{np.median(upd['random'] or [0]):.2f} of {len(upd['random'])}; samples/ray (marched = "
+        f"num_points, kept = num_sig) {per_ray}; peak memory {peak_gib:.2f} GiB; launches "
+        f"{launches} ({ {k: v / TRAIN_STEPS for k, v in launches.items()} } a step)")
+
+    final = trainer.test_networks()
+    log(f"test PSNR of the EMA params ({len(trainer.test_set)} views): untrained "
+        f"{untrained['psnr']:.3f} dB, after {TRAIN_STEPS} steps {final['psnr']:.3f} dB")
+    if not final["psnr"] >= untrained["psnr"] + 5.0:
+        fails.append(f"test PSNR rose from {untrained['psnr']:.3f} to {final['psnr']:.3f} dB, "
+                     "less than 5 dB")
+    return trainer, launches
+
+
+# ---------------------------------------------------------------------------
 # Frame checks
 # ---------------------------------------------------------------------------
 
@@ -392,9 +759,9 @@ def main() -> int:
                         "--yes", "--out-dir", str(WORK / "render"), "--device", DEVICE])
     launches = dict(kernels.launch_counts)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    for name, count in launches.items():
-        if count <= 0:
-            fails.append(f"main path launched no {name} kernel")
+    for name in RENDER_COUNTERS:
+        if launches[name] <= 0:
+            fails.append(f"render path launched no {name} kernel")
     out = summary["last"]
     npix = OUT_DIMS[0] * OUT_DIMS[1]
     shapes = {"rgb_map": (npix, 3), "trans_map": (npix,), "weights_sum": (npix,),
@@ -442,40 +809,45 @@ def main() -> int:
         times.append((time.perf_counter() - t) * 1e3)
     log(f"steady frame ({card}): {min(times):.1f} ms min of {['%.1f' % t for t in times]} "
         f"-> {1e3 / min(times):.2f} FPS at {w}x{h}")
-    try:
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
+    profile_once(lambda: renderer.render(params, pose), "frame", card)
+    del renderer, params, rays, ref, out, summary
+    torch.cuda.empty_cache()
 
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            renderer.render(params, pose)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t) * 1e3
-        events = prof.key_averages()
-        log(events.table(sort_by="cuda_time_total", row_limit=15, max_name_column_width=60))
-        # Device events only: an operator's row repeats its kernels' time.
-        busy_ms = sum(e.self_device_time_total for e in events
-                      if e.device_type == DeviceType.CUDA) / 1e3
-        log(f"profiled frame ({card}): device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms wall, "
-            f"idle share {1 - busy_ms / wall_ms:.3f}")
-    except Exception as e:  # the profiler is a diagnostic only; report and go on
-        log(f"profiler unavailable: {type(e).__name__}: {e}")
+    # The train path, through the train entry point; then one step against
+    # the plain versions, the train kernels at the step's shapes, and one
+    # late step under the profiler.
+    trainer, train_launches = train_phase(card, fails)
+    step_vs_plain(trainer, fails)
+    table.update(train_kernel_phases(trainer, fails))
+    profile_once(trainer.run_iter, "late train step", card)
 
-    # K3 is two kernels (count and write passes): its launches are both's.
+    # A kernel's launches: its count on the render path plus the train path.
+    # K3 is two kernels (count and write passes), K6's merge two (merge and
+    # threshold): their launches are both's.
     meta = {
         "K1": ("hashgrid_encode", "nerfstyle_torch/csrc/hashgrid.cu",
                "nerfstyle_tpu/ops/hashgrid.py:818", ("hashgrid_encode",)),
+        "K2": ("hashgrid_backward", "nerfstyle_torch/csrc/hashgrid.cu",
+               "nerfstyle_tpu/ops/hashgrid.py:959", ("hashgrid_backward",)),
         "K3": ("march_rays", "nerfstyle_torch/csrc/march.cu",
                "nerfstyle_tpu/ops/marching.py:320", ("march_count", "march_write")),
         "K4": ("composite_weights", "nerfstyle_torch/csrc/composite.cu",
                "nerfstyle_tpu/ops/compositing.py:94", ("composite_weights",)),
+        "K4b": ("composite_backward", "nerfstyle_torch/csrc/composite.cu",
+                "nerfstyle_tpu/ops/compositing.py:116", ("composite_backward",)),
+        "K6s": ("occupancy_scatter_max", "nerfstyle_torch/csrc/occupancy.cu",
+                "nerfstyle_tpu/ops/occupancy.py:281", ("occupancy_scatter_max",)),
+        "K6m": ("occupancy_merge", "nerfstyle_torch/csrc/occupancy.cu",
+                "nerfstyle_tpu/ops/occupancy.py:157", ("occupancy_merge", "occupancy_threshold")),
         "K7": ("segment_sum", "nerfstyle_torch/csrc/composite.cu",
                "nerfstyle_tpu/render/renderer.py:648", ("segment_sum",)),
     }
     rows = []
     for kid, (name, source, replaces, counters) in meta.items():
-        rows.append({"name": f"{kid} {name}", "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": sum(launches[c] for c in counters),
+        label = "K6" if kid.startswith("K6") else kid  # K6's two rows
+        rows.append({"name": f"{label} {name}", "route": "cuda", "source": source,
+                     "replaces": replaces,
+                     "launches": sum(launches[c] + train_launches[c] for c in counters),
                      **table[kid]})
     if fails:
         for f in fails:

@@ -1,26 +1,117 @@
-"""Configuration schemas, as far as rendering from a checkpoint needs them.
+"""Configuration schemas and the layered YAML + CLI loader (counterpart of
+``nerfstyle_tpu/config.py``).
 
-The JAX package writes every config into a checkpoint's ``meta`` with
-``Config.asdict()`` (``nerfstyle_tpu/config.py``).  This module holds the
-port's own copy of those dataclasses, field for field, and the strict
-``_from_dict`` that reads them back, so that ``python -m
-nerfstyle_torch.render`` reads the same ``meta`` the way the JAX
-``render.py`` does.  The YAML layering and CLI generation of the JAX module
-belong to training and are not here.
+The dataclasses are the port's own copy of the JAX package's, field for
+field, so that a checkpoint's ``meta`` (written with ``Config.asdict()``)
+reads back in either package.  The loader follows the same layering and flag
+rules::
+
+    dataclass defaults <- default YAML (cfgs/...) <- task YAML <- CLI flags
+
+Every (nested) field is a flag (``--num_rays_per_batch`` or
+``--num-rays-per-batch``, ``--intervals.print``); a bool flag toggles its
+loaded default (``--enable_amp`` turns the default True off); leftover flags
+chain from one config group to the next and must end empty.  The YAML files
+of ``cfgs/`` are read by :func:`read_yaml`, a reader of the subset they use
+(nested mappings, scalars, comments), so the port needs no YAML package.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import typing
 from dataclasses import dataclass, field
 from enum import Enum
 from pathlib import Path
-from typing import Any, Dict, List, Optional
+from typing import Any, ClassVar, Dict, List, Optional, Sequence, Tuple, Type, TypeVar
+
+# The repository's config files; default paths below are relative to it.
+CFGS_ROOT = Path(__file__).resolve().parent.parent
+
+T = TypeVar("T", bound="Config")
 
 
 class ConfigError(ValueError):
     pass
+
+
+class ConfigValue(Enum):
+    """A flag passed with no argument (``--ckpt`` alone)."""
+
+    EmptyPassed = "__empty__"
+
+
+def flatten(d: Dict[str, Any], delim: str = ".") -> Dict[str, Any]:
+    items: Dict[str, Any] = {}
+    for k, v in d.items():
+        if isinstance(v, dict):
+            for sk, sv in flatten(v, delim).items():
+                items[k + delim + sk] = sv
+        else:
+            items[k] = v
+    return items
+
+
+def unflatten(d: Dict[str, Any], delim: str = ".") -> Dict[str, Any]:
+    items: Dict[str, Any] = {}
+    for k, v in d.items():
+        parts = k.split(delim)
+        cur = items
+        for p in parts[:-1]:
+            cur = cur.setdefault(p, {})
+        cur[parts[-1]] = v
+    return items
+
+
+def _yaml_scalar(text: str) -> Any:
+    t = text.strip()
+    if t in ("", "~", "null", "Null", "NULL"):
+        return None
+    if t in ("true", "True", "TRUE"):
+        return True
+    if t in ("false", "False", "FALSE"):
+        return False
+    if len(t) >= 2 and t[0] == t[-1] and t[0] in "'\"":
+        return t[1:-1]
+    if t.startswith("[") and t.endswith("]"):
+        inner = t[1:-1].strip()
+        return [_yaml_scalar(v) for v in inner.split(",")] if inner else []
+    for conv in (int, float):
+        try:
+            return conv(t)
+        except ValueError:
+            pass
+    return t
+
+
+def read_yaml(path: Path) -> Dict[str, Any]:
+    """Read a YAML file of nested mappings with scalar (or ``[a, b]``)
+    values, the subset the repository's ``cfgs/*.yaml`` use; anything else
+    raises :class:`ConfigError`."""
+    root: Dict[str, Any] = {}
+    stack: List[Tuple[int, Dict[str, Any]]] = [(-1, root)]
+    for lineno, raw in enumerate(Path(path).read_text().splitlines(), 1):
+        line = raw.split(" #", 1)[0].rstrip() if not raw.lstrip().startswith("#") else ""
+        if not line.strip():
+            continue
+        indent = len(line) - len(line.lstrip(" "))
+        key, sep, rest = line.strip().partition(":")
+        if not sep or not key or key.startswith("- "):
+            raise ConfigError(f"{path}:{lineno}: unsupported YAML line {raw!r}")
+        while indent <= stack[-1][0]:
+            stack.pop()
+        parent = stack[-1][1]
+        if rest.strip():
+            parent[key] = _yaml_scalar(rest)
+        else:
+            parent[key] = {}
+            stack.append((indent, parent[key]))
+    # A key with nothing under it is null, as in YAML.
+    def fix(d):
+        return {k: (None if v == {} else fix(v) if isinstance(v, dict) else v) for k, v in d.items()}
+
+    return fix(root)
 
 
 def _strip_optional(tp):
@@ -33,6 +124,8 @@ def _convert(value: Any, tp, key: str) -> Any:
     """Strictly convert a raw JSON/YAML value to the annotated field type."""
     if value is None:
         return None
+    if value is ConfigValue.EmptyPassed:
+        return value
     tp = _strip_optional(tp)
     if dataclasses.is_dataclass(tp):
         if not isinstance(value, dict):
@@ -86,6 +179,90 @@ def _from_dict(cls, data: Dict[str, Any], prefix: str = ""):
 
 @dataclass
 class Config:
+    """Base of every config group: the layered load and the CLI parser."""
+
+    default_path: ClassVar[Optional[str]] = None
+
+    @classmethod
+    def read_nargs(cls: Type[T], argv: Optional[Sequence[str]] = None) -> Tuple[T, List[str]]:
+        """Parse this config from ``argv`` (default ``sys.argv[1:]``); returns
+        it and the flags it did not consume."""
+        args, nargs = cls.create_parser().parse_known_args(argv)
+        return _from_dict(cls, {k: v for k, v in vars(args).items() if v is not None}), nargs
+
+    @classmethod
+    def load_nargs(
+        cls: Type[T], config_path: Optional[Path] = None, nargs: Sequence[str] = ()
+    ) -> Tuple[T, List[str]]:
+        """Layered load: default YAML <- ``config_path`` YAML <- the flags of
+        ``nargs`` this group knows; returns it and the leftover flags."""
+        if cls.default_path is None and config_path is None:
+            raise ConfigError(f"{cls.__name__} has no default config file; give one")
+        cfg_dict: Dict[str, Any] = {}
+        if cls.default_path is not None:
+            cfg_dict = read_yaml(CFGS_ROOT / cls.default_path)
+        if config_path is not None:
+            cfg_dict.update(read_yaml(Path(config_path)))
+        rest = list(nargs)
+        if rest:
+            args, rest = cls.create_parser(flatten(cfg_dict)).parse_known_args(rest)
+            cfg_dict = unflatten(dict(vars(args)))
+        return _from_dict(cls, cfg_dict), rest
+
+    @classmethod
+    def load(cls: Type[T], config_path: Optional[Path] = None) -> T:
+        return cls.load_nargs(config_path)[0]
+
+    @classmethod
+    def create_parser(cls, loaded_values: Optional[Dict[str, Any]] = None) -> argparse.ArgumentParser:
+        """One flag per (nested) field, defaulting to the loaded value: a bool
+        toggles it, an enum takes its lowercase names, a list takes many."""
+        parser = argparse.ArgumentParser(add_help=False, allow_abbrev=False)
+
+        def argnames(k: str) -> List[str]:
+            return ["--" + k] + (["--" + k.replace("_", "-")] if "_" in k else [])
+
+        def add_fields(c, prefix: str) -> None:
+            hints = typing.get_type_hints(c)
+            for f in dataclasses.fields(c):
+                tp = _strip_optional(hints.get(f.name, f.type))
+                key = prefix + f.name
+                if dataclasses.is_dataclass(tp):
+                    add_fields(tp, key + ".")
+                    continue
+                if loaded_values is not None and key in loaded_values:
+                    default = loaded_values[key]
+                elif f.default is not dataclasses.MISSING:
+                    default = f.default
+                elif f.default_factory is not dataclasses.MISSING:
+                    default = f.default_factory()
+                else:
+                    default = None
+                if default is None:
+                    base = tp
+                    if tp is Path or (isinstance(tp, type) and issubclass(tp, Enum)) or \
+                            typing.get_origin(tp) in (list, tuple):
+                        base = str
+                    parser.add_argument(*argnames(key), type=base, nargs="?", default=None,
+                                        const=ConfigValue.EmptyPassed, dest=key)
+                elif isinstance(default, bool):
+                    parser.add_argument(*argnames(key), default=default, dest=key,
+                                        action="store_false" if default else "store_true")
+                elif isinstance(default, Enum):
+                    parser.add_argument(*argnames(key), default=default.name.lower(), dest=key,
+                                        choices=[n.lower() for n in type(default).__members__])
+                elif isinstance(default, (list, tuple)):
+                    parser.add_argument(*argnames(key), nargs="*", default=list(default), dest=key,
+                                        type=type(default[0]) if default else str)
+                else:
+                    # The annotation, not the default, sets the type: a YAML
+                    # layer may give 10 for a float field.
+                    base = tp if tp in (int, float, str) else (str if tp is Path else type(default))
+                    parser.add_argument(*argnames(key), type=base, default=default, dest=key)
+
+        add_fields(cls, "")
+        return parser
+
     def asdict(self) -> Dict[str, Any]:
         def enc(v):
             if isinstance(v, Path):
@@ -117,6 +294,8 @@ class DatasetConfig(Config):
     seg_name: str = "seg"
     replica_cfg: Optional[ReplicaConfig] = None
 
+    default_path = "cfgs/dataset/default.yaml"
+
 
 @dataclass
 class HashGridConfig(Config):
@@ -142,6 +321,8 @@ class NetworkConfig(Config):
     dir_enc_sh_deg: int = 4
     density_offset: float = 0.0
 
+    default_path = "cfgs/network/default.yaml"
+
 
 @dataclass
 class RendererConfig(Config):
@@ -160,6 +341,8 @@ class RendererConfig(Config):
     max_samples_per_ray: int = 256
     max_budget_samples: int = 1_048_576
     window_init_bucket: int = 0
+
+    default_path = "cfgs/renderer/default.yaml"
 
 
 @dataclass
@@ -209,3 +392,17 @@ class TrainConfig(Config):
     style_geom_cache_eps: float = 1e-4
     style_seg_path: Optional[Path] = None
     style_matching: Optional[str] = None
+
+    default_path = "cfgs/training/default.yaml"
+
+
+@dataclass
+class BaseConfig(Config):
+    """The flags of the train entry point itself."""
+
+    log_dir: Optional[Path] = None
+    data_cfg: Optional[Path] = None
+    ckpt: Optional[Path] = None
+    style_image: Optional[Path] = None
+    yes: bool = False
+    """Assume yes for confirmation prompts (cleaning a non-empty log dir)."""

@@ -1,4 +1,5 @@
-// K4 (forward) and K7: per-ray reductions over a ray-major sample stream.
+// K4 (forward and backward) and K7: per-ray passes over a ray-major sample
+// stream.
 //
 // Both take ray offsets [N+1] (int64): ray r owns samples offsets[r] ..
 // offsets[r+1]-1, as the marcher (march.cu) and the significance
@@ -15,6 +16,22 @@
 // totals, which loses digits as the stream grows; this kernel accumulates
 // each ray's optical depth on its own, front to back, and stops at the first
 // sample with T < t_thresh (T never rises again, so every later w is 0).
+// It also writes each ray's included count n_inc: the samples with entering
+// T >= t_thresh, the prefix a train step's phase B keeps.
+//
+// K4 backward replaces JAX's autodiff of ops/compositing.py:composite_rays
+// (:116-148) with the reference's composite_rays_train_backward, given the
+// cotangents gI [N, C] of the image, gW [N] of weights_sum and gD [N] of
+// depth.  With v_i = gI . ch_i + gW + gD * tau_i, over a ray's n_inc
+// included samples:
+//     d ch_i  = w_i * gI,
+//     d sdt_i = T_{i+1} * v_i - sum_{k>i} w_k * v_k,   T_{i+1} = T_i e^{-sdt_i},
+//     d sigma_i = dt * d sdt_i where sigma_i * dt < 100 (the cap), else 0,
+// and 0 for every sample past the cutoff.  One thread per ray makes two
+// passes: forward, it recomputes T_{i+1} exactly as the forward pass does
+// and parks it in d_sigma; then in reverse it accumulates the suffix sum
+// from the back, so no late sample's gradient is a difference of two large
+// prefix sums.  This also makes channels' gradients exact products.
 //
 // K7 replaces the phase-B segment sum of make_two_phase_renderer
 // (render/renderer.py:648-659): out[r, c] = sum_i w_i * ch[i, c] over ray r's
@@ -33,7 +50,7 @@ __global__ void composite_weights_kernel(const float* __restrict__ sigmas,
                                          const long long* __restrict__ offsets, int num_rays,
                                          float dt, float t_thresh, float* __restrict__ w,
                                          float* __restrict__ weights_sum,
-                                         float* __restrict__ depth) {
+                                         float* __restrict__ depth, int* __restrict__ n_inc) {
     const int r = blockIdx.x * blockDim.x + threadIdx.x;
     if (r >= num_rays) return;
     const long long begin = offsets[r];
@@ -52,9 +69,53 @@ __global__ void composite_weights_kernel(const float* __restrict__ sigmas,
         dep = __fadd_rn(dep, __fmul_rn(wi, tau[i]));
         od = __fadd_rn(od, sdt);
     }
+    n_inc[r] = static_cast<int>(i - begin);
     for (; i < end; ++i) w[i] = 0.f;
     weights_sum[r] = ws;
     depth[r] = dep;
+}
+
+__global__ void composite_backward_kernel(
+    const float* __restrict__ sigmas, const float* __restrict__ ch,
+    const float* __restrict__ tau, const float* __restrict__ w,
+    const long long* __restrict__ offsets, const int* __restrict__ n_inc,
+    const float* __restrict__ g_img, const float* __restrict__ g_ws,
+    const float* __restrict__ g_depth, int num_rays, int channels, float dt,
+    float* __restrict__ d_sigmas, float* __restrict__ d_ch) {
+    const int r = blockIdx.x * blockDim.x + threadIdx.x;
+    if (r >= num_rays) return;
+    const long long begin = offsets[r];
+    const long long end = offsets[r + 1];
+    const long long stop = begin + n_inc[r];
+    const float* gi = g_img + static_cast<long long>(r) * channels;
+    const float gw = g_ws[r];
+    const float gd = g_depth[r];
+
+    // Forward: T_{i+1} of every included sample, parked in d_sigmas.
+    float od = 0.f;
+    for (long long i = begin; i < stop; ++i) {
+        od = __fadd_rn(od, fminf(__fmul_rn(sigmas[i], dt), 100.f));
+        d_sigmas[i] = expf(-od);
+    }
+    // Reverse: suffix = sum_{k>i} w_k v_k.
+    float suffix = 0.f;
+    for (long long i = stop - 1; i >= begin; --i) {
+        const float* chi = ch + i * channels;
+        float* dchi = d_ch + i * channels;
+        const float wi = w[i];
+        float v = __fadd_rn(gw, __fmul_rn(gd, tau[i]));
+        for (int c = 0; c < channels; ++c) {
+            v = __fadd_rn(v, __fmul_rn(gi[c], chi[c]));
+            dchi[c] = __fmul_rn(wi, gi[c]);
+        }
+        const float dsdt = __fsub_rn(__fmul_rn(d_sigmas[i], v), suffix);
+        d_sigmas[i] = __fmul_rn(sigmas[i], dt) < 100.f ? __fmul_rn(dt, dsdt) : 0.f;
+        suffix = __fadd_rn(suffix, __fmul_rn(wi, v));
+    }
+    for (long long i = stop; i < end; ++i) {
+        d_sigmas[i] = 0.f;
+        for (int c = 0; c < channels; ++c) d_ch[i * channels + c] = 0.f;
+    }
 }
 
 __global__ void segment_sum_kernel(const float* __restrict__ w, const float* __restrict__ ch,
@@ -73,16 +134,36 @@ __global__ void segment_sum_kernel(const float* __restrict__ w, const float* __r
 
 }  // namespace
 
-// sigmas, tau [M] f32; offsets [N+1] i64; w [M], weights_sum [N], depth [N] f32.
+// sigmas, tau [M] f32; offsets [N+1] i64; w [M], weights_sum [N], depth [N] f32,
+// n_inc [N] i32.
 NST_API int nst_composite_weights(const void* sigmas, const void* tau, const void* offsets,
                                   int num_rays, float dt, float t_thresh, void* w,
-                                  void* weights_sum, void* depth, void* stream) {
+                                  void* weights_sum, void* depth, void* n_inc, void* stream) {
     if (num_rays <= 0) return 0;
     composite_weights_kernel<<<nst::blocks_for(num_rays), nst::kThreads, 0,
                                static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(sigmas), static_cast<const float*>(tau),
         static_cast<const long long*>(offsets), num_rays, dt, t_thresh, static_cast<float*>(w),
-        static_cast<float*>(weights_sum), static_cast<float*>(depth));
+        static_cast<float*>(weights_sum), static_cast<float*>(depth), static_cast<int*>(n_inc));
+    return nst::launch_status();
+}
+
+// sigmas, tau, w [M] f32; ch [M, C] f32; offsets [N+1] i64; n_inc [N] i32;
+// g_img [N, C], g_ws [N], g_depth [N] f32 -> d_sigmas [M], d_ch [M, C] f32.
+NST_API int nst_composite_backward(const void* sigmas, const void* ch, const void* tau,
+                                   const void* w, const void* offsets, const void* n_inc,
+                                   const void* g_img, const void* g_ws, const void* g_depth,
+                                   int num_rays, int channels, float dt, void* d_sigmas,
+                                   void* d_ch, void* stream) {
+    if (num_rays <= 0) return 0;
+    composite_backward_kernel<<<nst::blocks_for(num_rays), nst::kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(sigmas), static_cast<const float*>(ch),
+        static_cast<const float*>(tau), static_cast<const float*>(w),
+        static_cast<const long long*>(offsets), static_cast<const int*>(n_inc),
+        static_cast<const float*>(g_img), static_cast<const float*>(g_ws),
+        static_cast<const float*>(g_depth), num_rays, channels, dt,
+        static_cast<float*>(d_sigmas), static_cast<float*>(d_ch));
     return nst::launch_status();
 }
 

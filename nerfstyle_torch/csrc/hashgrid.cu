@@ -1,7 +1,9 @@
-// K1: multiresolution hash-grid encode, forward.
+// K1: multiresolution hash-grid encode, forward, and K2: its table gradient.
 //
-// Replaces the JAX encoder nerfstyle_tpu/ops/hashgrid.py:hashgrid_encode ->
+// K1 replaces the JAX encoder nerfstyle_tpu/ops/hashgrid.py:hashgrid_encode ->
 // _encode_fast -> _encode_flat (_flat_block_tri), trilinear levels only.
+// K2 replaces its custom backward _encode_fast_bwd -> _sort_scatter (and the
+// corner-dedup variant _dedup_bwd): see hashgrid_backward_kernel below.
 //
 // out[b, l*C + c] = sum over the 8 cell corners s of
 //     table[(hash_s % size_l) + offset_l, c] * w_s,
@@ -119,12 +121,99 @@ __global__ void hashgrid_encode_kernel(const float* __restrict__ x,
     for (int c = 0; c < C; ++c) o[c] = acc[c];
 }
 
+// K2: d table[row, c] += w_s * g[b, l*C + c] over every (point b, level l,
+// corner s); the gradient of the input positions is zero, as in the JAX fast
+// VJP (positions come from the non-differentiable marcher).
+//
+// The JAX backward sorts the B*L*8 contributions by table row and collapses
+// runs with cumsum differences: deterministic, built for the TPU, where a
+// scatter serialises.  Hopper adds in L2: one thread per (point, level)
+// recomputes corners and weights exactly as K1 does (same rounding), and adds
+// each corner's C-wide contribution with one vector atomicAdd (float2/float4
+// on global memory, sm_90).  Sums therefore run in an order that changes
+// from run to run: the result differs from a sorted sum by reassociation
+// only.  Bound on the H100: the B*L*8 atomics, each a C-wide read-modify-write
+// in L2.  Level 0 (4,096 cells at H=16) takes one contribution of every
+// sample, so its rows are the most contended; a per-block pre-reduction of
+// the coarse levels is left for a faster version.
+template <int C>
+__device__ __forceinline__ void add_row(float* dst, const float* v) {
+    if constexpr (C == 4) {
+        atomicAdd(reinterpret_cast<float4*>(dst), make_float4(v[0], v[1], v[2], v[3]));
+    } else if constexpr (C == 2) {
+        atomicAdd(reinterpret_cast<float2*>(dst), make_float2(v[0], v[1]));
+    } else {
+        atomicAdd(dst, v[0]);
+    }
+}
+
+template <int C>
+__global__ void hashgrid_backward_kernel(const float* __restrict__ x,
+                                         const float* __restrict__ g,
+                                         const int* __restrict__ levels,
+                                         float* __restrict__ grad, long long num_points,
+                                         int num_levels) {
+    const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (i >= num_points * num_levels) return;
+    const long long b = i / num_levels;
+    const int l = static_cast<int>(i - b * num_levels);
+
+    const float p[3] = {x[3 * b], x[3 * b + 1], x[3 * b + 2]};
+    const bool oob = (p[0] < 0.f) | (p[0] > 1.f) | (p[1] < 0.f) | (p[1] > 1.f) |
+                     (p[2] < 0.f) | (p[2] > 1.f);
+    if (oob) return;
+
+    float gv[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) gv[c] = g[i * C + c];
+
+    const int res = levels[l];
+    const unsigned int size = static_cast<unsigned int>(levels[num_levels + l]);
+    const int offset = levels[2 * num_levels + l];
+    const float scale = static_cast<float>(res);
+    const float resm1 = __fsub_rn(scale, 1.f);
+
+    float frac[3];
+    unsigned int pg[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+        const float pos = __fmul_rn(p[d], scale);
+        const float gg = fminf(fmaxf(floorf(pos), 0.f), resm1);
+        frac[d] = __fsub_rn(pos, gg);
+        pg[d] = static_cast<unsigned int>(gg);
+    }
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+        float w = 1.f;
+        unsigned int h = 0u;
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+            const unsigned int bit = (s >> d) & 1u;
+            w = __fmul_rn(w, bit ? frac[d] : __fsub_rn(1.f, frac[d]));
+            h ^= (pg[d] + bit) * prime(d);
+        }
+        const long long row = static_cast<long long>(h % size) + offset;
+        float v[C];
+#pragma unroll
+        for (int c = 0; c < C; ++c) v[c] = __fmul_rn(w, gv[c]);
+        add_row<C>(grad + row * C, v);
+    }
+}
+
 template <int C>
 void launch(const float* x, const float* table, const int* levels, float* out,
             long long num_points, int num_levels, cudaStream_t stream) {
     const long long n = num_points * num_levels;
     hashgrid_encode_kernel<C><<<nst::blocks_for(n), nst::kThreads, 0, stream>>>(
         x, table, levels, out, num_points, num_levels);
+}
+
+template <int C>
+void launch_backward(const float* x, const float* g, const int* levels, float* grad,
+                     long long num_points, int num_levels, cudaStream_t stream) {
+    const long long n = num_points * num_levels;
+    hashgrid_backward_kernel<C><<<nst::blocks_for(n), nst::kThreads, 0, stream>>>(
+        x, g, levels, grad, num_points, num_levels);
 }
 
 }  // namespace
@@ -144,6 +233,27 @@ NST_API int nst_hashgrid_encode(const void* x, const void* table, const void* le
         case 1: launch<1>(xf, tf, lv, of, num_points, num_levels, s); break;
         case 2: launch<2>(xf, tf, lv, of, num_points, num_levels, s); break;
         case 4: launch<4>(xf, tf, lv, of, num_points, num_levels, s); break;
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return nst::launch_status();
+}
+
+// x [B, 3] f32, g [B, L*C] f32, levels int32 [3, L], grad [T, C] f32 (zeroed
+// by the caller; contributions are added).  cudaErrorInvalidValue for an
+// unsupported row width C.
+NST_API int nst_hashgrid_backward(const void* x, const void* g, const void* levels, void* grad,
+                                  long long num_points, int num_levels, int channels,
+                                  void* stream) {
+    if (num_points <= 0) return 0;
+    const float* xf = static_cast<const float*>(x);
+    const float* gf = static_cast<const float*>(g);
+    const int* lv = static_cast<const int*>(levels);
+    float* df = static_cast<float*>(grad);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    switch (channels) {
+        case 1: launch_backward<1>(xf, gf, lv, df, num_points, num_levels, s); break;
+        case 2: launch_backward<2>(xf, gf, lv, df, num_points, num_levels, s); break;
+        case 4: launch_backward<4>(xf, gf, lv, df, num_points, num_levels, s); break;
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
     return nst::launch_status();

@@ -41,10 +41,15 @@ NVCC_FLAGS = (
 # Launches per kernel since the last reset_launch_counts().
 launch_counts: Dict[str, int] = {
     "hashgrid_encode": 0,
+    "hashgrid_backward": 0,
     "march_count": 0,
     "march_write": 0,
     "composite_weights": 0,
+    "composite_backward": 0,
     "segment_sum": 0,
+    "occupancy_scatter_max": 0,
+    "occupancy_merge": 0,
+    "occupancy_threshold": 0,
 }
 
 _lock = threading.Lock()
@@ -56,12 +61,18 @@ _LL = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     "nst_hashgrid_encode": (_P, _P, _P, _P, _LL, _I, _I, _P),
+    "nst_hashgrid_backward": (_P, _P, _P, _P, _LL, _I, _I, _P),
     "nst_march_count": (_P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _I, _P, _P),
     "nst_march_write": (
         _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
     ),
-    "nst_composite_weights": (_P, _P, _P, _I, _F, _F, _P, _P, _P, _P),
+    "nst_composite_weights": (_P, _P, _P, _I, _F, _F, _P, _P, _P, _P, _P),
+    "nst_composite_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P),
     "nst_segment_sum": (_P, _P, _P, _I, _I, _P, _P),
+    "nst_occupancy_scatter_max": (_P, _P, _P, _LL, _P),
+    "nst_occupancy_num_partials": (),
+    "nst_occupancy_merge": (_P, _P, _F, _LL, _P, _P, _P),
+    "nst_occupancy_threshold": (_P, _P, _LL, _F, _P, _P, _P),
 }
 
 
@@ -197,6 +208,32 @@ def hashgrid_encode(x: torch.Tensor, table: torch.Tensor, levels: torch.Tensor) 
     return out
 
 
+def hashgrid_backward(
+    x: torch.Tensor, g: torch.Tensor, levels: torch.Tensor, num_rows: int
+) -> torch.Tensor:
+    """K2: the [num_rows, C] table gradient of K1 for the output cotangent
+    ``g`` [B, L*C] at points ``x`` [B, 3] (see csrc/hashgrid.cu)."""
+    b = x.shape[0]
+    _check("x", x, torch.float32, (None, 3))
+    _check("levels", levels, torch.int32, (3, None))
+    num_levels = levels.shape[1]
+    _check("g", g, torch.float32, (b, None))
+    _same_device(x, g, levels)
+    c = g.shape[1] // num_levels
+    if c not in (1, 2, 4) or g.shape[1] != num_levels * c:
+        raise ValueError(f"cotangent of width {g.shape[1]} is not L*C for C in (1, 2, 4)")
+    grad = torch.zeros((num_rows, c), dtype=torch.float32, device=x.device)
+    if b == 0:
+        return grad
+    lib = library()
+    status = lib.nst_hashgrid_backward(
+        x.data_ptr(), g.data_ptr(), levels.data_ptr(), grad.data_ptr(), b, num_levels, c,
+        _stream(x),
+    )
+    _launched(lib, status, "hashgrid_backward")
+    return grad
+
+
 def _march_args(origins, dirs, nears, fars, bitfield, dt, bound, t_lattice, cascade,
                 grid_size, mip_dt_level, max_steps) -> Tuple[tuple, tuple]:
     """Check the inputs of both K3 passes; return their pointer and geometry
@@ -271,8 +308,9 @@ def composite_weights(
     dt: float,
     t_thresh: float,
 ):
-    """K4 forward: per-sample weights w [M] and per-ray weights_sum [N] and
-    depth [N] over ray-major segments (see csrc/composite.cu)."""
+    """K4 forward: per-sample weights w [M], per-ray weights_sum [N] and
+    depth [N], and each ray's included count n_inc [N] i32 (samples with
+    entering T >= t_thresh) over ray-major segments (see csrc/composite.cu)."""
     m = sigmas.shape[0]
     n = offsets.shape[0] - 1
     _check("sigmas", sigmas, torch.float32, (m,))
@@ -282,14 +320,44 @@ def composite_weights(
     w = torch.empty_like(sigmas)
     ws = torch.empty((n,), dtype=torch.float32, device=sigmas.device)
     depth = torch.empty((n,), dtype=torch.float32, device=sigmas.device)
+    n_inc = torch.empty((n,), dtype=torch.int32, device=sigmas.device)
     if n > 0:
         lib = library()
         status = lib.nst_composite_weights(
             sigmas.data_ptr(), tau.data_ptr(), offsets.data_ptr(), n, dt, t_thresh,
-            w.data_ptr(), ws.data_ptr(), depth.data_ptr(), _stream(sigmas),
+            w.data_ptr(), ws.data_ptr(), depth.data_ptr(), n_inc.data_ptr(), _stream(sigmas),
         )
         _launched(lib, status, "composite_weights")
-    return w, ws, depth
+    return w, ws, depth, n_inc
+
+
+def composite_backward(sigmas, ch, tau, w, offsets, n_inc, g_img, g_ws, g_depth, dt: float):
+    """K4 backward: (d_sigmas [M], d_ch [M, C]) of the image [N, C],
+    weights_sum [N] and depth [N] cotangents, given the forward's w and
+    n_inc (see csrc/composite.cu)."""
+    m, n = sigmas.shape[0], offsets.shape[0] - 1
+    _check("sigmas", sigmas, torch.float32, (m,))
+    _check("ch", ch, torch.float32, (m, None))
+    c = ch.shape[1]
+    _check("tau", tau, torch.float32, (m,))
+    _check("w", w, torch.float32, (m,))
+    _check("offsets", offsets, torch.int64, (n + 1,))
+    _check("n_inc", n_inc, torch.int32, (n,))
+    _check("g_img", g_img, torch.float32, (n, c))
+    _check("g_ws", g_ws, torch.float32, (n,))
+    _check("g_depth", g_depth, torch.float32, (n,))
+    _same_device(sigmas, ch, tau, w, offsets, n_inc, g_img, g_ws, g_depth)
+    d_sigmas = torch.empty_like(sigmas)
+    d_ch = torch.empty_like(ch)
+    if n > 0 and m > 0:
+        lib = library()
+        status = lib.nst_composite_backward(
+            sigmas.data_ptr(), ch.data_ptr(), tau.data_ptr(), w.data_ptr(), offsets.data_ptr(),
+            n_inc.data_ptr(), g_img.data_ptr(), g_ws.data_ptr(), g_depth.data_ptr(), n, c, dt,
+            d_sigmas.data_ptr(), d_ch.data_ptr(), _stream(sigmas),
+        )
+        _launched(lib, status, "composite_backward")
+    return d_sigmas, d_ch
 
 
 def segment_sum(w: torch.Tensor, ch: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
@@ -310,3 +378,47 @@ def segment_sum(w: torch.Tensor, ch: torch.Tensor, offsets: torch.Tensor) -> tor
         )
         _launched(lib, status, "segment_sum")
     return out
+
+
+def occupancy_scatter_max(tmp: torch.Tensor, idx: torch.Tensor, sig: torch.Tensor) -> torch.Tensor:
+    """K6 scatter-max, in place: tmp[idx[p]] = max(tmp[idx[p]], sig[p]) over a
+    grid ``tmp`` [K] filled below every probe (-1), probes ``sig`` >= 0 (see
+    csrc/occupancy.cu).  Returns ``tmp``."""
+    p = idx.shape[0]
+    _check("tmp", tmp, torch.float32, (None,))
+    _check("idx", idx, torch.int64, (p,))
+    _check("sig", sig, torch.float32, (p,))
+    _same_device(tmp, idx, sig)
+    if p > 0:
+        lib = library()
+        status = lib.nst_occupancy_scatter_max(
+            tmp.data_ptr(), idx.data_ptr(), sig.data_ptr(), p, _stream(tmp)
+        )
+        _launched(lib, status, "occupancy_scatter_max")
+    return tmp
+
+
+def occupancy_merge(grid: torch.Tensor, tmp: torch.Tensor, decay: float, density_thresh: float):
+    """K6 merge and threshold of a density grid [K] with the probe grid
+    ``tmp`` [K]: (merged grid [K], bitfield [K] bool, mean density f32
+    scalar), see csrc/occupancy.cu.  Two launches, no host sync."""
+    k = grid.shape[0]
+    _check("grid", grid, torch.float32, (k,))
+    _check("tmp", tmp, torch.float32, (k,))
+    _same_device(grid, tmp)
+    out = torch.empty_like(grid)
+    bitfield = torch.empty((k,), dtype=torch.bool, device=grid.device)
+    mean = torch.zeros((), dtype=torch.float32, device=grid.device)
+    if k > 0:
+        lib = library()
+        partials = torch.empty((lib.nst_occupancy_num_partials(),), dtype=torch.float64,
+                               device=grid.device)
+        stream = _stream(grid)
+        status = lib.nst_occupancy_merge(grid.data_ptr(), tmp.data_ptr(), decay, k,
+                                         out.data_ptr(), partials.data_ptr(), stream)
+        _launched(lib, status, "occupancy_merge")
+        status = lib.nst_occupancy_threshold(out.data_ptr(), partials.data_ptr(), k,
+                                             density_thresh, bitfield.data_ptr(),
+                                             mean.data_ptr(), stream)
+        _launched(lib, status, "occupancy_threshold")
+    return out, bitfield, mean

@@ -10,15 +10,21 @@ trees and the port's tensors.
 
 Rendering reads the field in two halves: :func:`field_density` (density
 table + density MLP) and :func:`field_color` (color table + class, color1
-and color2 heads) — the view-direction (SH) input and the ``base`` field
-kind are not ported yet.  The encoder sees ``(normalize(x) + 1) / 2``, the
-reference's quirk.
+and color2 heads); a train step's phase B reads it whole with
+:func:`field_apply`, one encode of the concatenated ``[T, 4]`` tables.  All
+three are differentiable in the params.  The view-direction (SH) input and
+the ``base`` field kind are not ported yet.  The encoder sees
+``(normalize(x) + 1) / 2``, the reference's quirk.
+
+:func:`train_state_from_numpy` and :func:`train_state_to_numpy` carry a
+trainer's params, optimizer state and EMA between the JAX package's numpy
+trees and the port's tensors.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Union
+from typing import Any, Dict, List, Tuple, Union
 
 import numpy as np
 import torch
@@ -26,6 +32,8 @@ import torch
 from ..core.types import BBox
 from ..ops.hashgrid import HashGridSpec, hashgrid_encode, hashgrid_init, hashgrid_spec
 from ..ops.mlp import mlp_apply, mlp_init, trunc_exp
+from ..training.ema import EmaState
+from ..training.optim import OptState, opt_state_from_tree
 
 Params = Dict[str, Union[torch.Tensor, List[torch.Tensor]]]
 
@@ -123,6 +131,56 @@ def params_to_numpy(params: Params) -> Dict[str, object]:
     return out
 
 
+def _tree_to_tensors(tree: Any, device=None) -> Any:
+    """A numpy tree (dicts, lists, tuples, NamedTuples) as tensors; an empty
+    tuple (optax's MaskedNode) or None stays None."""
+    if tree is None or (isinstance(tree, tuple) and len(tree) == 0):
+        return None
+    if isinstance(tree, dict):
+        return {k: _tree_to_tensors(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to_tensors(v, device) for v in tree]
+    if isinstance(tree, tuple):
+        items = [_tree_to_tensors(v, device) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return torch.from_numpy(np.array(tree)).to(device)
+
+
+def _tree_to_numpy(tree: Any) -> Any:
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to_numpy(v) for v in tree]
+    if isinstance(tree, tuple):
+        items = [_tree_to_numpy(v) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return tree.detach().cpu().numpy()
+
+
+def train_state_from_numpy(
+    params: Dict[str, object], opt_state: Any, ema_state: Any, device=None
+) -> Tuple[Params, OptState, EmaState]:
+    """The JAX trainer's ``params``, ``opt_state`` (optax's apply_if_finite
+    over masked adam) and ``ema_state`` as numpy trees -> the port's
+    (params, :class:`OptState`, :class:`EmaState`).  Reads the optax state by
+    attribute (``notfinite_count``, ``inner_state``, ...), so it needs no
+    optax; a masked-out moment (optax's empty MaskedNode) becomes None."""
+    p = params_from_numpy(params, device)
+    opt = opt_state_from_tree(_tree_to_tensors(opt_state, device))
+    ema = EmaState(shadow=params_from_numpy(ema_state.shadow, device),
+                   num_updates=torch.from_numpy(np.array(ema_state.num_updates)))
+    return p, opt, ema
+
+
+def train_state_to_numpy(params: Params, opt_state: OptState, ema_state: EmaState):
+    """The port's train state -> (params, opt_state, ema_state) numpy trees
+    whose leaves, flattened in JAX order (dict keys sorted, None holding no
+    leaf), are the JAX trainer's leaves."""
+    return params_to_numpy(params), _tree_to_numpy(opt_state), _tree_to_numpy(ema_state)
+
+
 def _encoder_input(bbox: BBox, pts: torch.Tensor) -> torch.Tensor:
     """bbox-normalize to [0, 1], then the reference's (x + 1) / 2."""
     return (bbox.normalize(pts) + 1.0) / 2.0
@@ -157,9 +215,37 @@ def field_color(
     channels (sigmoid rgb, then raw class logits)."""
     x = _encoder_input(bbox, pts)
     h = hashgrid_encode(spec.grid, params["x_color_embedder"], x, plain=plain)
-    classes = mlp_apply(params["class_net"], h, compute_dtype=compute_dtype)
-    color1 = mlp_apply(params["color1_net"], h, compute_dtype=compute_dtype)
+    return _color_heads(params, h, compute_dtype)
+
+
+def _color_heads(params: Params, h_color: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    classes = mlp_apply(params["class_net"], h_color, compute_dtype=compute_dtype)
+    color1 = mlp_apply(params["color1_net"], h_color, compute_dtype=compute_dtype)
     rgb = mlp_apply(
         params["color2_net"], color1, output_activation="sigmoid", compute_dtype=compute_dtype
     )
     return torch.cat([rgb, classes], dim=-1)
+
+
+def field_apply(
+    spec: FieldSpec,
+    params: Params,
+    bbox: BBox,
+    pts: torch.Tensor,
+    compute_dtype: torch.dtype = torch.float32,
+    *,
+    plain: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full forward: [M, 3] world points -> (channels [M, 3 + class_dim],
+    sigmas [M]).  The density and color tables share their corners, so one
+    encode of the concatenated [T, 2C] table serves both (as in JAX); its
+    table gradient splits back into the two tables through the concat."""
+    x = _encoder_input(bbox, pts)
+    c = spec.grid.level_dim
+    fused = torch.cat([params["x_density_embedder"], params["x_color_embedder"]], dim=1)
+    h = hashgrid_encode(spec.grid, fused, x, plain=plain).reshape(-1, spec.grid.num_levels, 2 * c)
+    h_density = h[..., :c].reshape(-1, spec.grid.output_dim)
+    h_color = h[..., c:].reshape(-1, spec.grid.output_dim)
+    out = mlp_apply(params["density_net"], h_density, compute_dtype=compute_dtype)
+    sigmas = trunc_exp(out[:, 0] + spec.density_offset)
+    return _color_heads(params, h_color, compute_dtype), sigmas

@@ -9,7 +9,8 @@ emits).  Per ray, sample i gets
     T_i = exp(-sum_{j<i} sdt_j),     w_i = alpha_i * T_i  if T_i >= t_thresh else 0,
 
 and the per-ray outputs are ``weights_sum = sum w_i``, ``depth = sum w_i *
-tau_i`` and, for channels ``ch``, ``sum w_i * ch_i``.
+tau_i``, for channels ``ch`` ``sum w_i * ch_i``, and the included count
+``n_inc`` (samples with ``T_i >= t_thresh``, a prefix of the ray).
 
 :func:`sample_weights` launches kernel K4 (forward) and :func:`segment_sum`
 kernel K7 (``csrc/composite.cu``) on CUDA tensors.  Their plain versions
@@ -17,6 +18,11 @@ keep the JAX formula — the exclusive in-ray cumsum as a flat cumsum minus
 the sum in front of the segment, and segment sums — but accumulate in
 float64: on a frame-sized stream a flat fp32 cumsum reaches ~1e6 and loses
 the digits of a late ray's optical depth.
+
+:func:`composite_rays` is the differentiable compositor of a train step
+(:class:`CompositeRays`): K4 forward then K7, and in the backward kernel
+K4b, one reverse pass per ray for the density and channel gradients.  Its
+plain backward is autograd through the plain forward.
 """
 
 from __future__ import annotations
@@ -51,9 +57,10 @@ def weight_cutoffs(w: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
 
 def segment_totals_plain(v: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
     """Per-ray sums [N, ...] of the stream rows v [M, ...], as differences of
-    a float64 running sum, returned in v's dtype."""
-    cs = torch.zeros((v.shape[0] + 1,) + tuple(v.shape[1:]), dtype=torch.float64, device=v.device)
-    cs[1:] = torch.cumsum(v.to(torch.float64), dim=0)
+    a float64 (integer v: int64) running sum, returned in v's dtype."""
+    acc = torch.float64 if v.is_floating_point() else torch.int64
+    cs = torch.zeros((v.shape[0] + 1,) + tuple(v.shape[1:]), dtype=acc, device=v.device)
+    cs[1:] = torch.cumsum(v.to(acc), dim=0)
     return (cs[offsets[1:]] - cs[offsets[:-1]]).to(v.dtype)
 
 
@@ -78,12 +85,14 @@ def sample_weights_plain(
     offsets: torch.Tensor,
     dt: float,
     t_thresh: float,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain K4: (w [M], weights_sum [N], depth [N])."""
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain K4: (w [M], weights_sum [N], depth [N], n_inc [N] i32)."""
     sdt, trans = entering_transmittance_plain(sigmas, offsets, dt)
     alpha = 1.0 - torch.exp(-sdt)
-    w = alpha * trans * (trans >= t_thresh).to(sigmas.dtype)
-    return w, segment_totals_plain(w, offsets), segment_totals_plain(w * tau, offsets)
+    inc = trans >= t_thresh
+    w = alpha * trans * inc.to(sigmas.dtype)
+    n_inc = segment_totals_plain(inc.to(torch.int64), offsets).to(torch.int32)
+    return w, segment_totals_plain(w, offsets), segment_totals_plain(w * tau, offsets), n_inc
 
 
 def sample_weights(
@@ -94,9 +103,10 @@ def sample_weights(
     t_thresh: float,
     *,
     plain: bool = False,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Compositing weights ``w`` [M] (already density_scale-multiplied
-    ``sigmas``) with the per-ray ``weights_sum`` and ``depth`` [N].
+    ``sigmas``) with the per-ray ``weights_sum``, ``depth`` and included
+    count ``n_inc`` [N].
 
     CUDA tensors go through kernel K4; CPU tensors (or ``plain=True``)
     through :func:`sample_weights_plain`."""
@@ -122,3 +132,60 @@ def segment_sum(
     if not use_kernel(w, plain):
         return segment_sum_plain(w, ch, offsets)
     return kernels.segment_sum(w.contiguous(), ch.contiguous(), offsets.contiguous())
+
+
+def composite_backward_plain(sigmas, ch, tau, offsets, g_img, g_ws, g_depth, dt, t_thresh):
+    """Plain K4b: (d_sigmas [M], d_ch [M, C]) by autograd through the plain
+    forward (float64 sums), the inclusion mask held fixed as in JAX."""
+    with torch.enable_grad():
+        s = sigmas.detach().requires_grad_(True)
+        c = ch.detach().requires_grad_(True)
+        w, ws, depth, _ = sample_weights_plain(s, tau, offsets, dt, t_thresh)
+        image = segment_sum_plain(w, c, offsets)
+        return torch.autograd.grad((image, ws, depth), (s, c), (g_img, g_ws, g_depth),
+                                   allow_unused=True)
+
+
+class CompositeRays(torch.autograd.Function):
+    """Differentiable compositor: forward K4 + K7, backward K4b (or their
+    plain versions); ``n_inc`` is returned without a gradient."""
+
+    @staticmethod
+    def forward(ctx, sigmas, ch, tau, offsets, dt, t_thresh, plain):
+        w, ws, depth, n_inc = sample_weights(sigmas, tau, offsets, dt, t_thresh, plain=plain)
+        image = segment_sum(w, ch, offsets, plain=plain)
+        ctx.save_for_backward(sigmas, ch, tau, offsets, w, n_inc)
+        ctx.dt, ctx.t_thresh, ctx.plain = dt, t_thresh, plain
+        ctx.mark_non_differentiable(n_inc)
+        return image, ws, depth, n_inc
+
+    @staticmethod
+    def backward(ctx, g_img, g_ws, g_depth, _g_n_inc):
+        # Cotangents of unused outputs arrive as zeros (materialized grads).
+        sigmas, ch, tau, offsets, w, n_inc = ctx.saved_tensors
+        if use_kernel(sigmas, ctx.plain):
+            d_sig, d_ch = kernels.composite_backward(
+                *(t.contiguous() for t in (sigmas, ch, tau, w, offsets, n_inc, g_img, g_ws,
+                                           g_depth)), ctx.dt,
+            )
+        else:
+            d_sig, d_ch = composite_backward_plain(sigmas, ch, tau, offsets, g_img, g_ws,
+                                                   g_depth, ctx.dt, ctx.t_thresh)
+        return d_sig, d_ch, None, None, None, None, None
+
+
+def composite_rays(
+    sigmas: torch.Tensor,
+    ch: torch.Tensor,
+    tau: torch.Tensor,
+    offsets: torch.Tensor,
+    dt: float,
+    t_thresh: float,
+    *,
+    plain: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Composite per-sample densities ``sigmas`` [M] (density_scale applied)
+    and channels ``ch`` [M, C] of a ray-major stream into (image [N, C],
+    weights_sum [N], depth [N], n_inc [N] i32), differentiable in sigmas and
+    ch (see :class:`CompositeRays`)."""
+    return CompositeRays.apply(sigmas, ch, tau, offsets, dt, t_thresh, plain)

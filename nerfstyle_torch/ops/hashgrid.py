@@ -12,9 +12,11 @@ applies only when ``(res+1)^3 * 512 <= table size``, and since ``table size
 <= ceil(H*s^l)^3 <= (res+1)^3`` that never holds.  Simplex levels
 (``simplex_from >= 0``) are not ported yet and raise.
 
-:func:`hashgrid_encode` launches kernel K1 (``csrc/hashgrid.cu``) on CUDA
-tensors and runs :func:`hashgrid_encode_plain` on CPU tensors.  Forward only:
-the table gradient (K2) belongs to training.
+:func:`hashgrid_encode` is differentiable in the table (:class:`HashGridEncode`):
+its forward launches kernel K1 and its backward kernel K2, the table
+gradient (``csrc/hashgrid.cu``), on CUDA tensors; on CPU tensors they run
+:func:`hashgrid_encode_plain` and :func:`hashgrid_backward_plain`.  The
+gradient of the input positions is zero, as in the JAX fast VJP.
 """
 
 from __future__ import annotations
@@ -121,12 +123,12 @@ def level_table(spec: HashGridSpec, device: torch.device) -> torch.Tensor:
     return torch.tensor(rows, dtype=torch.int32, device=device)
 
 
-def hashgrid_encode_plain(spec: HashGridSpec, table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch encode, in the JAX order of operations:
-    [B, 3] in [0, 1] -> [B, L*C]."""
+def _corners(spec: HashGridSpec, x: torch.Tensor):
+    """The 8 trilinear corners of every (point, level), in the JAX order of
+    operations: [(rows [B, L] i64, weights [B, L] f32)] and the
+    out-of-range mask [B]."""
     _check_trilinear(spec)
-    b, c = x.shape[0], table.shape[1]
-    dev = x.device
+    b, dev = x.shape[0], x.device
     scale = torch.tensor(spec.resolutions, dtype=torch.float32, device=dev)
     sizes = torch.tensor(spec.table_sizes, dtype=torch.int64, device=dev)
     offs = torch.tensor(spec.offsets[:-1], dtype=torch.int64, device=dev)
@@ -135,7 +137,7 @@ def hashgrid_encode_plain(spec: HashGridSpec, table: torch.Tensor, x: torch.Tens
     pg = torch.minimum(torch.floor(pos).clamp(min=0.0), (scale - 1.0)[None, :, None])
     frac = pos - pg
     pgi = pg.to(torch.int64)
-    out = torch.zeros((b, spec.num_levels, c), dtype=torch.float32, device=dev)
+    corners = []
     for s in range(8):
         w = torch.ones((b, spec.num_levels), dtype=torch.float32, device=dev)
         h = torch.zeros((b, spec.num_levels), dtype=torch.int64, device=dev)
@@ -143,10 +145,62 @@ def hashgrid_encode_plain(spec: HashGridSpec, table: torch.Tensor, x: torch.Tens
             bit = (s >> d) & 1
             w = w * (frac[..., d] if bit else 1.0 - frac[..., d])
             h = h ^ (((pgi[..., d] + bit) * PRIMES[d]) & _U32)
-        rows = h % sizes + offs
+        corners.append((h % sizes + offs, w))
+    return corners, oob
+
+
+def hashgrid_encode_plain(spec: HashGridSpec, table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch encode, in the JAX order of operations:
+    [B, 3] in [0, 1] -> [B, L*C]."""
+    b, c = x.shape[0], table.shape[1]
+    corners, oob = _corners(spec, x)
+    out = torch.zeros((b, spec.num_levels, c), dtype=torch.float32, device=x.device)
+    for rows, w in corners:
         out = out + table[rows] * w[..., None]
     out = torch.where(oob[:, None, None], 0.0, out)
     return out.reshape(b, spec.num_levels * c)
+
+
+def hashgrid_backward_plain(
+    spec: HashGridSpec, x: torch.Tensor, g: torch.Tensor, num_rows: int
+) -> torch.Tensor:
+    """Plain table gradient: ``index_add_`` of every corner's ``w * g`` into
+    a zero [num_rows, C] table (in g's dtype); out-of-range points add
+    nothing."""
+    b = x.shape[0]
+    c = g.shape[1] // spec.num_levels
+    corners, oob = _corners(spec, x)
+    g3 = torch.where(oob[:, None, None], 0.0, g.reshape(b, spec.num_levels, c))
+    grad = torch.zeros((num_rows, c), dtype=g.dtype, device=x.device)
+    for rows, w in corners:
+        grad.index_add_(0, rows.reshape(-1), (w[..., None] * g3).reshape(-1, c))
+    return grad
+
+
+class HashGridEncode(torch.autograd.Function):
+    """Encode, differentiable in the table: forward K1, backward K2 (or
+    their plain versions).  No gradient reaches the points."""
+
+    @staticmethod
+    def forward(ctx, table, x, spec, plain):
+        ctx.spec, ctx.plain, ctx.num_rows = spec, plain, table.shape[0]
+        ctx.save_for_backward(x)
+        if not use_kernel(x, plain):
+            return hashgrid_encode_plain(spec, table, x)
+        _check_trilinear(spec)
+        return kernels.hashgrid_encode(x.contiguous(), table.contiguous(),
+                                       level_table(spec, x.device))
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        spec = ctx.spec
+        if not use_kernel(x, ctx.plain):
+            grad = hashgrid_backward_plain(spec, x, g, ctx.num_rows)
+        else:
+            grad = kernels.hashgrid_backward(x.contiguous(), g.contiguous(),
+                                             level_table(spec, x.device), ctx.num_rows)
+        return grad, None, None, None
 
 
 def hashgrid_encode(
@@ -154,11 +208,7 @@ def hashgrid_encode(
 ) -> torch.Tensor:
     """Encode [B, 3] points in [0, 1] through all levels -> [B, L*C].
 
-    CUDA tensors go through kernel K1; CPU tensors (or ``plain=True``, the
-    reference a kernel check compares against) through the plain version."""
-    if not use_kernel(x, plain):
-        return hashgrid_encode_plain(spec, table, x)
-    _check_trilinear(spec)
-    return kernels.hashgrid_encode(
-        x.contiguous(), table.contiguous(), level_table(spec, x.device)
-    )
+    CUDA tensors go through kernels K1 (and K2 in the backward); CPU tensors
+    (or ``plain=True``, the reference a kernel check compares against)
+    through the plain versions."""
+    return HashGridEncode.apply(table, x, spec, plain)

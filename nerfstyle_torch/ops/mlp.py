@@ -2,7 +2,9 @@
 ``nerfstyle_tpu/ops/mlp.py``).
 
 The JAX package computes these with ``jnp.dot`` outside any kernel, so the
-port uses ``torch.matmul``.  Weights keep the JAX layout ``[d_in, d_out]``.
+port uses ``torch.matmul`` and takes the backward from autograd (a fused
+forward and backward, K5, is later work).  Weights keep the JAX layout
+``[d_in, d_out]``.
 
 Mixed precision (``compute_dtype=torch.bfloat16``, the default under
 ``TrainConfig.enable_amp``) reproduces the JAX function exactly: inputs and
@@ -10,8 +12,10 @@ weights rounded to bf16, products accumulated and returned in fp32, hidden
 activations rounded to bf16 again after each ReLU.  It is written as
 ``x.to(bf16).float() @ w.to(bf16).float()`` — a bf16 x bf16 product is exact
 in fp32 — because a plain ``bf16 @ bf16`` on CUDA rounds its output to bf16,
-which is a different function.  The fp32 products must not run in TF32:
-``Renderer`` sets ``torch.backends.cuda.matmul.allow_tf32 = False``.
+which is a different function.  The backward rounds as JAX's does too:
+the backward of ``.float()`` rounds each cotangent that reaches a bf16 input
+or weight to bf16.  The fp32 products must not run in TF32: ``Renderer`` and
+``Trainer`` set ``torch.backends.cuda.matmul.allow_tf32 = False``.
 """
 
 from __future__ import annotations
@@ -68,7 +72,22 @@ def mlp_apply(
     return h
 
 
+class TruncExp(torch.autograd.Function):
+    """exp with the backward ``g * exp(clamp(x, -15, 15))``: the forward
+    stays unclamped (an overflow to inf is caught by the optimizer's
+    non-finite skip), the gradient never overflows."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.exp(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * torch.exp(torch.clamp(x, -15.0, 15.0))
+
+
 def trunc_exp(x: torch.Tensor) -> torch.Tensor:
-    """Forward of exp with a clamped backward (the backward belongs to
-    training): plain ``exp``."""
-    return torch.exp(x)
+    """exp(x) with a backward clamped at |x| <= 15 (see :class:`TruncExp`)."""
+    return TruncExp.apply(x)

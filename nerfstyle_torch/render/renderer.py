@@ -1,8 +1,10 @@
-"""Novel-view rendering: the two-phase chunk renderer and the frame loop
-(counterpart of ``nerfstyle_tpu/render/renderer.py``, the inference path
-``Renderer.render`` -> ``make_two_phase_renderer``).
+"""Rendering and the occupancy grid's upkeep (counterpart of
+``nerfstyle_tpu/render/renderer.py``): the differentiable :func:`render_rays`
+of a train batch, the inference path ``Renderer.render`` ->
+``make_two_phase_renderer``, and the ``Renderer``'s occupancy maintenance
+during training (``maybe_update_state``, ``note_batch_points``).
 
-Per chunk of rays:
+Inference, per chunk of rays:
 
   1. ``near_far_from_aabb``, then ``march_rays`` (kernel K3) emits the
      ray-major sample stream, sized exactly from its count pass;
@@ -15,6 +17,10 @@ Per chunk of rays:
      ``segment_sum`` (kernel K7) composites their channels per ray;
   4. white background on rgb, depth normalized to [near, far].
 
+A train batch (:func:`render_rays`) marches the same way, then evaluates
+and composites through ``render/pipeline.py``, whose phase B keeps each
+ray's samples with entering T >= t_thresh.
+
 Every buffer is sized from the marcher's count, so unlike the JAX renderer
 there are no capacity buckets to grow and nothing is truncated: the output
 equals the JAX one once its ladders have grown to the demand.  A frame is
@@ -25,8 +31,9 @@ device memory.
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass
-from typing import Callable, Dict
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -37,7 +44,14 @@ from ..models.fields import FieldSpec, Params, field_color, field_density
 from ..ops.aabb import near_far_from_aabb
 from ..ops.compositing import sample_weights, segment_sum
 from ..ops.marching import MarchPlan, march_rays
-from ..ops.occupancy import PersistedOccupancy, occupancy_init
+from ..ops.occupancy import (
+    PersistedOccupancy,
+    occupancy_init,
+    occupancy_update_full,
+    occupancy_update_random,
+    update_mean_count,
+)
+from .pipeline import eval_composite
 
 MAP_KEYS = ("rgb_map", "trans_map", "classes", "weights_sum")
 COUNT_KEYS = ("num_marched", "num_sig")
@@ -61,6 +75,32 @@ class RenderSettings:
     # Weight threshold of phase B: a dropped sample adds < sig_eps to each
     # channel of its pixel; 0 keeps every w > 0 sample.
     sig_eps: float = 1e-5
+    # Occupancy upkeep during training.
+    update_iter: int = 16
+    update_thres: int = 256
+    density_thresh: float = 10.0
+    density_decay: float = 0.95
+    grid_bsize: Optional[int] = None
+    # Only for the checkpoint's budget_bucket, by which the JAX package
+    # sizes its buffers (the port sizes every buffer exactly).
+    max_samples_per_ray: int = 256
+    max_budget_samples: int = 1_048_576
+
+
+# The JAX package's compaction-bucket ladder (samples per ray) and its
+# candidate-window ladder: the port writes budget_bucket and window_bucket
+# into a checkpoint so that the JAX style and render stages size their
+# buffers from it.
+BUDGET_BUCKETS = (4, 8, 16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512, 768, 1024)
+WINDOW_BUCKET_MAX = 1024
+
+
+def bucket_for(per_ray_want: float, max_per_ray: int) -> int:
+    """Smallest ladder bucket covering ``per_ray_want`` samples a ray."""
+    for b in BUDGET_BUCKETS:
+        if per_ray_want <= b <= max_per_ray:
+            return b
+    return min(max(BUDGET_BUCKETS), max_per_ray)
 
 
 def cascade_for_bound(bound: float) -> int:
@@ -106,7 +146,8 @@ def render_chunk(
         lambda p: field_density(field_spec, params, bbox, p, compute_dtype, plain=plain),
         sb.xyz, field_batch,
     ) * density_scale
-    w, weights_sum, depth = sample_weights(sigmas, sb.tau, sb.offsets, plan.dt, t_thresh, plain=plain)
+    w, weights_sum, depth, _ = sample_weights(sigmas, sb.tau, sb.offsets, plan.dt, t_thresh,
+                                              plain=plain)
 
     # Phase B: color on the weight-significant samples only.
     keep = w > sig_eps
@@ -131,9 +172,48 @@ def render_chunk(
     }
 
 
+def render_rays(
+    field_spec: FieldSpec,
+    plan: MarchPlan,
+    params: Params,
+    bitfield: torch.Tensor,
+    bbox: BBox,
+    origins: torch.Tensor,
+    dirs: torch.Tensor,
+    *,
+    t_thresh: float,
+    density_scale: float,
+    compute_dtype: torch.dtype = torch.float32,
+    two_phase: bool = True,
+    plain: bool = False,
+) -> Dict[str, object]:
+    """Differentiable render of a train batch of N rays (one chunk): AABB,
+    march (K3), :func:`~nerfstyle_torch.render.pipeline.eval_composite`,
+    the white-background blend and the depth normalization.
+
+    Returns ``rgb_map`` [N, 3], ``trans_map`` [N], ``classes`` [N, K],
+    ``weights_sum`` [N] and the host counts ``num_points`` (samples marched)
+    and ``num_sig`` (samples with entering T >= t_thresh)."""
+    nears, fars = near_far_from_aabb(origins, dirs, plan.aabb(origins.device), plan.min_near)
+    sb = march_rays(plan, bitfield, origins, dirs, nears, fars, plain=plain)
+    out = eval_composite(field_spec, params, bbox, sb, plan.dt, t_thresh, density_scale,
+                         compute_dtype, two_phase=two_phase, plain=plain)
+    image, ws = out["image"], out["weights_sum"]
+    return {
+        "rgb_map": image[:, :3] + (1.0 - ws)[:, None],
+        "trans_map": torch.clamp(out["depth"] - nears, min=0.0)
+        / torch.clamp(fars - nears, min=1e-10),
+        "classes": image[:, 3:],
+        "weights_sum": ws,
+        "num_points": sb.num_kept,
+        "num_sig": out["num_sig"],
+    }
+
+
 class Renderer:
-    """Holds the occupancy grid and the render geometry on its device and
-    renders frames chunk by chunk."""
+    """Holds the occupancy grid and the render geometry on its device,
+    renders frames chunk by chunk, and keeps the grid up to date during
+    training."""
 
     def __init__(
         self,
@@ -166,6 +246,82 @@ class Renderer:
         self.occ_state: PersistedOccupancy = occupancy_init(
             self.cascade, settings.grid_size, self.device
         )
+        self.precrop_frac = 1.0
+        self.update_occ = True
+        self._local_step_host = 0
+        self._last_num_rays = 1
+        # Host clock of every occupancy update by kind, each ending in a
+        # device sync.
+        self.update_ms: Dict[str, List[float]] = {"full": [], "random": []}
+
+    # ---- occupancy maintenance ----
+
+    def update_state(self, params: Params, generator: torch.Generator, plain: bool = False) -> None:
+        """Occupancy refresh: a full sweep while fewer than ``update_thres``
+        train steps have run, a random update after."""
+        s = self.settings
+        kind = "full" if self._local_step_host < s.update_thres else "random"
+        t0 = time.perf_counter()
+
+        def sigma_fn(pts):
+            return field_density(self.field_spec, params, self.bbox, pts, self.compute_dtype,
+                                 plain=plain)
+
+        kw = dict(bound=self.bound, density_scale=s.density_scale,
+                  density_decay=s.density_decay, density_thresh=s.density_thresh,
+                  generator=generator, plain=plain)
+        if s.grid_bsize:
+            kw["chunk"] = int(s.grid_bsize)
+        update = occupancy_update_full if kind == "full" else occupancy_update_random
+        self.occ_state = update(self.occ_state, sigma_fn, **kw)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.update_ms[kind].append((time.perf_counter() - t0) * 1e3)
+
+    def maybe_update_state(self, params: Params, generator: torch.Generator,
+                           plain: bool = False) -> bool:
+        """Refresh the grid every ``update_iter`` train steps (step 0
+        included); True when it did."""
+        if self.update_occ and self._local_step_host % self.settings.update_iter == 0:
+            self.update_state(params, generator, plain)
+            return True
+        return False
+
+    def note_batch_points(self, num_points: int, num_rays: Optional[int] = None) -> None:
+        """Feed a train batch's marched-sample count into mean_count."""
+        self.occ_state = update_mean_count(self.occ_state, num_points)
+        self._local_step_host += 1
+        if num_rays:
+            self._last_num_rays = num_rays
+
+    def restore_occupancy(self, state: PersistedOccupancy) -> None:
+        self.occ_state = state
+        self._local_step_host = int(state.local_step)
+
+    def budget_bucket(self) -> int:
+        """The JAX package's samples-per-ray bucket for this run's demand:
+        the ladder value covering 1.25 x mean_count per ray, under the
+        per-ray cap and the budget's memory cap."""
+        s = self.settings
+        mem_cap = max(min(BUDGET_BUCKETS), s.max_budget_samples // max(1, self._last_num_rays))
+        cap = min(s.max_samples_per_ray, mem_cap)
+        mean_count = int(self.occ_state.mean_count)
+        if mean_count <= 0:
+            return min(s.max_samples_per_ray, 256)
+        return bucket_for(mean_count * 1.25 / max(1, self._last_num_rays), cap)
+
+    def state_dict_static(self) -> Dict[str, object]:
+        """The checkpoint's renderer fields, under the JAX package's keys."""
+        return {
+            "intr": self.intr.asdict(),
+            "precrop_frac": self.precrop_frac,
+            "raymarch_channels": self.raymarch_channels,
+            "bound": self.bound,
+            "budget_bucket": self.budget_bucket(),
+            "last_num_rays": self._last_num_rays,
+            "window_bucket": WINDOW_BUCKET_MAX,
+            "max_steps": self.settings.max_steps,
+        }
 
     def render_rays(
         self, params: Params, origins: torch.Tensor, dirs: torch.Tensor, plain: bool = False

@@ -1,6 +1,8 @@
-"""Host utilities of the port: logging, the overwrite prompt and PNG output.
+"""Host utilities of the port: logging, the overwrite prompt, PNG output,
+PSNR, the segmentation palette and the checkpoint's version stamp.
 
-Counterpart of ``nerfstyle_tpu/utils.py`` for what rendering needs.  PNGs are
+Counterpart of ``nerfstyle_tpu/utils.py`` for what rendering and training
+need.  PNGs are
 written with ``zlib`` from the standard library, so the port needs no image
 package.
 """
@@ -8,7 +10,9 @@ package.
 from __future__ import annotations
 
 import logging
+import math
 import struct
+import subprocess
 import sys
 import zlib
 from pathlib import Path
@@ -83,3 +87,32 @@ def save_image(arr: np.ndarray, path: Union[str, Path]) -> None:
         + _png_chunk(b"IEND", b"")
     )
     Path(path).write_bytes(png)
+
+
+def compute_psnr(mse: float) -> float:
+    return -10.0 * math.log(mse) / math.log(10.0) if mse > 0 else float("inf")
+
+
+def tab10_colormap(n: int) -> np.ndarray:
+    """First n colors of the tab10 palette as [n, 3] floats (segmentation
+    images)."""
+    base = np.array(
+        [
+            (31, 119, 180), (255, 127, 14), (44, 160, 44), (214, 39, 40),
+            (148, 103, 189), (140, 86, 75), (227, 119, 194), (127, 127, 127),
+            (188, 189, 34), (23, 190, 207),
+        ],
+        dtype=np.float32,
+    ) / 255.0
+    return np.tile(base, ((n + 9) // 10, 1))[:n]
+
+
+def get_git_sha() -> str:
+    """The checkout's commit, for a checkpoint's version stamp ("unknown"
+    outside a git checkout)."""
+    try:
+        return subprocess.check_output(
+            ["git", "rev-parse", "HEAD"], cwd=Path(__file__).parent, stderr=subprocess.DEVNULL,
+        ).decode().strip()
+    except (OSError, subprocess.CalledProcessError):
+        return "unknown"

@@ -112,7 +112,7 @@ def test_torch_sample_weights_match_composite_rays():
         num_kept=jnp.int32(m), num_cand=jnp.int32(0),
     )
     out = jc.composite_rays(jnp.asarray(sigmas), jnp.asarray(ch), sb, n, DT, T_THRESH)
-    w, ws, dep = tc.sample_weights(
+    w, ws, dep, _ = tc.sample_weights(
         torch.from_numpy(sigmas), torch.from_numpy(tau), torch.from_numpy(offsets), DT, T_THRESH
     )
     img = tc.segment_sum(w, torch.from_numpy(ch), torch.from_numpy(offsets))

@@ -15,6 +15,7 @@ from nerfstyle_torch import kernels
 from nerfstyle_torch.ops import compositing as tc
 from nerfstyle_torch.ops import hashgrid as th
 from nerfstyle_torch.ops import marching as tm
+from nerfstyle_torch.ops import occupancy as to
 from nerfstyle_torch.ops.aabb import near_far_from_aabb
 from nerfstyle_torch.render.renderer import cascade_for_bound
 
@@ -100,13 +101,14 @@ def test_torch_composite_kernels_match_plain(cuda_device):
     offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
     s, t, c, o = (torch.from_numpy(a).to(cuda_device) for a in (sigmas, tau, ch, offsets))
     kernels.reset_launch_counts()
-    w, ws, dep = tc.sample_weights(s, t, o, DT, T_THRESH)
+    w, ws, dep, n_inc = tc.sample_weights(s, t, o, DT, T_THRESH)
     img = tc.segment_sum(w, c, o)
     torch.cuda.synchronize()
     assert kernels.launch_counts["composite_weights"] == 1
     assert kernels.launch_counts["segment_sum"] == 1
     assert bool(torch.isfinite(w).all()) and bool((w == 0).any())
-    w_p, ws_p, dep_p = tc.sample_weights(s.double(), t.double(), o, DT, T_THRESH, plain=True)
+    w_p, ws_p, dep_p, n_inc_p = tc.sample_weights(s.double(), t.double(), o, DT, T_THRESH,
+                                                  plain=True)
     torch.testing.assert_close(w.double(), w_p, rtol=0, atol=1e-4)
     torch.testing.assert_close(ws.double(), ws_p, rtol=0, atol=1e-4)
     torch.testing.assert_close(dep.double(), dep_p, rtol=0, atol=3e-4)
@@ -121,6 +123,119 @@ def test_torch_composite_kernels_match_plain(cuda_device):
     torch.testing.assert_close(ws.double()[inner], ws_p[inner], rtol=0, atol=2e-6)
     torch.testing.assert_close(dep.double()[inner], dep_p[inner], rtol=0, atol=6e-6)
     torch.testing.assert_close(img, tc.segment_sum(w, c, o, plain=True), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("channels", [1, 2, 4])
+def test_torch_hashgrid_backward_kernel_matches_plain(cuda_device, channels):
+    """K2 adds the same w * g contributions as the plain version, in the
+    order its atomics land: against the plain version's float64 sums, rtol
+    1e-5 and atol 1e-6 of the largest row (rows whose contributions cancel).
+    Points outside [0, 1]^3 add nothing; the autograd path launches K2 once."""
+    rng = np.random.default_rng(11)
+    spec = th.hashgrid_spec(**TINY)
+    x = torch.from_numpy(rng.uniform(-0.1, 1.1, size=(5003, 3)).astype(np.float32)).to(cuda_device)
+    g = torch.from_numpy(
+        rng.normal(size=(5003, spec.num_levels * channels)).astype(np.float32)).to(cuda_device)
+    table = torch.zeros(spec.total_params, channels, device=cuda_device, requires_grad=True)
+    kernels.reset_launch_counts()
+    th.hashgrid_encode(spec, table, x).backward(g)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["hashgrid_backward"] == 1
+    want = th.hashgrid_backward_plain(spec, x, g.double(), spec.total_params)
+    torch.testing.assert_close(table.grad.double(), want, rtol=1e-5,
+                               atol=1e-6 * float(want.abs().max()))
+    inside = ((x >= 0) & (x <= 1)).all(dim=-1)
+    only_out = th.hashgrid_backward_plain(spec, x[~inside], g[~inside], spec.total_params)
+    assert not bool(only_out.any())
+    assert not bool(kernels.hashgrid_backward(
+        x[~inside].contiguous(), g[~inside].contiguous(), th.level_table(spec, cuda_device),
+        spec.total_params).any())
+
+
+def _grad_stream(rng, n=300, c=7):
+    """Ray-major samples with long, saturating and zero-density rays and an
+    infinite density (capped optical depth)."""
+    counts = rng.integers(0, 200, size=n)
+    counts[:3] = 0
+    m = int(counts.sum())
+    sigmas = np.exp(rng.normal(1.0, 2.5, size=m)).astype(np.float32)
+    sigmas[rng.random(m) < 0.05] = 0.0
+    sigmas[-1] = np.inf
+    tau = rng.uniform(0.0, 3.0, size=m).astype(np.float32)
+    ch = rng.normal(size=(m, c)).astype(np.float32)
+    offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    g = [rng.normal(size=s).astype(np.float32) for s in ((n, c), (n,), (n,))]
+    return sigmas, tau, ch, offsets, g
+
+
+def test_torch_composite_backward_kernel_matches_plain(cuda_device):
+    """K4b (one reverse walk a ray, fp32) against the plain backward (autograd
+    through the float64 plain forward) on the same inputs.  A ray whose
+    entering T comes within 1e-4 relative of t_thresh may include one sample
+    more or less in fp32 and is left out of the comparison (as for K4).  On
+    the others: d ch = w * gI to fp32 rounding of w (rtol 1e-5, atol 1e-6);
+    d sigma = dt (T_{i+1} v_i - suffix) loses digits to the difference:
+    rtol 1e-4, atol 1e-5 of the largest.  Samples past the cutoff get 0."""
+    rng = np.random.default_rng(5)
+    sigmas, tau, ch, offsets, g = _grad_stream(rng)
+    s, t, c, o = (torch.from_numpy(a).to(cuda_device) for a in (sigmas, tau, ch, offsets))
+    gs = [torch.from_numpy(a).to(cuda_device) for a in g]
+    s_k, c_k = s.clone().requires_grad_(True), c.clone().requires_grad_(True)
+    kernels.reset_launch_counts()
+    image, ws, depth, n_inc = tc.composite_rays(s_k, c_k, t, o, DT, T_THRESH)
+    torch.autograd.backward((image, ws, depth), gs)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["composite_backward"] == 1
+    assert kernels.launch_counts["composite_weights"] == 1
+    assert kernels.launch_counts["segment_sum"] == 1
+    s_p, c_p = s.double().requires_grad_(True), c.double().requires_grad_(True)
+    image_p, ws_p, depth_p, n_inc_p = tc.composite_rays(s_p, c_p, t.double(), o, DT, T_THRESH,
+                                                        plain=True)
+    torch.autograd.backward((image_p, ws_p, depth_p), [v.double() for v in gs])
+    _, trans = tc.entering_transmittance_plain(s.double(), o, DT)
+    near = (trans - T_THRESH).abs() <= 1e-4 * T_THRESH
+    inner = tc.segment_totals_plain(near.double(), o) == 0
+    assert torch.equal(n_inc[inner], n_inc_p[inner])
+    assert int((inner & (n_inc < o[1:] - o[:-1])).sum()) > 10  # rays that stop early
+    on_inner = inner[tc.ray_ids(o)]
+    d_s, d_sp = s_k.grad.double()[on_inner], s_p.grad[on_inner]
+    d_c, d_cp = c_k.grad.double()[on_inner], c_p.grad[on_inner]
+    assert bool(torch.isfinite(s_k.grad).all()) and bool(torch.isfinite(c_k.grad).all())
+    torch.testing.assert_close(d_c, d_cp, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(d_s, d_sp, rtol=1e-4, atol=1e-5 * float(d_sp.abs().max()))
+    local = torch.arange(s.shape[0], device=cuda_device) - o[:-1][tc.ray_ids(o)]
+    past = local >= n_inc.long()[tc.ray_ids(o)]
+    assert bool(past.any()) and not bool(s_k.grad[past].any()) and not bool(c_k.grad[past].any())
+
+
+def test_torch_occupancy_kernels_match_plain(cuda_device):
+    """K6: the scatter-max is exact (a max is order-free, atomicMax on the
+    bits of floats >= 0 over a -1 fill); the merge is elementwise and exact;
+    the mean sums per-block float64 partials (the plain version: one float64
+    sum): rtol 1e-6; so the bitfield is equal."""
+    rng = np.random.default_rng(2)
+    cascade, n = 2, 32**3
+    grid = rng.exponential(1.0, size=cascade * n).astype(np.float32)
+    grid[rng.random(grid.shape) < 0.3] = 0.0
+    grid[rng.random(grid.shape) < 0.05] = -1.0
+    idx = rng.integers(0, cascade * n, size=cascade * n // 2)
+    sig = rng.exponential(2.0, size=idx.shape[0]).astype(np.float32)
+    sig[:100] = 0.0
+    g_d, i_d, s_d = (torch.from_numpy(a).to(cuda_device) for a in (grid, idx, sig))
+    kernels.reset_launch_counts()
+    tmp = to.scatter_max(torch.full((cascade * n,), -1.0, device=cuda_device), i_d, s_d)
+    merged, bits, mean = kernels.occupancy_merge(g_d, tmp, 0.95, 10.0)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["occupancy_scatter_max"] == 1
+    assert kernels.launch_counts["occupancy_merge"] == 1
+    assert kernels.launch_counts["occupancy_threshold"] == 1
+    tmp_p = to.scatter_max(torch.full((cascade * n,), -1.0, device=cuda_device), i_d, s_d,
+                           plain=True)
+    assert torch.equal(tmp, tmp_p)
+    merged_p, bits_p, mean_p = to.merge_and_threshold_plain(g_d, tmp_p, 0.95, 10.0)
+    assert torch.equal(merged, merged_p)
+    torch.testing.assert_close(mean, mean_p, rtol=1e-6, atol=0)
+    assert torch.equal(bits, bits_p) and 0 < int(bits.sum()) < bits.numel()
 
 
 def test_torch_kernels_reject_cpu_and_bad_inputs(cuda_device):

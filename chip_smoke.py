@@ -27,15 +27,30 @@
    default configs (4096 rays a step, two 2^19-row tables, grid 128, AMP)
    on the synthetic scene for 300 steps, past update_thres, so that both
    occupancy updates run; launch counters set to 0 just before and read
-   just after, each train kernel (K1-K4b, K6, K7) must have launched, no
+   just after, each train kernel (K1-K6, K7) must have launched, no
    step may be non-finite, and the EMA params' test PSNR must rise 5 dB
    above the untrained field's on the same views.  Prints step times early
    and late, train rays/s, occupancy-update times, samples per ray and peak
    memory.
 7. One more step with the kernels against the same step with every plain
    version, from the same state and rays (tolerances at step_vs_plain);
-   K2, K4b and K6 against their plain versions at the step's shapes, timed;
-   one late step under the profiler.
+   K2, K4b and K6 against their plain versions at the step's shapes, and K5
+   with its weight gradients at a batch's shape, timed; one late step under
+   the profiler.
+8. The style path: ``python -m nerfstyle_torch.train --ckpt <the train
+   phase's checkpoint> --style-image <png> --style_seg_path <npz>
+   --max_steps 512`` in-process, on a 504x378 synthetic scene (30 train
+   views, 3 test views), 200 iterations (cfgs/training/style.yaml) with
+   their launch counters set to 0 just before and read just after; each
+   style kernel (K1-K5, K7, K7b) must have launched, every loss must be
+   finite, the mean style term of the last 10 iterations must lie below the
+   first's, and the written checkpoint must differ from the train phase's
+   only in x_color_embedder.  Prints the cache builds, the first epoch (30
+   builds), the median steady iteration, the whole run, peak memory and
+   each kernel's launches a step.  Then one style step with the kernels
+   against the same step with every plain version, K5 forward and backward
+   and K7b at the style stream's shape against their plain versions, timed,
+   and one steady iteration under the profiler.
 
 Prints the kernel table as one JSON line, then the last line
 ``{"ok": true, "device": {...}}``.  Exits nonzero, printing no result,
@@ -57,15 +72,29 @@ import torch
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "smoke"
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 rate, fp32 outside the
-# tensor cores.
+# tensor cores, bf16 dense on the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+PEAK_BF16_PER_S = 989e12
 OUT_DIMS = (1008, 756)
 # Train steps of the train path: past update_thres (256), so that both
 # occupancy updates (full sweep, then random) run.
 TRAIN_STEPS = 300
 RENDER_COUNTERS = ("hashgrid_encode", "march_count", "march_write", "composite_weights",
-                   "segment_sum")
+                   "segment_sum", "mlp_forward")
+TRAIN_COUNTERS = ("hashgrid_encode", "hashgrid_backward", "march_count", "march_write",
+                  "composite_weights", "composite_backward", "segment_sum", "mlp_forward",
+                  "mlp_backward", "occupancy_scatter_max", "occupancy_merge",
+                  "occupancy_threshold")
+# The style path: the README's size (504x378, 30 train views, 3 test views),
+# max_steps 512, the 200 iterations of cfgs/training/style.yaml.
+STYLE_DIMS = (504, 378)
+STYLE_VIEWS, STYLE_TEST_VIEWS = 30, 3
+STYLE_COUNTERS = ("hashgrid_encode", "hashgrid_backward", "march_count", "march_write",
+                  "composite_weights", "mlp_forward", "mlp_backward", "segment_sum",
+                  "segment_sum_backward")
+STYLE_STEP_COUNTERS = ("hashgrid_encode", "hashgrid_backward", "mlp_forward", "mlp_backward",
+                       "segment_sum", "segment_sum_backward")
 K1_POINTS = 1 << 20
 DENSITY_OFFSET = 6.0
 DEVICE = "cuda"
@@ -100,8 +129,8 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_PER_S * 1e3
+def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_FP32_PER_S):
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -425,7 +454,8 @@ def step_vs_plain(trainer, fails):
     trainer.params, trainer.opt_state, trainer.ema_state = k["state"]
 
     step_kernels = ("hashgrid_encode", "hashgrid_backward", "march_count", "march_write",
-                    "composite_weights", "composite_backward", "segment_sum")
+                    "composite_weights", "composite_backward", "segment_sum", "mlp_forward",
+                    "mlp_backward")
     missing = [c for c in step_kernels if k["launches"][c] <= 0]
     if missing:
         fails.append(f"the kernel step launched no {missing}")
@@ -580,6 +610,18 @@ def train_kernel_phases(trainer, fails):
         f"left out; max_abs_err d_sigma {err_s:.3e} (tol {tol_s:.3e}), d_ch {err_c:.3e} "
         f"(tol {tol_c:.3e}); ms {ms:.3f}, plain_ms {plain_ms:.3f}, bound_ms {b_ms:.4f} ({b_by})")
 
+    # K5 at a train batch's shape, with weight gradients: the color1 head on
+    # the kept samples' color features and the density head on their density
+    # features (tolerances at mlp_check).
+    with torch.no_grad():
+        h_c = hashgrid.hashgrid_encode(spec.grid, trainer.params["x_color_embedder"], x)
+        h_d = hashgrid.hashgrid_encode(spec.grid, trainer.params["x_density_embedder"], x)
+    errs = {head: mlp_check(trainer.params[head], hh, None, trainer.compute_dtype, True, gen,
+                            fails, f"{head} at a train batch")
+            for head, hh in (("color1_net", h_c), ("density_net", h_d))}
+    log(f"K5 at a train batch ({k} rows, {trainer.compute_dtype}, with d W): max abs err "
+        f"(out, d x, d W...) {errs}")
+
     # K6: the random update's probes (H^3/4 uniform and H^3/4 occupied cells a
     # cascade) scatter-maxed into a -1 grid, then the merge and threshold of
     # the trained grid.  Both exact (a max and elementwise arithmetic); the
@@ -629,6 +671,33 @@ def train_kernel_phases(trainer, fails):
     return table
 
 
+def mlp_check(weights, x, act, dtype, need_dw: bool, gen, fails, what: str):
+    """K5 forward and backward (d x, and every d W when ``need_dw``) against
+    the plain matmul chain and its autograd on the same inputs and a random
+    cotangent; returns the max abs errors (output, d x, d W...).
+
+    Tolerance: fp32 sums in another order, 1e-5 of the largest value; under
+    bf16 a value near a rounding step may land on the other side (2^-8 of
+    itself) and carry that into what follows: 2^-7 of the largest value."""
+    from nerfstyle_torch.ops.mlp import mlp_apply
+
+    g = torch.randn((x.shape[0], weights[-1].shape[1]), generator=gen, device=x.device)
+    res = {}
+    for plain in (False, True):
+        ws = [w.detach().clone().requires_grad_(need_dw) for w in weights]
+        xr = x.detach().clone().requires_grad_(True)
+        out = mlp_apply(ws, xr, act, dtype, plain=plain)
+        res[plain] = (out.detach(),) + torch.autograd.grad(out, [xr] + (ws if need_dw else []), g)
+    frac = 2.0**-7 if dtype == torch.bfloat16 else 1e-5
+    errs = []
+    for a, b in zip(res[False], res[True]):
+        err, tol = float((a - b).abs().max()), frac * float(b.abs().max())
+        errs.append(err)
+        if not err <= tol:
+            fails.append(f"K5 {what}: error {err} > {tol}")
+    return errs
+
+
 def profile_once(fn, label: str, card: str) -> None:
     """One call of fn under torch.profiler: the kernel table by device time
     and the device's idle share of the call's wall time."""
@@ -671,8 +740,8 @@ def train_phase(card: str, fails):
     wall_s = time.perf_counter() - t0
     launches = dict(kernels.launch_counts)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    for name, count in launches.items():
-        if count <= 0:
+    for name in TRAIN_COUNTERS:
+        if launches[name] <= 0:
             fails.append(f"train path launched no {name} kernel")
     notfinite = int(trainer.opt_state.total_notfinite)
     if notfinite or not all(bool(torch.isfinite(v)) for v in trainer.last_losses.values()):
@@ -702,6 +771,228 @@ def train_phase(card: str, fails):
         fails.append(f"test PSNR rose from {untrained['psnr']:.3f} to {final['psnr']:.3f} dB, "
                      "less than 5 dB")
     return trainer, launches
+
+
+# ---------------------------------------------------------------------------
+# The style path
+# ---------------------------------------------------------------------------
+
+
+def style_assets():
+    """The 504x378 synthetic scene with its data YAML, a 256x192 gradient
+    style PNG and its 4-quadrant segment map (as bench.py makes them)."""
+    from nerfstyle_torch import utils
+    from nerfstyle_torch.data.synthetic import generate_scene
+
+    w, h = STYLE_DIMS
+    scene = WORK / f"style_scene_{h}x{w}_v{STYLE_VIEWS}"
+    generate_scene(scene, num_train=STYLE_VIEWS, num_test=STYLE_TEST_VIEWS, h=h, w=w)
+    data_cfg = WORK / "style_data.yaml"
+    data_cfg.write_text(f"root_path: {scene}\ntype: Synthetic\nbound: 2.0\nscale: 1.0\n")
+    yy, xx = np.meshgrid(np.linspace(0, 1, 192), np.linspace(0, 1, 256), indexing="ij")
+    style_png, seg_npz = WORK / "style.png", WORK / "style_seg.npz"
+    utils.save_image(np.stack([yy, xx, 1 - yy], axis=-1).astype(np.float32), style_png)
+    np.savez(seg_npz, seg_map=(yy > 0.5).astype(np.int64) * 2 + (xx > 0.5).astype(np.int64))
+    return data_cfg, style_png, seg_npz
+
+
+def style_phase(card: str, ckpt: Path, fails):
+    """The style path through ``python -m nerfstyle_torch.train`` (in-process)
+    from the train phase's checkpoint; returns the trainer and its launches."""
+    from nerfstyle_torch import kernels, train
+    from nerfstyle_torch.training import checkpoint as ckpt_lib
+
+    t0 = time.perf_counter()
+    data_cfg, style_png, seg_npz = style_assets()
+    log(f"style assets: {STYLE_DIMS[0]}x{STYLE_DIMS[1]} scene of {STYLE_VIEWS} + "
+        f"{STYLE_TEST_VIEWS} views, style image and segment map in "
+        f"{time.perf_counter() - t0:.1f} s")
+    argv = ["--device", DEVICE, "--ckpt", str(ckpt), "--log-dir", str(WORK / "style"),
+            "--data-cfg", str(data_cfg), "--style-image", str(style_png),
+            "--style_seg_path", str(seg_npz), "--max_steps", "512", "--test_before_train",
+            "--intervals.test", "0", "--intervals.print", "20", "--intervals.log", "0",
+            "--intervals.ckpt", "200", "--yes"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    st = train.main(argv)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    n_iter = st.train_cfg.num_iterations
+    for name in STYLE_COUNTERS:
+        if launches[name] <= 0:
+            fails.append(f"style path launched no {name} kernel")
+
+    hist = {k: np.array([float(h[k]) for h in st.loss_history]) for k in ("content", "style",
+                                                                         "total")}
+    notfinite = int(st.opt_state.total_notfinite)
+    if notfinite or not all(np.isfinite(v).all() for v in hist.values()):
+        fails.append(f"style losses not finite ({notfinite} steps skipped)")
+    if len(st.loss_history) != n_iter:
+        fails.append(f"the style run took {len(st.loss_history)} of {n_iter} iterations")
+    first, last10 = float(hist["style"][0]), float(hist["style"][-10:].mean())
+    if not last10 < first:
+        fails.append(f"the style term did not fall: first {first}, last 10 mean {last10}")
+
+    # Only x_color_embedder may move.
+    final = WORK / "style" / f"iter_{n_iter}.ckpt"
+    _, before = ckpt_lib.load_checkpoint(ckpt)
+    _, after = ckpt_lib.load_checkpoint(final)
+    p0 = ckpt_lib.restore_tree(st.params, before["params"])
+    p1 = ckpt_lib.restore_tree(st.params, after["params"])
+    moved = {k: not all(torch.equal(a, b) for a, b in zip(ckpt_lib.tree_flatten(p0[k]),
+                                                        ckpt_lib.tree_flatten(p1[k])))
+             for k in p0}
+    if moved != {k: k == "x_color_embedder" for k in p0}:
+        fails.append(f"style checkpoint leaves moved: {moved}")
+
+    cs = st.cache_stats
+    ms = st.iter_ms
+    epoch = min(STYLE_VIEWS, len(ms))
+    per_ray = [c["sig_per_ray"] for c in cs]
+    log(f"style cache builds ({card}): {len(cs)} poses, significant samples/ray mean "
+        f"{np.mean(per_ray):.2f} (min {min(per_ray):.2f}, max {max(per_ray):.2f}) of "
+        f"{np.mean([c['marched_per_ray'] for c in cs]):.2f} marched, "
+        f"{np.mean([c['bytes'] for c in cs]) / 2**20:.1f} MiB a pose, max dropped weight/ray "
+        f"{max(c['drop_max'] for c in cs):.3e}, build ms median "
+        f"{np.median([c['build_ms'] for c in cs]):.1f}")
+    log(f"style run ({card}): {n_iter} iterations at {STYLE_DIMS[0]}x{STYLE_DIMS[1]} in "
+        f"{sum(ms) / 1e3:.2f} s of iterations ({wall_s:.2f} s through the entry point, set-up "
+        f"included); epoch 1 ({epoch} iterations, {len(cs)} cache builds) {sum(ms[:epoch]) / 1e3:.2f}"
+        f" s; median steady iteration {np.median(ms[epoch:]):.2f} ms; peak memory "
+        f"{peak_gib:.2f} GiB; style_weights: {'pretrained' if st.fx.pretrained else 'random'}; "
+        f"style term first {first:.5f}, last-10 mean {last10:.5f}; content first "
+        f"{hist['content'][0]:.6f}, last {hist['content'][-1]:.6f}; matching "
+        f"{[int(m) for m in st.style_loss.matching]}; launches {launches}")
+    return st, launches
+
+
+def style_step_vs_plain(st, fails):
+    """One style step with the kernels and the same step with every plain
+    version, from the same params and pose cache.  Loss terms: 1e-5
+    relative; the color-table gradient: relative L2 error 5e-3 (K2's atomics
+    and fp32 sums in another order, and under bf16 a cotangent landing on the
+    other side of a rounding step)."""
+    from nerfstyle_torch import kernels
+
+    pose = next(iter(st._geom_cache))
+    cache = st.geom_cache(pose)
+    runs = {}
+    for plain in (False, True):
+        kernels.reset_launch_counts()
+        losses, grads = st.loss_and_grads(cache, plain=plain)
+        torch.cuda.synchronize()
+        runs[plain] = (losses, grads["x_color_embedder"], dict(kernels.launch_counts))
+    (lk, gk, ck), (lp, gp, cp) = runs[False], runs[True]
+    missing = [c for c in STYLE_STEP_COUNTERS if ck[c] <= 0]
+    if missing:
+        fails.append(f"the style step launched no {missing}")
+    if any(cp.values()):
+        fails.append(f"the plain style step launched kernels: {cp}")
+    loss_err = {k: abs(float(lk[k]) - float(v)) / max(abs(float(v)), 1e-30)
+                for k, v in lp.items()}
+    grad_err = rel_l2(gk, gp)
+    log(f"style step with kernels vs plain (pose {pose}): loss relative errors {loss_err}; "
+        f"color-table gradient relative L2 error {grad_err:.3e}; launches a step {ck}")
+    if not all(e <= 1e-5 for e in loss_err.values()):
+        fails.append(f"style step losses differ from the plain step: {loss_err}")
+    if not grad_err <= 5e-3:
+        fails.append(f"style step gradient differs from the plain step: {grad_err}")
+    return ck
+
+
+def style_kernel_phases(st, fails):
+    """K5 (the three color heads) forward and backward, and K7b, at the style
+    stream's shape, against their plain versions; returns their table
+    entries."""
+    from nerfstyle_torch import kernels
+    from nerfstyle_torch.models.fields import _encoder_input
+    from nerfstyle_torch.ops import compositing, hashgrid
+    from nerfstyle_torch.ops.mlp import mlp_apply, mlp_apply_plain
+
+    table = {}
+    dev, dtype, params = st.device, st.compute_dtype, st.params
+    gen = torch.Generator(device=dev).manual_seed(11)
+    cache = st.geom_cache(next(iter(st._geom_cache)))
+    n_rows = cache["w"].shape[0]
+    with torch.no_grad():
+        x = _encoder_input(st.renderer.bbox, cache["xyz"]).contiguous()
+        h_c = hashgrid.hashgrid_encode(st.field_spec.grid, params["x_color_embedder"], x)
+        c1 = mlp_apply(params["color1_net"], h_c, None, dtype)
+    heads = [(params["class_net"], h_c, None), (params["color1_net"], h_c, None),
+             (params["color2_net"], c1, "sigmoid")]
+    errs = [mlp_check(w, hh, act, dtype, False, gen, fails, f"head {i} at the style stream")
+            for i, (w, hh, act) in enumerate(heads)]
+    bf16 = dtype == torch.bfloat16
+    gs = [torch.randn((n_rows, w[-1].shape[1]), generator=gen, device=dev) for w, _, _ in heads]
+
+    def fwd(plain):
+        fn = mlp_apply_plain if plain else mlp_apply
+        return [fn(w, hh, act, dtype) for w, hh, act in heads]
+
+    def bwd():
+        return [kernels.mlp_backward(hh, w, g, act == "sigmoid", bf16, [False] * len(w))
+                for (w, hh, act), g in zip(heads, gs)]
+
+    def bwd_plain():
+        outs = []
+        for (w, hh, act), g in zip(heads, gs):
+            xr = hh.detach().requires_grad_(True)
+            outs.append(torch.autograd.grad(mlp_apply_plain(w, xr, act, dtype), xr, g))
+        return outs
+
+    with torch.no_grad():
+        f_ms = cuda_ms(lambda: fwd(False), reps=10)
+        f_plain = cuda_ms(lambda: fwd(True), reps=5)
+        f_lib = cuda_ms(lambda: fwd(True), reps=5)
+        b_ms = cuda_ms(bwd, reps=10)
+    b_plain = cuda_ms(bwd_plain, reps=5)
+    # Bytes: each launch reads its input rows and writes its output rows
+    # (the backward: reads x and g, writes d x); the weights once.
+    # Operations: 2 d_in d_out a row a layer (the backward recomputes the
+    # forward and then takes d x: twice that).  Peak: bf16 dense tensor
+    # cores under AMP (fp32 otherwise).
+    dims = [[w.shape[0] for w in ws] + [ws[-1].shape[1]] for ws, _, _ in heads]
+    macs = sum(sum(a * b for a, b in zip(d[:-1], d[1:])) for d in dims)
+    wbytes = sum(w.numel() * 4 for ws, _, _ in heads for w in ws)
+    peak = PEAK_BF16_PER_S if bf16 else PEAK_FP32_PER_S
+    fb_ms, fb_by = bound_ms(n_rows * 4 * sum(d[0] + d[-1] for d in dims) + wbytes,
+                            2 * n_rows * macs, peak)
+    bb_ms, bb_by = bound_ms(n_rows * 4 * sum(2 * d[0] + d[-1] for d in dims) + wbytes,
+                            4 * n_rows * macs, peak)
+    table["K5f"] = dict(max_abs_err=max(e[0] for e in errs), ms=f_ms, plain_ms=f_plain,
+                        bound_ms=fb_ms, bound_by=fb_by, library_ms=f_lib)
+    table["K5b"] = dict(max_abs_err=max(e[1] for e in errs), ms=b_ms, plain_ms=b_plain,
+                        bound_ms=bb_ms, bound_by=bb_by, library_ms=b_plain)
+    log(f"K5 color heads at the style stream ({n_rows} rows, {dtype}, layer widths {dims}): max "
+        f"abs err (out, d x) {errs}; forward ms {f_ms:.3f} (plain {f_plain:.3f}, torch.matmul "
+        f"chain {f_lib:.3f}), bound_ms {fb_ms:.4f} ({fb_by}); backward ms {b_ms:.3f} (plain "
+        f"forward + autograd {b_plain:.3f}), bound_ms {bb_ms:.4f} ({bb_by})")
+
+    # K7b: d ch = w * g[ray] for a random pixel cotangent: one fp32 product,
+    # equal bits.
+    w, offsets = cache["w"], cache["offsets"]
+    n_pix, cc = offsets.shape[0] - 1, 3 + st.field_spec.class_dim
+    g = torch.randn((n_pix, cc), generator=gen, device=dev)
+    d_ch, _ = kernels.segment_sum_backward(w, None, g, offsets)
+    ref, _ = compositing.segment_sum_backward_plain(w, None, g, offsets)
+    err = float((d_ch - ref).abs().max())
+    if not torch.equal(d_ch, ref):
+        fails.append(f"K7b differs from its plain version: max abs err {err}")
+    ms = cuda_ms(lambda: kernels.segment_sum_backward(w, None, g, offsets), reps=20)
+    plain_ms = cuda_ms(lambda: compositing.segment_sum_backward_plain(w, None, g, offsets),
+                       reps=10)
+    b_ms, b_by = bound_ms(n_rows * 4 + n_pix * cc * 4 + (n_pix + 1) * 8 + n_rows * cc * 4,
+                          n_rows * cc)
+    table["K7b"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                        library_ms=None)
+    log(f"K7b segment_sum_backward: {n_rows} samples x {cc} channels over {n_pix} rays; equal "
+        f"to plain: {torch.equal(d_ch, ref)}; ms {ms:.3f}, plain_ms {plain_ms:.3f}, bound_ms "
+        f"{b_ms:.4f} ({b_by})")
+    return table
 
 
 # ---------------------------------------------------------------------------
@@ -820,8 +1111,19 @@ def main() -> int:
     step_vs_plain(trainer, fails)
     table.update(train_kernel_phases(trainer, fails))
     profile_once(trainer.run_iter, "late train step", card)
+    ckpt_train = trainer.log_dir / f"iter_{TRAIN_STEPS}.ckpt"
+    del trainer
+    torch.cuda.empty_cache()
 
-    # A kernel's launches: its count on the render path plus the train path.
+    # The style path from the train phase's checkpoint; then one step
+    # against the plain versions, K5 and K7b at the style stream's shape, and
+    # one steady iteration under the profiler.
+    st, style_launches = style_phase(card, ckpt_train, fails)
+    style_step_vs_plain(st, fails)
+    table.update(style_kernel_phases(st, fails))
+    profile_once(st.run_iter, "steady style iteration", card)
+
+    # A kernel's launches: its count on the render, train and style paths.
     # K3 is two kernels (count and write passes), K6's merge two (merge and
     # threshold): their launches are both's.
     meta = {
@@ -841,13 +1143,20 @@ def main() -> int:
                 "nerfstyle_tpu/ops/occupancy.py:157", ("occupancy_merge", "occupancy_threshold")),
         "K7": ("segment_sum", "nerfstyle_torch/csrc/composite.cu",
                "nerfstyle_tpu/render/renderer.py:648", ("segment_sum",)),
+        "K5f": ("mlp_forward", "nerfstyle_torch/csrc/mlp.cu",
+                "nerfstyle_tpu/ops/mlp.py:45", ("mlp_forward",)),
+        "K5b": ("mlp_backward", "nerfstyle_torch/csrc/mlp.cu",
+                "nerfstyle_tpu/ops/mlp.py:45", ("mlp_backward",)),
+        "K7b": ("segment_sum_backward", "nerfstyle_torch/csrc/composite.cu",
+                "nerfstyle_tpu/training/style_trainer.py:875", ("segment_sum_backward",)),
     }
     rows = []
     for kid, (name, source, replaces, counters) in meta.items():
-        label = "K6" if kid.startswith("K6") else kid  # K6's two rows
+        label = kid[:2] if kid[:2] in ("K5", "K6") else kid  # K5's and K6's two rows
         rows.append({"name": f"{label} {name}", "route": "cuda", "source": source,
                      "replaces": replaces,
-                     "launches": sum(launches[c] + train_launches[c] for c in counters),
+                     "launches": sum(launches[c] + train_launches[c] + style_launches[c]
+                                     for c in counters),
                      **table[kid]})
     if fails:
         for f in fails:

@@ -386,12 +386,26 @@ class TrainConfig(Config):
     style_lambda: float = 0.1
     photo_lambda: float = 0.0001
     style_geom_cache: bool = True
+    """Style stage: cache each pose's frozen geometry (its weight-significant
+    samples) once and run every iteration over the cache.  False (the
+    reference's two-pass scheme) is not ported yet and raises."""
     style_step_window_slots: int = 524288
+    """A TPU memory bound of the JAX style step (it windows the stream to cap
+    its sort temporaries).  The port's table gradient uses atomics and has no
+    such temporaries: accepted for checkpoint and CLI parity, not read."""
     style_geom_cache_max_poses: int = 0
+    """Most pose caches held at once (least recently used evicted); 0: no
+    bound."""
     style_geom_cache_bytes: float = 4e9
+    """Most bytes of pose caches held at once; 0: no bound."""
     style_geom_cache_eps: float = 1e-4
+    """Weight threshold of the pose cache: samples with w <= eps are dropped
+    (at most eps times the samples of a ray, logged per pose)."""
     style_seg_path: Optional[Path] = None
+    """Style image segment map (.npz with ``seg_map``)."""
     style_matching: Optional[str] = None
+    """A given class-to-cluster matching ("2,0,1"), in place of the
+    Hungarian one."""
 
     default_path = "cfgs/training/default.yaml"
 

@@ -34,8 +34,15 @@
 // prefix sums.  This also makes channels' gradients exact products.
 //
 // K7 replaces the phase-B segment sum of make_two_phase_renderer
-// (render/renderer.py:648-659): out[r, c] = sum_i w_i * ch[i, c] over ray r's
-// significant samples.
+// (render/renderer.py:648-659) and of the style stage's cached stream
+// (training/style_trainer.py:689-691, 753-755): out[r, c] = sum_i w_i *
+// ch[i, c] over ray r's significant samples.
+//
+// K7b is its backward on its own (JAX's autodiff of that segment_sum, written
+// out at training/style_trainer.py:875), for a stream whose weights are
+// fixed: d ch[i, c] = w_i * g[r, c] for every sample i of ray r, and, only
+// when asked, d w_i = sum_c ch[i, c] * g[r, c].  One warp a ray: its lanes
+// walk the ray's contiguous rows of d ch, so the writes coalesce; no atomics.
 //
 // Bound on the H100: bytes (a few flops per 4-byte sample value).  Design:
 // one thread per ray (K4) or per (ray, channel) (K7) walking its contiguous
@@ -132,6 +139,35 @@ __global__ void segment_sum_kernel(const float* __restrict__ w, const float* __r
     out[i] = acc;
 }
 
+__global__ void segment_sum_backward_kernel(const float* __restrict__ w,
+                                            const float* __restrict__ ch,
+                                            const float* __restrict__ g,
+                                            const long long* __restrict__ offsets, int num_rays,
+                                            int channels, float* __restrict__ d_ch,
+                                            float* __restrict__ d_w) {
+    const long long warp = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+    const int lane = threadIdx.x & 31;
+    if (warp >= num_rays) return;
+    const long long begin = offsets[warp];
+    const long long end = offsets[warp + 1];
+    const float* gr = g + warp * channels;
+    const long long n = (end - begin) * channels;
+    float* dst = d_ch + begin * channels;
+    for (long long e = lane; e < n; e += 32) {
+        const long long i = e / channels;
+        dst[e] = __fmul_rn(w[begin + i], gr[e - i * channels]);
+    }
+    if (d_w != nullptr) {
+        for (long long i = begin + lane; i < end; i += 32) {
+            float acc = 0.f;
+            for (int c = 0; c < channels; ++c) {
+                acc = __fadd_rn(acc, __fmul_rn(ch[i * channels + c], gr[c]));
+            }
+            d_w[i] = acc;
+        }
+    }
+}
+
 }  // namespace
 
 // sigmas, tau [M] f32; offsets [N+1] i64; w [M], weights_sum [N], depth [N] f32,
@@ -176,5 +212,21 @@ NST_API int nst_segment_sum(const void* w, const void* ch, const void* offsets, 
                          static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(w), static_cast<const float*>(ch),
         static_cast<const long long*>(offsets), num_rays, channels, static_cast<float*>(out));
+    return nst::launch_status();
+}
+
+// w [S] f32, ch [S, C] f32 (read only for d_w), g [N, C] f32, offsets [N+1]
+// i64 covering the stream (offsets[0] = 0, offsets[N] = S) -> d_ch [S, C] f32
+// and, when d_w is not null, d_w [S] f32.
+NST_API int nst_segment_sum_backward(const void* w, const void* ch, const void* g,
+                                     const void* offsets, int num_rays, int channels,
+                                     void* d_ch, void* d_w, void* stream) {
+    if (num_rays <= 0 || channels <= 0) return 0;
+    const long long threads = static_cast<long long>(num_rays) * 32;
+    segment_sum_backward_kernel<<<nst::blocks_for(threads), nst::kThreads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(w), static_cast<const float*>(ch),
+        static_cast<const float*>(g), static_cast<const long long*>(offsets), num_rays,
+        channels, static_cast<float*>(d_ch), static_cast<float*>(d_w));
     return nst::launch_status();
 }

@@ -42,6 +42,15 @@ class BaseDataset(ABC):
     def __len__(self):
         return len(self.poses)
 
+    def iter_shuffled_indexed(self, seed: int = 0):
+        """Endless ``(index, item)`` over the split, each pass in a new
+        order of numpy's ``default_rng(seed)``: the JAX package's pose order
+        exactly."""
+        rng = np.random.default_rng(seed)
+        while True:
+            for i in rng.permutation(len(self)):
+                yield int(i), self[int(i)]
+
     def __str__(self) -> str:
         split_str = ["train", "validation", "test"][self.split.value]
         return (

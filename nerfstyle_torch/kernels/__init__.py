@@ -47,6 +47,9 @@ launch_counts: Dict[str, int] = {
     "composite_weights": 0,
     "composite_backward": 0,
     "segment_sum": 0,
+    "segment_sum_backward": 0,
+    "mlp_forward": 0,
+    "mlp_backward": 0,
     "occupancy_scatter_max": 0,
     "occupancy_merge": 0,
     "occupancy_threshold": 0,
@@ -69,6 +72,9 @@ _SIGNATURES = {
     "nst_composite_weights": (_P, _P, _P, _I, _F, _F, _P, _P, _P, _P, _P),
     "nst_composite_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P),
     "nst_segment_sum": (_P, _P, _P, _I, _I, _P, _P),
+    "nst_segment_sum_backward": (_P, _P, _P, _P, _I, _I, _P, _P, _P),
+    "nst_mlp_forward": (_P, _P, _LL, _I, _I, _I, _I, _I, _I, _P, _P),
+    "nst_mlp_backward": (_P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "nst_occupancy_scatter_max": (_P, _P, _P, _LL, _P),
     "nst_occupancy_num_partials": (),
     "nst_occupancy_merge": (_P, _P, _F, _LL, _P, _P, _P),
@@ -378,6 +384,112 @@ def segment_sum(w: torch.Tensor, ch: torch.Tensor, offsets: torch.Tensor) -> tor
         )
         _launched(lib, status, "segment_sum")
     return out
+
+
+def segment_sum_backward(
+    w: torch.Tensor, ch: Optional[torch.Tensor], g: torch.Tensor, offsets: torch.Tensor,
+    need_dw: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K7b: (d_ch [S, C], d_w [S] or None) of K7 for the output cotangent
+    ``g`` [N, C]: d_ch = w * g[ray], d_w = sum_c ch * g[ray] (only with
+    ``need_dw``, which reads ``ch``).  ``offsets`` [N+1] must cover the
+    stream: offsets[0] = 0, offsets[N] = S (see csrc/composite.cu)."""
+    s = w.shape[0]
+    n = offsets.shape[0] - 1
+    _check("w", w, torch.float32, (s,))
+    _check("g", g, torch.float32, (n, None))
+    _check("offsets", offsets, torch.int64, (n + 1,))
+    c = g.shape[1]
+    _same_device(w, g, offsets)
+    if need_dw:
+        _check("ch", ch, torch.float32, (s, c))
+        _same_device(w, ch)
+    d_ch = torch.empty((s, c), dtype=torch.float32, device=w.device)
+    d_w = torch.empty((s,), dtype=torch.float32, device=w.device) if need_dw else None
+    if n > 0 and c > 0 and s > 0:
+        lib = library()
+        status = lib.nst_segment_sum_backward(
+            w.data_ptr(), ch.data_ptr() if need_dw else None, g.data_ptr(), offsets.data_ptr(),
+            n, c, d_ch.data_ptr(), d_w.data_ptr() if need_dw else None, _stream(w),
+        )
+        _launched(lib, status, "segment_sum_backward")
+    return d_ch, d_w
+
+
+MLP_IN_DIMS = (16, 32)
+MLP_HIDDEN = 64
+MLP_MAX_OUT = 64
+
+
+def _mlp_args(x: torch.Tensor, weights) -> Tuple[torch.Tensor, int, int]:
+    """Check K5's input and weights; return the packed weights, the hidden
+    depth and the output width."""
+    _check("x", x, torch.float32, (None, None))
+    in_dim, n = x.shape[1], len(weights)
+    if in_dim not in MLP_IN_DIMS or n not in (2, 3):
+        raise ValueError(f"K5 takes inputs of width {MLP_IN_DIMS} and 1 or 2 hidden layers, "
+                         f"got width {in_dim} and {n} layers")
+    out_dim = weights[-1].shape[1]
+    want = [(in_dim, MLP_HIDDEN)] + [(MLP_HIDDEN, MLP_HIDDEN)] * (n - 2) + [(MLP_HIDDEN, out_dim)]
+    for i, (wt, shp) in enumerate(zip(weights, want)):
+        if wt.dtype != torch.float32 or tuple(wt.shape) != shp:
+            raise ValueError(f"K5 weight {i}: expected float32 {shp}, got {wt.dtype} "
+                             f"{tuple(wt.shape)}")
+    if not 1 <= out_dim <= MLP_MAX_OUT:
+        raise ValueError(f"K5 takes outputs of width 1..{MLP_MAX_OUT}, got {out_dim}")
+    _same_device(x, *weights)
+    packed = torch.cat([wt.detach().reshape(-1) for wt in weights])
+    return packed, n - 1, out_dim
+
+
+def mlp_forward(x: torch.Tensor, weights, sigmoid: bool, bf16: bool) -> torch.Tensor:
+    """K5 forward: the bias-free ReLU MLP of ``weights`` ([d_in, d_out]
+    float32 each) on ``x`` [M, in] -> [M, out] float32, rounded to bf16 as
+    under mixed precision when ``bf16`` (see csrc/mlp.cu)."""
+    packed, n_hidden, out_dim = _mlp_args(x, weights)
+    m = x.shape[0]
+    out = torch.empty((m, out_dim), dtype=torch.float32, device=x.device)
+    if m > 0:
+        lib = library()
+        status = lib.nst_mlp_forward(
+            x.data_ptr(), packed.data_ptr(), m, x.shape[1], n_hidden, MLP_HIDDEN, out_dim,
+            int(bf16), int(sigmoid), out.data_ptr(), _stream(x),
+        )
+        _launched(lib, status, "mlp_forward")
+    return out
+
+
+def mlp_backward(x: torch.Tensor, weights, g: torch.Tensor, sigmoid: bool, bf16: bool,
+                 need_dw) -> Tuple[torch.Tensor, List[Optional[torch.Tensor]]]:
+    """K5 backward: (d x [M, in], [d W_l or None]) for the output cotangent
+    ``g`` [M, out]; d W_l only where ``need_dw[l]``, each summed over all rows
+    (fp32 atomics) and then rounded to bf16 when ``bf16``."""
+    packed, n_hidden, out_dim = _mlp_args(x, weights)
+    m = x.shape[0]
+    _check("g", g, torch.float32, (m, out_dim))
+    _same_device(x, g)
+    mask = sum(1 << i for i, need in enumerate(need_dw) if need)
+    dx = torch.empty_like(x)
+    dw = torch.zeros_like(packed) if mask else None
+    if m > 0:
+        lib = library()
+        status = lib.nst_mlp_backward(
+            x.data_ptr(), packed.data_ptr(), g.data_ptr(), m, x.shape[1], n_hidden, MLP_HIDDEN,
+            out_dim, int(bf16), int(sigmoid), mask, dx.data_ptr(),
+            dw.data_ptr() if mask else None, _stream(x),
+        )
+        _launched(lib, status, "mlp_backward")
+    grads: List[Optional[torch.Tensor]] = []
+    start = 0
+    for i, wt in enumerate(weights):
+        size = wt.numel()
+        if mask >> i & 1:
+            gw = dw[start:start + size].view(wt.shape)
+            grads.append(gw.to(torch.bfloat16).float() if bf16 else gw)
+        else:
+            grads.append(None)
+        start += size
+    return dx, grads
 
 
 def occupancy_scatter_max(tmp: torch.Tensor, idx: torch.Tensor, sig: torch.Tensor) -> torch.Tensor:

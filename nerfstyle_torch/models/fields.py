@@ -8,7 +8,8 @@ bias-free MLPs ``density_net``, ``color1_net``, ``color2_net``,
 and :func:`params_to_numpy` carry weights between the JAX package's numpy
 trees and the port's tensors.
 
-Rendering reads the field in two halves: :func:`field_density` (density
+Every MLP goes through :func:`~nerfstyle_torch.ops.mlp.mlp_apply` (kernel K5
+on CUDA tensors).  Rendering reads the field in two halves: :func:`field_density` (density
 table + density MLP) and :func:`field_color` (color table + class, color1
 and color2 heads); a train step's phase B reads it whole with
 :func:`field_apply`, one encode of the concatenated ``[T, 4]`` tables.  All
@@ -198,7 +199,7 @@ def field_density(
     """Density-only forward: [M, 3] world points -> [M] sigmas."""
     x = _encoder_input(bbox, pts)
     h = hashgrid_encode(spec.grid, params["x_density_embedder"], x, plain=plain)
-    out = mlp_apply(params["density_net"], h, compute_dtype=compute_dtype)
+    out = mlp_apply(params["density_net"], h, compute_dtype=compute_dtype, plain=plain)
     return trunc_exp(out[:, 0] + spec.density_offset)
 
 
@@ -215,15 +216,16 @@ def field_color(
     channels (sigmoid rgb, then raw class logits)."""
     x = _encoder_input(bbox, pts)
     h = hashgrid_encode(spec.grid, params["x_color_embedder"], x, plain=plain)
-    return _color_heads(params, h, compute_dtype)
+    return _color_heads(params, h, compute_dtype, plain)
 
 
-def _color_heads(params: Params, h_color: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
-    classes = mlp_apply(params["class_net"], h_color, compute_dtype=compute_dtype)
-    color1 = mlp_apply(params["color1_net"], h_color, compute_dtype=compute_dtype)
-    rgb = mlp_apply(
-        params["color2_net"], color1, output_activation="sigmoid", compute_dtype=compute_dtype
-    )
+def _color_heads(params: Params, h_color: torch.Tensor, compute_dtype: torch.dtype,
+                 plain: bool) -> torch.Tensor:
+    """The class, color1 and color2 heads (three K5 launches on CUDA)."""
+    classes = mlp_apply(params["class_net"], h_color, compute_dtype=compute_dtype, plain=plain)
+    color1 = mlp_apply(params["color1_net"], h_color, compute_dtype=compute_dtype, plain=plain)
+    rgb = mlp_apply(params["color2_net"], color1, output_activation="sigmoid",
+                    compute_dtype=compute_dtype, plain=plain)
     return torch.cat([rgb, classes], dim=-1)
 
 
@@ -246,6 +248,6 @@ def field_apply(
     h = hashgrid_encode(spec.grid, fused, x, plain=plain).reshape(-1, spec.grid.num_levels, 2 * c)
     h_density = h[..., :c].reshape(-1, spec.grid.output_dim)
     h_color = h[..., c:].reshape(-1, spec.grid.output_dim)
-    out = mlp_apply(params["density_net"], h_density, compute_dtype=compute_dtype)
+    out = mlp_apply(params["density_net"], h_density, compute_dtype=compute_dtype, plain=plain)
     sigmas = trunc_exp(out[:, 0] + spec.density_offset)
-    return _color_heads(params, h_color, compute_dtype), sigmas
+    return _color_heads(params, h_color, compute_dtype, plain), sigmas

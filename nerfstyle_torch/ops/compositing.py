@@ -19,6 +19,11 @@ the sum in front of the segment, and segment sums — but accumulate in
 float64: on a frame-sized stream a flat fp32 cumsum reaches ~1e6 and loses
 the digits of a late ray's optical depth.
 
+:func:`segment_sum_grad` is K7 made differentiable on its own
+(:class:`SegmentSum`), for a stream whose weights are fixed, as the style
+stage's cached weights are: its backward is kernel K7b, ``d ch = w *
+g[ray]``, and it gives ``d w`` only when ``w`` asks for one.
+
 :func:`composite_rays` is the differentiable compositor of a train step
 (:class:`CompositeRays`): K4 forward then K7, and in the backward kernel
 K4b, one reverse pass per ray for the density and channel gradients.  Its
@@ -132,6 +137,46 @@ def segment_sum(
     if not use_kernel(w, plain):
         return segment_sum_plain(w, ch, offsets)
     return kernels.segment_sum(w.contiguous(), ch.contiguous(), offsets.contiguous())
+
+
+def segment_sum_backward_plain(w: torch.Tensor, ch: torch.Tensor, g: torch.Tensor,
+                               offsets: torch.Tensor, need_dw: bool = False):
+    """Plain K7b: (d_ch = w * g[ray] [S, C], d_w = sum_c ch * g[ray] [S] or
+    None)."""
+    g_rows = g[ray_ids(offsets)]
+    d_w = (ch * g_rows).sum(dim=1) if need_dw else None
+    return w[:, None] * g_rows, d_w
+
+
+class SegmentSum(torch.autograd.Function):
+    """Differentiable K7: forward K7, backward K7b (or their plain
+    versions).  ``offsets`` must cover the stream (offsets[0] = 0,
+    offsets[N] = S)."""
+
+    @staticmethod
+    def forward(ctx, w, ch, offsets, plain):
+        ctx.save_for_backward(w, ch, offsets)
+        ctx.plain = plain
+        return segment_sum(w, ch, offsets, plain=plain)
+
+    @staticmethod
+    def backward(ctx, g):
+        w, ch, offsets = ctx.saved_tensors
+        need_dw = ctx.needs_input_grad[0]
+        if use_kernel(w, ctx.plain):
+            d_ch, d_w = kernels.segment_sum_backward(w.contiguous(), ch.contiguous(),
+                                                     g.contiguous(), offsets.contiguous(), need_dw)
+        else:
+            d_ch, d_w = segment_sum_backward_plain(w, ch, g, offsets, need_dw)
+        return d_w, d_ch, None, None
+
+
+def segment_sum_grad(
+    w: torch.Tensor, ch: torch.Tensor, offsets: torch.Tensor, *, plain: bool = False
+) -> torch.Tensor:
+    """:func:`segment_sum`, differentiable in ``ch`` (and in ``w`` when it
+    requires a gradient); see :class:`SegmentSum`."""
+    return SegmentSum.apply(w, ch, offsets, plain)
 
 
 def composite_backward_plain(sigmas, ch, tau, offsets, g_img, g_ws, g_depth, dt, t_thresh):

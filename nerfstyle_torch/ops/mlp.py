@@ -1,10 +1,11 @@
 """Bias-free ReLU MLP stacks and ``trunc_exp`` (counterpart of
 ``nerfstyle_tpu/ops/mlp.py``).
 
-The JAX package computes these with ``jnp.dot`` outside any kernel, so the
-port uses ``torch.matmul`` and takes the backward from autograd (a fused
-forward and backward, K5, is later work).  Weights keep the JAX layout
-``[d_in, d_out]``.
+:func:`mlp_apply` is the port's only MLP.  On CUDA tensors it runs kernel K5
+(``csrc/mlp.cu``), forward and backward (:class:`MlpApply`); on CPU tensors,
+or with ``plain=True``, its plain version :func:`mlp_apply_plain`: a
+``torch.matmul`` chain with the backward from autograd, the reference K5 is
+held against.  Weights keep the JAX layout ``[d_in, d_out]``.
 
 Mixed precision (``compute_dtype=torch.bfloat16``, the default under
 ``TrainConfig.enable_amp``) reproduces the JAX function exactly: inputs and
@@ -15,7 +16,12 @@ in fp32 — because a plain ``bf16 @ bf16`` on CUDA rounds its output to bf16,
 which is a different function.  The backward rounds as JAX's does too:
 the backward of ``.float()`` rounds each cotangent that reaches a bf16 input
 or weight to bf16.  The fp32 products must not run in TF32: ``Renderer`` and
-``Trainer`` set ``torch.backends.cuda.matmul.allow_tf32 = False``.
+``Trainer`` set ``torch.backends.cuda.matmul.allow_tf32 = False``.  K5
+computes the same function with the same rounding points; only the order of
+its fp32 sums differs.  One deliberate difference from JAX, in both
+versions: the ReLU's gradient at exactly 0 is 0 (``jnp.maximum`` splits it,
+0.5 each way); a hidden pre-activation is exactly 0 only where the input row
+is, and such a row (a point outside the grid) has no table gradient.
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ from __future__ import annotations
 from typing import List, Optional, Sequence
 
 import torch
+
+from .. import kernels, use_kernel
 
 
 def mlp_init(
@@ -52,13 +60,19 @@ def _round(t: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
     return t.to(compute_dtype).float()
 
 
-def mlp_apply(
+def _check_activation(output_activation: Optional[str]) -> None:
+    if output_activation not in (None, "sigmoid"):
+        raise ValueError(f"unknown output activation {output_activation!r}")
+
+
+def mlp_apply_plain(
     weights: Sequence[torch.Tensor],
     x: torch.Tensor,
     output_activation: Optional[str] = None,
     compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """Apply a bias-free ReLU MLP to [M, in_dim] inputs -> [M, out_dim] fp32."""
+    """Plain K5: the ``torch.matmul`` chain, differentiable by autograd."""
+    _check_activation(output_activation)
     h = _round(x, compute_dtype)
     n = len(weights)
     for i, w in enumerate(weights):
@@ -67,9 +81,49 @@ def mlp_apply(
             h = _round(torch.relu(h), compute_dtype)
     if output_activation == "sigmoid":
         h = torch.sigmoid(h)
-    elif output_activation is not None:
-        raise ValueError(f"unknown output activation {output_activation!r}")
     return h
+
+
+class MlpApply(torch.autograd.Function):
+    """K5 forward and backward.  The backward always gives ``d x`` and gives
+    ``d W`` only for the weights whose gradient is asked for (none in the
+    style stage, whose MLPs are frozen)."""
+
+    @staticmethod
+    def forward(ctx, x, sigmoid, bf16, *weights):
+        x = x.contiguous()
+        ctx.save_for_backward(x, *weights)
+        ctx.sigmoid, ctx.bf16 = sigmoid, bf16
+        return kernels.mlp_forward(x, weights, sigmoid, bf16)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *weights = ctx.saved_tensors
+        dx, dws = kernels.mlp_backward(x, weights, g.contiguous(), ctx.sigmoid, ctx.bf16,
+                                       ctx.needs_input_grad[3:])
+        return (dx, None, None, *dws)
+
+
+def mlp_apply(
+    weights: Sequence[torch.Tensor],
+    x: torch.Tensor,
+    output_activation: Optional[str] = None,
+    compute_dtype: torch.dtype = torch.float32,
+    *,
+    plain: bool = False,
+) -> torch.Tensor:
+    """Apply a bias-free ReLU MLP to [M, in_dim] inputs -> [M, out_dim] fp32,
+    with ``compute_dtype`` bf16 as under mixed precision.
+
+    CUDA tensors go through kernel K5 (:class:`MlpApply`); CPU tensors (or
+    ``plain=True``) through :func:`mlp_apply_plain`."""
+    _check_activation(output_activation)
+    if not use_kernel(x, plain):
+        return mlp_apply_plain(weights, x, output_activation, compute_dtype)
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"K5 computes in float32 or bfloat16, not {compute_dtype}")
+    return MlpApply.apply(x, output_activation == "sigmoid", compute_dtype == torch.bfloat16,
+                          *weights)
 
 
 class TruncExp(torch.autograd.Function):

@@ -1,14 +1,20 @@
 """Train entry point of the port (the counterpart of the repository's
-``train.py``, stage 1: reconstruction)::
+``train.py``).  Stage 1, reconstruction::
 
     python -m nerfstyle_torch.train --log-dir logs/synthetic \\
         --data-cfg cfgs/dataset/synthetic.yaml [--device cuda|cpu] [flags]
 
+Stage 2, stylization of a stage-1 checkpoint (only the color hash table is
+optimized; ``cfgs/training/style.yaml`` is applied; the style image is an
+8-bit PNG or a ``.npy`` array)::
+
+    python -m nerfstyle_torch.train --ckpt <recon.ckpt> --log-dir logs/style \\
+        --style-image style.png --style_seg_path style_seg.npz --max_steps 512
+
 Any (nested) config field is a flag (``--num_iterations 300``,
 ``--intervals.print 50``); flags chain through the dataset, train, network
 and renderer configs and must all be consumed.  Runs on ``cuda`` unless
-``--device cpu`` is given, and raises without a CUDA device.  The style
-stage (``--style-image``) is not ported yet.
+``--device cpu`` is given, and raises without a CUDA device.
 """
 
 from __future__ import annotations
@@ -18,7 +24,7 @@ from typing import Optional, Sequence
 
 from . import utils
 from .config import BaseConfig, ConfigError
-from .training.trainer import Trainer
+from .training.trainer import Trainer, get_trainer
 
 logger = utils.create_logger("train")
 
@@ -30,7 +36,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
     args, rest = parser.parse_known_args(argv)
     cfg, nargs = BaseConfig.read_nargs(rest)
     try:
-        trainer = Trainer(cfg, nargs, args.device)
+        trainer = get_trainer(cfg, nargs, args.device)
     except ConfigError as e:
         logger.error("%s", e)
         raise SystemExit(1) from e

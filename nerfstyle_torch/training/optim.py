@@ -14,7 +14,9 @@ gradients are not all finite is skipped: params, moments and both counts
 stay, ``notfinite_count`` and ``total_notfinite`` grow, ``last_finite`` is
 False (after ``max_consecutive_errors`` skips in a row the update applies
 anyway, as optax does).  Params outside the keyword mask keep optax.masked's
-behaviour: their raw gradient is added as the update.
+behaviour: their raw gradient is added as the update; a leaf whose gradient
+is None (a frozen leaf, as in the style stage) is left as it is, where optax
+would add its zero gradient.
 
 The state is :class:`OptState`, whose NamedTuples flatten (dict keys sorted,
 None holding no leaf) to optax 0.2.6's leaves in order: notfinite_count,
@@ -122,7 +124,7 @@ class Adam:
     ) -> Tuple[OptState, bool]:
         """Apply one update to ``params`` in place; returns the new state and
         whether the update was applied.  Reads one device flag (finite)."""
-        flat = [g for k in grads for g in _as_list(grads[k])]
+        flat = [g for k in grads if grads[k] is not None for g in _as_list(grads[k])]
         finite = bool(torch.stack([torch.isfinite(g).all() for g in flat]).all())
         notfinite = 0 if finite else int(state.notfinite_count) + 1
         total = int(state.total_notfinite) + (0 if finite else 1)
@@ -136,6 +138,8 @@ class Adam:
             step = -self.learning_rate(k)
             with torch.no_grad():
                 for key in params:
+                    if grads.get(key) is None:
+                        continue
                     ps, gs = _as_list(params[key]), _as_list(grads[key])
                     if not self.mask[key]:
                         for p, g in zip(ps, gs):

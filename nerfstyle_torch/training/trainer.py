@@ -91,6 +91,7 @@ class Trainer:
         cfg: BaseConfig,
         nargs: List[str],
         device: DeviceLike = None,
+        load_model_only: bool = False,
     ):
         self.logger = utils.create_logger(type(self).__name__)
         self.device = resolve_device(device)
@@ -100,14 +101,20 @@ class Trainer:
         self.version = utils.get_git_sha()
         self.cfg = cfg
 
+        # load_model_only (the style stage): the checkpoint gives the params
+        # and the occupancy grid; the step count, optimizer, EMA and log
+        # directory start anew.
         ckpt_meta, ckpt_groups = None, None
         if cfg.ckpt is not None:
             ckpt_meta, ckpt_groups = ckpt_lib.load_checkpoint(cfg.ckpt)
-            self.iter_ctr = int(ckpt_meta["iter_ctr"])
+            if not load_model_only:
+                self.iter_ctr = int(ckpt_meta["iter_ctr"])
 
-        if ckpt_meta is None:
-            if cfg.log_dir is None:
+        if ckpt_meta is None or load_model_only:
+            if cfg.log_dir is None and ckpt_meta is None:
                 raise ConfigError("a log directory (--log-dir) is needed to train from scratch")
+            if cfg.log_dir is None:  # a stylization writes beside its checkpoint's run
+                cfg.log_dir = Path(ckpt_meta["log_dir"]) / "style"
             self._init_new_log_dir(cfg.log_dir, cfg.yes)
         elif cfg.log_dir is None or str(cfg.log_dir) == ckpt_meta["log_dir"]:
             self.log_dir = Path(ckpt_meta["log_dir"])
@@ -121,11 +128,12 @@ class Trainer:
             if ckpt_meta is None:
                 raise ConfigError("a data config (--data-cfg) is needed to train from scratch")
             cfg.data_cfg = Path(ckpt_meta["cfg"]["data_cfg"])
-        if cfg.style_image is not None:
-            raise NotImplementedError("the style stage is not ported yet")
         self.dataset_cfg, nargs = DatasetConfig.load_nargs(cfg.data_cfg, nargs=nargs)
         render_cfg_path = CFGS_ROOT / f"cfgs/renderer/{self.dataset_cfg.type.lower()}.yaml"
-        self.train_cfg, nargs = TrainConfig.load_nargs(nargs=nargs)
+        # A style image adds the style stage's train config layer.
+        style = cfg.style_image is not None
+        train_cfg_path = CFGS_ROOT / "cfgs/training/style.yaml" if style else None
+        self.train_cfg, nargs = TrainConfig.load_nargs(train_cfg_path, nargs=nargs)
         self.net_cfg, nargs = NetworkConfig.load_nargs(nargs=nargs)
         self.render_cfg, nargs = RendererConfig.load_nargs(
             render_cfg_path if render_cfg_path.exists() else None, nargs=nargs)
@@ -194,7 +202,7 @@ class Trainer:
         self.ema_state: EmaState = ema_init(self.params)
 
         if ckpt_groups is not None:
-            self._restore(ckpt_meta, ckpt_groups)
+            self._restore(ckpt_meta, ckpt_groups, load_model_only)
             self.logger.info('Loaded checkpoint "%s"', cfg.ckpt)
         else:
             self.logger.info("Initialized new %s from scratch", type(self).__name__)
@@ -426,7 +434,7 @@ class Trainer:
         self.logger.info("Saved checkpoint at %s", path)
         return path
 
-    def _restore(self, meta: Dict, groups: Dict) -> None:
+    def _restore(self, meta: Dict, groups: Dict, load_model_only: bool = False) -> None:
         dev = self.device
         self.params = self._trainable(ckpt_lib.restore_tree(self.params, groups["params"], dev))
         template = occupancy_init(self.renderer.cascade, self.settings.grid_size)
@@ -436,6 +444,8 @@ class Trainer:
         if sd is not None:
             self.renderer.load_state_dict_static(sd)
             self.renderer._last_num_rays = int(sd.get("last_num_rays", 1))
+        if load_model_only:
+            return
         try:
             self.opt_state = opt_state_from_tree(
                 ckpt_lib.restore_tree(self.opt_state, groups["opt_state"], dev))
@@ -444,3 +454,13 @@ class Trainer:
                                 "resuming with a FRESH optimizer state.")
         ema = ckpt_lib.restore_tree(self.ema_state, groups["ema"], dev)
         self.ema_state = EmaState(shadow=ema.shadow, num_updates=ema.num_updates.cpu())
+
+
+def get_trainer(cfg: BaseConfig, nargs: List[str], device: DeviceLike = None) -> Trainer:
+    """The trainer of a run: the style stage when a style image is given,
+    else stage 1 (reconstruction)."""
+    if cfg.style_image is None:
+        return Trainer(cfg, nargs, device)
+    from .style_trainer import StyleTrainer
+
+    return StyleTrainer(cfg, nargs, device)

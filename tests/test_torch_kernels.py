@@ -261,3 +261,92 @@ def test_torch_empty_inputs_launch_nothing(cuda_device):
                              torch.zeros(0, 3, device=cuda_device))
     assert out.shape == (0, spec.output_dim)
     assert kernels.launch_counts["hashgrid_encode"] == 0
+
+
+# K5 shapes of the default network config: density_net [32]->64->1,
+# color1_net [32]->64->16, class_net [32]->64->K, color2_net [16]->64->64->3.
+MLP_SHAPES = [(32, 1, 1, None), (32, 1, 16, None), (32, 1, 4, None), (16, 2, 3, "sigmoid")]
+
+
+def _mlp_case(rng, device, in_dim, n_hidden, out_dim, rows=5000):
+    dims = [in_dim] + [64] * n_hidden + [out_dim]
+    ws = [torch.from_numpy(rng.uniform(-1, 1, size=(a, b)).astype(np.float32) * (6.0 / a) ** 0.5)
+          .to(device) for a, b in zip(dims[:-1], dims[1:])]
+    x = torch.from_numpy(rng.normal(size=(rows, in_dim)).astype(np.float32)).to(device)
+    g = torch.from_numpy(rng.normal(size=(rows, out_dim)).astype(np.float32)).to(device)
+    return ws, x, g
+
+
+def _mlp_tol(ref: torch.Tensor, dtype) -> float:
+    """Absolute tolerance of K5 against the matmul chain: fp32 sums in
+    another order, 1e-5 of the largest value in fp32; under bf16 a value near
+    a rounding step may land on the other side (2^-8 of itself) and carry
+    that into what follows: 2^-7 of the largest value."""
+    return (1e-5 if dtype == torch.float32 else 2.0**-7) * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("in_dim,n_hidden,out_dim,act", MLP_SHAPES)
+def test_torch_mlp_kernel_matches_plain(cuda_device, in_dim, n_hidden, out_dim, act, dtype):
+    """K5 forward and backward (d x and every d W, 5000 rows: a ragged last
+    tile) against the torch.matmul chain and its autograd."""
+    from nerfstyle_torch.ops import mlp as tmlp
+
+    ws, x, g = _mlp_case(np.random.default_rng(in_dim + out_dim), cuda_device, in_dim, n_hidden,
+                         out_dim)
+    runs = {}
+    for plain in (False, True):
+        wr = [w.clone().requires_grad_(True) for w in ws]
+        xr = x.clone().requires_grad_(True)
+        kernels.reset_launch_counts()
+        out = tmlp.mlp_apply(wr, xr, act, dtype, plain=plain)
+        (out * g).sum().backward()
+        torch.cuda.synchronize()
+        runs[plain] = (out.detach(), xr.grad, [w.grad for w in wr], dict(kernels.launch_counts))
+    (out, dx, dws, counts), (out_p, dx_p, dws_p, counts_p) = runs[False], runs[True]
+    assert counts["mlp_forward"] == 1 and counts["mlp_backward"] == 1
+    assert not any(counts_p.values())
+    for got, want in [(out, out_p), (dx, dx_p)] + list(zip(dws, dws_p)):
+        assert got.shape == want.shape
+        torch.testing.assert_close(got, want, rtol=0, atol=_mlp_tol(want, dtype))
+
+
+def test_torch_mlp_kernel_frozen_weights(cuda_device):
+    """Frozen weights (the style stage): the backward gives d x only."""
+    from nerfstyle_torch.ops import mlp as tmlp
+
+    ws, x, g = _mlp_case(np.random.default_rng(3), cuda_device, 32, 1, 16, rows=300)
+    xr = x.clone().requires_grad_(True)
+    (tmlp.mlp_apply(ws, xr, None, torch.bfloat16) * g).sum().backward()
+    xp = x.clone().requires_grad_(True)
+    (tmlp.mlp_apply(ws, xp, None, torch.bfloat16, plain=True) * g).sum().backward()
+    assert all(w.grad is None for w in ws)
+    torch.testing.assert_close(xr.grad, xp.grad, rtol=0, atol=_mlp_tol(xp.grad, torch.bfloat16))
+
+
+def test_torch_segment_sum_backward_kernel_matches_plain(cuda_device):
+    """K7b: d ch = w * g[ray], one fp32 product: equal bits; d w (when w
+    asks for it) sums C products in another order than the plain version:
+    1e-6 of the largest."""
+    rng = np.random.default_rng(21)
+    counts = rng.integers(0, 9, size=500)
+    offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(counts)])).to(cuda_device)
+    s = int(counts.sum())
+    w = torch.from_numpy(rng.uniform(0, 1, size=s).astype(np.float32)).to(cuda_device)
+    ch = torch.from_numpy(rng.normal(size=(s, 7)).astype(np.float32)).to(cuda_device)
+    g = torch.from_numpy(rng.normal(size=(500, 7)).astype(np.float32)).to(cuda_device)
+    for need_w in (False, True):
+        grads = {}
+        for plain in (False, True):
+            wr, cr = w.clone().requires_grad_(need_w), ch.clone().requires_grad_(True)
+            kernels.reset_launch_counts()
+            (tc.segment_sum_grad(wr, cr, offsets, plain=plain) * g).sum().backward()
+            torch.cuda.synchronize()
+            grads[plain] = (cr.grad, wr.grad, kernels.launch_counts["segment_sum_backward"])
+        (d_ch, d_w, n_k), (d_ch_p, d_w_p, n_p) = grads[False], grads[True]
+        assert (n_k, n_p) == (1, 0)
+        torch.testing.assert_close(d_ch, d_ch_p, rtol=0, atol=0)
+        if need_w:
+            torch.testing.assert_close(d_w, d_w_p, rtol=0, atol=1e-6 * float(d_w_p.abs().max()))
+        else:
+            assert d_w is None

@@ -14,43 +14,61 @@
    space nearly opaque (sigma ~ e^6, ~7 samples to saturate), so rays end
    as in a trained scene.
 3. Per kernel, at the shapes of the main path (a 2^16-ray chunk of the
-   1008x756 frame; 2^20 points for K1): the CUDA kernel against its plain
-   PyTorch version on the same inputs, with the tolerance stated at each
-   check, and both timed with CUDA events after warm-up.
+   1008x756 frame; 2^20 points for K1, K1s, K2s; the 2 x 128^3 grid for
+   K6c): the CUDA kernel against its plain PyTorch version on the same
+   inputs, with the tolerance stated at each check, and both timed with
+   CUDA events after warm-up.  The two-stage march (K3s) is also held
+   against the dense march (K3), bit for bit.
 4. The main path: ``python -m nerfstyle_torch.render <ckpt> --out-dims 1008
    756 --max-count 1 --yes``, in-process, with every launch counter set to 0
-   just before and read just after; each kernel must have launched.
+   just before and read just after; each kernel must have launched (the
+   two-stage march, and K6c on the checkpoint's restore).
 5. Checks the frame: finite, of the expected shape, its opacity matching
-   the spheres' analytic silhouette, and a 4096-ray crop matching the plain
-   path on the card.
-6. The train path: ``python -m nerfstyle_torch.train`` in-process at the
+   the spheres' analytic silhouette, a 4096-ray crop matching the plain
+   path on the card, and the same frame with adaptive_march off (the dense
+   march, its launches counted) equal to it; steady frames with the march
+   on and off in turns.
+6. The import path: the checkpoint's tables, heads and grid written as a
+   reference ``iter_*.pth`` (Morton order and packed bits through K8a/K8b,
+   held against their plain versions) and imported through ``python -m
+   nerfstyle_torch.import_reference``, launches counted; tables and grid
+   equal to the source and its frame equal to the main path's; K8a and
+   K8b timed at the grid's size.
+7. The train path: ``python -m nerfstyle_torch.train`` in-process at the
    default configs (4096 rays a step, two 2^19-row tables, grid 128, AMP)
    on the synthetic scene for 300 steps, past update_thres, so that both
    occupancy updates run; launch counters set to 0 just before and read
-   just after, each train kernel (K1-K6, K7) must have launched, no
-   step may be non-finite, and the EMA params' test PSNR must rise 5 dB
+   just after, each train kernel (K1-K6, K6c, K3s, K7) must have launched,
+   no step may be non-finite, and the EMA params' test PSNR must rise 5 dB
    above the untrained field's on the same views.  Prints step times early
    and late, train rays/s, occupancy-update times, samples per ray and peak
    memory.
-7. One more step with the kernels against the same step with every plain
+8. One more step with the kernels against the same step with every plain
    version, from the same state and rays (tolerances at step_vs_plain);
-   K2, K4b and K6 against their plain versions at the step's shapes, and K5
-   with its weight gradients at a batch's shape, timed; one late step under
-   the profiler.
-8. The style path: ``python -m nerfstyle_torch.train --ckpt <the train
+   K3 and K3s at a late batch, K2, K4b and K6 against their plain versions
+   at the step's shapes, and K5 with its weight gradients at a batch's
+   shape, timed; late steps with adaptive_march on and off in turns (the
+   off turns' dense-march launches counted); one late step under the
+   profiler.
+9. The style path: ``python -m nerfstyle_torch.train --ckpt <the train
    phase's checkpoint> --style-image <png> --style_seg_path <npz>
    --max_steps 512`` in-process, on a 504x378 synthetic scene (30 train
    views, 3 test views), 200 iterations (cfgs/training/style.yaml) with
    their launch counters set to 0 just before and read just after; each
-   style kernel (K1-K5, K7, K7b) must have launched, every loss must be
-   finite, the mean style term of the last 10 iterations must lie below the
-   first's, and the written checkpoint must differ from the train phase's
-   only in x_color_embedder.  Prints the cache builds, the first epoch (30
-   builds), the median steady iteration, the whole run, peak memory and
-   each kernel's launches a step.  Then one style step with the kernels
-   against the same step with every plain version, K5 forward and backward
-   and K7b at the style stream's shape against their plain versions, timed,
-   and one steady iteration under the profiler.
+   style kernel (K1-K5, K3s, K6c, K7, K7b) must have launched, every loss
+   must be finite, the mean style term of the last 10 iterations must lie
+   below the first's, and the written checkpoint must differ from the train
+   phase's only in x_color_embedder.  Prints the cache builds, the first
+   epoch (30 builds), the median steady iteration, the whole run, peak
+   memory and each kernel's launches a step.  Then one style step with the
+   kernels against the same step with every plain version, K5 forward and
+   backward and K7b at the style stream's shape against their plain
+   versions, timed, and one steady iteration under the profiler.
+10. The simplex path: ``python -m nerfstyle_torch.train
+   --pos_enc.simplex_from 10`` at the default width for 150 steps (its
+   launches counted: K1s, K2s), the test PSNR must rise 5 dB, one step
+   against every plain version, and one frame from its checkpoint through
+   the render entry point.
 
 Prints the kernel table as one JSON line, then the last line
 ``{"ok": true, "device": {...}}``.  Exits nonzero, printing no result,
@@ -59,6 +77,7 @@ without a CUDA device or when any phase fails.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -80,19 +99,33 @@ OUT_DIMS = (1008, 756)
 # Train steps of the train path: past update_thres (256), so that both
 # occupancy updates (full sweep, then random) run.
 TRAIN_STEPS = 300
-RENDER_COUNTERS = ("hashgrid_encode", "march_count", "march_write", "composite_weights",
-                   "segment_sum", "mlp_forward")
-TRAIN_COUNTERS = ("hashgrid_encode", "hashgrid_backward", "march_count", "march_write",
+# Each path's kernels.  The two-stage march (K3s) is the default on every
+# path; the dense march (K3) runs with adaptive_march off.  K6c rebuilds the
+# skip distance on every restore and occupancy update.
+RENDER_COUNTERS = ("hashgrid_encode", "march_skip_count", "march_skip_write",
+                   "composite_weights", "segment_sum", "mlp_forward", "occupancy_skipdist")
+DENSE_COUNTERS = ("march_count", "march_write")
+TRAIN_COUNTERS = ("hashgrid_encode", "hashgrid_backward", "march_skip_count", "march_skip_write",
                   "composite_weights", "composite_backward", "segment_sum", "mlp_forward",
                   "mlp_backward", "occupancy_scatter_max", "occupancy_merge",
-                  "occupancy_threshold")
+                  "occupancy_threshold", "occupancy_skipdist")
+STEP_COUNTERS = ("hashgrid_encode", "hashgrid_backward", "march_skip_count", "march_skip_write",
+                 "composite_weights", "composite_backward", "segment_sum", "mlp_forward",
+                 "mlp_backward")
+# The simplex configuration (levels 10-15 on 4 Freudenthal vertices): a
+# short run at the default width, then a frame from its checkpoint.
+SIMPLEX_FROM = 10
+SIMPLEX_STEPS = 150
+# The import path: a synthetic reference checkpoint (grid 128, 2 cascades)
+# through python -m nerfstyle_torch.import_reference.
+IMPORT_COUNTERS = ("unpackbits", "morton3d")
 # The style path: the README's size (504x378, 30 train views, 3 test views),
 # max_steps 512, the 200 iterations of cfgs/training/style.yaml.
 STYLE_DIMS = (504, 378)
 STYLE_VIEWS, STYLE_TEST_VIEWS = 30, 3
-STYLE_COUNTERS = ("hashgrid_encode", "hashgrid_backward", "march_count", "march_write",
-                  "composite_weights", "mlp_forward", "mlp_backward", "segment_sum",
-                  "segment_sum_backward")
+STYLE_COUNTERS = ("hashgrid_encode", "hashgrid_backward", "march_skip_count",
+                  "march_skip_write", "composite_weights", "mlp_forward", "mlp_backward",
+                  "segment_sum", "segment_sum_backward", "occupancy_skipdist")
 STYLE_STEP_COUNTERS = ("hashgrid_encode", "hashgrid_backward", "mlp_forward", "mlp_backward",
                        "segment_sum", "segment_sum_backward")
 K1_POINTS = 1 << 20
@@ -206,30 +239,104 @@ def write_checkpoint(path: Path):
 
 
 def touched_rows(spec, x: torch.Tensor) -> int:
-    """Distinct table rows the trilinear corners of x read (K1's least bytes)."""
-    from nerfstyle_torch.ops.hashgrid import PRIMES
+    """Distinct table rows the corners (or simplex vertices) of x read: K1's
+    least bytes."""
+    from nerfstyle_torch.ops.hashgrid import _corners
 
     mask = torch.zeros(spec.total_params, dtype=torch.bool, device=x.device)
     inside = x[((x >= 0) & (x <= 1)).all(dim=-1)]
-    for lv in range(spec.num_levels):
-        res = spec.resolutions[lv]
-        pos = inside * float(res)
-        pg = torch.minimum(torch.floor(pos).clamp(min=0.0), torch.tensor(res - 1.0, device=x.device))
-        pgi = pg.to(torch.int64)
-        for s in range(8):
-            h = torch.zeros(inside.shape[0], dtype=torch.int64, device=x.device)
-            for d in range(3):
-                h = h ^ (((pgi[:, d] + ((s >> d) & 1)) * PRIMES[d]) & 0xFFFFFFFF)
-            mask[h % spec.table_sizes[lv] + spec.offsets[lv]] = True
+    for i in range(0, inside.shape[0], 1 << 18):
+        corners, _ = _corners(spec, inside[i:i + (1 << 18)])
+        for _, _, rows, _ in corners:
+            mask[rows.reshape(-1)] = True
     return int(mask.sum())
 
 
+def march_phase(plan, state, o, d, fails, what: str):
+    """The two-stage march (K3s) against its plain version and against the
+    dense march (K3), and K3 against its plain version, on rays (o, d) over
+    the occupancy ``state``; both kernels timed.  Returns their kernel-table
+    entries and the sample and candidate counts."""
+    from nerfstyle_torch import kernels
+    from nerfstyle_torch.ops import marching
+    from nerfstyle_torch.ops.aabb import near_far_from_aabb
+
+    n = o.shape[0]
+    nears, fars = near_far_from_aabb(o, d, plan.aabb(o.device), plan.min_near)
+    nears, fars = nears.contiguous(), fars.contiguous()
+    bits, skip = state.bitfield, state.skipdist
+    occ = marching.OccField(bits, skip)
+    two = marching.march_rays(plan, occ, o, d, nears, fars)
+    two_ref = marching.march_rays(plan, occ, o, d, nears, fars, plain=True)
+    dense = marching.march_rays(plan, bits, o, d, nears, fars)
+    dense_ref = marching.march_rays(plan, bits, o, d, nears, fars, plain=True)
+    fields = ("ray_id", "step", "offsets", "xyz", "dirs", "tau")
+
+    def same(a, b):
+        return a.num_kept == b.num_kept and all(torch.equal(getattr(a, f), getattr(b, f))
+                                                for f in fields)
+
+    def xyz_err(a, b):
+        return float((a.xyz - b.xyz).abs().max()) if a.num_kept == b.num_kept else float("inf")
+
+    # Exact: same lattice, same rounding, same order.
+    checks = {"K3 against its plain version": same(dense, dense_ref),
+              "K3s against its plain version": same(two, two_ref)
+              and two.num_cand == two_ref.num_cand,
+              "K3s against K3": same(two, dense)}
+    for k, ok in checks.items():
+        if not ok:
+            fails.append(f"{k} differs at {what} (num_kept K3s {two.num_kept}, plain "
+                         f"{two_ref.num_kept}, K3 {dense.num_kept}, K3 plain "
+                         f"{dense_ref.num_kept}; num_cand {two.num_cand} vs {two_ref.num_cand})")
+    # Each kernel's time is its two passes' device time, each pass timed on
+    # its own so that the host synchronisation between them (to size the
+    # outputs) is outside the timed window.
+    m = two.num_kept
+    geom = dict(dt=plan.dt, bound=plan.bound, t_lattice=plan.t_lattice, cascade=plan.cascade,
+                grid_size=plan.grid_size, mip_dt_level=plan.mip_dt_level,
+                max_steps=plan.max_steps)
+    rays = (o, d, nears, fars, bits)
+    sk = (skip, marching.level_cells(plan, o.device), marching.WINDOW,
+          marching.window_reach(plan))
+    k3 = (cuda_ms(lambda: kernels.march_count(*rays, **geom), reps=10),
+          cuda_ms(lambda: kernels.march_write(*rays, dense.offsets, m, **geom), reps=10))
+    k3s = (cuda_ms(lambda: kernels.march_count(*rays, sk, **geom), reps=10),
+           cuda_ms(lambda: kernels.march_write(*rays, two.offsets, m, sk, **geom), reps=10))
+    plain = cuda_ms(lambda: marching.march_rays(plan, bits, o, d, nears, fars, plain=True),
+                    reps=2, warmup=1)
+    plain_s = cuda_ms(lambda: marching.march_rays(plan, occ, o, d, nears, fars, plain=True),
+                      reps=2, warmup=1)
+    # Inputs: rays (o, d, near, far) and the occupancy read once (the
+    # bitfield; K3s also the skip distance); outputs: 36 bytes a kept sample
+    # and the offsets.  The function's operations: 8 for each kept sample
+    # (o + d*t, tau): the lattice points of empty space need not be visited.
+    out_bytes = n * 32 + m * 36 + (n + 1) * 8
+    b3 = bound_ms(nbytes=out_bytes + bits.numel(), flops=8 * m)
+    b3s = bound_ms(nbytes=out_bytes + bits.numel() + skip.numel(), flops=8 * m)
+    table = {
+        "K3": dict(max_abs_err=xyz_err(dense, dense_ref), ms=sum(k3), plain_ms=plain,
+                   bound_ms=b3[0], bound_by=b3[1], library_ms=None),
+        "K3s": dict(max_abs_err=max(xyz_err(two, two_ref), xyz_err(two, dense)), ms=sum(k3s),
+                    plain_ms=plain_s, bound_ms=b3s[0], bound_by=b3s[1], library_ms=None),
+    }
+    windows = n * -(-plan.t_lattice // marching.WINDOW)
+    log(f"march at {what}: {n} rays -> {m} samples ({m / n:.2f}/ray); two-stage candidates "
+        f"{two.num_cand} of {windows} windows ({two.num_cand / windows:.4f}); "
+        f"{ {k: bool(v) for k, v in checks.items()} }; K3 ms {sum(k3):.4f} (count "
+        f"{k3[0]:.4f} + write {k3[1]:.4f}), plain_ms {plain:.3f}, bound_ms {b3[0]:.4f} "
+        f"({b3[1]}); K3s ms {sum(k3s):.4f} (count {k3s[0]:.4f} + write {k3s[1]:.4f}), plain_ms "
+        f"{plain_s:.3f}, bound_ms {b3s[0]:.4f} ({b3s[1]})")
+    return table, {"samples": m, "num_cand": two.num_cand, "windows": windows}
+
+
 def kernel_phases(renderer, params, rays_o, rays_d):
-    """K3, K1, K4, K7 on a 2^16-ray chunk of the frame; returns the kernel
-    table (without launches) and a list of failures."""
+    """K6c on the checkpoint's grid; K3, K3s, K1, K1s, K2s, K4, K7 on a
+    2^16-ray chunk of the frame; returns the kernel table (without
+    launches) and a list of failures."""
     from nerfstyle_torch import kernels
     from nerfstyle_torch.models.fields import _encoder_input, field_color, field_density
-    from nerfstyle_torch.ops import compositing, hashgrid, marching
+    from nerfstyle_torch.ops import compositing, hashgrid, marching, occupancy
     from nerfstyle_torch.ops.aabb import near_far_from_aabb
     from nerfstyle_torch.render.renderer import CHUNK_RAYS
 
@@ -239,44 +346,38 @@ def kernel_phases(renderer, params, rays_o, rays_d):
     mid = n // 2
     o = rays_o[mid - CHUNK_RAYS // 2: mid + CHUNK_RAYS // 2].contiguous()
     d = rays_d[mid - CHUNK_RAYS // 2: mid + CHUNK_RAYS // 2].contiguous()
-    bits = renderer.occ_state.bitfield
+    state = renderer.occ_state
     nears, fars = near_far_from_aabb(o, d, plan.aabb(o.device), plan.min_near)
 
-    # K3: march.  Exact: same lattice, same rounding, same order.
-    sb = marching.march_rays(plan, bits, o, d, nears, fars)
-    ref = marching.march_rays(plan, bits, o, d, nears, fars, plain=True)
-    exact = all(torch.equal(getattr(sb, f), getattr(ref, f))
-                for f in ("ray_id", "step", "offsets", "xyz", "dirs", "tau"))
-    err = float((sb.xyz - ref.xyz).abs().max()) if sb.num_kept == ref.num_kept else float("inf")
-    if not exact:
-        fails.append(f"K3 march differs from its plain version (num_kept {sb.num_kept} vs "
-                     f"{ref.num_kept}, max xyz err {err})")
-    # K3's time is its two kernels' device time, each timed on its own so
-    # that the host synchronisation between them (to size the outputs) is
-    # outside the timed window.
+    # K6c: the skip distance of the checkpoint's grid (2 x 128^3), and of a
+    # sparse random grid (distances up to the cap).  Integer arithmetic:
+    # equal to the plain version.
+    h = plan.grid_size
+    sparse = torch.rand(state.bitfield.shape, generator=torch.Generator().manual_seed(3)) < 2e-4
+    for label, bits in (("checkpoint", state.bitfield), ("random 0.02%", sparse.to(DEVICE))):
+        got = occupancy.skipdist_from_bitfield(bits, h)
+        ref = occupancy.skipdist_from_bitfield(bits, h, plain=True)
+        if not torch.equal(got, ref):
+            fails.append(f"K6c skip distance differs from plain ({label} grid)")
+        log(f"K6c skipdist ({label} grid, {int(bits.sum())} occupied of {bits.numel()}): equal "
+            f"to plain: {torch.equal(got, ref)}; distance histogram "
+            f"{torch.bincount(got.long(), minlength=16).tolist()}")
+    bits = state.bitfield
+    ms = cuda_ms(lambda: kernels.occupancy_skipdist(bits, h, occupancy.SKIP_DMAX), reps=20)
+    plain_ms = cuda_ms(lambda: occupancy.skipdist_from_bitfield(bits, h, plain=True), reps=3)
+    # Bytes: the bitfield in, the distances out.  Operations: a compare and
+    # a max a neighbour, about 6 a cell over the three passes at least.
+    b_ms, b_by = bound_ms(nbytes=2 * bits.numel(), flops=6 * bits.numel())
+    table["K6c"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                        library_ms=None)
+    log(f"K6c occupancy_skipdist: {bits.numel()} cells; ms {ms:.4f} (3 launches), plain_ms "
+        f"{plain_ms:.3f}, bound_ms {b_ms:.4f} ({b_by})")
+
+    # K3 and K3s on the chunk.
+    march_table, _ = march_phase(plan, state, o, d, fails, "the frame chunk")
+    table.update(march_table)
+    sb = marching.march_rays(plan, renderer.occ_field, o, d, nears, fars)
     m = sb.num_kept
-    geom = dict(dt=plan.dt, bound=plan.bound, t_lattice=plan.t_lattice, cascade=plan.cascade,
-                grid_size=plan.grid_size, mip_dt_level=plan.mip_dt_level,
-                max_steps=plan.max_steps)
-    rays = (o, d, nears.contiguous(), fars.contiguous(), bits)
-    count_ms = cuda_ms(lambda: kernels.march_count(*rays, **geom), reps=10)
-    write_ms = cuda_ms(lambda: kernels.march_write(*rays, sb.offsets, m, **geom), reps=10)
-    ms = count_ms + write_ms
-    plain_ms = cuda_ms(lambda: marching.march_rays(plan, bits, o, d, nears, fars, plain=True),
-                       reps=2, warmup=1)
-    # Inputs: rays (o, d, near, far) and the bitfield; outputs: 36 bytes a
-    # kept sample and the offsets.  The function's operations: 8 for each
-    # kept sample (o + d*t, tau); the lattice points of empty cells need not
-    # be visited at all (a skip-distance march jumps them).
-    b_ms, b_by = bound_ms(
-        nbytes=CHUNK_RAYS * 32 + bits.numel() + m * 36 + (CHUNK_RAYS + 1) * 8,
-        flops=8 * m,
-    )
-    table["K3"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                       bound_by=b_by, library_ms=None)
-    log(f"K3 march_rays: {CHUNK_RAYS} rays -> {m} samples ({m / CHUNK_RAYS:.1f}/ray); "
-        f"equal to plain: {exact}; ms {ms:.3f} (march_count {count_ms:.3f} + march_write "
-        f"{write_ms:.3f}), plain_ms {plain_ms:.3f}, bound_ms {b_ms:.4f} ({b_by})")
 
     # K1: hash-grid encode on 2^20 points of the chunk's stream (density
     # table).  Same rounding as the plain version: tolerance 1e-6 of the
@@ -303,6 +404,76 @@ def kernel_phases(renderer, params, rays_o, rays_d):
     log(f"K1 hashgrid_encode: {K1_POINTS} points x {spec.grid.num_levels} levels, "
         f"{rows} distinct rows read; max_abs_err {err:.3e} (tol {tol:.3e}); ms {ms:.3f}, "
         f"plain_ms {plain_ms:.3f}, bound_ms {b_ms:.4f} ({b_by})")
+
+    # K1s and K2s: the simplex configuration (levels from SIMPLEX_FROM on
+    # 4 vertices) on the same 2^20 points.  K1s rounds as the plain version
+    # does: within 1e-6 of the largest output.  K2s on the fused [T, 4]
+    # tables' width for a random cotangent: its fp32 atomics add in a
+    # varying order; against the plain version's float64 sums, each level's
+    # rows within 1e-4 of that level's largest (a coarse trilinear row sums
+    # hundreds of contributions, a fine simplex row a few, so one tolerance
+    # for the whole table would not see an error on the simplex levels).
+    grid_s = dataclasses.replace(spec.grid, simplex_from=SIMPLEX_FROM)
+    enc = hashgrid.hashgrid_encode(grid_s, tab, x)
+    enc_ref = hashgrid.hashgrid_encode(grid_s, tab, x, plain=True)
+    err = float((enc - enc_ref).abs().max())
+    tol = 1e-6 * float(enc_ref.abs().max())
+    if not err <= tol:
+        fails.append(f"K1s encode error {err} > {tol}")
+    ms = cuda_ms(lambda: hashgrid.hashgrid_encode(grid_s, tab, x), reps=20)
+    plain_ms = cuda_ms(lambda: hashgrid.hashgrid_encode(grid_s, tab, x, plain=True), reps=3)
+    rows_s = touched_rows(grid_s, x)
+    lc, nl = grid_s.simplex_start, grid_s.num_levels
+    corners_a_point = 8 * lc + 4 * (nl - lc)
+    b_ms, b_by = bound_ms(
+        nbytes=K1_POINTS * 12 + rows_s * c * 4 + K1_POINTS * grid_s.output_dim * 4,
+        flops=K1_POINTS * corners_a_point * (3 + 2 * c),
+    )
+    table["K1s"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=None)
+    log(f"K1s hashgrid_encode, simplex from level {lc}: {K1_POINTS} points, {rows_s} distinct "
+        f"rows read; max_abs_err {err:.3e} (tol {tol:.3e}); ms {ms:.3f}, plain_ms "
+        f"{plain_ms:.3f}, bound_ms {b_ms:.4f} ({b_by})")
+    del enc, enc_ref
+    c4, rows = 2 * grid_s.level_dim, grid_s.total_params
+    lv = hashgrid.level_table(grid_s, x.device)
+    cot = torch.randn((K1_POINTS, nl * c4), generator=torch.Generator(device=x.device)
+                      .manual_seed(2), device=x.device)
+    got = kernels.hashgrid_backward(x, cot, lv, rows)
+    ref = hashgrid.hashgrid_backward_plain(grid_s, x, cot.double(), rows)
+    diff = (got.double() - ref).abs()
+    err = float(diff.max())
+    worst = 0.0  # the largest error of a level over its tolerance
+    for lvl in range(nl):
+        a, b = grid_s.offsets[lvl], grid_s.offsets[lvl + 1]
+        lvl_err, lvl_tol = float(diff[a:b].max()), 1e-4 * float(ref[a:b].abs().max())
+        worst = max(worst, lvl_err / max(lvl_tol, 1e-30))
+        if not lvl_err <= lvl_tol:
+            fails.append(f"K2s table gradient error {lvl_err} > {lvl_tol} on level {lvl} "
+                         f"({'simplex' if lvl >= lc else 'trilinear'})")
+    del got, ref, diff
+    ms = cuda_ms(lambda: kernels.hashgrid_backward(x, cot, lv, rows), reps=10)
+    plain_ms = cuda_ms(lambda: hashgrid.hashgrid_backward_plain(grid_s, x, cot, rows), reps=3)
+    corners, oob = hashgrid._corners(grid_s, x)
+    g3 = torch.where(oob[:, None, None], 0.0, cot.reshape(K1_POINTS, nl, c4))
+    flat_rows = torch.cat([r.reshape(-1) for _, _, r, _ in corners])
+    vals = torch.cat([(w[..., None] * g3[:, a:b]).reshape(-1, c4) for a, b, _, w in corners])
+    del corners, g3
+    acc = torch.zeros((rows, c4), device=x.device)
+    lib_ms = cuda_ms(lambda: acc.zero_().index_add_(0, flat_rows, vals), reps=10)
+    del flat_rows, vals, acc
+    # Bytes: points, cotangent, the [T, C] gradient written once.
+    # Operations: per (point, level, corner or vertex) the weight's few and
+    # 2C for w * g and the add.
+    b_ms, b_by = bound_ms(nbytes=K1_POINTS * 12 + K1_POINTS * nl * c4 * 4 + rows * c4 * 4,
+                          flops=K1_POINTS * corners_a_point * (5 + 2 * c4))
+    table["K2s"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=lib_ms)
+    log(f"K2s hashgrid_backward, simplex from level {lc}: {K1_POINTS} points x {nl} levels "
+        f"({corners_a_point} corners and vertices a point) into [{rows}, {c4}]; max_abs_err "
+        f"{err:.3e}, worst level at {worst:.3f} of its tolerance; ms {ms:.3f}, plain_ms "
+        f"{plain_ms:.3f}, index_add_ ms {lib_ms:.3f}, bound_ms {b_ms:.4f} ({b_by})")
+    del cot
 
     # K4: weights on the chunk's stream with the path's densities.  The
     # reference is the plain version on the same inputs in float64 (exact).
@@ -389,10 +560,10 @@ def kernel_phases(renderer, params, rays_o, rays_d):
 # ---------------------------------------------------------------------------
 
 
-def train_argv(steps: int, *extra: str):
+def train_argv(steps: int, *extra: str, log_dir: str = "train"):
     """Flags of ``python -m nerfstyle_torch.train`` at the default configs on
     the synthetic scene (24 train views of 128x96, 6 test views)."""
-    return ["--device", DEVICE, "--log-dir", str(WORK / "train"),
+    return ["--device", DEVICE, "--log-dir", str(WORK / log_dir),
             "--data-cfg", str(WORK / "data.yaml"), "--num_iterations", str(steps),
             "--intervals.print", "50", "--intervals.log", "0", "--intervals.test", "0",
             "--intervals.ckpt", str(steps), "--yes", *extra]
@@ -453,10 +624,7 @@ def step_vs_plain(trainer, fails):
     k, p = runs[False], runs[True]
     trainer.params, trainer.opt_state, trainer.ema_state = k["state"]
 
-    step_kernels = ("hashgrid_encode", "hashgrid_backward", "march_count", "march_write",
-                    "composite_weights", "composite_backward", "segment_sum", "mlp_forward",
-                    "mlp_backward")
-    missing = [c for c in step_kernels if k["launches"][c] <= 0]
+    missing = [c for c in STEP_COUNTERS if k["launches"][c] <= 0]
     if missing:
         fails.append(f"the kernel step launched no {missing}")
     if any(p["launches"].values()):
@@ -490,9 +658,9 @@ def step_vs_plain(trainer, fails):
 
 
 def train_kernel_phases(trainer, fails):
-    """K2, K4b and K6 at the train step's shapes (a batch of the trained
-    state; the random occupancy update's probe count) against their plain
-    versions; returns their kernel-table entries."""
+    """K3 and K3s, K2, K4b and K6 at the train step's shapes (a batch of the
+    trained state; the random occupancy update's probe count) against their
+    plain versions; returns the K2, K4b and K6 kernel-table entries."""
     from nerfstyle_torch import kernels
     from nerfstyle_torch.models.fields import _encoder_input, field_apply, field_density
     from nerfstyle_torch.ops import compositing, hashgrid, marching, occupancy
@@ -507,7 +675,8 @@ def train_kernel_phases(trainer, fails):
     o, d, _ = trainer.ray_batch(frame, idx)
     n = o.shape[0]
     nears, fars = near_far_from_aabb(o, d, plan.aabb(dev), plan.min_near)
-    sb = marching.march_rays(plan, r.occ_state.bitfield, o, d, nears, fars)
+    march_phase(plan, r.occ_state, o.contiguous(), d.contiguous(), fails, "a late train batch")
+    sb = marching.march_rays(plan, r.occ_field, o, d, nears, fars)
     with torch.no_grad():
         sig_a = field_density(spec, trainer.params, bbox, sb.xyz, trainer.compute_dtype)
         *_, n_inc = compositing.sample_weights(sig_a * s.density_scale, sb.tau, sb.offsets,
@@ -552,8 +721,8 @@ def train_kernel_phases(trainer, fails):
     plain_ms = cuda_ms(lambda: hashgrid.hashgrid_backward_plain(spec.grid, x, g, rows), reps=3)
     corners, oob = hashgrid._corners(spec.grid, x)
     g3 = torch.where(oob[:, None, None], 0.0, g.reshape(k, lvl, c))
-    flat_rows = torch.cat([cr.reshape(-1) for cr, _ in corners])
-    vals = torch.cat([(w[..., None] * g3).reshape(-1, c) for _, w in corners])
+    flat_rows = torch.cat([r.reshape(-1) for _, _, r, _ in corners])
+    vals = torch.cat([(w[..., None] * g3[:, a:b]).reshape(-1, c) for a, b, _, w in corners])
     del corners, g3
     acc = torch.zeros((rows, c), device=dev)
     lib_ms = cuda_ms(lambda: acc.zero_().index_add_(0, flat_rows, vals), reps=10)
@@ -771,6 +940,221 @@ def train_phase(card: str, fails):
         fails.append(f"test PSNR rose from {untrained['psnr']:.3f} to {final['psnr']:.3f} dB, "
                      "less than 5 dB")
     return trainer, launches
+
+
+def step_ms_on_off(trainer, card: str, steps: int = 10):
+    """Late train steps with adaptive_march on and off, in turns (on, off,
+    off, on), ``steps`` a turn: the median step ms of each side, and the
+    kernel launches of the off turns (the dense march's)."""
+    from nerfstyle_torch import kernels
+
+    r = trainer.renderer
+    on = r.settings
+    times = {True: [], False: []}
+    off_launches = {}
+    for adaptive in (True, False, False, True):
+        r.settings = dataclasses.replace(on, adaptive_march=adaptive)
+        kernels.reset_launch_counts()
+        for _ in range(steps):
+            trainer.run_iter()
+        times[adaptive] += trainer.iter_ms[-steps:]
+        if not adaptive:
+            for k, v in kernels.launch_counts.items():
+                off_launches[k] = off_launches.get(k, 0) + v
+    r.settings = on
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    log(f"late train step ({card}), {steps} steps a turn, on/off/off/on: adaptive_march on "
+        f"median {med[True]:.2f} ms {['%.2f' % t for t in times[True]]}, off median "
+        f"{med[False]:.2f} ms {['%.2f' % t for t in times[False]]}")
+    return off_launches
+
+
+def simplex_phase(card: str, fails):
+    """The simplex configuration through ``python -m nerfstyle_torch.train
+    --pos_enc.simplex_from 10`` (in-process, default width, SIMPLEX_STEPS
+    steps): the test PSNR must rise 5 dB, one step must match its plain
+    version, and one frame must render from its checkpoint through
+    ``python -m nerfstyle_torch.render``.  Returns the run's and the
+    frame's kernel launches."""
+    from nerfstyle_torch import kernels, train
+    from nerfstyle_torch.render import cli
+
+    extra = ("--pos_enc.simplex_from", str(SIMPLEX_FROM))
+    untrained = train.main(train_argv(0, "--test_before_train", *extra,
+                                      log_dir="simplex")).test_history[0]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer = train.main(train_argv(SIMPLEX_STEPS, *extra, log_dir="simplex"))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    # Fewer steps than update_thres: only full sweeps, no scatter-max.
+    for name in TRAIN_COUNTERS:
+        if name != "occupancy_scatter_max" and launches[name] <= 0:
+            fails.append(f"simplex train path launched no {name} kernel")
+    grid = trainer.field_spec.grid
+    if grid.simplex_start != SIMPLEX_FROM:
+        fails.append(f"the simplex run encodes simplex levels from {grid.simplex_start}")
+    notfinite = int(trainer.opt_state.total_notfinite)
+    if notfinite or not all(bool(torch.isfinite(v)) for v in trainer.last_losses.values()):
+        fails.append(f"simplex run: non-finite losses ({notfinite} steps skipped)")
+    final = trainer.test_networks()
+    ms = trainer.iter_ms
+    log(f"simplex run ({card}): simplex levels {grid.simplex_start}-{grid.num_levels - 1}, "
+        f"{SIMPLEX_STEPS} steps in {wall_s:.1f} s, step ms median early (1-15) "
+        f"{np.median(ms[1:16]):.2f}, late (last 50) {np.median(ms[-50:]):.2f}; test PSNR "
+        f"untrained {untrained['psnr']:.3f} dB, after {final['psnr']:.3f} dB; launches {launches}")
+    if not final["psnr"] >= untrained["psnr"] + 5.0:
+        fails.append(f"simplex run: test PSNR rose from {untrained['psnr']:.3f} to "
+                     f"{final['psnr']:.3f} dB, less than 5 dB")
+    step_vs_plain(trainer, fails)
+    ckpt = trainer.log_dir / f"iter_{SIMPLEX_STEPS}.ckpt"
+    del trainer
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    summary = cli.main([str(ckpt), "--out-dims", *map(str, OUT_DIMS), "--max-count", "1",
+                        "--yes", "--out-dir", str(WORK / "simplex_render"), "--device", DEVICE])
+    frame_launches = dict(kernels.launch_counts)
+    out = summary["last"]
+    if not (tuple(out["rgb_map"].shape) == (OUT_DIMS[0] * OUT_DIMS[1], 3)
+            and bool(torch.isfinite(out["rgb_map"]).all())):
+        fails.append("the simplex checkpoint's frame is not finite or of another shape")
+    for name in RENDER_COUNTERS:
+        if frame_launches[name] <= 0:
+            fails.append(f"the simplex frame launched no {name} kernel")
+    log(f"simplex frame ({card}): {summary['frame_ms'][0]:.1f} ms, "
+        f"{out['num_marched'] / out['rgb_map'].shape[0]:.2f} samples/ray; launches "
+        f"{frame_launches}")
+    return {k: launches[k] + frame_launches[k] for k in launches}
+
+
+def _reference_cfg(**fields):
+    """A config object of a module that is gone when the file is loaded,
+    as the reference's config classes are: the importer's tolerant
+    unpickler must stand in for it."""
+    import types
+
+    mod = sys.modules.setdefault("reference_config_module", types.ModuleType(
+        "reference_config_module"))
+    if not hasattr(mod, "Cfg"):
+        mod.Cfg = type("Cfg", (), {"__module__": "reference_config_module"})
+    obj = mod.Cfg()
+    obj.__dict__.update(fields)
+    return obj
+
+
+def import_phase(card: str, ckpt: Path, spec, frame, fails):
+    """The import path: the render checkpoint's tables, heads and occupancy
+    (grid 128, 2 cascades) written as a reference ``iter_*.pth`` (its
+    occupancy in Morton order and packed by the port's plain interop, no
+    kernel), imported through ``python -m nerfstyle_torch.import_reference``,
+    whose launches alone are counted; tables and occupancy must equal the
+    source bit for bit and the imported checkpoint must render the render
+    path's frame.  Then K8a and K8b, both directions, against their plain
+    versions at the grid's size.  Returns the import's kernel launches and
+    the table entries."""
+    from nerfstyle_torch import import_reference, interop, kernels
+    from nerfstyle_torch.ops import morton, occupancy
+    from nerfstyle_torch.render import cli
+    from nerfstyle_torch.training import checkpoint as ckpt_lib
+
+    meta, groups = ckpt_lib.load_checkpoint(ckpt)
+    params = ckpt_lib.restore_tree(cli.param_template(spec), groups["params"], DEVICE)
+    occ = ckpt_lib.restore_tree(occupancy.PersistedOccupancy(*[0] * 5), groups["occ"], DEVICE)
+    h = meta["render_cfg"]["grid_size"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mor_grid = interop.linear_grid_to_morton(occ.density_grid, h, plain=True)
+    packed = interop.linear_bitfield_to_reference(occ.bitfield, h, plain=True)
+    pe = meta["net_cfg"]["pos_enc"]
+    state = {
+        "version": "chip_smoke reference", "iter_ctr": 0, "cfg": _reference_cfg(style_image=None),
+        "dataset_cfg": _reference_cfg(**meta["dataset_cfg"]),
+        "train_cfg": _reference_cfg(**meta["train_cfg"]),
+        "net_cfg": _reference_cfg(**{**meta["net_cfg"], "pos_enc": _reference_cfg(**pe)}),
+        "render_cfg": _reference_cfg(**meta["render_cfg"]),
+        "renderer": {
+            "model": {
+                "x_density_embedder.embeddings": params["x_density_embedder"].cpu(),
+                "x_color_embedder.embeddings": params["x_color_embedder"].cpu(),
+                **{f"{net}.params": torch.zeros(16) for net in import_reference.HEADS},
+            },
+            "raymarch_channels": meta["renderer_static"]["raymarch_channels"],
+            "bound": meta["renderer_static"]["bound"],
+            "density_grid": mor_grid.cpu(), "density_bitfield": packed.cpu(),
+            "local_step": int(occ.local_step), "mean_count": int(occ.mean_count),
+            "mean_density": float(occ.mean_density),
+        },
+    }
+    pth, npz, out_ckpt = WORK / "reference.pth", WORK / "reference_heads.npz", WORK / "imported.ckpt"
+    torch.save(state, pth)
+    del sys.modules["reference_config_module"]
+    np.savez(npz, **{f"{net}.{i}": w.cpu().numpy() for net in import_reference.HEADS
+                     for i, w in enumerate(params[net])})
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    kernels.reset_launch_counts()
+    import_reference.main([str(pth), "--out", str(out_ckpt), "--mlp-npz", str(npz),
+                           "--root-path", str(WORK / "scene"), "--device", DEVICE])
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t1
+    launches = dict(kernels.launch_counts)
+    for name in IMPORT_COUNTERS:
+        if launches[name] <= 0:
+            fails.append(f"the import path launched no {name} kernel")
+    _, got = ckpt_lib.load_checkpoint(out_ckpt)
+    equal = {
+        "params": len(got["params"]) == len(groups["params"]) and all(
+            np.array_equal(a, b) and a.dtype == b.dtype
+            for a, b in zip(got["params"], groups["params"])),
+        "occupancy grid and bitfield": all(np.array_equal(got["occ"][i], groups["occ"][i])
+                                           for i in (0, 1)),
+    }
+    if not all(equal.values()):
+        fails.append(f"the imported checkpoint differs from the source: {equal}")
+    renderer, iparams, test_set, _ = cli.load_renderer(out_ckpt, DEVICE, OUT_DIMS, max_count=1)
+    pose = torch.from_numpy(np.asarray(test_set[0][1]))
+    with torch.no_grad():
+        iframe = renderer.render(iparams, pose)
+    err = float((iframe["rgb_map"] - frame["rgb_map"]).abs().max())
+    if not (bool(torch.isfinite(iframe["rgb_map"]).all()) and err <= 1e-6):
+        fails.append(f"the imported checkpoint's frame differs from the render path's: {err}")
+    log(f"import ({card}): reference .pth {pth.stat().st_size / 2**20:.1f} MiB (grid {h}, "
+        f"{occ.density_grid.shape[0]} cascades), exported in {t1 - t0:.2f} s, imported in "
+        f"{import_s:.2f} s; equal to the source: {equal}; frame from the imported checkpoint "
+        f"max abs err against the render path's {err:.3e}; launches {launches}")
+
+    # K8a and K8b at the grid's size, against their plain versions (exact).
+    # The import runs unpack and morton3d; pack and invert, the export
+    # direction, run on no path of either package and are checked here only.
+    table = {}
+    bits, n = occ.bitfield, occ.bitfield.numel()
+    codes = torch.arange(h**3, dtype=torch.int32, device=DEVICE)
+    coords = occupancy.all_cell_coords(h, DEVICE)
+    pk = occupancy.packbits(bits)
+    cases = {
+        "K8a pack": (lambda: kernels.packbits(bits), lambda: occupancy.packbits_plain(bits),
+                     n + n // 8, n),
+        "K8a unpack": (lambda: kernels.unpackbits(pk), lambda: occupancy.unpackbits_plain(pk),
+                       n // 8 + n, n),
+        "K8b morton": (lambda: kernels.morton3d(coords), lambda: morton.morton3d_plain(coords),
+                       16 * h**3, 3 * 12 * h**3),
+        "K8b invert": (lambda: kernels.morton3d_invert(codes),
+                       lambda: morton.morton3d_invert_plain(codes), 16 * h**3, 3 * 12 * h**3),
+    }
+    for kid, (fn, plain_fn, nbytes, flops) in cases.items():
+        exact = torch.equal(fn(), plain_fn())
+        if not exact:
+            fails.append(f"{kid} differs from its plain version")
+        ms = cuda_ms(fn, reps=20)
+        plain_ms = cuda_ms(plain_fn, reps=5)
+        b_ms, b_by = bound_ms(nbytes=nbytes, flops=flops)
+        table[kid] = dict(max_abs_err=0.0 if exact else float("inf"), ms=ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        log(f"{kid}: {n if 'K8a' in kid else h**3} cells; equal to plain: {exact}; ms "
+            f"{ms:.4f}, plain_ms {plain_ms:.4f}, bound_ms {b_ms:.5f} ({b_by})")
+    return launches, table
 
 
 # ---------------------------------------------------------------------------
@@ -1015,6 +1399,53 @@ def silhouette_iou(rays_o: torch.Tensor, rays_d: torch.Tensor, ws: torch.Tensor)
     return float((hit & opaque).sum()) / max(1, int((hit | opaque).sum()))
 
 
+def frame_on_off(renderer, params, pose, out, card: str, fails):
+    """The frame with adaptive_march off (the dense march, K3) against the
+    main path's (K3s): the same samples, so the same maps; then steady
+    frames with it on and off in turns (on, off, off, on).  Returns the
+    off frame's kernel launches."""
+    from nerfstyle_torch import kernels
+    from nerfstyle_torch.ops.marching import WINDOW
+
+    on = renderer.settings
+    off = dataclasses.replace(on, adaptive_march=False)
+    renderer.settings = off
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        dense = renderer.render(params, pose)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launch_counts)
+    renderer.settings = on
+    for name in DENSE_COUNTERS:
+        if launches[name] <= 0:
+            fails.append(f"the adaptive_march=False frame launched no {name} kernel")
+    if launches["march_skip_count"] or launches["march_skip_write"]:
+        fails.append("the adaptive_march=False frame launched the two-stage march")
+    errs = {k: float((dense[k] - out[k]).abs().max()) for k in ("rgb_map", "weights_sum")}
+    if dense["num_marched"] != out["num_marched"] or not all(e <= 1e-6 for e in errs.values()):
+        fails.append(f"the dense-march frame differs from the two-stage frame: samples "
+                     f"{dense['num_marched']} vs {out['num_marched']}, max abs err {errs}")
+    times = {True: [], False: []}
+    for adaptive in (True, False, False, True):
+        renderer.settings = on if adaptive else off
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            renderer.render(params, pose)
+            torch.cuda.synchronize()
+            times[adaptive].append((time.perf_counter() - t) * 1e3)
+    renderer.settings = on
+    w, h = OUT_DIMS
+    npix = w * h
+    log(f"frame with adaptive_march off: samples {dense['num_marched']} (on: "
+        f"{out['num_marched']}, {out['num_cand']} candidate windows of "
+        f"{npix * -(-renderer.plan.t_lattice // WINDOW)}), max abs err against on {errs}; steady "
+        f"frames ({card}) on/off/off/on: on min {min(times[True]):.1f} ms "
+        f"{['%.1f' % t for t in times[True]]}, off min {min(times[False]):.1f} ms "
+        f"{['%.1f' % t for t in times[False]]} at {w}x{h}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs an NVIDIA GPU",
@@ -1035,24 +1466,28 @@ def main() -> int:
 
     WORK.mkdir(parents=True, exist_ok=True)
     ckpt = WORK / "smoke.ckpt"
-    write_checkpoint(ckpt)
+    spec = write_checkpoint(ckpt)
     renderer, params, test_set, _ = cli.load_renderer(ckpt, DEVICE, OUT_DIMS, max_count=1)
     pose = torch.from_numpy(np.asarray(test_set[0][1]))
     rays = generate_rays(pose.to(DEVICE), renderer.intr, renderer.settings.flip_camera)
 
     table, fails = kernel_phases(renderer, params, rays.origins, rays.dirs)
 
-    # The main path, through the CLI entry point.
+    # The main path, through the CLI entry point (the checkpoint's restore
+    # rebuilds the skip distance: K6c).
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     summary = cli.main([str(ckpt), "--out-dims", *map(str, OUT_DIMS), "--max-count", "1",
                         "--yes", "--out-dir", str(WORK / "render"), "--device", DEVICE])
-    launches = dict(kernels.launch_counts)
+    runs = {"render": dict(kernels.launch_counts)}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     for name in RENDER_COUNTERS:
-        if launches[name] <= 0:
+        if runs["render"][name] <= 0:
             fails.append(f"render path launched no {name} kernel")
+    for name in DENSE_COUNTERS:
+        if runs["render"][name]:
+            fails.append(f"render path launched the dense march ({name}) with adaptive_march on")
     out = summary["last"]
     npix = OUT_DIMS[0] * OUT_DIMS[1]
     shapes = {"rgb_map": (npix, 3), "trans_map": (npix,), "weights_sum": (npix,),
@@ -1063,8 +1498,8 @@ def main() -> int:
     frame_ms = summary["frame_ms"][0]
     log(f"main path ({card}): frame {frame_ms:.1f} ms ({summary['fps']:.2f} FPS, first frame "
         f"of the process), {out['num_marched'] / npix:.2f} samples/ray marched, "
-        f"{out['num_sig'] / npix:.2f} significant, peak memory {peak_gib:.2f} GiB, "
-        f"launches {launches}")
+        f"{out['num_sig'] / npix:.2f} significant, {out['num_cand'] / npix:.2f} candidate "
+        f"windows/ray, peak memory {peak_gib:.2f} GiB, launches {runs['render']}")
 
     iou = silhouette_iou(rays.origins, rays.dirs, out["weights_sum"])
     log(f"opacity vs analytic sphere silhouette: IoU {iou:.4f}")
@@ -1072,7 +1507,7 @@ def main() -> int:
         fails.append(f"frame opacity IoU with the spheres {iou:.4f} < 0.8")
 
     # A 4096-ray crop (the central 64x64 pixels) through the plain path on
-    # the card.  K1, K3 exact; K4 may flip a sample at the t_thresh cutoff
+    # the card.  K1, K3s exact; K4 may flip a sample at the t_thresh cutoff
     # (<= 1e-4 per ray); bf16 MLP activations may round to the neighbouring
     # value where cuBLAS sums a different batch in another order: atol 2e-3
     # on rgb, opacity and depth, 2e-2 on class logits.
@@ -1089,27 +1524,28 @@ def main() -> int:
         if not crop_err[k] <= tol:
             fails.append(f"crop {k} error {crop_err[k]} > {tol}")
 
-    # Steady state: the same frame again (kernels built, cuBLAS warm), and
-    # its device time by kernel.
-    times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        renderer.render(params, pose)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t) * 1e3)
-    log(f"steady frame ({card}): {min(times):.1f} ms min of {['%.1f' % t for t in times]} "
-        f"-> {1e3 / min(times):.2f} FPS at {w}x{h}")
+    # The dense march's frame against the main path's, and steady frames
+    # with adaptive_march on and off; the on frame's device time by kernel.
+    runs["dense frame"] = frame_on_off(renderer, params, pose, out, card, fails)
     profile_once(lambda: renderer.render(params, pose), "frame", card)
+
+    # The import path, from the render checkpoint; its frame must equal the
+    # main path's.
+    runs["import"], import_table = import_phase(card, ckpt, spec, out, fails)
+    table.update(import_table)
     del renderer, params, rays, ref, out, summary
     torch.cuda.empty_cache()
 
     # The train path, through the train entry point; then one step against
-    # the plain versions, the train kernels at the step's shapes, and one
-    # late step under the profiler.
-    trainer, train_launches = train_phase(card, fails)
+    # the plain versions, the train kernels at the step's shapes, late steps
+    # with adaptive_march on and off, and one late step under the profiler.
+    trainer, runs["train"] = train_phase(card, fails)
     step_vs_plain(trainer, fails)
     table.update(train_kernel_phases(trainer, fails))
+    runs["dense train"] = step_ms_on_off(trainer, card)
+    for name in DENSE_COUNTERS:
+        if runs["dense train"][name] <= 0:
+            fails.append(f"the adaptive_march=False train steps launched no {name} kernel")
     profile_once(trainer.run_iter, "late train step", card)
     ckpt_train = trainer.log_dir / f"iter_{TRAIN_STEPS}.ckpt"
     del trainer
@@ -1118,46 +1554,73 @@ def main() -> int:
     # The style path from the train phase's checkpoint; then one step
     # against the plain versions, K5 and K7b at the style stream's shape, and
     # one steady iteration under the profiler.
-    st, style_launches = style_phase(card, ckpt_train, fails)
+    st, runs["style"] = style_phase(card, ckpt_train, fails)
     style_step_vs_plain(st, fails)
     table.update(style_kernel_phases(st, fails))
     profile_once(st.run_iter, "steady style iteration", card)
+    del st
+    torch.cuda.empty_cache()
 
-    # A kernel's launches: its count on the render, train and style paths.
-    # K3 is two kernels (count and write passes), K6's merge two (merge and
-    # threshold): their launches are both's.
-    meta = {
-        "K1": ("hashgrid_encode", "nerfstyle_torch/csrc/hashgrid.cu",
-               "nerfstyle_tpu/ops/hashgrid.py:818", ("hashgrid_encode",)),
-        "K2": ("hashgrid_backward", "nerfstyle_torch/csrc/hashgrid.cu",
-               "nerfstyle_tpu/ops/hashgrid.py:959", ("hashgrid_backward",)),
-        "K3": ("march_rays", "nerfstyle_torch/csrc/march.cu",
-               "nerfstyle_tpu/ops/marching.py:320", ("march_count", "march_write")),
-        "K4": ("composite_weights", "nerfstyle_torch/csrc/composite.cu",
-               "nerfstyle_tpu/ops/compositing.py:94", ("composite_weights",)),
-        "K4b": ("composite_backward", "nerfstyle_torch/csrc/composite.cu",
-                "nerfstyle_tpu/ops/compositing.py:116", ("composite_backward",)),
-        "K6s": ("occupancy_scatter_max", "nerfstyle_torch/csrc/occupancy.cu",
-                "nerfstyle_tpu/ops/occupancy.py:281", ("occupancy_scatter_max",)),
-        "K6m": ("occupancy_merge", "nerfstyle_torch/csrc/occupancy.cu",
-                "nerfstyle_tpu/ops/occupancy.py:157", ("occupancy_merge", "occupancy_threshold")),
-        "K7": ("segment_sum", "nerfstyle_torch/csrc/composite.cu",
-               "nerfstyle_tpu/render/renderer.py:648", ("segment_sum",)),
-        "K5f": ("mlp_forward", "nerfstyle_torch/csrc/mlp.cu",
-                "nerfstyle_tpu/ops/mlp.py:45", ("mlp_forward",)),
-        "K5b": ("mlp_backward", "nerfstyle_torch/csrc/mlp.cu",
-                "nerfstyle_tpu/ops/mlp.py:45", ("mlp_backward",)),
-        "K7b": ("segment_sum_backward", "nerfstyle_torch/csrc/composite.cu",
-                "nerfstyle_tpu/training/style_trainer.py:875", ("segment_sum_backward",)),
-    }
+    # The simplex configuration: a short run and a frame from its checkpoint.
+    runs["simplex"] = simplex_phase(card, fails)
+
+    # A kernel's launches: its counts on the paths it serves (K3's on the
+    # adaptive_march=False frame and steps; K1s's and K2s's on the simplex
+    # run and its frame; K8a unpack's and K8b morton3d's on the import).
+    # K8a pack and K8b invert serve no path: 0 launches, checked against
+    # their plain versions only.  K3 and K3s are two passes each (count and
+    # write), K6's merge two kernels (merge and threshold), K6c three
+    # launches a rebuild (one an axis): their launches are all of theirs.
+    main_paths = ("render", "train", "style")
+    meta = [
+        ("K1", "K1 hashgrid_encode", "nerfstyle_torch/csrc/hashgrid.cu",
+         "nerfstyle_tpu/ops/hashgrid.py:818", ("hashgrid_encode",), main_paths),
+        ("K1s", "K1s hashgrid_encode (simplex levels)", "nerfstyle_torch/csrc/hashgrid.cu",
+         "nerfstyle_tpu/ops/hashgrid.py:483", ("hashgrid_encode",), ("simplex",)),
+        ("K2", "K2 hashgrid_backward", "nerfstyle_torch/csrc/hashgrid.cu",
+         "nerfstyle_tpu/ops/hashgrid.py:959", ("hashgrid_backward",), main_paths),
+        ("K2s", "K2s hashgrid_backward (simplex levels)", "nerfstyle_torch/csrc/hashgrid.cu",
+         "nerfstyle_tpu/ops/hashgrid.py:979", ("hashgrid_backward",), ("simplex",)),
+        ("K3", "K3 march_rays (dense)", "nerfstyle_torch/csrc/march.cu",
+         "nerfstyle_tpu/ops/marching.py:166", DENSE_COUNTERS, ("dense frame", "dense train")),
+        ("K3s", "K3s march_rays (two-stage)", "nerfstyle_torch/csrc/march.cu",
+         "nerfstyle_tpu/ops/marching.py:191", ("march_skip_count", "march_skip_write"),
+         main_paths),
+        ("K4", "K4 composite_weights", "nerfstyle_torch/csrc/composite.cu",
+         "nerfstyle_tpu/ops/compositing.py:94", ("composite_weights",), main_paths),
+        ("K4b", "K4b composite_backward", "nerfstyle_torch/csrc/composite.cu",
+         "nerfstyle_tpu/ops/compositing.py:116", ("composite_backward",), main_paths),
+        ("K5f", "K5 mlp_forward", "nerfstyle_torch/csrc/mlp.cu",
+         "nerfstyle_tpu/ops/mlp.py:45", ("mlp_forward",), main_paths),
+        ("K5b", "K5 mlp_backward", "nerfstyle_torch/csrc/mlp.cu",
+         "nerfstyle_tpu/ops/mlp.py:45", ("mlp_backward",), main_paths),
+        ("K6s", "K6 occupancy_scatter_max", "nerfstyle_torch/csrc/occupancy.cu",
+         "nerfstyle_tpu/ops/occupancy.py:281", ("occupancy_scatter_max",), main_paths),
+        ("K6m", "K6 occupancy_merge", "nerfstyle_torch/csrc/occupancy.cu",
+         "nerfstyle_tpu/ops/occupancy.py:157", ("occupancy_merge", "occupancy_threshold"),
+         main_paths),
+        ("K6c", "K6c occupancy_skipdist", "nerfstyle_torch/csrc/occupancy.cu",
+         "nerfstyle_tpu/ops/occupancy.py:99", ("occupancy_skipdist",), main_paths),
+        ("K7", "K7 segment_sum", "nerfstyle_torch/csrc/composite.cu",
+         "nerfstyle_tpu/render/renderer.py:648", ("segment_sum",), main_paths),
+        ("K7b", "K7b segment_sum_backward", "nerfstyle_torch/csrc/composite.cu",
+         "nerfstyle_tpu/training/style_trainer.py:875", ("segment_sum_backward",), main_paths),
+        ("K8a pack", "K8a packbits", "nerfstyle_torch/csrc/interop.cu",
+         "nerfstyle_tpu/ops/occupancy.py:299", ("packbits",), ()),
+        ("K8a unpack", "K8a unpackbits", "nerfstyle_torch/csrc/interop.cu",
+         "nerfstyle_tpu/ops/occupancy.py:309", ("unpackbits",), ("import",)),
+        ("K8b morton", "K8b morton3d", "nerfstyle_torch/csrc/interop.cu",
+         "nerfstyle_tpu/ops/morton.py:27", ("morton3d",), ("import",)),
+        ("K8b invert", "K8b morton3d_invert", "nerfstyle_torch/csrc/interop.cu",
+         "nerfstyle_tpu/ops/morton.py:44", ("morton3d_invert",), ()),
+    ]
     rows = []
-    for kid, (name, source, replaces, counters) in meta.items():
-        label = kid[:2] if kid[:2] in ("K5", "K6") else kid  # K5's and K6's two rows
-        rows.append({"name": f"{label} {name}", "route": "cuda", "source": source,
-                     "replaces": replaces,
-                     "launches": sum(launches[c] + train_launches[c] + style_launches[c]
-                                     for c in counters),
-                     **table[kid]})
+    for kid, name, source, replaces, counters, paths in meta:
+        launches = sum(runs[p][c] for p in paths for c in counters)
+        if paths and launches <= 0:
+            fails.append(f"{name} launched no time on {paths}")
+        rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                     "launches": launches, **table[kid]})
     if fails:
         for f in fails:
             print(f"FAIL: {f}", file=sys.stderr)

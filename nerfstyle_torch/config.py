@@ -305,8 +305,8 @@ class HashGridConfig(Config):
     min_res: int = 16
     max_res_coeff: float = 1024
     simplex_from: int = -1
-    """First simplex-interpolated level; -1 = all trilinear.  The port
-    encodes trilinear levels only (see ops/hashgrid.py)."""
+    """First simplex-interpolated level (4 Freudenthal vertices instead of
+    8 trilinear corners; see ops/hashgrid.py); -1 = all trilinear."""
 
 
 @dataclass

@@ -23,6 +23,25 @@
 // tmp, write grid and bitfield, read grid again: ~88 MB, ~0.03 ms).  The
 // scatter-max moves 12 bytes a probe (index + sigma) and one random 4-byte
 // read-modify-write in L2.
+//
+// K6c: the skip distance, replacing skipdist_from_bitfield (:99, with
+// _dilate3 :85), which the JAX package rebuilds after every merge (:174) and
+// every restore (:78): each cell's L-inf distance, in cells, to the nearest
+// occupied cell of its cascade, the grid not wrapping, capped at dmax = 15.
+// JAX dilates the whole grid 14 times (84 shifted ORs).  The L-inf distance
+// is separable instead:
+//     d(x, y, z) = min_x' max(|x - x'|, min_y' max(|y - y'|,
+//                  min_z' max(|z - z'|, occupied(x', y', z') ? 0 : dmax)))
+// and the cap commutes with each step (a window never reaches past dmax).
+// So three launches, one an axis (z, y, x), each one thread a cell: a min of
+// max(|delta|, d_prev) over the cell's neighbours along the axis, walking
+// outward from delta 0 and stopping once |delta| reaches the best so far
+// (a farther neighbour cannot lower it).  The first pass reads the bitfield.
+// Integer arithmetic: the result equals the iterated dilation bit for bit.
+// Bound on the H100: bytes, the bitfield in and the distances out (2 x 128^3
+// cells: 4 MiB each, ~2.5 us).  Each pass reads up to 2 * dmax neighbours a
+// cell again, from L1/L2, and writes a 1-byte intermediate: a later, faster
+// version keeps a tile's lines in shared memory and fuses the passes.
 #include "common.cuh"
 
 namespace {
@@ -79,6 +98,27 @@ __global__ void threshold_kernel(const float* __restrict__ grid,
     }
 }
 
+// One axis pass of K6c over n cells (cascade * h^3), axis stride 1 (z), h
+// (y) or h * h (x).  from_bits: in is the bitfield (0 where occupied, dmax
+// elsewhere); else in holds the previous pass's distances.
+__global__ void skipdist_pass_kernel(const unsigned char* __restrict__ in, bool from_bits,
+                                     int h, long long n, long long stride, int dmax,
+                                     unsigned char* __restrict__ out) {
+    const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const int c = static_cast<int>((i / stride) % h);
+    auto dist = [&](long long j) -> int {
+        const int v = in[j];
+        return from_bits ? (v ? 0 : dmax) : v;
+    };
+    int best = dist(i);
+    for (int r = 1; r < best; ++r) {
+        if (c - r >= 0) best = min(best, max(r, dist(i - r * stride)));
+        if (c + r < h) best = min(best, max(r, dist(i + r * stride)));
+    }
+    out[i] = static_cast<unsigned char>(best);
+}
+
 }  // namespace
 
 // tmp [K] f32 (updated in place), idx [P] i64 (flat cell index into tmp),
@@ -114,5 +154,17 @@ NST_API int nst_occupancy_threshold(const void* grid, const void* partials, long
     threshold_kernel<<<kMergeBlocks, nst::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(grid), static_cast<const double*>(partials), kMergeBlocks, n,
         density_thresh, static_cast<bool*>(bitfield), static_cast<float*>(mean));
+    return nst::launch_status();
+}
+
+// One K6c axis pass: in [n] u8 (the bitfield when from_bits), out [n] u8.
+NST_API int nst_occupancy_skipdist_pass(const void* in, int from_bits, int grid_size,
+                                        long long n, long long stride, int dmax, void* out,
+                                        void* stream) {
+    if (n <= 0) return 0;
+    skipdist_pass_kernel<<<nst::blocks_for(n), nst::kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const unsigned char*>(in), from_bits != 0, grid_size, n, stride, dmax,
+        static_cast<unsigned char*>(out));
     return nst::launch_status();
 }

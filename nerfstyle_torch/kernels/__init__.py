@@ -44,6 +44,8 @@ launch_counts: Dict[str, int] = {
     "hashgrid_backward": 0,
     "march_count": 0,
     "march_write": 0,
+    "march_skip_count": 0,
+    "march_skip_write": 0,
     "composite_weights": 0,
     "composite_backward": 0,
     "segment_sum": 0,
@@ -53,6 +55,11 @@ launch_counts: Dict[str, int] = {
     "occupancy_scatter_max": 0,
     "occupancy_merge": 0,
     "occupancy_threshold": 0,
+    "occupancy_skipdist": 0,
+    "packbits": 0,
+    "unpackbits": 0,
+    "morton3d": 0,
+    "morton3d_invert": 0,
 }
 
 _lock = threading.Lock()
@@ -65,9 +72,12 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "nst_hashgrid_encode": (_P, _P, _P, _P, _LL, _I, _I, _P),
     "nst_hashgrid_backward": (_P, _P, _P, _P, _LL, _I, _I, _P),
-    "nst_march_count": (_P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _I, _P, _P),
+    "nst_march_count": (
+        _P, _P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P,
+    ),
     "nst_march_write": (
-        _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P, _P,
+        _P, _P,
     ),
     "nst_composite_weights": (_P, _P, _P, _I, _F, _F, _P, _P, _P, _P, _P),
     "nst_composite_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P),
@@ -79,6 +89,11 @@ _SIGNATURES = {
     "nst_occupancy_num_partials": (),
     "nst_occupancy_merge": (_P, _P, _F, _LL, _P, _P, _P),
     "nst_occupancy_threshold": (_P, _P, _LL, _F, _P, _P, _P),
+    "nst_occupancy_skipdist_pass": (_P, _I, _I, _LL, _LL, _I, _P, _P),
+    "nst_packbits": (_P, _LL, _P, _P),
+    "nst_unpackbits": (_P, _LL, _P, _P),
+    "nst_morton3d": (_P, _LL, _P, _P),
+    "nst_morton3d_invert": (_P, _LL, _P, _P),
 }
 
 
@@ -192,12 +207,12 @@ def _stream(t: torch.Tensor) -> int:
 def hashgrid_encode(x: torch.Tensor, table: torch.Tensor, levels: torch.Tensor) -> torch.Tensor:
     """K1: [B, 3] points in [0, 1] -> [B, L*C] features (see csrc/hashgrid.cu).
 
-    ``levels`` is the int32 [3, L] table of level resolutions, table sizes
-    and row offsets (``ops.hashgrid.level_table``)."""
+    ``levels`` is the int32 [4, L] table of level resolutions, table sizes,
+    row offsets and simplex flags (``ops.hashgrid.level_table``)."""
     b = x.shape[0]
     _check("x", x, torch.float32, (None, 3))
     _check("table", table, torch.float32, (None, None))
-    _check("levels", levels, torch.int32, (3, None))
+    _check("levels", levels, torch.int32, (4, None))
     _same_device(x, table, levels)
     num_levels, c = levels.shape[1], table.shape[1]
     if c not in (1, 2, 4):
@@ -221,7 +236,7 @@ def hashgrid_backward(
     ``g`` [B, L*C] at points ``x`` [B, 3] (see csrc/hashgrid.cu)."""
     b = x.shape[0]
     _check("x", x, torch.float32, (None, 3))
-    _check("levels", levels, torch.int32, (3, None))
+    _check("levels", levels, torch.int32, (4, None))
     num_levels = levels.shape[1]
     _check("g", g, torch.float32, (b, None))
     _same_device(x, g, levels)
@@ -240,10 +255,13 @@ def hashgrid_backward(
     return grad
 
 
-def _march_args(origins, dirs, nears, fars, bitfield, dt, bound, t_lattice, cascade,
-                grid_size, mip_dt_level, max_steps) -> Tuple[tuple, tuple]:
-    """Check the inputs of both K3 passes; return their pointer and geometry
-    arguments."""
+def _march_args(origins, dirs, nears, fars, bitfield, skip, dt, bound, t_lattice, cascade,
+                grid_size, mip_dt_level, max_steps) -> tuple:
+    """Check the inputs of both march passes; return their arguments up to
+    the ray count, in the C order.  ``skip`` is None (the dense march, K3)
+    or (skipdist [cascade*H^3] u8 from K6c, cells [cascade] f32 the world
+    cell size of each level, the window length S, reach f32(S*dt)) for the
+    two-stage march, K3s."""
     n = origins.shape[0]
     _check("origins", origins, torch.float32, (n, 3))
     _check("dirs", dirs, torch.float32, (n, 3))
@@ -251,60 +269,80 @@ def _march_args(origins, dirs, nears, fars, bitfield, dt, bound, t_lattice, casc
     _check("fars", fars, torch.float32, (n,))
     _check("bitfield", bitfield, torch.bool, (cascade * grid_size**3,))
     _same_device(origins, dirs, nears, fars, bitfield)
-    ptrs = (origins.data_ptr(), dirs.data_ptr(), nears.data_ptr(), fars.data_ptr(),
-            bitfield.data_ptr())
-    geom = (dt, bound, t_lattice, cascade, grid_size, mip_dt_level, max_steps, n)
-    return ptrs, geom
+    skipdist_ptr, cells_ptr, window, reach = None, None, 8, 0.0
+    if skip is not None:
+        skipdist, cells, window, reach = skip
+        _check("skipdist", skipdist, torch.uint8, (cascade * grid_size**3,))
+        _check("cells", cells, torch.float32, (cascade,))
+        _same_device(origins, skipdist, cells)
+        skipdist_ptr, cells_ptr = skipdist.data_ptr(), cells.data_ptr()
+    return (origins.data_ptr(), dirs.data_ptr(), nears.data_ptr(), fars.data_ptr(),
+            bitfield.data_ptr(), skipdist_ptr, cells_ptr, dt, bound, t_lattice, cascade,
+            grid_size, mip_dt_level, max_steps, window, reach, n)
 
 
-def march_count(origins, dirs, nears, fars, bitfield, **geom) -> torch.Tensor:
-    """K3 pass 1: the kept-sample count [N] i32 of each ray (see
-    csrc/march.cu).  ``geom`` holds dt, bound, t_lattice, cascade,
-    grid_size, mip_dt_level and max_steps."""
-    ptrs, args = _march_args(origins, dirs, nears, fars, bitfield, **geom)
+def _sample_buffers(m: int, dev) -> Tuple[torch.Tensor, ...]:
+    """The write pass's outputs: xyz [M, 3], dirs [M, 3], tau [M] f32, ray
+    id and lattice index [M] i32."""
+    return (torch.empty((m, 3), dtype=torch.float32, device=dev),
+            torch.empty((m, 3), dtype=torch.float32, device=dev),
+            torch.empty((m,), dtype=torch.float32, device=dev),
+            torch.empty((m,), dtype=torch.int32, device=dev),
+            torch.empty((m,), dtype=torch.int32, device=dev))
+
+
+def march_count(origins, dirs, nears, fars, bitfield, skip=None,
+                **geom) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K3 pass 1 (K3s with ``skip``, see :func:`_march_args`): the
+    kept-sample count [N] i32 of each ray, and its candidate windows [N] i32
+    (None for the dense march).  ``geom`` holds dt, bound, t_lattice,
+    cascade, grid_size, mip_dt_level and max_steps (see csrc/march.cu)."""
+    args = _march_args(origins, dirs, nears, fars, bitfield, skip, **geom)
     n = origins.shape[0]
     counts = torch.zeros((n,), dtype=torch.int32, device=origins.device)
+    cand = None if skip is None else torch.zeros_like(counts)
     if n > 0:
         lib = library()
-        status = lib.nst_march_count(*ptrs, *args, counts.data_ptr(), _stream(origins))
-        _launched(lib, status, "march_count")
-    return counts
+        status = lib.nst_march_count(*args, counts.data_ptr(),
+                                     None if cand is None else cand.data_ptr(), _stream(origins))
+        _launched(lib, status, "march_count" if skip is None else "march_skip_count")
+    return counts, cand
 
 
-def march_write(origins, dirs, nears, fars, bitfield, offsets, num_kept: int, **geom):
-    """K3 pass 2: (xyz [M,3], dirs [M,3], tau [M], ray_id [M] i32, step [M]
-    i32) at the ray ``offsets`` [N+1] i64 that pass 1's counts give, M =
-    ``num_kept``."""
-    ptrs, args = _march_args(origins, dirs, nears, fars, bitfield, **geom)
+def march_write(origins, dirs, nears, fars, bitfield, offsets, num_kept: int, skip=None,
+                **geom):
+    """K3 pass 2 (K3s with ``skip``): (xyz [M,3], dirs [M,3], tau [M],
+    ray_id [M] i32, step [M] i32) at the ray ``offsets`` [N+1] i64 that
+    pass 1's counts give, M = ``num_kept``."""
+    args = _march_args(origins, dirs, nears, fars, bitfield, skip, **geom)
     _check("offsets", offsets, torch.int64, (origins.shape[0] + 1,))
     _same_device(origins, offsets)
-    m, dev = num_kept, origins.device
-    xyz = torch.empty((m, 3), dtype=torch.float32, device=dev)
-    sdirs = torch.empty((m, 3), dtype=torch.float32, device=dev)
-    tau = torch.empty((m,), dtype=torch.float32, device=dev)
-    ray_id = torch.empty((m,), dtype=torch.int32, device=dev)
-    step = torch.empty((m,), dtype=torch.int32, device=dev)
-    if m > 0:
+    out = _sample_buffers(num_kept, origins.device)
+    if num_kept > 0:
         lib = library()
-        status = lib.nst_march_write(
-            *ptrs, *args, offsets.data_ptr(), xyz.data_ptr(), sdirs.data_ptr(),
-            tau.data_ptr(), ray_id.data_ptr(), step.data_ptr(), _stream(origins),
-        )
-        _launched(lib, status, "march_write")
-    return xyz, sdirs, tau, ray_id, step
+        status = lib.nst_march_write(*args, offsets.data_ptr(), *(t.data_ptr() for t in out),
+                                     _stream(origins))
+        _launched(lib, status, "march_write" if skip is None else "march_skip_write")
+    return out
 
 
-def march_rays(origins, dirs, nears, fars, bitfield, **geom):
-    """K3: march N rays; returns (xyz [M,3], dirs [M,3], tau [M], ray_id [M]
-    i32, step [M] i32, offsets [N+1] i64), ray-major (see csrc/march.cu).
+def march_rays(origins, dirs, nears, fars, bitfield, skip=None, **geom):
+    """K3, or K3s with ``skip``: march N rays; returns (xyz [M,3], dirs [M,3],
+    tau [M], ray_id [M] i32, step [M] i32, offsets [N+1] i64), ray-major, and
+    the candidate-window count ``num_cand`` (a host int, 0 for the dense
+    march) (see csrc/march.cu).
 
     Pass 1, an exclusive scan of its counts, and pass 2.  Synchronises once,
-    to size the outputs from the count pass."""
-    counts = march_count(origins, dirs, nears, fars, bitfield, **geom)
+    for the sample and candidate counts."""
+    counts, cand = march_count(origins, dirs, nears, fars, bitfield, skip, **geom)
     offsets = torch.zeros((counts.shape[0] + 1,), dtype=torch.int64, device=counts.device)
     offsets[1:] = torch.cumsum(counts, 0, dtype=torch.int64)
-    m = int(offsets[-1])
-    return (*march_write(origins, dirs, nears, fars, bitfield, offsets, m, **geom), offsets)
+    if cand is None:
+        m, num_cand = int(offsets[-1]), 0
+    else:
+        m, num_cand = torch.stack([offsets[-1], cand.sum(dtype=torch.int64)]).tolist()
+    out = march_write(origins, dirs, nears, fars, bitfield, offsets, m, skip, **geom)
+    return (*out, offsets, num_cand)
 
 
 def composite_weights(
@@ -534,3 +572,83 @@ def occupancy_merge(grid: torch.Tensor, tmp: torch.Tensor, decay: float, density
                                              mean.data_ptr(), stream)
         _launched(lib, status, "occupancy_threshold")
     return out, bitfield, mean
+
+
+def occupancy_skipdist(bitfield: torch.Tensor, grid_size: int, dmax: int) -> torch.Tensor:
+    """K6c: the [cascade*H^3] u8 skip distance of a bool bitfield (L-inf
+    cells to the nearest occupied cell of the cascade, capped at ``dmax``),
+    in three axis passes (z, y, x), three launches (see csrc/occupancy.cu)."""
+    _check("bitfield", bitfield, torch.bool, (None,))
+    n, h3 = bitfield.shape[0], grid_size**3
+    if n % h3:
+        raise ValueError(f"bitfield of {n} cells does not fit a {grid_size}^3 grid")
+    out = torch.empty((n,), dtype=torch.uint8, device=bitfield.device)
+    if n == 0:
+        return out
+    tmp = torch.empty_like(out)
+    lib = library()
+    stream = _stream(bitfield)
+    for src, dst, stride in ((bitfield, out, 1), (out, tmp, grid_size),
+                             (tmp, out, grid_size * grid_size)):
+        status = lib.nst_occupancy_skipdist_pass(src.data_ptr(), int(src is bitfield), grid_size,
+                                                 n, stride, dmax, dst.data_ptr(), stream)
+        _launched(lib, status, "occupancy_skipdist")
+    return out
+
+
+def _aligned8(name: str, t: torch.Tensor) -> None:
+    if t.data_ptr() % 8:
+        raise ValueError(f"{name}: K8a reads and writes 8 cells at once and needs an "
+                         "8-byte aligned tensor")
+
+
+def packbits(bitfield: torch.Tensor) -> torch.Tensor:
+    """K8a pack: bool [K] -> u8 [K/8], LSB-first (see csrc/interop.cu)."""
+    _check("bitfield", bitfield, torch.bool, (None,))
+    k = bitfield.shape[0]
+    if k % 8:
+        raise ValueError(f"packbits takes a multiple of 8 cells, got {k}")
+    _aligned8("bitfield", bitfield)
+    out = torch.empty((k // 8,), dtype=torch.uint8, device=bitfield.device)
+    if k > 0:
+        lib = library()
+        status = lib.nst_packbits(bitfield.data_ptr(), k // 8, out.data_ptr(), _stream(bitfield))
+        _launched(lib, status, "packbits")
+    return out
+
+
+def unpackbits(packed: torch.Tensor) -> torch.Tensor:
+    """K8a unpack: u8 [K/8] -> bool [K], LSB-first (see csrc/interop.cu)."""
+    _check("packed", packed, torch.uint8, (None,))
+    nb = packed.shape[0]
+    out = torch.empty((8 * nb,), dtype=torch.bool, device=packed.device)
+    if nb > 0:
+        lib = library()
+        status = lib.nst_unpackbits(packed.data_ptr(), nb, out.data_ptr(), _stream(packed))
+        _launched(lib, status, "unpackbits")
+    return out
+
+
+def morton3d(coords: torch.Tensor) -> torch.Tensor:
+    """K8b: [N, 3] i32 cell coordinates -> [N] i32 Morton codes (see
+    csrc/interop.cu)."""
+    _check("coords", coords, torch.int32, (None, 3))
+    n = coords.shape[0]
+    out = torch.empty((n,), dtype=torch.int32, device=coords.device)
+    if n > 0:
+        lib = library()
+        status = lib.nst_morton3d(coords.data_ptr(), n, out.data_ptr(), _stream(coords))
+        _launched(lib, status, "morton3d")
+    return out
+
+
+def morton3d_invert(codes: torch.Tensor) -> torch.Tensor:
+    """K8b inverse: [N] i32 Morton codes -> [N, 3] i32 coordinates."""
+    _check("codes", codes, torch.int32, (None,))
+    n = codes.shape[0]
+    out = torch.empty((n, 3), dtype=torch.int32, device=codes.device)
+    if n > 0:
+        lib = library()
+        status = lib.nst_morton3d_invert(codes.data_ptr(), n, out.data_ptr(), _stream(codes))
+        _launched(lib, status, "morton3d_invert")
+    return out

@@ -4,13 +4,19 @@
 Same geometry laws as the JAX package: per-level kernel resolution
 ``floor(2^(l*log2(s)) * H)`` in fp32, table sizes by the ceil law
 ``min(2^log2_size, ceil(H*s^l)^3)`` rounded up to a multiple of 8, the
-spatial-prime XOR hash in uint32 ``% size + offset``, trilinear weights, zero
-features outside ``[0, 1]^3`` and level-major ``[B, L*C]`` output.
+spatial-prime XOR hash in uint32 ``% size + offset``, zero features outside
+``[0, 1]^3`` and level-major ``[B, L*C]`` output.  Levels below
+``simplex_start`` interpolate trilinearly (8 corners); levels from it on
+(``simplex_from >= 0``) on the Freudenthal simplex of the cell (4 vertices,
+the JAX ``_flat_block_simplex``): with the fractions' descending ranks
+(ties broken x before y before z) and sorted fractions s1 >= s2 >= s3,
+vertex v includes axis d iff rank_d < v, is hashed as the trilinear corner
+with the same integer coordinates, and weighs (1 - s1, s1 - s2, s2 - s3, s3)
+in turn.
 
 Every level takes the hash path: the dense index law of the JAX module
 applies only when ``(res+1)^3 * 512 <= table size``, and since ``table size
-<= ceil(H*s^l)^3 <= (res+1)^3`` that never holds.  Simplex levels
-(``simplex_from >= 0``) are not ported yet and raise.
+<= ceil(H*s^l)^3 <= (res+1)^3`` that never holds.
 
 :func:`hashgrid_encode` is differentiable in the table (:class:`HashGridEncode`):
 its forward launches kernel K1 and its backward kernel K2, the table
@@ -55,6 +61,13 @@ class HashGridSpec:
     @property
     def output_dim(self) -> int:
         return self.num_levels * self.level_dim
+
+    @property
+    def simplex_start(self) -> int:
+        """First simplex level (``num_levels`` when there is none)."""
+        if self.simplex_from < 0:
+            return self.num_levels
+        return min(self.simplex_from, self.num_levels)
 
 
 def hashgrid_spec(
@@ -108,44 +121,65 @@ def hashgrid_init(
     return t.to(device)
 
 
-def _check_trilinear(spec: HashGridSpec) -> None:
-    if 0 <= spec.simplex_from < spec.num_levels:
-        raise NotImplementedError(
-            f"simplex levels (simplex_from={spec.simplex_from}) are not ported yet"
-        )
-
-
 @functools.lru_cache(maxsize=16)
 def level_table(spec: HashGridSpec, device: torch.device) -> torch.Tensor:
-    """int32 [3, L]: level resolutions, table sizes (rows) and row offsets —
-    the level constants K1 reads."""
-    rows = [spec.resolutions, spec.table_sizes, spec.offsets[:-1]]
+    """int32 [4, L]: level resolutions, table sizes (rows), row offsets and
+    1 on simplex levels (0 on trilinear ones) — the level constants K1 and
+    K2 read."""
+    simplex = [int(lv >= spec.simplex_start) for lv in range(spec.num_levels)]
+    rows = [spec.resolutions, spec.table_sizes, spec.offsets[:-1], simplex]
     return torch.tensor(rows, dtype=torch.int32, device=device)
 
 
-def _corners(spec: HashGridSpec, x: torch.Tensor):
-    """The 8 trilinear corners of every (point, level), in the JAX order of
-    operations: [(rows [B, L] i64, weights [B, L] f32)] and the
-    out-of-range mask [B]."""
-    _check_trilinear(spec)
-    b, dev = x.shape[0], x.device
-    scale = torch.tensor(spec.resolutions, dtype=torch.float32, device=dev)
-    sizes = torch.tensor(spec.table_sizes, dtype=torch.int64, device=dev)
-    offs = torch.tensor(spec.offsets[:-1], dtype=torch.int64, device=dev)
-    oob = ((x < 0.0) | (x > 1.0)).any(dim=-1)
-    pos = x[:, None, :] * scale[None, :, None]  # [B, L, 3]
+def _cells(spec: HashGridSpec, x: torch.Tensor, lv0: int, lv1: int):
+    """Integer corners pg [B, L', 3] i64 and fractions [B, L', 3] of levels
+    [lv0, lv1), in the JAX order of operations."""
+    scale = torch.tensor(spec.resolutions[lv0:lv1], dtype=torch.float32, device=x.device)
+    pos = x[:, None, :] * scale[None, :, None]
     pg = torch.minimum(torch.floor(pos).clamp(min=0.0), (scale - 1.0)[None, :, None])
-    frac = pos - pg
-    pgi = pg.to(torch.int64)
+    return pg.to(torch.int64), pos - pg
+
+
+def _rows(spec: HashGridSpec, coords, lv0: int, lv1: int) -> torch.Tensor:
+    """Table rows [B, L'] i64 of integer corners [B, L', 3] at levels [lv0,
+    lv1): the uint32 XOR hash (in int64, masked), % size + offset."""
+    dev = coords.device
+    sizes = torch.tensor(spec.table_sizes[lv0:lv1], dtype=torch.int64, device=dev)
+    offs = torch.tensor(spec.offsets[lv0:lv1], dtype=torch.int64, device=dev)
+    h = torch.zeros(coords.shape[:2], dtype=torch.int64, device=dev)
+    for d in range(3):
+        h = h ^ ((coords[..., d] * PRIMES[d]) & _U32)
+    return h % sizes + offs
+
+
+def _corners(spec: HashGridSpec, x: torch.Tensor):
+    """Every (point, level)'s corners (trilinear levels, 8) or simplex
+    vertices (4), in the JAX order of operations: [(lv0, lv1, rows [B, L']
+    i64, weights [B, L'] f32)], one entry a corner slot of the levels [lv0,
+    lv1), and the out-of-range mask [B]."""
+    lc, nl = spec.simplex_start, spec.num_levels
+    oob = ((x < 0.0) | (x > 1.0)).any(dim=-1)
     corners = []
-    for s in range(8):
-        w = torch.ones((b, spec.num_levels), dtype=torch.float32, device=dev)
-        h = torch.zeros((b, spec.num_levels), dtype=torch.int64, device=dev)
-        for d in range(3):
-            bit = (s >> d) & 1
-            w = w * (frac[..., d] if bit else 1.0 - frac[..., d])
-            h = h ^ (((pgi[..., d] + bit) * PRIMES[d]) & _U32)
-        corners.append((h % sizes + offs, w))
+    if lc > 0:
+        pg, frac = _cells(spec, x, 0, lc)
+        for s in range(8):
+            w = torch.ones(pg.shape[:2], dtype=torch.float32, device=x.device)
+            bits = [(s >> d) & 1 for d in range(3)]
+            for d in range(3):
+                w = w * (frac[..., d] if bits[d] else 1.0 - frac[..., d])
+            corners.append((0, lc, _rows(spec, pg + torch.tensor(bits, device=x.device), 0, lc),
+                            w))
+    if lc < nl:
+        pg, frac = _cells(spec, x, lc, nl)
+        fx, fy, fz = frac.unbind(-1)
+        rank = torch.stack([(fy > fx).long() + (fz > fx).long(),
+                            (fx >= fy).long() + (fz > fy).long(),
+                            (fx >= fz).long() + (fy >= fz).long()], dim=-1)
+        s1 = torch.maximum(fx, torch.maximum(fy, fz))
+        s3 = torch.minimum(fx, torch.minimum(fy, fz))
+        s2 = fx + fy + fz - s1 - s3
+        for v, w in enumerate((1.0 - s1, s1 - s2, s2 - s3, s3)):
+            corners.append((lc, nl, _rows(spec, pg + (rank < v).long(), lc, nl), w))
     return corners, oob
 
 
@@ -155,8 +189,8 @@ def hashgrid_encode_plain(spec: HashGridSpec, table: torch.Tensor, x: torch.Tens
     b, c = x.shape[0], table.shape[1]
     corners, oob = _corners(spec, x)
     out = torch.zeros((b, spec.num_levels, c), dtype=torch.float32, device=x.device)
-    for rows, w in corners:
-        out = out + table[rows] * w[..., None]
+    for lv0, lv1, rows, w in corners:
+        out[:, lv0:lv1] = out[:, lv0:lv1] + table[rows] * w[..., None]
     out = torch.where(oob[:, None, None], 0.0, out)
     return out.reshape(b, spec.num_levels * c)
 
@@ -164,16 +198,16 @@ def hashgrid_encode_plain(spec: HashGridSpec, table: torch.Tensor, x: torch.Tens
 def hashgrid_backward_plain(
     spec: HashGridSpec, x: torch.Tensor, g: torch.Tensor, num_rows: int
 ) -> torch.Tensor:
-    """Plain table gradient: ``index_add_`` of every corner's ``w * g`` into
-    a zero [num_rows, C] table (in g's dtype); out-of-range points add
-    nothing."""
+    """Plain table gradient: ``index_add_`` of every corner's (or simplex
+    vertex's) ``w * g`` into a zero [num_rows, C] table (in g's dtype);
+    out-of-range points add nothing."""
     b = x.shape[0]
     c = g.shape[1] // spec.num_levels
     corners, oob = _corners(spec, x)
     g3 = torch.where(oob[:, None, None], 0.0, g.reshape(b, spec.num_levels, c))
     grad = torch.zeros((num_rows, c), dtype=g.dtype, device=x.device)
-    for rows, w in corners:
-        grad.index_add_(0, rows.reshape(-1), (w[..., None] * g3).reshape(-1, c))
+    for lv0, lv1, rows, w in corners:
+        grad.index_add_(0, rows.reshape(-1), (w[..., None] * g3[:, lv0:lv1]).reshape(-1, c))
     return grad
 
 
@@ -187,7 +221,6 @@ class HashGridEncode(torch.autograd.Function):
         ctx.save_for_backward(x)
         if not use_kernel(x, plain):
             return hashgrid_encode_plain(spec, table, x)
-        _check_trilinear(spec)
         return kernels.hashgrid_encode(x.contiguous(), table.contiguous(),
                                        level_table(spec, x.device))
 

@@ -25,7 +25,7 @@ from ..core.types import DatasetSplit
 from ..data import get_dataset
 from ..data.base import BaseDataset
 from ..models.fields import FieldSpec, Params, make_grid_spec, style_field_spec
-from ..ops.occupancy import occupancy_init, occupancy_restore
+from ..ops.occupancy import occupancy_init, occupancy_persistable
 from ..training import checkpoint as ckpt_lib
 from .renderer import Renderer, RenderSettings
 
@@ -124,10 +124,8 @@ def load_renderer(
         compute_dtype=torch.bfloat16 if train_cfg.enable_amp else torch.float32,
         device=dev,
     )
-    template = occupancy_init(renderer.cascade, settings.grid_size)
-    renderer.occ_state = occupancy_restore(
-        ckpt_lib.restore_tree(template, groups["occ"]), settings.grid_size, dev
-    )
+    template = occupancy_persistable(occupancy_init(renderer.cascade, settings.grid_size))
+    renderer.restore_occupancy(ckpt_lib.restore_tree(template, groups["occ"]))
     if "renderer_static" in meta:
         renderer.load_state_dict_static(meta["renderer_static"])
     return renderer, params, test_set, meta

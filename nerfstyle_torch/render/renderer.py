@@ -6,8 +6,10 @@ during training (``maybe_update_state``, ``note_batch_points``).
 
 Inference, per chunk of rays:
 
-  1. ``near_far_from_aabb``, then ``march_rays`` (kernel K3) emits the
-     ray-major sample stream, sized exactly from its count pass;
+  1. ``near_far_from_aabb``, then ``march_rays`` emits the ray-major sample
+     stream, sized exactly from its count pass: the two-stage march over
+     the skip distance (kernel K3s) with ``adaptive_march`` (the default, as
+     in the JAX package), the dense lattice sweep (kernel K3) without;
   2. phase A: the density branch on every marched sample (kernel K1 on the
      density table, then the density MLP), and ``sample_weights`` (kernel
      K4) gives each sample's weight and each ray's weights_sum and depth;
@@ -43,10 +45,12 @@ from ..core.types import BBox, Intrinsics
 from ..models.fields import FieldSpec, Params, field_color, field_density
 from ..ops.aabb import near_far_from_aabb
 from ..ops.compositing import sample_weights, segment_sum
-from ..ops.marching import MarchPlan, march_rays
+from ..ops.marching import MarchPlan, OccField, march_rays
 from ..ops.occupancy import (
+    OccupancyState,
     PersistedOccupancy,
     occupancy_init,
+    occupancy_restore,
     occupancy_update_full,
     occupancy_update_random,
     update_mean_count,
@@ -54,7 +58,7 @@ from ..ops.occupancy import (
 from .pipeline import eval_composite
 
 MAP_KEYS = ("rgb_map", "trans_map", "classes", "weights_sum")
-COUNT_KEYS = ("num_marched", "num_sig")
+COUNT_KEYS = ("num_marched", "num_sig", "num_cand")
 # Rays per chunk and samples per field batch: bounds on device memory only
 # (a frame chunk of 2^16 rays peaks at a few GiB at the default configs).
 CHUNK_RAYS = 1 << 16
@@ -81,6 +85,9 @@ class RenderSettings:
     density_thresh: float = 10.0
     density_decay: float = 0.95
     grid_bsize: Optional[int] = None
+    # March with the skip distance (two-stage, kernel K3s); False sweeps the
+    # dense lattice (kernel K3).  Both emit the same samples.
+    adaptive_march: bool = True
     # Only for the checkpoint's budget_bucket, by which the JAX package
     # sizes its buffers (the port sizes every buffer exactly).
     max_samples_per_ray: int = 256
@@ -118,7 +125,7 @@ def render_chunk(
     field_spec: FieldSpec,
     plan: MarchPlan,
     params: Params,
-    bitfield: torch.Tensor,
+    occ: OccField,
     bbox: BBox,
     origins: torch.Tensor,
     dirs: torch.Tensor,
@@ -130,16 +137,18 @@ def render_chunk(
     field_batch: int = FIELD_BATCH,
     plain: bool = False,
 ) -> Dict[str, object]:
-    """Two-phase render of one chunk of N rays.
+    """Two-phase render of one chunk of N rays over the occupancy ``occ``
+    (an ``OccField``, or a bare bitfield for the dense march).
 
     Returns ``rgb_map`` [N, 3], ``trans_map`` [N] (normalized depth),
     ``classes`` [N, K], ``weights_sum`` [N] and the host counters
-    ``num_marched`` (samples marched and density-evaluated) and ``num_sig``
-    (samples color-evaluated).  ``plain=True`` runs the plain
+    ``num_marched`` (samples marched and density-evaluated), ``num_sig``
+    (samples color-evaluated) and ``num_cand`` (the two-stage march's
+    candidate windows).  ``plain=True`` runs the plain
     PyTorch version of every kernel (the reference a kernel run is checked
     against)."""
     nears, fars = near_far_from_aabb(origins, dirs, plan.aabb(origins.device), plan.min_near)
-    sb = march_rays(plan, bitfield, origins, dirs, nears, fars, plain=plain)
+    sb = march_rays(plan, occ, origins, dirs, nears, fars, plain=plain)
 
     # Phase A: density on the whole stream, exact weights.
     sigmas = _batched(
@@ -169,6 +178,7 @@ def render_chunk(
         "weights_sum": weights_sum,
         "num_marched": sb.num_kept,
         "num_sig": n_sig,
+        "num_cand": sb.num_cand,
     }
 
 
@@ -176,7 +186,7 @@ def render_rays(
     field_spec: FieldSpec,
     plan: MarchPlan,
     params: Params,
-    bitfield: torch.Tensor,
+    occ: OccField,
     bbox: BBox,
     origins: torch.Tensor,
     dirs: torch.Tensor,
@@ -188,14 +198,15 @@ def render_rays(
     plain: bool = False,
 ) -> Dict[str, object]:
     """Differentiable render of a train batch of N rays (one chunk): AABB,
-    march (K3), :func:`~nerfstyle_torch.render.pipeline.eval_composite`,
+    march over ``occ`` (K3s, or K3 for a bare bitfield),
+    :func:`~nerfstyle_torch.render.pipeline.eval_composite`,
     the white-background blend and the depth normalization.
 
     Returns ``rgb_map`` [N, 3], ``trans_map`` [N], ``classes`` [N, K],
     ``weights_sum`` [N] and the host counts ``num_points`` (samples marched)
     and ``num_sig`` (samples with entering T >= t_thresh)."""
     nears, fars = near_far_from_aabb(origins, dirs, plan.aabb(origins.device), plan.min_near)
-    sb = march_rays(plan, bitfield, origins, dirs, nears, fars, plain=plain)
+    sb = march_rays(plan, occ, origins, dirs, nears, fars, plain=plain)
     out = eval_composite(field_spec, params, bbox, sb, plan.dt, t_thresh, density_scale,
                          compute_dtype, two_phase=two_phase, plain=plain)
     image, ws = out["image"], out["weights_sum"]
@@ -243,7 +254,7 @@ class Renderer:
             bound=self.bound, cascade=self.cascade, grid_size=settings.grid_size,
             max_steps=settings.max_steps, min_near=settings.min_near,
         )
-        self.occ_state: PersistedOccupancy = occupancy_init(
+        self.occ_state: OccupancyState = occupancy_init(
             self.cascade, settings.grid_size, self.device
         )
         self.precrop_frac = 1.0
@@ -294,9 +305,19 @@ class Renderer:
         if num_rays:
             self._last_num_rays = num_rays
 
-    def restore_occupancy(self, state: PersistedOccupancy) -> None:
-        self.occ_state = state
-        self._local_step_host = int(state.local_step)
+    def restore_occupancy(self, persisted: PersistedOccupancy) -> None:
+        """Take a checkpoint's occupancy leaves (the skip distance is
+        rebuilt: kernel K6c)."""
+        self.occ_state = occupancy_restore(persisted, self.settings.grid_size, self.device)
+        self._local_step_host = int(self.occ_state.local_step)
+
+    @property
+    def occ_field(self) -> OccField:
+        """What the marcher reads: the skip distance beside the bitfield
+        under ``adaptive_march``, the bitfield alone otherwise."""
+        if self.settings.adaptive_march:
+            return OccField(self.occ_state.bitfield, self.occ_state.skipdist)
+        return OccField(self.occ_state.bitfield)
 
     def budget_bucket(self) -> int:
         """The JAX package's samples-per-ray bucket for this run's demand:
@@ -330,7 +351,7 @@ class Renderer:
         s = self.settings
         pieces = [
             render_chunk(
-                self.field_spec, self.plan, params, self.occ_state.bitfield, self.bbox,
+                self.field_spec, self.plan, params, self.occ_field, self.bbox,
                 origins[i:i + CHUNK_RAYS], dirs[i:i + CHUNK_RAYS],
                 t_thresh=s.t_thresh, density_scale=s.density_scale,
                 compute_dtype=self.compute_dtype, sig_eps=s.sig_eps, plain=plain,

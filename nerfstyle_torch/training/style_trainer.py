@@ -9,7 +9,8 @@ grid are frozen, so each pose's geometry (its marched samples, their
 densities and compositing weights) is the same at every iteration; it is
 extracted once a pose into a cache (:meth:`StyleTrainer._build_geom_cache`):
 
-  * the frame's rays march (kernel K3), the density branch runs on the whole
+  * the frame's rays march (kernel K3s over the skip distance, or K3 with
+    ``adaptive_march`` off), the density branch runs on the whole
     stream (K1 on the density table, K5) and the compositor gives the
     weights and each ray's ``weights_sum`` (K4);
   * the samples with ``w > style_geom_cache_eps`` are kept in ray-major
@@ -138,7 +139,7 @@ class StyleTrainer(Trainer):
         for i in range(0, hw, CHUNK_RAYS):
             o, d = rays.origins[i:i + CHUNK_RAYS], rays.dirs[i:i + CHUNK_RAYS]
             nears, fars = near_far_from_aabb(o, d, plan.aabb(dev), plan.min_near)
-            sb = march_rays(plan, self.renderer.occ_state.bitfield, o, d, nears, fars)
+            sb = march_rays(plan, self.renderer.occ_field, o, d, nears, fars)
             sigmas = _batched(lambda p: field_density(self.field_spec, self.params,
                                                       self.renderer.bbox, p, self.compute_dtype),
                               sb.xyz, FIELD_BATCH) * s.density_scale

@@ -5,11 +5,13 @@ One iteration (:meth:`Trainer.run_iter`), as in the JAX package:
 
   1. every ``update_iter`` steps (step 0 included) the occupancy grid is
      refreshed (``Renderer.maybe_update_state``: a full sweep before
-     ``update_thres`` steps, a random update after; kernel K6);
+     ``update_thres`` steps, a random update after; kernel K6, then K6c
+     rebuilds the skip distance);
   2. a train frame is drawn (the JAX trainer's numpy stream, same seed) and
      ``num_rays_per_batch`` of its pixels WITH replacement
      (:meth:`ray_batch`);
-  3. the batch renders differentiably (``render_rays``: K3 march, phase A
+  3. the batch renders differentiably (``render_rays``: the K3s march
+     over the skip distance (``adaptive_march``; K3 without), phase A
      K1 + density MLP + K4, phase B K1 on the [T, 4] tables + MLPs + K4 +
      K7), the losses (MSE, class cross-entropy, optional sparsity and weight
      regularization) backpropagate (K4b, the MLPs by autograd, K2), and
@@ -52,7 +54,7 @@ from ..core.types import DatasetSplit
 from ..data import get_dataset
 from ..losses.recon import cross_entropy_ignore, mse_loss, sparsity_loss, weight_reg_loss
 from ..models.fields import Params, field_density, field_init, make_grid_spec, style_field_spec
-from ..ops.occupancy import occupancy_init, occupancy_restore
+from ..ops.occupancy import occupancy_init, occupancy_persistable
 from ..render.renderer import Renderer, RenderSettings, render_rays
 from . import checkpoint as ckpt_lib
 from .ema import EmaState, ema_init, ema_params, ema_update
@@ -280,7 +282,7 @@ class Trainer:
         counts ``num_points``/``num_sig`` of one batch."""
         tc, s, spec = self.train_cfg, self.settings, self.field_spec
         out = render_rays(
-            spec, self.renderer.plan, self.params, self.renderer.occ_state.bitfield,
+            spec, self.renderer.plan, self.params, self.renderer.occ_field,
             self.renderer.bbox, origins, dirs, t_thresh=s.t_thresh,
             density_scale=s.density_scale, compute_dtype=self.compute_dtype,
             two_phase=tc.two_phase_train, plain=plain,
@@ -429,7 +431,7 @@ class Trainer:
             "trainer_static": {"adaptive_rays": None, "sig_bucket_train": None},
         }
         trees = {"params": self.params, "opt_state": self.opt_state, "ema": self.ema_state,
-                 "occ": self.renderer.occ_state}
+                 "occ": occupancy_persistable(self.renderer.occ_state)}
         ckpt_lib.save_checkpoint(path, meta, trees)
         self.logger.info("Saved checkpoint at %s", path)
         return path
@@ -437,9 +439,9 @@ class Trainer:
     def _restore(self, meta: Dict, groups: Dict, load_model_only: bool = False) -> None:
         dev = self.device
         self.params = self._trainable(ckpt_lib.restore_tree(self.params, groups["params"], dev))
-        template = occupancy_init(self.renderer.cascade, self.settings.grid_size)
-        self.renderer.restore_occupancy(occupancy_restore(
-            ckpt_lib.restore_tree(template, groups["occ"]), self.settings.grid_size, dev))
+        template = occupancy_persistable(occupancy_init(self.renderer.cascade,
+                                                        self.settings.grid_size))
+        self.renderer.restore_occupancy(ckpt_lib.restore_tree(template, groups["occ"]))
         sd = meta.get("renderer_static")
         if sd is not None:
             self.renderer.load_state_dict_static(sd)

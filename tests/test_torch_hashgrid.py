@@ -66,16 +66,61 @@ def test_torch_encode_on_cpu_launches_no_kernel():
 
 
 def test_torch_simplex_levels_not_ported():
+    """Simplex levels encode on the CPU through the plain version (no
+    kernel launch), and only they differ from the trilinear encode.  (The
+    name is kept from when the port raised on simplex levels, so that test
+    histories stay comparable.)"""
     spec = th.hashgrid_spec(**TINY, simplex_from=2)
-    with pytest.raises(NotImplementedError):
-        th.hashgrid_encode(spec, torch.zeros(spec.total_params, 2), torch.rand(5, 3))
+    tri = th.hashgrid_spec(**TINY)
+    table, x = torch.rand(spec.total_params, 2), torch.rand(5, 3)
+    kernels.reset_launch_counts()
+    out = th.hashgrid_encode(spec, table, x).reshape(5, 4, 2)
+    assert not any(kernels.launch_counts.values())
+    want = th.hashgrid_encode(tri, table, x).reshape(5, 4, 2)
+    assert torch.equal(out[:, :2], want[:, :2]) and not torch.equal(out[:, 2:], want[:, 2:])
+
+
+@pytest.mark.parametrize("simplex_from", [0, 2, 4, 9])
+@pytest.mark.parametrize("channels", [2, 4])
+def test_torch_simplex_encode_plain_matches_jax(simplex_from, channels):
+    """Simplex levels from 0 (all), 2, and past the last level (4, 9: all
+    trilinear) against the JAX fast encode: within 1e-6 of the largest."""
+    rng = np.random.default_rng(10 * simplex_from + channels)
+    spec_j = jh.hashgrid_spec(**TINY, simplex_from=simplex_from)
+    spec_t = th.hashgrid_spec(**TINY, simplex_from=simplex_from)
+    assert spec_t.simplex_start == spec_j.simplex_start
+    x = _points(rng, 777)
+    x[:5] = np.array([[0.5, 0.5, 0.5], [0.25, 0.25, 0.75], [0.1, 0.3, 0.3], [1.0, 0.0, 1.0],
+                      [0.3, 0.3, 0.1]], np.float32)  # tied fractions
+    table = rng.uniform(-1, 1, size=(spec_j.total_params, channels)).astype(np.float32)
+    want = np.asarray(jh.hashgrid_encode(spec_j, jnp.asarray(table), jnp.asarray(x)))
+    got = th.hashgrid_encode(spec_t, torch.from_numpy(table), torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * np.abs(want).max())
+
+
+def test_torch_simplex_weights_are_barycentric():
+    """Each simplex level's 4 weights are >= 0 and sum to 1, and the field
+    equals the table row at a lattice vertex."""
+    spec = th.hashgrid_spec(**TINY, simplex_from=0)
+    x = torch.from_numpy(np.random.default_rng(2).uniform(0, 1, (500, 3)).astype(np.float32))
+    corners, _ = th._corners(spec, x)
+    assert len(corners) == 4
+    w = torch.stack([c[3] for c in corners])
+    assert bool((w >= -1e-7).all())
+    torch.testing.assert_close(w.sum(0), torch.ones_like(w[0]), rtol=0, atol=1e-6)
+    table = torch.rand(spec.total_params, 1)
+    vertex = torch.tensor([[2.0, 5.0, 7.0]]) / spec.resolutions[0]
+    out = th.hashgrid_encode(spec, table, vertex)
+    row = th._corners(spec, vertex)[0][0][2][0, 0]  # vertex 0: the cell's floor corner
+    assert torch.isclose(out[0, 0], table[row, 0], rtol=0, atol=1e-6)
 
 
 def test_torch_level_table_layout():
-    spec = th.hashgrid_spec(**TINY)
+    spec = th.hashgrid_spec(**TINY, simplex_from=1)
     lv = th.level_table(spec, torch.device("cpu"))
-    assert lv.dtype == torch.int32 and lv.shape == (3, 4)
+    assert lv.dtype == torch.int32 and lv.shape == (4, 4)
     assert lv[0].tolist() == list(spec.resolutions)
     assert lv[1].tolist() == list(spec.table_sizes)
     assert lv[2].tolist() == list(spec.offsets[:-1])
+    assert lv[3].tolist() == [0, 1, 1, 1]
 

@@ -19,17 +19,17 @@ TINY = dict(num_levels=4, level_dim=2, base_resolution=8, per_level_scale=1.5,
             log2_hashmap_size=10)
 
 
-def _inputs(seed, channels, n=600):
+def _inputs(seed, channels, n=600, simplex_from=-1):
     rng = np.random.default_rng(seed)
-    spec = th.hashgrid_spec(**TINY)
+    spec = th.hashgrid_spec(**TINY, simplex_from=simplex_from)
     x = rng.uniform(-0.1, 1.1, size=(n, 3)).astype(np.float32)  # some rows outside
     table = rng.uniform(-1, 1, size=(spec.total_params, channels)).astype(np.float32)
     g = rng.normal(size=(n, spec.num_levels * channels)).astype(np.float32)
     return x, table, g
 
 
-def _jax_grads(x, table, g):
-    spec = jh.hashgrid_spec(**TINY)
+def _jax_grads(x, table, g, simplex_from=-1):
+    spec = jh.hashgrid_spec(**TINY, simplex_from=simplex_from)
 
     def f(emb, pts):
         out = jh.hashgrid_encode(spec, emb, pts, fast_vjp=True, bwd_pack=False)
@@ -67,6 +67,20 @@ def test_torch_table_grad_matches_jax(seed, channels):
     cumsum_atol = 2.0**-23 * np.abs(g).reshape(len(g), -1, channels).sum(axis=(0, 1))
     np.testing.assert_allclose(got, want_emb, rtol=1e-5, atol=cumsum_atol.max())
     assert cumsum_atol.max() < 1e-3 * np.abs(exact).max()  # the atol stays small
+
+
+@pytest.mark.parametrize("simplex_from", [0, 2, 4])
+def test_torch_simplex_table_grad_matches_jax(simplex_from):
+    """Simplex levels from 0 (all), 2, and past the last level: the table
+    gradient against the JAX fast VJP's within 1e-5 relative L2 (the same
+    contributions summed in another order)."""
+    x, table, g = _inputs(3 + simplex_from, 4, simplex_from=simplex_from)
+    want, _ = _jax_grads(x, table, g, simplex_from)
+    spec = th.hashgrid_spec(**TINY, simplex_from=simplex_from)
+    tab = torch.from_numpy(table).requires_grad_(True)
+    th.hashgrid_encode(spec, tab, torch.from_numpy(x)).backward(torch.from_numpy(g))
+    got = tab.grad.numpy().astype(np.float64)
+    assert np.linalg.norm(got - want) <= 1e-5 * np.linalg.norm(want)
 
 
 def test_torch_table_grad_plain_is_the_scatter_of_weighted_cotangents():

@@ -11,10 +11,11 @@ import numpy as np
 import pytest
 import torch
 
-from nerfstyle_torch import kernels
+from nerfstyle_torch import interop, kernels
 from nerfstyle_torch.ops import compositing as tc
 from nerfstyle_torch.ops import hashgrid as th
 from nerfstyle_torch.ops import marching as tm
+from nerfstyle_torch.ops import morton as tmorton
 from nerfstyle_torch.ops import occupancy as to
 from nerfstyle_torch.ops.aabb import near_far_from_aabb
 from nerfstyle_torch.render.renderer import cascade_for_bound
@@ -76,6 +77,129 @@ def test_torch_march_kernel_matches_plain(cuda_device, bound, max_steps, density
     assert got.num_kept == want.num_kept > 300
     for name in ("xyz", "dirs", "tau", "ray_id", "step", "offsets"):
         torch.testing.assert_close(getattr(got, name), getattr(want, name), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("bound,max_steps,density", [(1.0, 128, 0.3), (2.0, 128, 0.02),
+                                                     (2.0, 16, 1.0), (2.0, 1024, 0.002)])
+def test_torch_two_stage_march_kernel_matches_plain_and_dense(cuda_device, bound, max_steps,
+                                                              density):
+    """K3s rounds as K3 does: the plain two-stage march's samples, order,
+    offsets and candidate count, and the dense kernel's samples."""
+    rng = np.random.default_rng(17)
+    grid = 16
+    cascade = cascade_for_bound(bound)
+    bits = torch.from_numpy(rng.random(cascade * grid**3) < density).to(cuda_device)
+    occ = tm.OccField(bits, to.skipdist_from_bitfield(bits, grid, plain=True))
+    o = rng.uniform(-2.5 * bound, 2.5 * bound, size=(300, 3)).astype(np.float32)
+    d = rng.uniform(-0.8 * bound, 0.8 * bound, size=(300, 3)).astype(np.float32) - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    ot, dt_ = torch.from_numpy(o).to(cuda_device), torch.from_numpy(d).to(cuda_device)
+    plan = tm.MarchPlan(bound=bound, cascade=cascade, grid_size=grid, max_steps=max_steps,
+                        min_near=0.05)
+    nt, ft = near_far_from_aabb(ot, dt_, plan.aabb(cuda_device), 0.05)
+    kernels.reset_launch_counts()
+    got = tm.march_rays(plan, occ, ot, dt_, nt, ft)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["march_skip_count"] == 1
+    assert kernels.launch_counts["march_skip_write"] == 1
+    assert kernels.launch_counts["march_count"] == 0
+    want = tm.march_rays(plan, occ, ot, dt_, nt, ft, plain=True)
+    dense = tm.march_rays(plan, bits, ot, dt_, nt, ft)
+    assert got.num_kept == want.num_kept == dense.num_kept > 0
+    assert got.num_cand == want.num_cand > 0
+    for name in ("xyz", "dirs", "tau", "ray_id", "step", "offsets"):
+        torch.testing.assert_close(getattr(got, name), getattr(want, name), rtol=0, atol=0)
+        torch.testing.assert_close(getattr(got, name), getattr(dense, name), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("grid,cascade,density", [(16, 1, 0.01), (32, 2, 0.0005), (32, 2, 0.2),
+                                                  (16, 2, 0.0)])
+def test_torch_skipdist_kernel_matches_plain(cuda_device, grid, cascade, density):
+    """K6c (three separable axis passes) equals the plain iterated dilation
+    bit for bit, in three launches."""
+    bits = torch.from_numpy(
+        np.random.default_rng(grid + cascade).random(cascade * grid**3) < density).to(cuda_device)
+    kernels.reset_launch_counts()
+    got = to.skipdist_from_bitfield(bits, grid)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["occupancy_skipdist"] == 3
+    want = to.skipdist_from_bitfield(bits, grid, plain=True)
+    assert got.dtype == torch.uint8 and torch.equal(got, want)
+
+
+def test_torch_occupancy_restore_and_merge_launch_skipdist(cuda_device):
+    """A restore and a merge rebuild the skip distance through K6c."""
+    rng = np.random.default_rng(4)
+    grid = torch.from_numpy(rng.exponential(1.0, size=(2, 16**3)).astype(np.float32))
+    state = to.occupancy_init(2, 16)._replace(density_grid=grid)
+    persisted = to.occupancy_persistable(state._replace(bitfield=grid.reshape(-1) > 2.0))
+    kernels.reset_launch_counts()
+    restored = to.occupancy_restore(persisted, 16, cuda_device)
+    merged = to.merge_and_threshold(restored, torch.full_like(restored.density_grid, -1.0),
+                                    0.95, 1.0, grid_size=16)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["occupancy_skipdist"] == 6
+    for s in (restored, merged):
+        assert torch.equal(s.skipdist, to.skipdist_from_bitfield(s.bitfield, 16, plain=True))
+
+
+@pytest.mark.parametrize("simplex_from", [0, 2])
+@pytest.mark.parametrize("channels", [2, 4])
+def test_torch_simplex_encode_kernels_match_plain(cuda_device, simplex_from, channels):
+    """K1 and K2 on simplex levels: the encode equals the plain version bit
+    for bit (same rounding); the table gradient its float64 sums within rtol
+    1e-5 and 1e-6 of the largest row (the atomics' order)."""
+    rng = np.random.default_rng(simplex_from + channels)
+    spec = th.hashgrid_spec(**TINY, simplex_from=simplex_from)
+    x = torch.from_numpy(rng.uniform(-0.1, 1.1, size=(5003, 3)).astype(np.float32)).to(cuda_device)
+    x[:3] = torch.tensor([[0.5, 0.5, 0.5], [0.25, 0.25, 0.75], [0.3, 0.3, 0.1]])
+    table = torch.from_numpy(
+        rng.uniform(-1, 1, size=(spec.total_params, channels)).astype(np.float32)
+    ).to(cuda_device).requires_grad_(True)
+    g = torch.from_numpy(
+        rng.normal(size=(5003, spec.num_levels * channels)).astype(np.float32)).to(cuda_device)
+    kernels.reset_launch_counts()
+    out = th.hashgrid_encode(spec, table, x)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["hashgrid_encode"] == 1
+    assert kernels.launch_counts["hashgrid_backward"] == 1
+    want = th.hashgrid_encode(spec, table.detach(), x, plain=True)
+    torch.testing.assert_close(out.detach(), want, rtol=0, atol=0)
+    want_g = th.hashgrid_backward_plain(spec, x, g.double(), spec.total_params)
+    torch.testing.assert_close(table.grad.double(), want_g, rtol=1e-5,
+                               atol=1e-6 * float(want_g.abs().max()))
+
+
+def test_torch_interop_kernels_match_plain(cuda_device):
+    """K8a (pack, unpack) and K8b (Morton code, inverse) equal their plain
+    versions bit for bit, and a grid's round trip through the reference
+    layout is the identity."""
+    rng = np.random.default_rng(9)
+    h = 32
+    bits = torch.from_numpy(rng.random(2 * h**3) < 0.3).to(cuda_device)
+    coords = torch.from_numpy(rng.integers(0, 1024, size=(10001, 3)).astype(np.int32)).to(
+        cuda_device)
+    codes = torch.from_numpy(rng.integers(0, 2**30, size=10001).astype(np.int32)).to(cuda_device)
+    kernels.reset_launch_counts()
+    packed = to.packbits(bits)
+    unpacked = to.unpackbits(packed)
+    mc = tmorton.morton3d(coords)
+    inv = tmorton.morton3d_invert(codes)
+    torch.cuda.synchronize()
+    for name in ("packbits", "unpackbits", "morton3d", "morton3d_invert"):
+        assert kernels.launch_counts[name] == 1, name
+    assert torch.equal(packed, to.packbits(bits, plain=True))
+    assert torch.equal(unpacked, bits)
+    assert torch.equal(mc, tmorton.morton3d(coords, plain=True))
+    assert torch.equal(inv, tmorton.morton3d_invert(codes, plain=True))
+    grid = torch.from_numpy(rng.normal(size=(2, h**3)).astype(np.float32)).to(cuda_device)
+    ref_bits = interop.linear_bitfield_to_reference(bits, h)
+    assert torch.equal(ref_bits, interop.linear_bitfield_to_reference(bits, h, plain=True))
+    g_lin, b_lin = interop.import_reference_grid_state(
+        interop.linear_grid_to_morton(grid, h).cpu().numpy(), ref_bits.cpu().numpy(), h,
+        cuda_device)
+    assert torch.equal(g_lin, grid) and torch.equal(b_lin, bits)
 
 
 def test_torch_composite_kernels_match_plain(cuda_device):

@@ -1,7 +1,8 @@
-"""Port parity: ray/AABB, cascade cell index and the march (plain K3) vs the
-JAX package, on both the dense and the two-stage (skip distance) JAX paths
-at an ample budget.  Kernel K3 is held against the plain version in
-tests/test_torch_kernels.py.
+"""Port parity: ray/AABB, cascade cell index and the march vs the JAX
+package at an ample budget: the plain dense march (K3) against the JAX dense
+path, the plain two-stage march (K3s) against the JAX two-stage path (skip
+distance), and the port's two marches against each other.  Kernels K3 and
+K3s are held against the plain versions in tests/test_torch_kernels.py.
 """
 
 import numpy as np
@@ -15,6 +16,7 @@ from nerfstyle_tpu.ops import marching as jm
 from nerfstyle_tpu.ops.occupancy import skipdist_from_bitfield
 from nerfstyle_torch.ops import aabb as ta
 from nerfstyle_torch.ops import marching as tm
+from nerfstyle_torch.ops.occupancy import skipdist_from_bitfield as t_skipdist
 from nerfstyle_torch.render.renderer import cascade_for_bound
 
 GRID = 16
@@ -74,12 +76,12 @@ def test_torch_cell_index_matches_jax():
     np.testing.assert_array_equal(np.asarray(sj), st.numpy())
 
 
-# The JAX two-stage marcher emits the dense marcher's samples; it is
-# compared on one case (its compile dominates this file's time).
+# Each path against its JAX counterpart (the JAX two-stage compile
+# dominates this file's time); CASES[2] is a fully occupied grid.
 @pytest.mark.parametrize(
     "two_stage,bound,max_steps,density",
-    [(False, *c) for c in CASES] + [(True, *CASES[1])],
-    ids=["dense-1", "dense-2", "dense-cap", "two_stage-2"],
+    [(False, *c) for c in CASES] + [(True, *c) for c in CASES],
+    ids=["dense-1", "dense-2", "dense-cap", "two_stage-1", "two_stage-2", "two_stage-cap"],
 )
 def test_torch_march_plain_matches_jax(two_stage, bound, max_steps, density):
     cascade, bits, o, d = _scene(11, bound, max_steps, density)
@@ -98,13 +100,15 @@ def test_torch_march_plain_matches_jax(two_stage, bound, max_steps, density):
 
     ot, dt_ = torch.from_numpy(o), torch.from_numpy(d)
     nt, ft = ta.near_far_from_aabb(ot, dt_, plan_t.aabb(), 0.05)
-    st = tm.march_rays(plan_t, torch.from_numpy(bits), ot, dt_, nt, ft)
+    bits_t = torch.from_numpy(bits)
+    occ_t = tm.OccField(bits_t, t_skipdist(bits_t, GRID)) if two_stage else bits_t
+    st = tm.march_rays(plan_t, occ_t, ot, dt_, nt, ft)
 
     m = int(sj.num_kept)
     assert m > N_RAYS and st.num_kept == m
     assert np.array_equal(np.asarray(sj.ray_id)[:m], st.ray_id.numpy())
-    np.testing.assert_allclose(st.xyz.numpy(), np.asarray(sj.xyz)[:m], rtol=0, atol=1e-6)
-    np.testing.assert_allclose(st.tau.numpy(), np.asarray(sj.tau)[:m], rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(st.xyz.numpy(), np.asarray(sj.xyz)[:m])
+    np.testing.assert_array_equal(st.tau.numpy(), np.asarray(sj.tau)[:m])
     np.testing.assert_array_equal(st.dirs.numpy(), np.asarray(sj.dirs)[:m])
     # Lattice index: the JAX dense mask's flat positions.
     kept = np.asarray(jm._kept_mask_dense(plan_j, bits_j, rays, nj, fj)).reshape(-1)
@@ -113,6 +117,31 @@ def test_torch_march_plain_matches_jax(two_stage, bound, max_steps, density):
     np.testing.assert_array_equal(st.offsets.numpy(), np.concatenate([[0], np.cumsum(counts)]))
     if max_steps == 16:
         assert counts.max() == max_steps  # the per-ray cap binds
+    # Candidate windows: reported by the two-stage march only.
+    assert st.num_cand == int(sj.num_cand)
+    if two_stage:
+        assert 0 < st.num_cand <= N_RAYS * -(-t_lat // tm.WINDOW)
+
+
+@pytest.mark.parametrize("seed,bound,max_steps,density",
+                         [(s, *c) for s, c in enumerate(CASES)] + [(7, 2.0, 1024, 0.02)])
+def test_torch_two_stage_march_equals_dense(seed, bound, max_steps, density):
+    """The port's two marches emit the same samples: every occupied lattice
+    point lies in a candidate window.  The sparse case skips most windows."""
+    cascade, bits, o, d = _scene(seed, bound, max_steps, density)
+    plan = tm.MarchPlan(bound=bound, cascade=cascade, grid_size=GRID, max_steps=max_steps,
+                        min_near=0.05)
+    ot, dt_ = torch.from_numpy(o), torch.from_numpy(d)
+    nt, ft = ta.near_far_from_aabb(ot, dt_, plan.aabb(), 0.05)
+    bits_t = torch.from_numpy(bits)
+    dense = tm.march_rays(plan, bits_t, ot, dt_, nt, ft)
+    two = tm.march_rays(plan, tm.OccField(bits_t, t_skipdist(bits_t, GRID)), ot, dt_, nt, ft)
+    assert dense.num_kept > 0 and dense.num_cand == 0
+    for name in ("xyz", "dirs", "tau", "ray_id", "step", "offsets"):
+        assert torch.equal(getattr(two, name), getattr(dense, name)), name
+    windows = N_RAYS * -(-plan.t_lattice // tm.WINDOW)
+    if density < 0.1:
+        assert two.num_cand < 0.5 * windows
 
 
 def test_torch_march_ray_chunks_concatenate():
@@ -121,9 +150,12 @@ def test_torch_march_ray_chunks_concatenate():
     plan = tm.MarchPlan(bound=2.0, cascade=cascade, grid_size=GRID, max_steps=1024, min_near=0.05)
     ot, dt_ = torch.from_numpy(o), torch.from_numpy(d)
     nt, ft = ta.near_far_from_aabb(ot, dt_, plan.aabb(), 0.05)
-    full = tm.march_rays(plan, torch.from_numpy(bits), ot, dt_, nt, ft)
-    halves = [tm.march_rays(plan, torch.from_numpy(bits), ot[s], dt_[s], nt[s], ft[s])
-              for s in (slice(0, 32), slice(32, 64))]
-    assert torch.equal(full.xyz, torch.cat([h.xyz for h in halves]))
-    assert torch.equal(full.step, torch.cat([h.step for h in halves]))
+    bits_t = torch.from_numpy(bits)
+    for occ in (bits_t, tm.OccField(bits_t, t_skipdist(bits_t, GRID))):
+        full = tm.march_rays(plan, occ, ot, dt_, nt, ft)
+        halves = [tm.march_rays(plan, occ, ot[s], dt_[s], nt[s], ft[s])
+                  for s in (slice(0, 32), slice(32, 64))]
+        assert torch.equal(full.xyz, torch.cat([h.xyz for h in halves]))
+        assert torch.equal(full.step, torch.cat([h.step for h in halves]))
+        assert full.num_cand == sum(h.num_cand for h in halves)
 

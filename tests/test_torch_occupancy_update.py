@@ -1,8 +1,9 @@
-"""Port parity: occupancy-grid maintenance (plain K6) vs the JAX package —
-the probe scatter-max and the merge/threshold on the same probes, the full
-sweep with the same jitter, the random update's draw of occupied cells, and
-the running mean of marched samples.  Kernel K6 is held against the plain
-versions in tests/test_torch_kernels.py.
+"""Port parity: occupancy-grid maintenance (plain K6, K6c) vs the JAX
+package — the probe scatter-max and the merge/threshold on the same probes,
+the skip distance (on its own, after a merge and after a restore), the full
+sweep with the same jitter, the random update's draw of occupied cells, the
+running mean of marched samples, and the five checkpoint leaves.  Kernels
+K6 and K6c are held against the plain versions in tests/test_torch_kernels.py.
 """
 
 import numpy as np
@@ -69,12 +70,71 @@ def test_torch_scatter_max_and_merge_match_jax(seed, thresh):
     kernels.reset_launch_counts()
     to.scatter_max(tmp, flat, torch.from_numpy(sig).reshape(-1))
     np.testing.assert_array_equal(tmp.numpy().reshape(CASCADE, N), np.asarray(tmp_j))
-    got = to.merge_and_threshold(_port_state(grid), tmp.reshape(CASCADE, N), 0.95, thresh)
+    got = to.merge_and_threshold(_port_state(grid), tmp.reshape(CASCADE, N), 0.95, thresh,
+                                 grid_size=H)
     assert all(v == 0 for v in kernels.launch_counts.values())
     np.testing.assert_array_equal(got.density_grid.numpy(), np.asarray(want.density_grid))
     np.testing.assert_array_equal(got.bitfield.numpy(), np.asarray(want.bitfield))
+    np.testing.assert_array_equal(got.skipdist.numpy(), np.asarray(want.skipdist))
     np.testing.assert_allclose(float(got.mean_density), float(want.mean_density), rtol=1e-6)
     assert 0 < int(got.bitfield.sum()) < got.bitfield.numel()
+
+
+@pytest.mark.parametrize("cascade,density", [(1, 0.002), (1, 0.3), (2, 0.0005), (2, 0.05),
+                                             (2, 0.0)])
+def test_torch_skipdist_plain_matches_jax(cascade, density):
+    """The plain skip distance equals JAX's iterated dilation, cell for
+    cell, on random grids of 1 and 2 cascades: sparse ones (distances up to
+    the cap), a dense one, and an empty one (every cell at the cap)."""
+    bits = np.random.default_rng(int(density * 1e4) + cascade).random(cascade * N) < density
+    want = np.asarray(jo.skipdist_from_bitfield(jnp.asarray(bits), H))
+    got = to.skipdist_from_bitfield(torch.from_numpy(bits), H)
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want == 0).sum() == bits.sum()
+    if density == 0.0:
+        assert np.all(want == to.SKIP_DMAX)
+
+
+def test_torch_skipdist_is_the_capped_linf_distance():
+    """On one cascade with two occupied cells: the L-inf distance to the
+    nearer, within the cascade (no wrap), capped at SKIP_DMAX."""
+    h = 32
+    bits = torch.zeros(2 * h**3, dtype=torch.bool)
+    cells = [(3, 4, 5), (30, 31, 2)]
+    for c in cells:
+        bits[(c[0] * h + c[1]) * h + c[2]] = True
+    dist = to.skipdist_from_bitfield(bits, h).reshape(2, h, h, h)
+    g = torch.stack(torch.meshgrid(*[torch.arange(h)] * 3, indexing="ij"), -1)
+    linf = torch.stack([(g - torch.tensor(c)).abs().amax(-1) for c in cells]).amin(0)
+    assert torch.equal(dist[0].long(), linf.clamp(max=to.SKIP_DMAX))
+    assert bool((dist[1] == to.SKIP_DMAX).all())  # the other cascade is empty
+
+
+def test_torch_restore_rebuilds_skipdist_and_keeps_five_leaves(tmp_path):
+    """A checkpoint holds the five persisted leaves in JAX order; restoring
+    them in either package rebuilds the same skip distance."""
+    from nerfstyle_tpu.training import checkpoint as jckpt
+    from nerfstyle_torch.training import checkpoint as tckpt
+
+    grid, _, _ = _grids(4)
+    state = to.merge_and_threshold(_port_state(grid), torch.full((CASCADE, N), -1.0), 0.95, 0.5,
+                                   grid_size=H)
+    persisted = to.occupancy_persistable(state)
+    assert len(persisted) == 5 and isinstance(persisted, to.PersistedOccupancy)
+    path = tmp_path / "occ.ckpt"
+    tckpt.save_checkpoint(path, {}, {"occ": persisted})
+    _, groups = tckpt.load_checkpoint(path)
+    assert len(groups["occ"]) == 5
+    template = to.occupancy_persistable(to.occupancy_init(CASCADE, H))
+    back = to.occupancy_restore(tckpt.restore_tree(template, groups["occ"]), H)
+    for a, b in zip(back, state):
+        assert torch.equal(a, b) and a.dtype == b.dtype
+    _, jgroups = jckpt.load_checkpoint(path)
+    js = jo.occupancy_restore(jckpt.restore_tree(
+        jo.occupancy_persistable(jo.occupancy_init(CASCADE, H)), jgroups["occ"]), H)
+    np.testing.assert_array_equal(np.asarray(js.skipdist), back.skipdist.numpy())
+    assert 0 < int((back.skipdist == 0).sum()) < CASCADE * N
 
 
 @pytest.fixture(scope="module")

@@ -23,6 +23,7 @@ import torch
 
 from nerfstyle_tpu.config import BaseConfig as JBaseConfig
 from nerfstyle_tpu.data.synthetic import generate_scene
+from nerfstyle_tpu.training import checkpoint as jckpt
 from nerfstyle_tpu.training import ema as jema
 from nerfstyle_tpu.training.trainer import Trainer as JTrainer
 from nerfstyle_torch import kernels
@@ -122,10 +123,11 @@ def _assert_leaves_close(got, want, rtol, atol_frac, what):
                                        err_msg=f"{what} leaf {i}")
 
 
-def _third_step(scene, tmp_path, amp):
+def _third_step(scene, tmp_path, amp, extra=()):
     """(JAX results, port results) of the third step from the same state."""
     root, data_cfg = scene
     nargs = TINY if amp else TINY + ["--enable_amp"]  # the flag toggles the default on off
+    nargs = nargs + list(extra)
     jt = JTrainer(JBaseConfig(log_dir=tmp_path / "jax", data_cfg=data_cfg), list(nargs))
     vg = _jax_loss_fn(jt)
     for _ in range(2):
@@ -170,8 +172,20 @@ def test_torch_train_step_matches_jax(scene, tmp_path, monkeypatch, amp):
     fp32 sums and the two may differ by up to 2 lr."""
     if amp:
         monkeypatch.setenv("NERFSTYLE_NO_BWD_PACK", "1")
-    jt, (losses, grads, num_points, num_sig), tt, (t_losses, t_grads, counts) = _third_step(
-        scene, tmp_path, amp)
+    _check_third_step(*_third_step(scene, tmp_path, amp), amp)
+
+
+def test_torch_simplex_train_step_matches_jax(scene, tmp_path):
+    """The same step with simplex levels from level 2 on (of 4), fp32:
+    the tolerances of test_torch_train_step_matches_jax."""
+    out = _third_step(scene, tmp_path, False, ["--pos_enc.simplex_from", "2"])
+    jt, _, tt, _ = out
+    assert tt.field_spec.grid.simplex_start == jt.field_spec.grid.simplex_start == 2
+    _check_third_step(*out, False)
+
+
+def _check_third_step(jt, jax_out, tt, port_out, amp):
+    (losses, grads, num_points, num_sig), (t_losses, t_grads, counts) = jax_out, port_out
     assert counts == {"num_points": num_points, "num_sig": num_sig}
     assert num_sig < num_points  # rays saturate: phase B keeps a prefix
     assert set(t_losses) == set(losses)
@@ -296,8 +310,8 @@ def _assert_same_state(tt, jt):
                              jax.tree_util.tree_leaves(j_tree), 0, 0, group)
     jo = jt.renderer.occ_state
     _assert_leaves_close([v.numpy() for v in tree_flatten(tt.renderer.occ_state)],
-                         [jo.density_grid, jo.bitfield, jo.mean_density, jo.mean_count,
-                          jo.local_step], 0, 0, "occ")
+                         [jo.density_grid, jo.bitfield, jo.skipdist, jo.mean_density,
+                          jo.mean_count, jo.local_step], 0, 0, "occ")
 
 
 def test_torch_checkpoints_restore_across_packages(scene, tmp_path):
@@ -305,8 +319,32 @@ def test_torch_checkpoints_restore_across_packages(scene, tmp_path):
     templates (params, opt_state, ema, occ) with the optimizer state kept,
     renders through ``python -m nerfstyle_torch.render``, and a JAX
     checkpoint restores into the port's trainer."""
+    _checkpoints_restore_across_packages(scene, tmp_path, [])
+
+
+def test_torch_simplex_checkpoints_restore_across_packages(scene, tmp_path):
+    """The same with simplex levels (from level 1 on): the port's checkpoint
+    keeps its five occupancy leaves and renders in the JAX package; the
+    JAX-written one renders in the port, the same frame as the port's."""
+    tt, jt, path = _checkpoints_restore_across_packages(
+        scene, tmp_path, ["--pos_enc.simplex_from", "1"])
+    _, groups = jckpt.load_checkpoint(path)
+    assert len(groups["occ"]) == 5
+    assert tt.field_spec.grid.simplex_start == jt.field_spec.grid.simplex_start == 1
+    _, pose = tt.test_set[0]
+    jt.renderer.update_occ = False
+    jframe = jt.renderer.render(jt.ema_state.shadow, jnp.asarray(pose), None, training=False)
+    assert jframe["rgb_map"].shape == (48 * 64, 3) and np.isfinite(jframe["rgb_map"]).all()
+    frames = [render_cli.main([str(p), "--device", "cpu", "--max-count", "1", "--yes",
+                               "--out-dir", str(tmp_path / f"render{i}")])["last"]
+              for i, p in enumerate((path, tmp_path / "jax_from_port" / "iter_3.ckpt"))]
+    assert torch.equal(frames[0]["rgb_map"], frames[1]["rgb_map"])
+    assert frames[0]["num_marched"] > 0
+
+
+def _checkpoints_restore_across_packages(scene, tmp_path, extra):
     _, data_cfg = scene
-    nargs = TINY + ["--enable_amp", "--num_iterations", "3"]
+    nargs = TINY + ["--enable_amp", "--num_iterations", "3"] + extra
     tt = Trainer(BaseConfig(log_dir=tmp_path / "port", data_cfg=data_cfg), list(nargs),
                  device="cpu")
     tt.run()
@@ -329,3 +367,4 @@ def test_torch_checkpoints_restore_across_packages(scene, tmp_path):
                   list(nargs), device="cpu")
     assert tt2.iter_ctr == 3
     _assert_same_state(tt2, jt)
+    return tt, jt, path

@@ -17,8 +17,10 @@
    1008x756 frame; 2^20 points for K1, K1s, K2s; the 2 x 128^3 grid for
    K6c): the CUDA kernel against its plain PyTorch version on the same
    inputs, with the tolerance stated at each check, and both timed with
-   CUDA events after warm-up.  The two-stage march (K3s) is also held
-   against the dense march (K3), bit for bit.
+   CUDA events after warm-up (K7 and its `index_add_` yardstick, shorter
+   than the host's work a call, from a CUDA graph of 20 launches).  The
+   two-stage march (K3s) is also held against the dense march (K3), bit
+   for bit; K7 also on rays longer than its staged tile.
 4. The main path: ``python -m nerfstyle_torch.render <ckpt> --out-dims 1008
    756 --max-count 1 --yes``, in-process, with every launch counter set to 0
    just before and read just after; each kernel must have launched (the
@@ -26,7 +28,8 @@
 5. Checks the frame: finite, of the expected shape, its opacity matching
    the spheres' analytic silhouette, a 4096-ray crop matching the plain
    path on the card, and the same frame with adaptive_march off (the dense
-   march, its launches counted) equal to it; steady frames with the march
+   march, its launches counted; every sample of nonzero weight colored)
+   equal to the two-stage frame at sig_eps 0; steady frames with the march
    on and off in turns.
 6. The import path: the checkpoint's tables, heads and grid written as a
    reference ``iter_*.pth`` (Morton order and packed bits through K8a/K8b,
@@ -47,7 +50,9 @@
    version, from the same state and rays (tolerances at step_vs_plain);
    K3 and K3s at a late batch, K2, K4b and K6 against their plain versions
    at the step's shapes, and K5 with its weight gradients at a batch's
-   shape, timed; late steps with adaptive_march on and off in turns (the
+   shape; K5's backward with every weight gradient at 2^20 rows (two
+   launches must give the same bits), timed; late steps with
+   adaptive_march on and off in turns (the
    off turns' dense-march launches counted); one late step under the
    profiler.
 9. The style path: ``python -m nerfstyle_torch.train --ckpt <the train
@@ -129,6 +134,8 @@ STYLE_COUNTERS = ("hashgrid_encode", "hashgrid_backward", "march_skip_count",
 STYLE_STEP_COUNTERS = ("hashgrid_encode", "hashgrid_backward", "mlp_forward", "mlp_backward",
                        "segment_sum", "segment_sum_backward")
 K1_POINTS = 1 << 20
+# Rows of the timed K5 backward with every weight gradient (a train batch).
+K5_DW_ROWS = 1 << 20
 DENSITY_OFFSET = 6.0
 DEVICE = "cuda"
 
@@ -157,6 +164,32 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Mean device time of fn() over reps calls captured in one CUDA graph
+    and replayed (CUDA events around the replay): the host's per-call work
+    (Python, a wrapper's checks, the launch) stays outside the window.  For
+    a kernel of a few microseconds that work is longer than the kernel, and
+    cuda_ms then measures the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -538,19 +571,46 @@ def kernel_phases(renderer, params, rays_o, rays_d):
     tol = 1e-5 * float(img_ref.abs().max()) + 1e-6
     if not err <= tol:
         fails.append(f"K7 segment sum error {err} > {tol}")
-    ms = cuda_ms(lambda: compositing.segment_sum(w_sig, ch, sig_off), reps=20)
+    # Device times from a CUDA graph of 20 launches (the host's per-call work
+    # is longer than either call); the host-bound rates beside them.
+    ms = graph_ms(lambda: compositing.segment_sum(w_sig, ch, sig_off))
+    host_ms = cuda_ms(lambda: compositing.segment_sum(w_sig, ch, sig_off), reps=20)
     plain_ms = cuda_ms(lambda: compositing.segment_sum(w_sig, ch, sig_off, plain=True), reps=5)
     rid = compositing.ray_ids(sig_off)
     src = w_sig[:, None] * ch
     acc = torch.zeros(CHUNK_RAYS, ch.shape[1], device=w.device)
-    lib_ms = cuda_ms(lambda: acc.zero_().index_add_(0, rid, src), reps=20)
+    lib_ms = graph_ms(lambda: acc.zero_().index_add_(0, rid, src))
+    lib_host_ms = cuda_ms(lambda: acc.zero_().index_add_(0, rid, src), reps=20)
     nsig, cc = idx.shape[0], ch.shape[1]
     b_ms, b_by = bound_ms(nbytes=nsig * 4 * (1 + cc) + (CHUNK_RAYS + 1) * 8 + CHUNK_RAYS * cc * 4,
                           flops=2 * nsig * cc)
-    table["K7"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+    # The same stream with rays longer than one staged tile of K7 (at most
+    # 1024 samples a piece) in front, empty rays among them: rays of 5000,
+    # 0 and 3 samples, then the chunk's own rays.  The 5000-sample ray must
+    # equal a sequential fp32 sum in stream order (np.add.accumulate, each
+    # product and sum rounded on its own) bit for bit (against float64 sums
+    # its fp32 rounding grows with its length); every other ray is held to
+    # the plain version as above.
+    lead = torch.tensor([0, 0, 5000, 5000, 5003], dtype=torch.int64, device=w.device)
+    long_off = torch.cat([lead, sig_off[sig_off > 5003]])
+    got = compositing.segment_sum(w_sig, ch, long_off)
+    want = compositing.segment_sum(w_sig, ch, long_off, plain=True)
+    others = torch.arange(got.shape[0], device=w.device) != 1
+    long_err = float((got - want)[others].abs().max())
+    long_tol = 1e-5 * float(want[others].abs().max()) + 1e-6
+    seq = np.add.accumulate((w_sig[:5000, None] * ch[:5000]).cpu().numpy(), axis=0,
+                            dtype=np.float32)[-1]
+    long_exact = bool(np.array_equal(got[1].cpu().numpy(), seq))
+    if not (long_err <= long_tol and long_exact):
+        fails.append(f"K7 segment sum on long rays: error {long_err} (tol {long_tol}); the "
+                     f"5000-sample ray equal to the sequential fp32 sum: {long_exact}")
+    table["K7"] = dict(max_abs_err=max(err, long_err), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                        bound_by=b_by, library_ms=lib_ms)
     log(f"K7 segment_sum: {nsig} significant samples x {cc} channels; max_abs_err {err:.3e} "
-        f"(tol {tol:.3e}); ms {ms:.3f}, plain_ms {plain_ms:.3f}, index_add_ ms {lib_ms:.3f}, "
+        f"(tol {tol:.3e}); with rays of 5000, 0, 3 samples in front: max_abs_err "
+        f"{long_err:.3e} (tol {long_tol:.3e}), the 5000-sample ray equal to the sequential fp32 "
+        f"sum: {long_exact}; ms {ms:.4f} (graph; {host_ms:.4f} launched one by one), plain_ms "
+        f"{plain_ms:.3f}, index_add_ ms {lib_ms:.4f} (graph; {lib_host_ms:.4f} one by one), "
         f"bound_ms {b_ms:.4f} ({b_by})")
     return table, fails
 
@@ -790,6 +850,7 @@ def train_kernel_phases(trainer, fails):
             for head, hh in (("color1_net", h_c), ("density_net", h_d))}
     log(f"K5 at a train batch ({k} rows, {trainer.compute_dtype}, with d W): max abs err "
         f"(out, d x, d W...) {errs}")
+    table["K5bw"] = k5_weight_grad_phase(trainer, x, gen, fails)
 
     # K6: the random update's probes (H^3/4 uniform and H^3/4 occupied cells a
     # cascade) scatter-maxed into a -1 grid, then the merge and threshold of
@@ -838,6 +899,86 @@ def train_kernel_phases(trainer, fails):
         f"{float(mean):.5f} (relative error {mean_err:.2e}); ms {ms:.3f}, plain_ms "
         f"{plain_ms:.3f}, bound_ms {b_ms:.4f} ({b_by})")
     return table
+
+
+def k5_weight_grad_phase(trainer, x, gen, fails):
+    """K5 backward with every d W, as the train step runs it, on a train
+    batch of K5_DW_ROWS rows (the density_net and color1_net heads on points
+    drawn from a late batch's kept samples ``x``): held against the plain
+    chain's autograd, run twice on the same inputs (d W must be the same
+    bits: the partial sums add in CTA order), and timed.  Returns the
+    kernel-table entry.
+
+    Tolerance: at this many rows some hidden pre-activation lies within the
+    fp32 sum-order noise of 0, and its ReLU mask differs between the two
+    versions, which moves that row's d x by a whole term.  So d x: at most
+    1e-4 of the rows beyond 2^-7 of the largest value (mlp_check's
+    tolerance); d W (summed over all rows): relative L2 error 5e-3, as the
+    train step's gradients."""
+    from nerfstyle_torch import kernels
+    from nerfstyle_torch.ops import hashgrid
+    from nerfstyle_torch.ops.mlp import mlp_apply_plain
+
+    spec, params, dtype, dev = trainer.field_spec, trainer.params, trainer.compute_dtype, x.device
+    pick = torch.randint(0, x.shape[0], (K5_DW_ROWS,), generator=gen, device=dev)
+    xw = x[pick].contiguous()
+    with torch.no_grad():
+        heads = [([w.detach() for w in params[head]],
+                  hashgrid.hashgrid_encode(spec.grid, params[tab], xw))
+                 for head, tab in (("density_net", "x_density_embedder"),
+                                   ("color1_net", "x_color_embedder"))]
+    del xw
+    bf16 = dtype == torch.bfloat16
+    gs = [torch.randn((K5_DW_ROWS, ws[-1].shape[1]), generator=gen, device=dev) for ws, _ in heads]
+
+    def bwd():
+        return [kernels.mlp_backward(hh, ws, g, False, bf16, [True] * len(ws))
+                for (ws, hh), g in zip(heads, gs)]
+
+    def bwd_plain():
+        outs = []
+        for (ws, hh), g in zip(heads, gs):
+            wr = [w.clone().requires_grad_(True) for w in ws]
+            xr = hh.detach().requires_grad_(True)
+            d = torch.autograd.grad(mlp_apply_plain(wr, xr, None, dtype), [xr] + wr, g)
+            outs.append((d[0], [gw.to(torch.bfloat16).float() if bf16 else gw for gw in d[1:]]))
+        return outs
+
+    first, second = bwd(), bwd()
+    same = all(torch.equal(a[0], b[0]) and all(torch.equal(p, q) for p, q in zip(a[1], b[1]))
+               for a, b in zip(first, second))
+    if not same:
+        fails.append("K5 backward: two launches on the same inputs gave different d x or d W")
+    errs, far_rows, dw_rel = [], [], []
+    for (dx, dws), (dx_p, dws_p) in zip(first, bwd_plain()):
+        tol = 2.0**-7 * float(dx_p.abs().max()) if bf16 else 1e-5 * float(dx_p.abs().max())
+        diff = (dx - dx_p).abs()
+        far_rows.append(int((diff > tol).any(dim=1).sum()))
+        dw_rel.append(max(rel_l2(a, b) for a, b in zip(dws, dws_p)))
+        errs.append([float(diff.max())] + [float((a - b).abs().max()) for a, b in zip(dws, dws_p)])
+    if not (max(far_rows) <= 1e-4 * K5_DW_ROWS and max(dw_rel) <= 5e-3):
+        fails.append(f"K5 backward with d W at {K5_DW_ROWS} rows: rows of d x beyond tolerance "
+                     f"{far_rows}, d W relative L2 errors {dw_rel}")
+    del first, second
+    ms = cuda_ms(bwd, reps=10)
+    plain_ms = cuda_ms(bwd_plain, reps=3, warmup=1)
+    grids = [kernels.mlp_backward_grid(K5_DW_ROWS, ws[0].shape[0], len(ws) - 1, ws[-1].shape[1])
+             for ws, _ in heads]
+    # Bytes: each head reads x and g and writes d x (fp32 rows), reads its
+    # weights and writes their gradient.  Operations: 2 d_in d_out a row a
+    # layer for the forward recompute, d x (or d h) and d W each.
+    dims = [[w.shape[0] for w in ws] + [ws[-1].shape[1]] for ws, _ in heads]
+    macs = sum(sum(a * b for a, b in zip(d[:-1], d[1:])) for d in dims)
+    wbytes = sum(w.numel() * 4 for ws, _ in heads for w in ws)
+    b_ms, b_by = bound_ms(K5_DW_ROWS * 4 * sum(2 * d[0] + d[-1] for d in dims) + 2 * wbytes,
+                          6 * K5_DW_ROWS * macs, PEAK_BF16_PER_S if bf16 else PEAK_FP32_PER_S)
+    log(f"K5 backward with every d W at a train batch of {K5_DW_ROWS} rows ({dtype}, layer "
+        f"widths {dims}, grids {grids} CTAs): max abs err (d x, d W...) {errs}, rows of d x "
+        f"beyond 2^-7 of the largest {far_rows}, d W relative L2 {dw_rel}; two launches "
+        f"bit-equal: {same}; ms {ms:.3f} (both heads, the d W reduction included), plain_ms "
+        f"(forward + autograd) {plain_ms:.3f}, bound_ms {b_ms:.4f} ({b_by})")
+    return dict(max_abs_err=max(max(e) for e in errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=plain_ms)
 
 
 def mlp_check(weights, x, act, dtype, need_dw: bool, gen, fails, what: str):
@@ -1333,7 +1474,12 @@ def style_kernel_phases(st, fails):
         f_plain = cuda_ms(lambda: fwd(True), reps=5)
         f_lib = cuda_ms(lambda: fwd(True), reps=5)
         b_ms = cuda_ms(bwd, reps=10)
+        head_ms = [cuda_ms(lambda w=w, hh=hh, act=act, g=g: kernels.mlp_backward(
+            hh, w, g, act == "sigmoid", bf16, [False] * len(w)), reps=10)
+            for (w, hh, act), g in zip(heads, gs)]
     b_plain = cuda_ms(bwd_plain, reps=5)
+    grids = [kernels.mlp_backward_grid(n_rows, w[0].shape[0], len(w) - 1, w[-1].shape[1])
+             for w, _, _ in heads] if bf16 else None
     # Bytes: each launch reads its input rows and writes its output rows
     # (the backward: reads x and g, writes d x); the weights once.
     # Operations: 2 d_in d_out a row a layer (the backward recomputes the
@@ -1353,8 +1499,9 @@ def style_kernel_phases(st, fails):
                         bound_ms=bb_ms, bound_by=bb_by, library_ms=b_plain)
     log(f"K5 color heads at the style stream ({n_rows} rows, {dtype}, layer widths {dims}): max "
         f"abs err (out, d x) {errs}; forward ms {f_ms:.3f} (plain {f_plain:.3f}, torch.matmul "
-        f"chain {f_lib:.3f}), bound_ms {fb_ms:.4f} ({fb_by}); backward ms {b_ms:.3f} (plain "
-        f"forward + autograd {b_plain:.3f}), bound_ms {bb_ms:.4f} ({bb_by})")
+        f"chain {f_lib:.3f}), bound_ms {fb_ms:.4f} ({fb_by}); backward ms {b_ms:.3f} (a head: "
+        f"{['%.3f' % t for t in head_ms]}, grids {grids} CTAs; plain forward + autograd "
+        f"{b_plain:.3f}), bound_ms {bb_ms:.4f} ({bb_by})")
 
     # K7b: d ch = w * g[ray] for a random pixel cotangent: one fp32 product,
     # equal bits.
@@ -1400,10 +1547,11 @@ def silhouette_iou(rays_o: torch.Tensor, rays_d: torch.Tensor, ws: torch.Tensor)
 
 
 def frame_on_off(renderer, params, pose, out, card: str, fails):
-    """The frame with adaptive_march off (the dense march, K3) against the
-    main path's (K3s): the same samples, so the same maps; then steady
-    frames with it on and off in turns (on, off, off, on).  Returns the
-    off frame's kernel launches."""
+    """The frame with adaptive_march off (the dense march, K3; phase B
+    colors every sample of nonzero weight) against the two-stage march's
+    (K3s) at sig_eps 0: the same samples, so the same maps; then steady
+    frames with it on and off in turns (on, off, off, on).  Returns the off
+    frame's kernel launches."""
     from nerfstyle_torch import kernels
     from nerfstyle_torch.ops.marching import WINDOW
 
@@ -1415,16 +1563,25 @@ def frame_on_off(renderer, params, pose, out, card: str, fails):
         dense = renderer.render(params, pose)
     torch.cuda.synchronize()
     launches = dict(kernels.launch_counts)
+    # The dense frame colors every sample of nonzero weight (sig_eps 0, as
+    # JAX's single-phase frame): the two-stage march at sig_eps 0 gives the
+    # same samples, so the same maps.
+    renderer.settings = dataclasses.replace(on, sig_eps=0.0)
+    with torch.no_grad():
+        every = renderer.render(params, pose)
     renderer.settings = on
     for name in DENSE_COUNTERS:
         if launches[name] <= 0:
             fails.append(f"the adaptive_march=False frame launched no {name} kernel")
     if launches["march_skip_count"] or launches["march_skip_write"]:
         fails.append("the adaptive_march=False frame launched the two-stage march")
-    errs = {k: float((dense[k] - out[k]).abs().max()) for k in ("rgb_map", "weights_sum")}
-    if dense["num_marched"] != out["num_marched"] or not all(e <= 1e-6 for e in errs.values()):
-        fails.append(f"the dense-march frame differs from the two-stage frame: samples "
-                     f"{dense['num_marched']} vs {out['num_marched']}, max abs err {errs}")
+    errs = {k: float((dense[k] - every[k]).abs().max()) for k in ("rgb_map", "weights_sum")}
+    if (dense["num_marched"], dense["num_sig"]) != (every["num_marched"], every["num_sig"]) \
+            or not all(e <= 1e-6 for e in errs.values()):
+        fails.append(f"the dense-march frame differs from the two-stage frame at sig_eps 0: "
+                     f"samples {dense['num_marched']} vs {every['num_marched']}, colored "
+                     f"{dense['num_sig']} vs {every['num_sig']}, max abs err {errs}")
+    dropped = float((dense["rgb_map"] - out["rgb_map"]).abs().max())
     times = {True: [], False: []}
     for adaptive in (True, False, False, True):
         renderer.settings = on if adaptive else off
@@ -1437,9 +1594,11 @@ def frame_on_off(renderer, params, pose, out, card: str, fails):
     renderer.settings = on
     w, h = OUT_DIMS
     npix = w * h
-    log(f"frame with adaptive_march off: samples {dense['num_marched']} (on: "
-        f"{out['num_marched']}, {out['num_cand']} candidate windows of "
-        f"{npix * -(-renderer.plan.t_lattice // WINDOW)}), max abs err against on {errs}; steady "
+    log(f"frame with adaptive_march off: samples {dense['num_marched']}, colored "
+        f"{dense['num_sig']} (on: {out['num_marched']}, colored {out['num_sig']} of w > "
+        f"{on.sig_eps}, {out['num_cand']} candidate windows of "
+        f"{npix * -(-renderer.plan.t_lattice // WINDOW)}); max abs err against on at sig_eps 0 "
+        f"{errs}, rgb against on {dropped:.3e}; steady "
         f"frames ({card}) on/off/off/on: on min {min(times[True]):.1f} ms "
         f"{['%.1f' % t for t in times[True]]}, off min {min(times[False]):.1f} ms "
         f"{['%.1f' % t for t in times[False]]} at {w}x{h}")
@@ -1594,6 +1753,9 @@ def main() -> int:
          "nerfstyle_tpu/ops/mlp.py:45", ("mlp_forward",), main_paths),
         ("K5b", "K5 mlp_backward", "nerfstyle_torch/csrc/mlp.cu",
          "nerfstyle_tpu/ops/mlp.py:45", ("mlp_backward",), main_paths),
+        ("K5bw", "K5 mlp_backward with d W (+ mlp_dw_reduce), 2^20-row train batch",
+         "nerfstyle_torch/csrc/mlp.cu", "nerfstyle_tpu/ops/mlp.py:45", ("mlp_dw_reduce",),
+         main_paths),
         ("K6s", "K6 occupancy_scatter_max", "nerfstyle_torch/csrc/occupancy.cu",
          "nerfstyle_tpu/ops/occupancy.py:281", ("occupancy_scatter_max",), main_paths),
         ("K6m", "K6 occupancy_merge", "nerfstyle_torch/csrc/occupancy.cu",

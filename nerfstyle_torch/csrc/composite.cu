@@ -36,7 +36,18 @@
 // K7 replaces the phase-B segment sum of make_two_phase_renderer
 // (render/renderer.py:648-659) and of the style stage's cached stream
 // (training/style_trainer.py:689-691, 753-755): out[r, c] = sum_i w_i *
-// ch[i, c] over ray r's significant samples.
+// ch[i, c] over ray r's significant samples, each product and sum rounded
+// on its own, in stream order (deterministic, no atomics).  Segments are
+// short (a few samples a ray), so a thread per (ray, channel) walking its
+// segment (re-reading w and the offsets C times, loads drifting apart by
+// the segment lengths) is mostly latency.  Instead a CTA takes a run of
+// kSegRays consecutive rays, whose samples form one contiguous span of the
+// stream; it stages the span's w and ch rows in shared memory with
+// coalesced loads (16 bytes a thread for ch's aligned body), reading each
+// sample once, and each thread then sums its own ray's rows from shared
+// memory.  A span longer than the staged tile is walked in pieces, the
+// sums carried in shared memory from piece to piece; the CTA's [rays, C]
+// block of out is written back in one coalesced pass.
 //
 // K7b is its backward on its own (JAX's autodiff of that segment_sum, written
 // out at training/style_trainer.py:875), for a stream whose weights are
@@ -44,10 +55,10 @@
 // when asked, d w_i = sum_c ch[i, c] * g[r, c].  One warp a ray: its lanes
 // walk the ray's contiguous rows of d ch, so the writes coalesce; no atomics.
 //
-// Bound on the H100: bytes (a few flops per 4-byte sample value).  Design:
-// one thread per ray (K4) or per (ray, channel) (K7) walking its contiguous
-// segment.  A warp's threads read different segments, so loads coalesce
-// poorly; a warp-per-ray scan is the faster form, left for later.
+// Bound on the H100: bytes (a few flops per 4-byte sample value).  K4 and
+// K4b run one thread per ray walking its contiguous segment; a warp's
+// threads read different segments, so their loads coalesce poorly (a
+// warp-per-ray scan is the faster form, left for later).
 #include "common.cuh"
 
 namespace {
@@ -125,18 +136,80 @@ __global__ void composite_backward_kernel(
     }
 }
 
-__global__ void segment_sum_kernel(const float* __restrict__ w, const float* __restrict__ ch,
-                                   const long long* __restrict__ offsets, int num_rays,
-                                   int channels, float* __restrict__ out) {
-    const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-    if (i >= static_cast<long long>(num_rays) * channels) return;
-    const int r = static_cast<int>(i / channels);
-    const int c = static_cast<int>(i - static_cast<long long>(r) * channels);
-    float acc = 0.f;
-    for (long long j = offsets[r]; j < offsets[r + 1]; ++j) {
-        acc = __fadd_rn(acc, __fmul_rn(w[j], ch[j * channels + c]));
+constexpr int kSegRays = 128;          // rays (one a thread) a CTA
+constexpr int kSegSmemFloats = 11776;  // at most 46 KB of dynamic shared memory a CTA
+constexpr int kSegMaxTile = 1024;      // samples a staged piece holds at most
+constexpr int kSegMaxChannels = 64;
+
+// Samples a staged piece holds for C channels: the shared memory left after
+// the [kSegRays, C] sums, over C + 1 floats a sample (4 floats of slack
+// let the ch rows keep their 16-byte alignment), a multiple of 4.
+__host__ __device__ inline int seg_tile_samples(int channels) {
+    const int fit = (kSegSmemFloats - 4 - kSegRays * channels) / (channels + 1);
+    return (fit < kSegMaxTile ? fit : kSegMaxTile) & ~3;
+}
+
+__host__ __device__ inline int seg_smem_floats(int channels) {
+    return kSegRays * channels + seg_tile_samples(channels) * (channels + 1) + 4;
+}
+
+// dst[q] = src[q] for q < n, with dst at src's offset modulo 16 bytes:
+// scalar head and tail, float4 body.  Every thread of the CTA takes part;
+// consecutive threads read consecutive addresses.
+__device__ __forceinline__ void stage_floats(const float* __restrict__ src, long long n,
+                                             float* dst) {
+    const int head = static_cast<int>(
+        min(n, static_cast<long long>((4 - (reinterpret_cast<uintptr_t>(src) >> 2 & 3)) & 3)));
+    for (int q = threadIdx.x; q < head; q += blockDim.x) dst[q] = src[q];
+    const long long body = (n - head) >> 2;
+    const float4* s4 = reinterpret_cast<const float4*>(src + head);
+    float4* d4 = reinterpret_cast<float4*>(dst + head);
+    for (long long q = threadIdx.x; q < body; q += blockDim.x) d4[q] = s4[q];
+    for (long long q = head + 4 * body + threadIdx.x; q < n; q += blockDim.x) dst[q] = src[q];
+}
+
+__global__ void __launch_bounds__(kSegRays)
+    segment_sum_kernel(const float* __restrict__ w, const float* __restrict__ ch,
+                       const long long* __restrict__ offsets, int num_rays, int channels,
+                       float* __restrict__ out) {
+    extern __shared__ float4 seg_smem4[];
+    __shared__ long long offs[kSegRays + 1];
+    const int c_n = channels;
+    const int tile = seg_tile_samples(c_n);
+    float* sums = reinterpret_cast<float*>(seg_smem4);  // [kSegRays][C]
+    float* ws = sums + kSegRays * c_n;                   // [tile]
+    float* cs_base = ws + tile;                          // [tile * C + 4], 16-byte aligned
+    const int r0 = blockIdx.x * kSegRays;
+    const int nr = min(kSegRays, num_rays - r0);
+    const int t = threadIdx.x;
+    for (int i = t; i <= nr; i += kSegRays) offs[i] = offsets[r0 + i];
+    for (int c = 0; c < c_n; ++c) sums[t * c_n + c] = 0.f;
+    __syncthreads();
+    const long long begin = t < nr ? offs[t] : 0;
+    const long long end = t < nr ? offs[t + 1] : 0;
+    // The pieces of the span [offs[0], offs[nr]), tile samples each.
+    for (long long p0 = offs[0]; p0 < offs[nr]; p0 += tile) {
+        const long long n = min(static_cast<long long>(tile), offs[nr] - p0);
+        const float* src = ch + p0 * c_n;
+        // ch row j of the piece sits at cs[(j - p0) * C], cs at src's
+        // offset modulo 16 bytes.
+        float* cs = cs_base + (reinterpret_cast<uintptr_t>(src) >> 2 & 3);
+        for (int q = t; q < n; q += kSegRays) ws[q] = w[p0 + q];
+        stage_floats(src, n * c_n, cs);
+        __syncthreads();
+        const long long lo = max(begin, p0) - p0;
+        const long long hi = min(end, p0 + n) - p0;
+        for (int c = 0; c < c_n; ++c) {
+            float acc = sums[t * c_n + c];
+            for (long long j = lo; j < hi; ++j) {
+                acc = __fadd_rn(acc, __fmul_rn(ws[j], cs[j * c_n + c]));
+            }
+            sums[t * c_n + c] = acc;
+        }
+        __syncthreads();
     }
-    out[i] = acc;
+    float* dst = out + static_cast<long long>(r0) * c_n;
+    for (int e = t; e < nr * c_n; e += kSegRays) dst[e] = sums[e];
 }
 
 __global__ void segment_sum_backward_kernel(const float* __restrict__ w,
@@ -203,12 +276,13 @@ NST_API int nst_composite_backward(const void* sigmas, const void* ch, const voi
     return nst::launch_status();
 }
 
-// w [S] f32, ch [S, C] f32, offsets [N+1] i64, out [N, C] f32.
+// w [S] f32, ch [S, C] f32 (C <= 64), offsets [N+1] i64, out [N, C] f32.
 NST_API int nst_segment_sum(const void* w, const void* ch, const void* offsets, int num_rays,
                             int channels, void* out, void* stream) {
+    if (channels > kSegMaxChannels) return static_cast<int>(cudaErrorInvalidValue);
     if (num_rays <= 0 || channels <= 0) return 0;
-    const long long n = static_cast<long long>(num_rays) * channels;
-    segment_sum_kernel<<<nst::blocks_for(n), nst::kThreads, 0,
+    segment_sum_kernel<<<nst::blocks_for(num_rays, kSegRays), kSegRays,
+                         sizeof(float) * seg_smem_floats(channels),
                          static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(w), static_cast<const float*>(ch),
         static_cast<const long long*>(offsets), num_rays, channels, static_cast<float*>(out));

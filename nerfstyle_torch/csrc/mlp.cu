@@ -19,28 +19,60 @@
 // ReLU mask is read from the stored (rounded) activation: under bf16 it
 // differs from the pre-activation's sign only below 2^-133.
 //
-// Design: one CTA of kRows threads takes kRows rows, one row a thread.  All
-// layer weights are staged in shared memory (already rounded; the backward
-// also stages their transposes), so every thread reads the same weights at
-// the same time (a broadcast, 16 bytes a load).  Each thread keeps the 64
-// accumulators of the layer it computes in registers and walks the layer's
-// input, which lives in its own row of a shared-memory tile (rows padded to
-// an odd stride, so a warp's 32 rows fall in 32 banks); the hidden
-// activations of every layer stay in those tiles, where the backward reads
-// them again.  Inputs and outputs go through shared memory so that
-// device-memory reads and writes coalesce.  The backward recomputes the
-// forward (nothing is saved between the passes) and, when a weight gradient
-// is asked for, forms the tile's A^T G from the shared tiles and adds it to
-// the [d_in, d_out] gradient with one fp32 atomicAdd an element a CTA; the
-// order of those adds varies from run to run.
+// Forward, and the backward in fp32 (bf16 = 0): one CTA of kRows threads
+// takes kRows rows, one row a thread.  All layer weights are staged in
+// shared memory (already rounded; the backward also stages their
+// transposes), so every thread reads the same weights at the same time (a
+// broadcast, 16 bytes a load).  Each thread keeps the 64 accumulators of the
+// layer it computes in registers and walks the layer's input, which lives
+// in its own row of a shared-memory tile (rows padded to an odd stride, so a
+// warp's 32 rows fall in 32 banks); the hidden activations of every layer
+// stay in those tiles, where the backward reads them again.  Inputs and
+// outputs go through shared memory so that device-memory reads and writes
+// coalesce.  The backward recomputes the forward (nothing is saved between
+// the passes) and, when a weight gradient is asked for, forms the tile's
+// A^T G from the shared tiles and adds it to the [d_in, d_out] gradient with
+// one fp32 atomicAdd an element a CTA; the order of those adds varies from
+// run to run.
+//
+// The backward under bf16 (bf16 = 1, the mixed-precision default) runs on
+// the tensor cores (warp-level mma.sync through nvcuda::wmma, bf16 16x16x16
+// tiles, fp32 accumulators).  Every product of its hidden and input layers
+// is a product of two bf16 values summed in fp32, which is what the tensor
+// cores compute: x, W_l and h_l are bf16 by the rounding points above, and
+// d a_l = r(d h_l) [h_l > 0] is rounded too.  So
+//     h_{l+1} = r(relu(h_l W_l)),  d h_l = d a_{l+1} W_l^T,
+//     d x = r(d a_0 W_0^T),        d W_l = h_l^T d a_{l+1}
+// change only in the order of their fp32 sums.  The output layer stays on
+// fp32 FMAs: its cotangent g (times s (1 - s) after a sigmoid) is an fp32
+// value, so neither d h_L = g W_L^T nor d W_L = h_L^T g is a bf16 product
+// (its width is at most 64 x out a row); it runs as independent FMA chains
+// (32 outputs a thread for d a_L, four partial sums a weight for d W_L).
+// A persistent grid of (CTAs an SM) x (SMs) CTAs walks 64-row tiles, four
+// warps of 16 rows each; the next tile's x and g are copied in with
+// cp.async while a tile computes.  Weights and the tile's activations live
+// in shared memory as bf16 (exact there), with row strides of 72 (a
+// multiple of 8, not of 64) against bank conflicts; W^T and h^T are read as
+// col_major fragments of the same row-major tiles, so no transposed copy is
+// staged.  An accumulator passes through a per-warp fp32 tile, where the
+// ReLU mask meets the stored activation at the same position.  Each CTA
+// keeps its d W partial sums on chip across its tiles (the hidden layers'
+// in mma accumulators, the output layer's in shared memory), writes them to
+// a [grid, n_weights] scratch at the end, and a second kernel sums the
+// partials in CTA order: d W is bit-reproducible from run to run on one
+// machine (no float atomics).  Shared memory a CTA: 64,256 bytes at IN 32,
+// one hidden layer, out 16 (color1; with 165 registers a thread, 3 CTAs or
+// 12 warps an SM); 65,664 bytes for color2 (IN 16, two hidden layers, out
+// 3; ~250 registers, 2 CTAs or 8 warps); 113,408 bytes at the largest
+// shape (IN 32, two hidden layers, out 64: 2 CTAs).
 //
 // Bound on the H100: bytes.  A row reads IN and writes OUT fp32 values for
 // 2 (IN*64 + 64*64*(L-1) + 64*OUT) operations: ~6 k operations for ~200
 // bytes, far below the ~295 operations a byte where the bf16 tensor cores
-// would bind.  This scalar-FMA form runs at the fp32 FMA rate at best, with
-// one CTA of 4 warps an SM where the shared tiles are largest; mma tiles are
-// later work.
+// would bind.  The forward runs at the fp32 FMA rate at best, with one CTA
+// of 4 warps an SM where its shared tiles are largest.
 #include <cuda_bf16.h>
+#include <mma.h>
 
 #include "common.cuh"
 
@@ -285,6 +317,341 @@ __global__ void __launch_bounds__(kRows)
     }
 }
 
+// ---------------------------------------------------------------------------
+// Backward under bf16, on the tensor cores
+// ---------------------------------------------------------------------------
+
+namespace wmma = nvcuda::wmma;
+typedef __nv_bfloat16 bf16_t;
+typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> AccFrag;
+
+constexpr int kTcRows = 64;       // rows a tile
+constexpr int kTcThreads = 128;   // 4 warps of 16 rows
+constexpr int kHs = kHid + 8;     // bf16 row stride of the 64-wide tiles
+constexpr int kSs = kHid + 4;     // fp32 row stride of the accumulator tile
+
+__host__ __device__ constexpr size_t align128(size_t b) { return (b + 127) & ~size_t(127); }
+
+// Byte offsets of the shared regions (each 128-byte aligned).
+struct TcSmem {
+    size_t w0, w1, wlt, xs, hs, da, st, gs, dwl, xf, total;
+};
+
+__host__ __device__ inline TcSmem tc_smem(int in_dim, int n_hidden, int out_dim) {
+    TcSmem s;
+    size_t o = 0;
+    s.w0 = o;  o += align128(sizeof(bf16_t) * in_dim * kHs);             // r(W_0) [IN][kHs]
+    s.w1 = o;  o += align128(sizeof(bf16_t) * (n_hidden - 1) * kHid * kHs);  // r(W_1) [64][kHs]
+    s.wlt = o; o += align128(sizeof(bf16_t) * out_dim * kHid);         // r(W_L)^T [out][64]
+    s.xs = o;  o += align128(sizeof(bf16_t) * kTcRows * (in_dim + 8));   // r(x) [rows][IN + 8]
+    s.hs = o;  o += align128(sizeof(bf16_t) * n_hidden * kTcRows * kHs); // h_l [L][rows][kHs]
+    s.da = o;  o += align128(sizeof(bf16_t) * kTcRows * kHs);            // d a [rows][kHs]
+    s.st = o;  o += align128(sizeof(float) * kTcRows * kSs);           // accumulators [rows][kSs]
+    s.gs = o;  o += align128(sizeof(float) * kTcRows * odd_stride(out_dim));  // g [rows][odd]
+    s.dwl = o; o += align128(sizeof(float) * kHid * out_dim);          // d W_L partial [64][out]
+    s.xf = o;  o += align128(sizeof(float) * kTcRows * in_dim);        // next x [rows][IN]
+    s.total = o;
+    return s;
+}
+
+__device__ __forceinline__ float bf(bf16_t v) { return __bfloat162float(v); }
+
+// A 4-byte asynchronous copy into shared memory (cp.async), and the wait for
+// every copy this thread has started.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Start the copies of `rows` rows of src [*, width] from row0 into dst (row
+// stride ld), zeros for the rest of a tile's rows.
+__device__ __forceinline__ void prefetch_rows(const float* __restrict__ src, long long row0,
+                                              int rows, int width, float* dst, int ld) {
+    for (int e = threadIdx.x; e < kTcRows * width; e += kTcThreads) {
+        const int r = e / width;
+        float* d = dst + r * ld + (e - r * width);
+        if (r < rows) {
+            cp_async4(d, src + row0 * width + e);
+        } else {
+            *d = 0.f;
+        }
+    }
+}
+
+// st[16][kSs] = a[16][KS*16] . B[KS*16][NS*16] for one warp: a row-major
+// bf16 (stride lda); B = m (row-major [K][kHs]) or, with TRANS, m^T for a
+// row-major m [NS*16][kHs] (read as a col_major fragment).
+template <int KS, int NS, bool TRANS>
+__device__ __forceinline__ void warp_mm(const bf16_t* a, int lda, const bf16_t* m, float* st) {
+    AccFrag acc[NS];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) wmma::fill_fragment(acc[n], 0.f);
+#pragma unroll
+    for (int k = 0; k < KS; ++k) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16_t, wmma::row_major> fa;
+        wmma::load_matrix_sync(fa, a + k * 16, lda);
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+            if (TRANS) {
+                wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16_t, wmma::col_major> fb;
+                wmma::load_matrix_sync(fb, m + n * 16 * kHs + k * 16, kHs);
+                wmma::mma_sync(acc[n], fa, fb, acc[n]);
+            } else {
+                wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16_t, wmma::row_major> fb;
+                wmma::load_matrix_sync(fb, m + k * 16 * kHs + n * 16, kHs);
+                wmma::mma_sync(acc[n], fa, fb, acc[n]);
+            }
+        }
+    }
+    __syncwarp();  // every lane is done reading st
+#pragma unroll
+    for (int n = 0; n < NS; ++n) wmma::store_matrix_sync(st + n * 16, acc[n], kSs, wmma::mem_row_major);
+    __syncwarp();
+}
+
+// One warp's 16 rows of a hidden layer: dst = r(relu(a W)) (ReLU lets NaN
+// pass, as torch.relu does).
+template <int KS>
+__device__ __forceinline__ void warp_dense_relu(const bf16_t* a, int lda, const bf16_t* wm, float* st,
+                                                bf16_t* dst) {
+    warp_mm<KS, 4, false>(a, lda, wm, st);
+    for (int e = threadIdx.x & 31; e < 16 * kHid; e += 32) {
+        const int r = e >> 6, j = e & 63;
+        const float v = st[r * kSs + j];
+        dst[r * kHs + j] = __float2bfloat16_rn(v < 0.f ? 0.f : v);
+    }
+    __syncwarp();
+}
+
+// d W[i][j] += sum over the tile's rows of in[r][i] da[r][j]: a warp owns
+// the column block j of d W (16 wide) and its NB row blocks.  in^T is read
+// as a col_major fragment of the row-major input tile.
+template <int NB>
+__device__ __forceinline__ void warp_weight_grad(const bf16_t* in, int ld, const bf16_t* da,
+                                                 AccFrag (&dw)[NB]) {
+    const int warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int k = 0; k < kTcRows / 16; ++k) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16_t, wmma::row_major> fb;
+        wmma::load_matrix_sync(fb, da + k * 16 * kHs + warp * 16, kHs);
+#pragma unroll
+        for (int q = 0; q < NB; ++q) {
+            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16_t, wmma::col_major> fa;
+            wmma::load_matrix_sync(fa, in + k * 16 * ld + q * 16, ld);
+            wmma::mma_sync(dw[q], fa, fb, dw[q]);
+        }
+    }
+}
+
+template <int NB>
+__device__ __forceinline__ void store_weight_grad(float* dst, AccFrag (&dw)[NB]) {
+    const int warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int q = 0; q < NB; ++q) {
+        wmma::store_matrix_sync(dst + q * 16 * kHid + warp * 16, dw[q], kHid, wmma::mem_row_major);
+    }
+}
+
+// At most 168 registers a thread with one hidden layer (3 CTAs an SM), 255
+// with two (2 CTAs: the second layer's d W fragments stay in registers).
+template <int IN, int NHID>
+__global__ void __launch_bounds__(kTcThreads, NHID == 1 ? 3 : 2)
+    mlp_backward_tc_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                           const float* __restrict__ g_out, long long m, int out_dim,
+                           int sigmoid, unsigned int dw_mask, float* __restrict__ dx,
+                           float* __restrict__ partials) {
+    extern __shared__ __align__(128) unsigned char tc_raw[];
+    constexpr int XS = IN + 8;
+    constexpr int NB1 = NHID == 2 ? 4 : 1;
+    const TcSmem lay = tc_smem(IN, NHID, out_dim);
+    bf16_t* w0s = reinterpret_cast<bf16_t*>(tc_raw + lay.w0);
+    bf16_t* w1s = reinterpret_cast<bf16_t*>(tc_raw + lay.w1);
+    bf16_t* wlt = reinterpret_cast<bf16_t*>(tc_raw + lay.wlt);
+    bf16_t* xs = reinterpret_cast<bf16_t*>(tc_raw + lay.xs);
+    bf16_t* hs = reinterpret_cast<bf16_t*>(tc_raw + lay.hs);
+    bf16_t* das = reinterpret_cast<bf16_t*>(tc_raw + lay.da);
+    float* st = reinterpret_cast<float*>(tc_raw + lay.st);
+    float* gs = reinterpret_cast<float*>(tc_raw + lay.gs);
+    float* dwl = reinterpret_cast<float*>(tc_raw + lay.dwl);
+    float* xf = reinterpret_cast<float*>(tc_raw + lay.xf);
+    const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+    const int ostride = odd_stride(out_dim);
+    const bool dw_out = (dw_mask >> NHID) & 1u;
+    const bf16_t zero = __float2bfloat16_rn(0.f);
+
+    for (int e = t; e < IN * kHid; e += kTcThreads) {
+        w0s[(e >> 6) * kHs + (e & 63)] = __float2bfloat16_rn(w[e]);
+    }
+    if (NHID == 2) {
+        for (int e = t; e < kHid * kHid; e += kTcThreads) {
+            w1s[(e >> 6) * kHs + (e & 63)] = __float2bfloat16_rn(w[IN * kHid + e]);
+        }
+    }
+    const float* wl = w + layer_offset(IN, NHID);
+    for (int e = t; e < kHid * out_dim; e += kTcThreads) {
+        const int k = e / out_dim;
+        wlt[(e - k * out_dim) * kHid + k] = __float2bfloat16_rn(wl[e]);
+        if (dw_out) dwl[e] = 0.f;
+    }
+    AccFrag dw0[IN / 16], dw1[NB1];
+#pragma unroll
+    for (int q = 0; q < IN / 16; ++q) wmma::fill_fragment(dw0[q], 0.f);
+#pragma unroll
+    for (int q = 0; q < NB1; ++q) wmma::fill_fragment(dw1[q], 0.f);
+    __syncthreads();
+
+    const bf16_t* hl = hs + (NHID - 1) * kTcRows * kHs;  // the last hidden layer
+    const long long tiles = (m + kTcRows - 1) / kTcRows;
+    auto tile_rows = [&](long long tile) {
+        return static_cast<int>(min(static_cast<long long>(kTcRows), m - tile * kTcRows));
+    };
+    // A tile's x and g are copied in while the tile before it computes: x
+    // (fp32) into xf as soon as the tile before has converted its own, g
+    // into gs once the tile before is done with it (after its output layer).
+    // The grid has at most one CTA a tile: blockIdx.x is a tile.
+    prefetch_rows(x, blockIdx.x * static_cast<long long>(kTcRows), tile_rows(blockIdx.x), IN, xf,
+                  IN);
+    prefetch_rows(g_out, blockIdx.x * static_cast<long long>(kTcRows), tile_rows(blockIdx.x),
+                  out_dim, gs, ostride);
+    for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const long long row0 = tile * kTcRows;
+        const int rows = tile_rows(tile);
+        const long long next = tile + gridDim.x;
+        cp_async_wait_all();
+        __syncthreads();  // this tile's x and g have landed; the tile before is done
+        for (int e = t; e < kTcRows * IN; e += kTcThreads) {
+            const int r = e / IN;
+            xs[r * XS + (e - r * IN)] = __float2bfloat16_rn(xf[e]);
+        }
+        __syncthreads();
+        if (next < tiles) prefetch_rows(x, next * kTcRows, tile_rows(next), IN, xf, IN);
+
+        // Forward recompute, each warp its 16 rows.
+        float* stw = st + warp * 16 * kSs;
+        warp_dense_relu<IN / 16>(xs + warp * 16 * XS, XS, w0s, stw, hs + warp * 16 * kHs);
+        if (NHID == 2) {
+            warp_dense_relu<4>(hs + warp * 16 * kHs, kHs, w1s, stw,
+                               hs + (kTcRows + warp * 16) * kHs);
+        }
+        __syncthreads();
+
+        // The output layer on fp32 FMAs: g times s (1 - s) after a sigmoid,
+        // d W_L += h_L^T g, d a_L = r(g W_L^T) [h_L > 0].
+        if (sigmoid) {
+            for (int e = t; e < kTcRows * out_dim; e += kTcThreads) {
+                const int r = e / out_dim, o = e - r * out_dim;
+                float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+                for (int k = 0; k < kHid; k += 4) {
+#pragma unroll
+                    for (int q = 0; q < 4; ++q) {
+                        acc[q] = fmaf(bf(hl[r * kHs + k + q]), bf(wlt[o * kHid + k + q]), acc[q]);
+                    }
+                }
+                const float y = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+                const float s = 1.f / (1.f + expf(-y));
+                gs[r * ostride + o] *= s * (1.f - s);
+            }
+            __syncthreads();
+        }
+        if (dw_out) {
+            // Four partial sums a weight (rows r = 4i + q), added in a fixed
+            // order: independent FMA chains.
+            for (int e = t; e < kHid * out_dim; e += kTcThreads) {
+                const int j = e / out_dim, o = e - j * out_dim;
+                float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+                for (int r = 0; r < kTcRows; r += 4) {
+#pragma unroll
+                    for (int q = 0; q < 4; ++q) {
+                        acc[q] = fmaf(bf(hl[(r + q) * kHs + j]), gs[(r + q) * ostride + o], acc[q]);
+                    }
+                }
+                dwl[e] += (acc[0] + acc[1]) + (acc[2] + acc[3]);
+            }
+        }
+        {
+            // Thread t takes row t / 2 and 32 of its columns: the out loop
+            // outside, 32 independent FMA chains inside, W_L^T rows read as
+            // broadcast 16-byte loads of 8 bf16 values.
+            static_assert(kTcThreads == 2 * kTcRows, "two threads a row");
+            const int r = t >> 1, j0 = (t & 1) * 32;
+            float acc[32];
+#pragma unroll
+            for (int q = 0; q < 32; ++q) acc[q] = 0.f;
+            for (int o = 0; o < out_dim; ++o) {
+                const float gv = gs[r * ostride + o];
+                const uint4* w8 = reinterpret_cast<const uint4*>(wlt + o * kHid + j0);
+#pragma unroll
+                for (int q = 0; q < 4; ++q) {
+                    const uint4 v = w8[q];
+                    const bf16_t* p = reinterpret_cast<const bf16_t*>(&v);
+#pragma unroll
+                    for (int u = 0; u < 8; ++u) acc[8 * q + u] = fmaf(gv, bf(p[u]), acc[8 * q + u]);
+                }
+            }
+#pragma unroll
+            for (int q = 0; q < 32; ++q) {
+                const int i = r * kHs + j0 + q;
+                das[i] = bf(hl[i]) > 0.f ? __float2bfloat16_rn(acc[q]) : zero;
+            }
+        }
+        __syncthreads();  // every thread is done with gs
+        if (next < tiles) {
+            prefetch_rows(g_out, next * kTcRows, tile_rows(next), out_dim, gs, ostride);
+        }
+
+        // The hidden layers back to front; das holds the cotangent of layer
+        // l's output.
+        if (NHID == 2) {
+            if ((dw_mask >> 1) & 1u) warp_weight_grad<NB1>(hs, kHs, das, dw1);
+            warp_mm<4, 4, true>(das + warp * 16 * kHs, kHs, w1s, stw);
+            __syncthreads();  // every warp is done reading das
+            for (int e = lane; e < 16 * kHid; e += 32) {
+                const int r = warp * 16 + (e >> 6), j = e & 63;
+                das[r * kHs + j] = bf(hs[r * kHs + j]) > 0.f
+                                       ? __float2bfloat16_rn(stw[(e >> 6) * kSs + j])
+                                       : zero;
+            }
+            __syncthreads();
+        }
+        if (dw_mask & 1u) warp_weight_grad<IN / 16>(xs, XS, das, dw0);
+        warp_mm<4, IN / 16, true>(das + warp * 16 * kHs, kHs, w0s, stw);
+        for (int e = lane; e < 16 * IN; e += 32) {
+            const int r = e / IN, i = e - r * IN;
+            if (warp * 16 + r < rows) dx[(row0 + warp * 16) * IN + e] = rnd(stw[r * kSs + i], true);
+        }
+    }
+
+    if (dw_mask == 0u) return;
+    float* part = partials + static_cast<long long>(blockIdx.x) * num_weights(IN, NHID, out_dim);
+    if (dw_mask & 1u) store_weight_grad<IN / 16>(part, dw0);
+    if (NHID == 2 && ((dw_mask >> 1) & 1u)) store_weight_grad<NB1>(part + IN * kHid, dw1);
+    if (dw_out) {
+        float* pl = part + layer_offset(IN, NHID);
+        for (int e = t; e < kHid * out_dim; e += kTcThreads) pl[e] = dwl[e];
+    }
+}
+
+// dw[e] = sum over b < grid of partials[b][e], in order of b, for the
+// elements of the layers in mask.
+__global__ void mlp_dw_reduce_kernel(const float* __restrict__ partials, int grid, int nw,
+                                     int in_dim, int n_hidden, unsigned int mask,
+                                     float* __restrict__ dw) {
+    const int e = blockIdx.x * blockDim.x + threadIdx.x;
+    if (e >= nw) return;
+    const int first = in_dim * kHid;
+    const int l = e < first ? 0 : min(n_hidden, 1 + (e - first) / (kHid * kHid));
+    if (!((mask >> l) & 1u)) return;
+    float acc = 0.f;
+    for (int b = 0; b < grid; ++b) acc = __fadd_rn(acc, partials[static_cast<long long>(b) * nw + e]);
+    dw[e] = acc;
+}
+
 size_t forward_smem(int in_dim, int n_hidden, int out_dim) {
     return sizeof(float) * (num_weights(in_dim, n_hidden, out_dim) + kRows * (in_dim + 1) +
                             kRows * kStride * n_hidden + kRows * odd_stride(out_dim));
@@ -331,6 +698,44 @@ int launch_backward(const float* x, const float* w, const float* g, long long m,
     return nst::launch_status();
 }
 
+// The persistent grid of the bf16 backward: (CTAs that fit an SM) x (SMs),
+// at most one CTA a tile.  Depends only on the device and the shapes, so
+// the partial sums of d W add in the same order from run to run.
+template <int IN, int NHID>
+int backward_tc_grid(long long m, int out_dim, int* grid) {
+    static bool ready = false;
+    auto kernel = mlp_backward_tc_kernel<IN, NHID>;
+    int status = allow_smem(kernel, &ready);
+    if (status != 0) return status;
+    int dev = 0, sms = 0, per_sm = 0;
+    status = static_cast<int>(cudaGetDevice(&dev));
+    if (status == 0) {
+        status = static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+    }
+    if (status == 0) {
+        status = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, kernel, kTcThreads, tc_smem(IN, NHID, out_dim).total));
+    }
+    if (status != 0) return status;
+    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    const long long tiles = (m + kTcRows - 1) / kTcRows;
+    *grid = static_cast<int>(tiles < static_cast<long long>(per_sm) * sms ? tiles : per_sm * sms);
+    return 0;
+}
+
+template <int IN, int NHID>
+int launch_backward_tc(const float* x, const float* w, const float* g, long long m, int out_dim,
+                       int sigmoid, unsigned int dw_mask, float* dx, float* partials,
+                       cudaStream_t stream) {
+    int grid = 0;
+    const int status = backward_tc_grid<IN, NHID>(m, out_dim, &grid);
+    if (status != 0) return status;
+    mlp_backward_tc_kernel<IN, NHID><<<grid, kTcThreads, tc_smem(IN, NHID, out_dim).total,
+                                       stream>>>(x, w, g, m, out_dim, sigmoid, dw_mask, dx,
+                                                 partials);
+    return nst::launch_status();
+}
+
 bool supported(int in_dim, int n_hidden, int hidden, int out_dim) {
     return (in_dim == 16 || in_dim == 32) && (n_hidden == 1 || n_hidden == 2) &&
            hidden == kHid && out_dim >= 1 && out_dim <= kMaxOut;
@@ -359,8 +764,11 @@ NST_API int nst_mlp_forward(const void* x, const void* w, long long m, int in_di
 }
 
 // g [M, out] f32 -> dx [M, in] f32 and, for each layer l with bit l of
-// dw_mask set, its gradient added into dw (packed like w, zero-filled by the
-// caller, unrounded).
+// dw_mask set, its gradient.  With bf16 = 0 it is added into dw (packed
+// like w, zero-filled by the caller, unrounded) with fp32 atomics.  With
+// bf16 = 1 dw is a [grid, n_weights] scratch (grid from
+// nst_mlp_backward_grid) that takes each CTA's partial sums, which
+// nst_mlp_dw_reduce then sums into the packed gradient.
 NST_API int nst_mlp_backward(const void* x, const void* w, const void* g, long long m, int in_dim,
                              int n_hidden, int hidden, int out_dim, int bf16, int sigmoid,
                              int dw_mask, void* dx, void* dw, void* stream) {
@@ -375,8 +783,42 @@ NST_API int nst_mlp_backward(const void* x, const void* w, const void* g, long l
     float* dwf = static_cast<float*>(dw);
     const unsigned int mask = static_cast<unsigned int>(dw_mask);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (in_dim == 32 && n_hidden == 1) return launch_backward<32, 1>(xf, wf, gf, m, out_dim, bf16, sigmoid, mask, dxf, dwf, s);
-    if (in_dim == 32 && n_hidden == 2) return launch_backward<32, 2>(xf, wf, gf, m, out_dim, bf16, sigmoid, mask, dxf, dwf, s);
-    if (in_dim == 16 && n_hidden == 1) return launch_backward<16, 1>(xf, wf, gf, m, out_dim, bf16, sigmoid, mask, dxf, dwf, s);
-    return launch_backward<16, 2>(xf, wf, gf, m, out_dim, bf16, sigmoid, mask, dxf, dwf, s);
+    if (bf16) {
+        if (in_dim == 32 && n_hidden == 1) return launch_backward_tc<32, 1>(xf, wf, gf, m, out_dim, sigmoid, mask, dxf, dwf, s);
+        if (in_dim == 32 && n_hidden == 2) return launch_backward_tc<32, 2>(xf, wf, gf, m, out_dim, sigmoid, mask, dxf, dwf, s);
+        if (in_dim == 16 && n_hidden == 1) return launch_backward_tc<16, 1>(xf, wf, gf, m, out_dim, sigmoid, mask, dxf, dwf, s);
+        return launch_backward_tc<16, 2>(xf, wf, gf, m, out_dim, sigmoid, mask, dxf, dwf, s);
+    }
+    if (in_dim == 32 && n_hidden == 1) return launch_backward<32, 1>(xf, wf, gf, m, out_dim, 0, sigmoid, mask, dxf, dwf, s);
+    if (in_dim == 32 && n_hidden == 2) return launch_backward<32, 2>(xf, wf, gf, m, out_dim, 0, sigmoid, mask, dxf, dwf, s);
+    if (in_dim == 16 && n_hidden == 1) return launch_backward<16, 1>(xf, wf, gf, m, out_dim, 0, sigmoid, mask, dxf, dwf, s);
+    return launch_backward<16, 2>(xf, wf, gf, m, out_dim, 0, sigmoid, mask, dxf, dwf, s);
+}
+
+// The grid (CTAs) of the bf16 backward for M rows: the rows of the d W
+// scratch it needs.
+NST_API int nst_mlp_backward_grid(long long m, int in_dim, int n_hidden, int hidden, int out_dim,
+                                  int* grid) {
+    if (!supported(in_dim, n_hidden, hidden, out_dim) || m <= 0) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (in_dim == 32 && n_hidden == 1) return backward_tc_grid<32, 1>(m, out_dim, grid);
+    if (in_dim == 32 && n_hidden == 2) return backward_tc_grid<32, 2>(m, out_dim, grid);
+    if (in_dim == 16 && n_hidden == 1) return backward_tc_grid<16, 1>(m, out_dim, grid);
+    return backward_tc_grid<16, 2>(m, out_dim, grid);
+}
+
+// partials [grid, n_weights] f32 -> dw [n_weights] f32: the layers in
+// dw_mask summed over the grid in CTA order (other layers untouched).
+NST_API int nst_mlp_dw_reduce(const void* partials, int grid, int in_dim, int n_hidden,
+                              int hidden, int out_dim, int dw_mask, void* dw, void* stream) {
+    if (!supported(in_dim, n_hidden, hidden, out_dim) || grid < 1) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const int nw = num_weights(in_dim, n_hidden, out_dim);
+    mlp_dw_reduce_kernel<<<nst::blocks_for(nw), nst::kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(partials), grid, nw, in_dim, n_hidden,
+        static_cast<unsigned int>(dw_mask), static_cast<float*>(dw));
+    return nst::launch_status();
 }

@@ -52,6 +52,7 @@ launch_counts: Dict[str, int] = {
     "segment_sum_backward": 0,
     "mlp_forward": 0,
     "mlp_backward": 0,
+    "mlp_dw_reduce": 0,
     "occupancy_scatter_max": 0,
     "occupancy_merge": 0,
     "occupancy_threshold": 0,
@@ -85,6 +86,8 @@ _SIGNATURES = {
     "nst_segment_sum_backward": (_P, _P, _P, _P, _I, _I, _P, _P, _P),
     "nst_mlp_forward": (_P, _P, _LL, _I, _I, _I, _I, _I, _I, _P, _P),
     "nst_mlp_backward": (_P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    "nst_mlp_backward_grid": (_LL, _I, _I, _I, _I, ctypes.POINTER(_I)),
+    "nst_mlp_dw_reduce": (_P, _I, _I, _I, _I, _I, _I, _P, _P),
     "nst_occupancy_scatter_max": (_P, _P, _P, _LL, _P),
     "nst_occupancy_num_partials": (),
     "nst_occupancy_merge": (_P, _P, _F, _LL, _P, _P, _P),
@@ -497,13 +500,31 @@ def mlp_forward(x: torch.Tensor, weights, sigmoid: bool, bf16: bool) -> torch.Te
     return out
 
 
+def mlp_backward_grid(m: int, in_dim: int, n_hidden: int, out_dim: int) -> int:
+    """CTAs of K5's bf16 backward for ``m`` rows on the current device: its
+    persistent grid, (CTAs that fit an SM) x (SMs), at most one a 64-row
+    tile (see csrc/mlp.cu)."""
+    lib = library()
+    grid = ctypes.c_int(0)
+    status = lib.nst_mlp_backward_grid(m, in_dim, n_hidden, MLP_HIDDEN, out_dim,
+                                       ctypes.byref(grid))
+    if status != 0:
+        raise RuntimeError(f"mlp_backward grid query failed: {lib.nst_error_string(status).decode()}")
+    return grid.value
+
+
 def mlp_backward(x: torch.Tensor, weights, g: torch.Tensor, sigmoid: bool, bf16: bool,
                  need_dw) -> Tuple[torch.Tensor, List[Optional[torch.Tensor]]]:
     """K5 backward: (d x [M, in], [d W_l or None]) for the output cotangent
-    ``g`` [M, out]; d W_l only where ``need_dw[l]``, each summed over all rows
-    (fp32 atomics) and then rounded to bf16 when ``bf16``."""
+    ``g`` [M, out]; d W_l only where ``need_dw[l]``, each summed over all
+    rows and then rounded to bf16 when ``bf16``.
+
+    In fp32 the gradient adds up with fp32 atomics.  Under ``bf16`` the
+    kernel runs on the tensor cores over a persistent grid that writes one
+    partial d W a CTA to a scratch, and a second launch (``mlp_dw_reduce``)
+    sums the partials in CTA order: d W is the same bits from run to run."""
     packed, n_hidden, out_dim = _mlp_args(x, weights)
-    m = x.shape[0]
+    m, in_dim = x.shape
     _check("g", g, torch.float32, (m, out_dim))
     _same_device(x, g)
     mask = sum(1 << i for i, need in enumerate(need_dw) if need)
@@ -511,12 +532,21 @@ def mlp_backward(x: torch.Tensor, weights, g: torch.Tensor, sigmoid: bool, bf16:
     dw = torch.zeros_like(packed) if mask else None
     if m > 0:
         lib = library()
+        stream = _stream(x)
+        target, grid = dw, 0
+        if bf16 and mask:
+            grid = mlp_backward_grid(m, in_dim, n_hidden, out_dim)
+            target = torch.empty((grid, packed.numel()), dtype=torch.float32, device=x.device)
         status = lib.nst_mlp_backward(
-            x.data_ptr(), packed.data_ptr(), g.data_ptr(), m, x.shape[1], n_hidden, MLP_HIDDEN,
+            x.data_ptr(), packed.data_ptr(), g.data_ptr(), m, in_dim, n_hidden, MLP_HIDDEN,
             out_dim, int(bf16), int(sigmoid), mask, dx.data_ptr(),
-            dw.data_ptr() if mask else None, _stream(x),
+            target.data_ptr() if mask else None, stream,
         )
         _launched(lib, status, "mlp_backward")
+        if grid:
+            status = lib.nst_mlp_dw_reduce(target.data_ptr(), grid, in_dim, n_hidden, MLP_HIDDEN,
+                                           out_dim, mask, dw.data_ptr(), stream)
+            _launched(lib, status, "mlp_dw_reduce")
     grads: List[Optional[torch.Tensor]] = []
     start = 0
     for i, wt in enumerate(weights):

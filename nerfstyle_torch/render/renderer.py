@@ -76,8 +76,10 @@ class RenderSettings:
     flip_camera: int = 0
     max_steps: int = 1024
     density_scale: float = 1.0
-    # Weight threshold of phase B: a dropped sample adds < sig_eps to each
-    # channel of its pixel; 0 keeps every w > 0 sample.
+    # Weight threshold of phase B under adaptive_march: a dropped sample adds
+    # < sig_eps to each channel of its pixel.  Without adaptive_march phase B
+    # keeps every w > 0 sample (sig_eps 0), as the JAX package's dense frame
+    # colors every sample.
     sig_eps: float = 1e-5
     # Occupancy upkeep during training.
     update_iter: int = 16
@@ -354,7 +356,8 @@ class Renderer:
                 self.field_spec, self.plan, params, self.occ_field, self.bbox,
                 origins[i:i + CHUNK_RAYS], dirs[i:i + CHUNK_RAYS],
                 t_thresh=s.t_thresh, density_scale=s.density_scale,
-                compute_dtype=self.compute_dtype, sig_eps=s.sig_eps, plain=plain,
+                compute_dtype=self.compute_dtype,
+                sig_eps=s.sig_eps if s.adaptive_march else 0.0, plain=plain,
             )
             for i in range(0, origins.shape[0], CHUNK_RAYS)
         ]
@@ -370,9 +373,21 @@ class Renderer:
         return self.render_rays(params, rays.origins, rays.dirs, plain=plain)
 
     def load_state_dict_static(self, sd: Dict[str, object]) -> None:
-        """Check the checkpoint's renderer fields against this renderer.  The
-        JAX package's capacity buckets that ride along are not needed here."""
+        """Check the checkpoint's renderer fields against this renderer and
+        take its demand estimate, as the JAX package does: ``mean_count``
+        (restore the occupancy first) counts samples at the checkpoint's
+        ``max_steps`` and is rescaled to this renderer's, so that
+        :meth:`budget_bucket` sizes for this lattice.  The JAX package's
+        capacity buckets that ride along are not needed here."""
         for k in ("raymarch_channels", "bound"):
             if k in sd and abs(float(getattr(self, k)) - float(sd[k])) >= 1e-9:
                 raise ValueError(f'checkpoint mismatch for "{k}": {sd[k]} vs {getattr(self, k)}')
+        if "budget_bucket" not in sd:
+            return
+        self._last_num_rays = int(sd.get("last_num_rays", 1))
+        scale = self.settings.max_steps / max(1, int(sd.get("max_steps", self.settings.max_steps)))
+        mean_count = self.occ_state.mean_count
+        if scale != 1.0 and int(mean_count) > 0:
+            self.occ_state = self.occ_state._replace(
+                mean_count=(mean_count.to(torch.float32) * scale).to(torch.int32))
 

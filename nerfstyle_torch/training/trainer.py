@@ -144,6 +144,10 @@ class Trainer:
         tc = self.train_cfg
         if tc.adaptive_batch:
             raise NotImplementedError("adaptive_batch is a TPU workaround the port does not have")
+        if tc.profile_dir is not None:
+            raise NotImplementedError(
+                "--profile_dir (with --profile_start, --profile_steps): the profiler trace "
+                "window is not ported yet (ROADMAP.md section 1, item 2)")
 
         dev = self.device
         self._data_gen = torch.Generator(device=dev).manual_seed(tc.rng_seed)
@@ -445,7 +449,6 @@ class Trainer:
         sd = meta.get("renderer_static")
         if sd is not None:
             self.renderer.load_state_dict_static(sd)
-            self.renderer._last_num_rays = int(sd.get("last_num_rays", 1))
         if load_model_only:
             return
         try:

@@ -387,9 +387,12 @@ def test_torch_empty_inputs_launch_nothing(cuda_device):
     assert kernels.launch_counts["hashgrid_encode"] == 0
 
 
-# K5 shapes of the default network config: density_net [32]->64->1,
-# color1_net [32]->64->16, class_net [32]->64->K, color2_net [16]->64->64->3.
-MLP_SHAPES = [(32, 1, 1, None), (32, 1, 16, None), (32, 1, 4, None), (16, 2, 3, "sigmoid")]
+# K5's four instantiations (input width, hidden layers) at the out widths of
+# the default network config's heads: density_net [32]->64->1, color2_net
+# [16]->64->64->3 (sigmoid), class_net [32]->64->K (K = 4 here) and
+# color1_net [32]->64->16.
+MLP_SHAPES = [(i, h, o, act) for i, h in ((32, 1), (32, 2), (16, 1), (16, 2))
+              for o, act in ((1, None), (3, "sigmoid"), (4, None), (16, None))]
 
 
 def _mlp_case(rng, device, in_dim, n_hidden, out_dim, rows=5000):
@@ -412,27 +415,33 @@ def _mlp_tol(ref: torch.Tensor, dtype) -> float:
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("in_dim,n_hidden,out_dim,act", MLP_SHAPES)
 def test_torch_mlp_kernel_matches_plain(cuda_device, in_dim, n_hidden, out_dim, act, dtype):
-    """K5 forward and backward (d x and every d W, 5000 rows: a ragged last
-    tile) against the torch.matmul chain and its autograd."""
+    """K5 forward and backward (d x, then d x and every d W; 5000 rows: a
+    ragged last tile) against the torch.matmul chain and its autograd.  The
+    backward runs the scalar kernel in fp32 and the tensor-core kernel
+    under bf16, whose d W takes one more launch (the reduction of the
+    per-CTA partial sums)."""
     from nerfstyle_torch.ops import mlp as tmlp
 
-    ws, x, g = _mlp_case(np.random.default_rng(in_dim + out_dim), cuda_device, in_dim, n_hidden,
-                         out_dim)
-    runs = {}
-    for plain in (False, True):
-        wr = [w.clone().requires_grad_(True) for w in ws]
-        xr = x.clone().requires_grad_(True)
-        kernels.reset_launch_counts()
-        out = tmlp.mlp_apply(wr, xr, act, dtype, plain=plain)
-        (out * g).sum().backward()
-        torch.cuda.synchronize()
-        runs[plain] = (out.detach(), xr.grad, [w.grad for w in wr], dict(kernels.launch_counts))
-    (out, dx, dws, counts), (out_p, dx_p, dws_p, counts_p) = runs[False], runs[True]
-    assert counts["mlp_forward"] == 1 and counts["mlp_backward"] == 1
-    assert not any(counts_p.values())
-    for got, want in [(out, out_p), (dx, dx_p)] + list(zip(dws, dws_p)):
-        assert got.shape == want.shape
-        torch.testing.assert_close(got, want, rtol=0, atol=_mlp_tol(want, dtype))
+    ws, x, g = _mlp_case(np.random.default_rng(in_dim + out_dim + n_hidden), cuda_device, in_dim,
+                         n_hidden, out_dim)
+    for need_dw in (False, True):
+        runs = {}
+        for plain in (False, True):
+            wr = [w.clone().requires_grad_(need_dw) for w in ws]
+            xr = x.clone().requires_grad_(True)
+            kernels.reset_launch_counts()
+            out = tmlp.mlp_apply(wr, xr, act, dtype, plain=plain)
+            grads = torch.autograd.grad(out, [xr] + (wr if need_dw else []), g)
+            torch.cuda.synchronize()
+            runs[plain] = (out.detach(), grads, dict(kernels.launch_counts))
+        (out, grads, counts), (out_p, grads_p, counts_p) = runs[False], runs[True]
+        assert counts["mlp_forward"] == 1 and counts["mlp_backward"] == 1
+        assert counts["mlp_dw_reduce"] == int(need_dw and dtype == torch.bfloat16)
+        assert not any(counts_p.values())
+        assert len(grads) == len(grads_p) == 1 + need_dw * len(ws)
+        for got, want in [(out, out_p)] + list(zip(grads, grads_p)):
+            assert got.shape == want.shape
+            torch.testing.assert_close(got, want, rtol=0, atol=_mlp_tol(want, dtype))
 
 
 def test_torch_mlp_kernel_frozen_weights(cuda_device):
@@ -474,3 +483,67 @@ def test_torch_segment_sum_backward_kernel_matches_plain(cuda_device):
             torch.testing.assert_close(d_w, d_w_p, rtol=0, atol=1e-6 * float(d_w_p.abs().max()))
         else:
             assert d_w is None
+
+
+@pytest.mark.parametrize("channels", [3, 7, 19, 64])
+def test_torch_segment_sum_kernel_ragged_segments(cuda_device, channels):
+    """K7 on ragged segments: empty rays, 1-sample rays, runs of short
+    rays, one ray longer than a staged tile (1024 samples at most) and the
+    stream's channel rows starting off a 16-byte boundary.  The kernel sums
+    each ray in fp32 in stream order, against the plain version's float64
+    sums: rtol 1e-5, atol 1e-6 of the largest output."""
+    rng = np.random.default_rng(channels)
+    counts = rng.integers(0, 6, size=3000)
+    counts[:7] = 0
+    counts[7:20] = 1
+    counts[1500] = 5000  # one ray walked in several staged pieces
+    counts[-1] = 0
+    s = int(counts.sum())
+    offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(counts)])).to(cuda_device)
+    w = torch.from_numpy(rng.uniform(0, 1, size=s).astype(np.float32)).to(cuda_device)
+    big = torch.from_numpy(rng.normal(size=(s + 1, channels)).astype(np.float32)).to(cuda_device)
+    for ch in (big[:s], big[1:]):  # the second is not 16-byte aligned
+        assert ch.is_contiguous()
+        kernels.reset_launch_counts()
+        got = tc.segment_sum(w, ch, offsets)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts["segment_sum"] == 1
+        want = tc.segment_sum(w.double(), ch.double(), offsets, plain=True)
+        assert not bool(got[:7].any())
+        torch.testing.assert_close(got.double(), want, rtol=1e-5,
+                                   atol=1e-6 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("in_dim,n_hidden,out_dim", [(32, 1, 16), (16, 2, 3)])
+def test_torch_mlp_backward_bf16_weight_grad_bit_reproducible(cuda_device, in_dim, n_hidden,
+                                                              out_dim):
+    """Under bf16 each CTA of the persistent grid sums its tiles' d W on
+    chip and the reduction adds the partials in CTA order: two launches on
+    the same inputs give the same bits.  2^18 rows: several tiles a CTA,
+    held against the matmul chain's autograd too.  At this many rows a
+    hidden pre-activation may lie within the fp32 sum-order noise of 0 and
+    flip its ReLU mask, moving that row's d x by a whole term: at most 1e-4
+    of the rows beyond _mlp_tol; d W (summed over every row) within 5e-3
+    relative L2."""
+    from nerfstyle_torch.ops import mlp as tmlp
+
+    rows = 1 << 18
+    ws, x, g = _mlp_case(np.random.default_rng(9), cuda_device, in_dim, n_hidden, out_dim,
+                         rows=rows)
+    sigmoid = out_dim == 3
+    assert kernels.mlp_backward_grid(rows, in_dim, n_hidden, out_dim) < rows // 64
+    first = kernels.mlp_backward(x, ws, g, sigmoid, True, [True] * len(ws))
+    second = kernels.mlp_backward(x, ws, g, sigmoid, True, [True] * len(ws))
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    for a, b in zip(first[1], second[1]):
+        assert a is not None and bool(a.any()) and torch.equal(a, b)
+    wr = [w.clone().requires_grad_(True) for w in ws]
+    xr = x.clone().requires_grad_(True)
+    out = tmlp.mlp_apply(wr, xr, "sigmoid" if sigmoid else None, torch.bfloat16, plain=True)
+    dx_p, *dws_p = torch.autograd.grad(out, [xr] + wr, g)
+    far = ((first[0] - dx_p).abs() > _mlp_tol(dx_p, torch.bfloat16)).any(dim=1)
+    assert int(far.sum()) <= 1e-4 * rows
+    for a, b in zip(first[1], dws_p):
+        b = b.to(torch.bfloat16).float()
+        assert float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)) <= 5e-3

@@ -84,6 +84,15 @@ def test_torch_train_rejects_leftover_flags_and_adaptive_batch(scene):
         train.main(_argv(root, data_cfg, "--num_iterations", "1", "--adaptive_batch"))
 
 
+def test_torch_train_rejects_profile_dir(scene, tmp_path):
+    """The profiler trace window is not ported: --profile_dir raises and
+    names the flag, instead of being accepted and ignored."""
+    root, data_cfg = scene
+    with pytest.raises(NotImplementedError, match="--profile_dir"):
+        train.main(_argv(root, data_cfg, "--num_iterations", "1",
+                         "--profile_dir", str(tmp_path / "trace")))
+
+
 @pytest.mark.parametrize("group", ["TrainConfig", "NetworkConfig", "RendererConfig"])
 def test_torch_config_flags_match_jax(group):
     """The same flags through both packages' layered loaders: equal configs

@@ -68,7 +68,9 @@
    memory and each kernel's launches a step.  Then one style step with the
    kernels against the same step with every plain version, K5 forward and
    backward and K7b at the style stream's shape against their plain
-   versions, timed, and one steady iteration under the profiler.
+   versions, timed, K5's cuBLAS chain (its library yardstick:
+   mlp_library_chain, with K5's rounding points) held against the plain
+   version and timed, and one steady iteration under the profiler.
 10. The simplex path: ``python -m nerfstyle_torch.train
    --pos_enc.simplex_from 10`` at the default width for 150 steps (its
    launches counted: K1s, K2s), the test PSNR must rise 5 dB, one step
@@ -82,6 +84,7 @@ without a CUDA device or when any phase fails.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -935,12 +938,12 @@ def k5_weight_grad_phase(trainer, x, gen, fails):
         return [kernels.mlp_backward(hh, ws, g, False, bf16, [True] * len(ws))
                 for (ws, hh), g in zip(heads, gs)]
 
-    def bwd_plain():
+    def bwd_plain(chain=mlp_apply_plain):
         outs = []
         for (ws, hh), g in zip(heads, gs):
             wr = [w.clone().requires_grad_(True) for w in ws]
             xr = hh.detach().requires_grad_(True)
-            d = torch.autograd.grad(mlp_apply_plain(wr, xr, None, dtype), [xr] + wr, g)
+            d = torch.autograd.grad(chain(wr, xr, None, dtype), [xr] + wr, g)
             outs.append((d[0], [gw.to(torch.bfloat16).float() if bf16 else gw for gw in d[1:]]))
         return outs
 
@@ -951,7 +954,7 @@ def k5_weight_grad_phase(trainer, x, gen, fails):
         fails.append("K5 backward: two launches on the same inputs gave different d x or d W")
     errs, far_rows, dw_rel = [], [], []
     for (dx, dws), (dx_p, dws_p) in zip(first, bwd_plain()):
-        tol = 2.0**-7 * float(dx_p.abs().max()) if bf16 else 1e-5 * float(dx_p.abs().max())
+        tol = k5_tolerance(dx_p, dtype)
         diff = (dx - dx_p).abs()
         far_rows.append(int((diff > tol).any(dim=1).sum()))
         dw_rel.append(max(rel_l2(a, b) for a, b in zip(dws, dws_p)))
@@ -962,6 +965,8 @@ def k5_weight_grad_phase(trainer, x, gen, fails):
     del first, second
     ms = cuda_ms(bwd, reps=10)
     plain_ms = cuda_ms(bwd_plain, reps=3, warmup=1)
+    with cublas_fp32_sums():
+        lib_ms = cuda_ms(lambda: bwd_plain(mlp_library_chain), reps=3, warmup=1)
     grids = [kernels.mlp_backward_grid(K5_DW_ROWS, ws[0].shape[0], len(ws) - 1, ws[-1].shape[1])
              for ws, _ in heads]
     # Bytes: each head reads x and g and writes d x (fp32 rows), reads its
@@ -976,19 +981,103 @@ def k5_weight_grad_phase(trainer, x, gen, fails):
         f"widths {dims}, grids {grids} CTAs): max abs err (d x, d W...) {errs}, rows of d x "
         f"beyond 2^-7 of the largest {far_rows}, d W relative L2 {dw_rel}; two launches "
         f"bit-equal: {same}; ms {ms:.3f} (both heads, the d W reduction included), plain_ms "
-        f"(forward + autograd) {plain_ms:.3f}, bound_ms {b_ms:.4f} ({b_by})")
+        f"(forward + autograd) {plain_ms:.3f}, cuBLAS chain + autograd {lib_ms:.3f}, bound_ms "
+        f"{b_ms:.4f} ({b_by})")
     return dict(max_abs_err=max(max(e) for e in errs), ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=plain_ms)
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+
+def mlp_library_chain(weights, x, act, dtype):
+    """K5's function through cuBLAS, with K5's rounding points: K5's library
+    yardstick, used nowhere in the port.
+
+    Under bf16 each hidden layer is one bf16 ``torch.matmul`` (fp32 sums,
+    output rounded to bf16) followed by the ReLU: ReLU and round-to-nearest
+    commute, so this is r(relu(h r(W))) up to the order of the fp32 sums.
+    The output layer is an fp32 ``torch.matmul`` of the bf16-exact operands
+    (h_L and r(W_L)), then the sigmoid where the head has one.  In fp32 it
+    is the plain fp32 chain.  Run it under :func:`cublas_fp32_sums`."""
+    if dtype == torch.float32:
+        h = x
+        for i, w in enumerate(weights):
+            h = torch.matmul(h, w)
+            if i < len(weights) - 1:
+                h = torch.relu(h)
+    else:
+        h = x.to(dtype)
+        for w in weights[:-1]:
+            h = torch.relu(torch.matmul(h, w.to(dtype)))
+        h = torch.matmul(h.float(), weights[-1].to(dtype).float())
+    return torch.sigmoid(h) if act == "sigmoid" else h
+
+
+@contextlib.contextmanager
+def cublas_fp32_sums():
+    """Keep cuBLAS on fp32 sums inside (no TF32, no reduced-precision bf16
+    reductions); restore both flags after."""
+    m = torch.backends.cuda.matmul
+    saved = (m.allow_tf32, m.allow_bf16_reduced_precision_reduction)
+    m.allow_tf32, m.allow_bf16_reduced_precision_reduction = False, False
+    try:
+        yield
+    finally:
+        m.allow_tf32, m.allow_bf16_reduced_precision_reduction = saved
+
+
+def k5_tolerance(want: torch.Tensor, dtype) -> float:
+    """K5's absolute tolerance against the plain chain: fp32 sums in another
+    order, 1e-5 of the largest value; under bf16 a value near a rounding step
+    may land on the other side (2^-8 of itself) and carry that into what
+    follows: 2^-7 of the largest value."""
+    return (2.0**-7 if dtype == torch.bfloat16 else 1e-5) * float(want.abs().max())
+
+
+def library_check(weights, x, act, dtype, fails, what: str) -> float:
+    """The cuBLAS chain against the plain version on the same inputs, with
+    K5's tolerance; returns the max abs error."""
+    from nerfstyle_torch.ops.mlp import mlp_apply_plain
+
+    with torch.no_grad(), cublas_fp32_sums():
+        got = mlp_library_chain(weights, x, act, dtype)
+        want = mlp_apply_plain(weights, x, act, dtype)
+    err, tol = float((got - want).abs().max()), k5_tolerance(want, dtype)
+    if not err <= tol:
+        fails.append(f"K5's cuBLAS chain {what}: error {err} > {tol} against the plain version")
+    return err
+
+
+def relu_mask_report(weights, x, dtype, rows: torch.Tensor) -> str:
+    """For each given row, each hidden layer's pre-activations of the plain
+    chain (its fp32 GEMM on the full batch) against the same sums in float64
+    (of the same bf16-exact operands): the smallest |pre-activation| in
+    float64, the row's largest, and how many units the fp32 sum puts on the
+    other side of 0.  A row whose d x is off by a whole term and whose
+    smallest |pre-activation| is far below the fp32 resolution of its largest
+    has a ReLU mask that follows the order of the sums."""
+    def rnd(t):
+        return t if dtype == torch.float32 else t.to(dtype).float()
+
+    out = []
+    with torch.no_grad():
+        h = rnd(x)
+        for i, w in enumerate(weights[:-1]):
+            v32 = torch.matmul(h, rnd(w))
+            v64 = h[rows].double() @ rnd(w).double()
+            off = ((v32[rows] > 0) != (v64 > 0)).sum(dim=1)
+            out.append([(i, float(v64[n].abs().min()), float(v64[n].abs().max()), int(off[n]))
+                        for n in range(rows.shape[0])])
+            h = rnd(torch.relu(v32))
+    return "; ".join(f"row {int(r)}: " + ", ".join(
+        f"layer {i} min |v| {lo:.3e} of max {hi:.3e}, fp32 signs off {n}" for i, lo, hi, n in per)
+        for r, per in zip(rows.tolist(), zip(*out)))
 
 
 def mlp_check(weights, x, act, dtype, need_dw: bool, gen, fails, what: str):
     """K5 forward and backward (d x, and every d W when ``need_dw``) against
     the plain matmul chain and its autograd on the same inputs and a random
-    cotangent; returns the max abs errors (output, d x, d W...).
-
-    Tolerance: fp32 sums in another order, 1e-5 of the largest value; under
-    bf16 a value near a rounding step may land on the other side (2^-8 of
-    itself) and carry that into what follows: 2^-7 of the largest value."""
+    cotangent, each within k5_tolerance; returns the max abs errors (output,
+    d x, d W...).  A d x past its tolerance is logged with the ReLU masks of
+    its worst rows (relu_mask_report)."""
     from nerfstyle_torch.ops.mlp import mlp_apply
 
     g = torch.randn((x.shape[0], weights[-1].shape[1]), generator=gen, device=x.device)
@@ -998,13 +1087,18 @@ def mlp_check(weights, x, act, dtype, need_dw: bool, gen, fails, what: str):
         xr = x.detach().clone().requires_grad_(True)
         out = mlp_apply(ws, xr, act, dtype, plain=plain)
         res[plain] = (out.detach(),) + torch.autograd.grad(out, [xr] + (ws if need_dw else []), g)
-    frac = 2.0**-7 if dtype == torch.bfloat16 else 1e-5
     errs = []
-    for a, b in zip(res[False], res[True]):
-        err, tol = float((a - b).abs().max()), frac * float(b.abs().max())
+    for n, (a, b) in enumerate(zip(res[False], res[True])):
+        diff = (a - b).abs()
+        err, tol = float(diff.max()), k5_tolerance(b, dtype)
         errs.append(err)
         if not err <= tol:
             fails.append(f"K5 {what}: error {err} > {tol}")
+            if n == 1:
+                far = (diff > tol).any(dim=1).nonzero().flatten()
+                worst = far[diff[far].amax(dim=1).argsort(descending=True)[:8]]
+                log(f"K5 {what}: {far.shape[0]} rows of d x past {tol}; the worst: "
+                    f"{relu_mask_report(weights, x, dtype, worst)}")
     return errs
 
 
@@ -1462,22 +1556,30 @@ def style_kernel_phases(st, fails):
         return [kernels.mlp_backward(hh, w, g, act == "sigmoid", bf16, [False] * len(w))
                 for (w, hh, act), g in zip(heads, gs)]
 
-    def bwd_plain():
+    def bwd_plain(chain=mlp_apply_plain):
         outs = []
         for (w, hh, act), g in zip(heads, gs):
             xr = hh.detach().requires_grad_(True)
-            outs.append(torch.autograd.grad(mlp_apply_plain(w, xr, act, dtype), xr, g))
+            outs.append(torch.autograd.grad(chain(w, xr, act, dtype), xr, g))
         return outs
 
+    lib_errs = [library_check(w, hh, act, dtype, fails, f"head {i} at the style stream")
+                for i, (w, hh, act) in enumerate(heads)]
     with torch.no_grad():
         f_ms = cuda_ms(lambda: fwd(False), reps=10)
         f_plain = cuda_ms(lambda: fwd(True), reps=5)
-        f_lib = cuda_ms(lambda: fwd(True), reps=5)
+        with cublas_fp32_sums():
+            f_lib = cuda_ms(lambda: [mlp_library_chain(w, hh, act, dtype)
+                                     for w, hh, act in heads], reps=10)
         b_ms = cuda_ms(bwd, reps=10)
+        head_f_ms = [cuda_ms(lambda w=w, hh=hh, act=act: mlp_apply(w, hh, act, dtype), reps=10)
+                     for w, hh, act in heads]
         head_ms = [cuda_ms(lambda w=w, hh=hh, act=act, g=g: kernels.mlp_backward(
             hh, w, g, act == "sigmoid", bf16, [False] * len(w)), reps=10)
             for (w, hh, act), g in zip(heads, gs)]
     b_plain = cuda_ms(bwd_plain, reps=5)
+    with cublas_fp32_sums():
+        b_lib = cuda_ms(lambda: bwd_plain(mlp_library_chain), reps=5)
     grids = [kernels.mlp_backward_grid(n_rows, w[0].shape[0], len(w) - 1, w[-1].shape[1])
              for w, _, _ in heads] if bf16 else None
     # Bytes: each launch reads its input rows and writes its output rows
@@ -1496,12 +1598,15 @@ def style_kernel_phases(st, fails):
     table["K5f"] = dict(max_abs_err=max(e[0] for e in errs), ms=f_ms, plain_ms=f_plain,
                         bound_ms=fb_ms, bound_by=fb_by, library_ms=f_lib)
     table["K5b"] = dict(max_abs_err=max(e[1] for e in errs), ms=b_ms, plain_ms=b_plain,
-                        bound_ms=bb_ms, bound_by=bb_by, library_ms=b_plain)
+                        bound_ms=bb_ms, bound_by=bb_by, library_ms=b_lib)
     log(f"K5 color heads at the style stream ({n_rows} rows, {dtype}, layer widths {dims}): max "
-        f"abs err (out, d x) {errs}; forward ms {f_ms:.3f} (plain {f_plain:.3f}, torch.matmul "
+        f"abs err (out, d x) {errs}; cuBLAS chain against plain {lib_errs}; forward ms "
+        f"{f_ms:.3f} (a head: {['%.3f' % t for t in head_f_ms]}; plain {f_plain:.3f}, cuBLAS "
         f"chain {f_lib:.3f}), bound_ms {fb_ms:.4f} ({fb_by}); backward ms {b_ms:.3f} (a head: "
         f"{['%.3f' % t for t in head_ms]}, grids {grids} CTAs; plain forward + autograd "
-        f"{b_plain:.3f}), bound_ms {bb_ms:.4f} ({bb_by})")
+        f"{b_plain:.3f}, cuBLAS chain + autograd {b_lib:.3f}), bound_ms {bb_ms:.4f} ({bb_by})")
+
+    log_unported_bounds(n_rows)
 
     # K7b: d ch = w * g[ray] for a random pixel cotangent: one fp32 product,
     # equal bits.
@@ -1524,6 +1629,18 @@ def style_kernel_phases(st, fails):
         f"to plain: {torch.equal(d_ch, ref)}; ms {ms:.3f}, plain_ms {plain_ms:.3f}, bound_ms "
         f"{b_ms:.4f} ({b_by})")
     return table
+
+
+def log_unported_bounds(n_rows: int) -> None:
+    """Bounds of the two kernels not yet ported, from their shapes: K5d
+    (sh_encode of color2's view-direction input, at the style stream's rows:
+    a direction of 3 fp32 in, 16 fp32 basis values out) and K9
+    (grid_initialize at the default 16 levels x 2^19 rows x 2 features: the
+    style-0 table read once and the new table written once)."""
+    k5d = bound_ms(n_rows * (3 + 16) * 4, n_rows * 40)
+    k9 = bound_ms(2 * 16 * (1 << 19) * 2 * 4, 0)
+    log(f"not yet ported: K5d sh_encode at {n_rows} rows bound_ms {k5d[0]:.4f} ({k5d[1]}); "
+        f"K9 grid_initialize at 16 x 2^19 x 2 bound_ms {k9[0]:.4f} ({k9[1]})")
 
 
 # ---------------------------------------------------------------------------

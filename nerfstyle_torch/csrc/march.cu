@@ -13,9 +13,9 @@
 // cell of its cascade level is occupied, level = clamp(max(frexp_exp(max|x|),
 // mip_dt_level), 0, cascade-1); a ray keeps at most max_steps points.
 //
-//   pass 1 (count): one thread per ray counts its kept points;
+//   pass 1 (count): one warp per ray counts its kept points;
 //   scan   (in PyTorch): exclusive cumsum of the counts -> ray offsets;
-//   pass 2 (write): one thread per ray walks again and writes xyz, dirs,
+//   pass 2 (write): one warp per ray walks again and writes xyz, dirs,
 //          tau = t + dt - near, ray id and lattice index k at its offset.
 //          The order is ray-major and deterministic.
 //
@@ -37,13 +37,24 @@
 //
 // Bound on the H100: bytes.  The function must read the rays and the
 // occupancy and write 36 bytes per kept point.  Both forms are held back by
-// instructions instead: each visited lattice point costs ~40 operations
-// (position, frexp, cell index, one 1-byte bitfield read that mostly hits
-// L1/L2: the 4 MB bitfield fits in L2).  The dense form visits every lattice
-// point, twice; the two-stage form visits every window's first point
-// (cascade lookups of the 4 MB skip distance) and the fine points of
-// candidate windows only.  Design: one thread per ray in each pass, the
-// simplest exact form; a warp per ray is later work.
+// instructions and latency instead: each visited lattice point costs ~40
+// operations (position, frexp, cell index, one 1-byte bitfield read that
+// mostly hits L1/L2: the 4 MB bitfield fits in L2).  The dense form visits
+// every lattice point, twice; the two-stage form visits every window's first
+// point (cascade lookups of the 4 MB skip distance) and the fine points of
+// candidate windows only.
+//
+// Design: one warp a ray, in both passes and both forms.  Lanes take
+// neighbouring lattice points (dense) or neighbouring windows (coarse), so a
+// ray's walk is 32 points or windows a step instead of one, and a late
+// train batch of 4096 rays fills the card with 4096 warps instead of 4096
+// threads.  A kept point's slot comes from a ballot and a prefix popc over
+// the lanes, so neighbouring lanes write neighbouring slots of xyz, dirs,
+// tau, ray id and step: the write pass's stores coalesce (a thread a ray
+// wrote its samples to 32 unrelated lines a warp).  Exactness: t_k = near +
+// k dt, each step rounded on its own, does not decrease in k, so masking
+// t < far keeps exactly the points that a sequential walk's break keeps,
+// and the lanes' prefix order is the lattice order.
 #include "common.cuh"
 
 namespace {
@@ -132,21 +143,31 @@ struct MarchOut {
     int* step;
 };
 
-// One walk for both passes and both forms.  kWrite = false: count ray r's
-// kept points (and, two-stage, its candidate windows); kWrite = true: write
-// them at offsets[r].  skip == nullptr is the dense march: every window is a
-// candidate, so the walk visits every lattice point in range.
+// Rays a CTA: one warp a ray.
+constexpr int kRaysPerCta = nst::kThreads / 32;
+
+// One walk for both passes and both forms, one warp a ray.  kWrite = false:
+// count ray r's kept points (and, two-stage, its candidate windows);
+// kWrite = true: write them at offsets[r].  skip == nullptr is the dense
+// march: every window is a candidate, and the 32 lanes take 32 consecutive
+// lattice points a step.  Two-stage: lane i tests window w0 + i (coarse),
+// and the group's candidate windows are then taken in order, 32 / window of
+// them a step, lane i on point i % window of the (i / window)-th (fine).  A
+// kept point's slot is j plus the kept lanes below it (ballot and popc), so
+// slots follow lattice order, and slots at or past `end` are dropped.  Every
+// branch of the loop depends only on ballots and on j: the warp stays
+// converged.
 template <bool kWrite>
-__global__ void march_kernel(const float* __restrict__ origins, const float* __restrict__ dirs,
-                             const float* __restrict__ nears, const float* __restrict__ fars,
-                             const unsigned char* __restrict__ bits,
-                             const unsigned char* __restrict__ skip,
-                             const float* __restrict__ cells, MarchGeom g, int window,
-                             float reach, int num_rays, int* __restrict__ counts,
-                             int* __restrict__ cand_counts, const long long* __restrict__ offsets,
-                             MarchOut out) {
-    const int r = blockIdx.x * blockDim.x + threadIdx.x;
-    if (r >= num_rays) return;
+__global__ void __launch_bounds__(nst::kThreads)
+    march_kernel(const float* __restrict__ origins, const float* __restrict__ dirs,
+                 const float* __restrict__ nears, const float* __restrict__ fars,
+                 const unsigned char* __restrict__ bits, const unsigned char* __restrict__ skip,
+                 const float* __restrict__ cells, MarchGeom g, int window, float reach,
+                 int num_rays, int* __restrict__ counts, int* __restrict__ cand_counts,
+                 const long long* __restrict__ offsets, MarchOut out) {
+    const int r = blockIdx.x * kRaysPerCta + (threadIdx.x >> 5);
+    const int lane = threadIdx.x & 31;
+    if (r >= num_rays) return;  // the whole warp
     // The write pass stops at its ray's end offset, the count pass at the
     // max_steps cap: the same point, since the count came from this walk.
     long long j = 0, end = g.max_steps;
@@ -159,35 +180,64 @@ __global__ void march_kernel(const float* __restrict__ origins, const float* __r
     const float d[3] = {dirs[3 * r], dirs[3 * r + 1], dirs[3 * r + 2]};
     const float near = nears[r];
     const float far = fars[r];
-    int cand = 0;
-    float xyz[3];
-    for (int k0 = 0; k0 < g.t_lattice; k0 += window) {
-        // Past the cap only the two-stage count pass walks on, to count the
-        // candidate windows as JAX does.
-        if (j >= end && (kWrite || skip == nullptr)) break;
-        const float t_c = __fadd_rn(near, __fmul_rn(static_cast<float>(k0), g.dt));
-        if (!(t_c < far)) break;  // t grows with k: no later point is in range
-        if (skip != nullptr && !window_candidate(o, d, t_c, g, skip, cells, reach)) continue;
-        ++cand;
-        const int k1 = min(k0 + window, g.t_lattice);
-        for (int k = k0; k < k1 && j < end; ++k) {
-            const float t = __fadd_rn(near, __fmul_rn(static_cast<float>(k), g.dt));
-            if (!(t < far)) break;
-            if (!lattice_point(o, d, t, g, bits, xyz)) continue;
-            if (kWrite) {
+    const unsigned below = (1u << lane) - 1u;
+    // Lattice point k of this lane: test it, and in the write pass store it
+    // at its slot; then advance j past the step's kept points.
+    auto fine = [&](bool live, int k) {
+        const float t = __fadd_rn(near, __fmul_rn(static_cast<float>(k), g.dt));
+        float xyz[3];
+        const bool keep = live && k < g.t_lattice && t < far && lattice_point(o, d, t, g, bits, xyz);
+        const unsigned kept = __ballot_sync(0xffffffffu, keep);
+        if (kWrite) {
+            const long long slot = j + __popc(kept & below);
+            if (keep && slot < end) {
 #pragma unroll
                 for (int a = 0; a < 3; ++a) {
-                    out.xyz[3 * j + a] = xyz[a];
-                    out.dirs[3 * j + a] = d[a];
+                    out.xyz[3 * slot + a] = xyz[a];
+                    out.dirs[3 * slot + a] = d[a];
                 }
-                out.tau[j] = __fsub_rn(__fadd_rn(t, g.dt), near);
-                out.ray[j] = r;
-                out.step[j] = k;
+                out.tau[slot] = __fsub_rn(__fadd_rn(t, g.dt), near);
+                out.ray[slot] = r;
+                out.step[slot] = k;
             }
-            ++j;
+        }
+        j = min(j + __popc(kept), end);
+    };
+    int cand = 0;
+    if (skip == nullptr) {
+        for (int k0 = 0; j < end; k0 += 32) {
+            const int k = k0 + lane;
+            const float t = __fadd_rn(near, __fmul_rn(static_cast<float>(k), g.dt));
+            const bool in = k < g.t_lattice && t < far;
+            fine(in, k);
+            // t grows with k: once a lane is out of range, so are all later points.
+            if (__ballot_sync(0xffffffffu, in) != 0xffffffffu) break;
+        }
+    } else {
+        const int per = 32 / window;  // windows a fine step
+        const int q = lane / window, p = lane - q * window;
+        for (int w0 = 0;; w0 += 32) {
+            const int k0 = (w0 + lane) * window;
+            const float t_c = __fadd_rn(near, __fmul_rn(static_cast<float>(k0), g.dt));
+            const bool in = k0 < g.t_lattice && t_c < far;
+            const unsigned in_mask = __ballot_sync(0xffffffffu, in);
+            if (in_mask == 0u) break;
+            unsigned c_mask = __ballot_sync(
+                0xffffffffu, in && window_candidate(o, d, t_c, g, skip, cells, reach));
+            // Past the cap the count pass walks on, to count the candidate
+            // windows as JAX does.
+            cand += __popc(c_mask);
+            while (c_mask != 0u && j < end) {
+                unsigned mine = c_mask;  // drop this lane's q lower candidates
+                for (int i = 0; i < q; ++i) mine &= mine - 1u;
+                const bool live = q < per && mine != 0u;
+                fine(live, live ? (w0 + __ffs(mine) - 1) * window + p : 0);
+                for (int i = 0; i < per; ++i) c_mask &= c_mask - 1u;
+            }
+            if (in_mask != 0xffffffffu || (kWrite && j >= end)) break;
         }
     }
-    if (!kWrite) {
+    if (!kWrite && lane == 0) {
         counts[r] = static_cast<int>(j);
         if (cand_counts != nullptr) cand_counts[r] = cand;
     }
@@ -207,8 +257,9 @@ NST_API int nst_march_count(const void* origins, const void* dirs, const void* n
                             float reach, int num_rays, void* counts, void* cand_counts,
                             void* stream) {
     if (num_rays <= 0) return 0;
+    if (window < 1 || window > 32) return static_cast<int>(cudaErrorInvalidValue);
     const MarchGeom g{dt, bound, t_lattice, cascade, grid_size, mip_dt_level, max_steps};
-    march_kernel<false><<<nst::blocks_for(num_rays), nst::kThreads, 0,
+    march_kernel<false><<<nst::blocks_for(num_rays, kRaysPerCta), nst::kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(origins), static_cast<const float*>(dirs),
         static_cast<const float*>(nears), static_cast<const float*>(fars),
@@ -229,11 +280,12 @@ NST_API int nst_march_write(const void* origins, const void* dirs, const void* n
                             void* out_dirs, void* out_tau, void* out_ray, void* out_step,
                             void* stream) {
     if (num_rays <= 0) return 0;
+    if (window < 1 || window > 32) return static_cast<int>(cudaErrorInvalidValue);
     const MarchGeom g{dt, bound, t_lattice, cascade, grid_size, mip_dt_level, max_steps};
     const MarchOut out{static_cast<float*>(out_xyz), static_cast<float*>(out_dirs),
                        static_cast<float*>(out_tau), static_cast<int*>(out_ray),
                        static_cast<int*>(out_step)};
-    march_kernel<true><<<nst::blocks_for(num_rays), nst::kThreads, 0,
+    march_kernel<true><<<nst::blocks_for(num_rays, kRaysPerCta), nst::kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(origins), static_cast<const float*>(dirs),
         static_cast<const float*>(nears), static_cast<const float*>(fars),

@@ -79,19 +79,25 @@ def test_torch_march_kernel_matches_plain(cuda_device, bound, max_steps, density
         torch.testing.assert_close(getattr(got, name), getattr(want, name), rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("bound,max_steps,density", [(1.0, 128, 0.3), (2.0, 128, 0.02),
-                                                     (2.0, 16, 1.0), (2.0, 1024, 0.002)])
+@pytest.mark.parametrize("bound,max_steps,density,rays", [
+    pytest.param(b, s, dn, n, id=f"{b}-{s}-{dn}" + ("" if n == 300 else f"-{n}rays"))
+    for b, s, dn, n in [(1.0, 128, 0.3, 300), (2.0, 128, 0.02, 300), (2.0, 16, 1.0, 300),
+                        (2.0, 1024, 0.002, 300), (2.0, 13, 0.3, 300), (2.0, 1024, 0.05, 4096)]])
 def test_torch_two_stage_march_kernel_matches_plain_and_dense(cuda_device, bound, max_steps,
-                                                              density):
+                                                              density, rays):
     """K3s rounds as K3 does: the plain two-stage march's samples, order,
-    offsets and candidate count, and the dense kernel's samples."""
+    offsets and candidate count, and the dense kernel's samples.  The
+    max_steps 13 case caps rays inside a window and inside a warp's group of
+    four windows; the 4096-ray batch (a late train batch) at max_steps 1024
+    has rays of more than 32 windows, so a warp's coarse stage takes more
+    than one group."""
     rng = np.random.default_rng(17)
     grid = 16
     cascade = cascade_for_bound(bound)
     bits = torch.from_numpy(rng.random(cascade * grid**3) < density).to(cuda_device)
     occ = tm.OccField(bits, to.skipdist_from_bitfield(bits, grid, plain=True))
-    o = rng.uniform(-2.5 * bound, 2.5 * bound, size=(300, 3)).astype(np.float32)
-    d = rng.uniform(-0.8 * bound, 0.8 * bound, size=(300, 3)).astype(np.float32) - o
+    o = rng.uniform(-2.5 * bound, 2.5 * bound, size=(rays, 3)).astype(np.float32)
+    d = rng.uniform(-0.8 * bound, 0.8 * bound, size=(rays, 3)).astype(np.float32) - o
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     ot, dt_ = torch.from_numpy(o).to(cuda_device), torch.from_numpy(d).to(cuda_device)
     plan = tm.MarchPlan(bound=bound, cascade=cascade, grid_size=grid, max_steps=max_steps,
@@ -417,13 +423,21 @@ def _mlp_tol(ref: torch.Tensor, dtype) -> float:
 def test_torch_mlp_kernel_matches_plain(cuda_device, in_dim, n_hidden, out_dim, act, dtype):
     """K5 forward and backward (d x, then d x and every d W; 5000 rows: a
     ragged last tile) against the torch.matmul chain and its autograd.  The
-    backward runs the scalar kernel in fp32 and the tensor-core kernel
-    under bf16, whose d W takes one more launch (the reduction of the
-    per-CTA partial sums)."""
+    scalar kernels run in fp32 and the tensor-core kernels under bf16, whose
+    backward's d W takes one more launch (the reduction of the per-CTA
+    partial sums).  Under bf16 also at row counts that are no multiple of
+    the 64-row tile: one row, one short tile, and one row past a tile for
+    every CTA slot of a 132-SM card."""
+    rows = (5000, 1, 63, 64 * 132 + 5) if dtype == torch.bfloat16 else (5000,)
+    for m in rows:
+        ws, x, g = _mlp_case(np.random.default_rng(in_dim + out_dim + n_hidden), cuda_device,
+                             in_dim, n_hidden, out_dim, rows=m)
+        _mlp_kernel_against_plain(ws, x, g, act, dtype)
+
+
+def _mlp_kernel_against_plain(ws, x, g, act, dtype):
     from nerfstyle_torch.ops import mlp as tmlp
 
-    ws, x, g = _mlp_case(np.random.default_rng(in_dim + out_dim + n_hidden), cuda_device, in_dim,
-                         n_hidden, out_dim)
     for need_dw in (False, True):
         runs = {}
         for plain in (False, True):
@@ -442,6 +456,96 @@ def test_torch_mlp_kernel_matches_plain(cuda_device, in_dim, n_hidden, out_dim, 
         for got, want in [(out, out_p)] + list(zip(grads, grads_p)):
             assert got.shape == want.shape
             torch.testing.assert_close(got, want, rtol=0, atol=_mlp_tol(want, dtype))
+
+
+@pytest.mark.parametrize("rows", [4096, 670322])
+def test_torch_plain_gemm_sums_in_order_of_k(cuda_device, rows, monkeypatch):
+    """K5's bf16 kernels take a ReLU mask that could follow the order of the
+    fp32 sums from one FMA at a time in order of k (csrc/mlp.cu), because
+    that is the plain chain's order: its fp32 GEMM of bf16-exact operands
+    (TF32 off) equals that sequential sum bit for bit at these row counts,
+    for each hidden layer's K."""
+    rng = np.random.default_rng(5)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    for k in (16, 32, 64):
+        a = torch.from_numpy(rng.normal(size=(rows, k)).astype(np.float32)).to(cuda_device)
+        w = torch.from_numpy(rng.uniform(-1, 1, size=(k, 64)).astype(np.float32)).to(cuda_device)
+        a, w = a.to(torch.bfloat16).float(), w.to(torch.bfloat16).float()
+        acc = torch.zeros((rows, 64), device=cuda_device)
+        for i in range(k):
+            acc = acc + a[:, i:i + 1] * w[i]  # the product is exact: one rounding a step
+        assert torch.equal(torch.matmul(a, w), acc)
+
+
+@pytest.mark.parametrize("in_dim,n_hidden", [(16, 1), (32, 1), (32, 2)])
+def test_torch_mlp_relu_mask_follows_the_plain_sums(cuda_device, in_dim, n_hidden):
+    """Under bf16 a hidden pre-activation whose exact value is +-2^-26 from
+    terms of +-1 takes its sign from the order of the fp32 sums: 1 + 2^-26 - 1
+    is 0 one add at a time and 2^-26 in a wider sum.  K5 must take the plain
+    chain's sign, or a cotangent flows through a unit the plain chain has
+    shut (d x moves by a whole term).  The last hidden layer's units 0-15
+    sum such crafted rows (the first 64 of 4096: enough rows that the fp32
+    GEMM sums one FMA at a time in order of k); the rest are random.  With
+    two hidden layers the first is [I, -I] (exact) and the second gets the
+    crafted sums.  The output layer is the identity, so the forward returns
+    h_L itself: its ReLU mask equals the plain chain's everywhere and its
+    values equal on the crafted rows; d x within _mlp_tol."""
+    from nerfstyle_torch.ops import mlp as tmlp
+
+    rng = np.random.default_rng(17)
+    rows, crafted, k = 4096, 64, in_dim if n_hidden == 1 else 64
+    x = rng.normal(size=(rows, in_dim)).astype(np.float32)
+    x[:crafted] = 0.0
+    for r in range(crafted):
+        k1, k2, k3 = rng.choice(in_dim, size=3, replace=False)
+        s = 1.0 if r % 2 else -1.0
+        x[r, k1], x[r, k2], x[r, k3] = s, (1.0 if r % 4 < 2 else -1.0) * 2.0**-26, -s
+    dims = [in_dim] + [64] * n_hidden
+    ws = [(rng.uniform(-1, 1, size=(a, b)) * (6.0 / a) ** 0.5).astype(np.float32)
+          for a, b in zip(dims[:-1], dims[1:])]
+    if n_hidden == 2:
+        ws[0] = np.concatenate([np.eye(in_dim), -np.eye(in_dim)], axis=1).astype(np.float32)
+    ws[-1][:, :16] = np.concatenate([np.ones(k // 2), (1 if n_hidden == 1 else -1) *
+                                     np.ones(k // 2)])[:, None]
+    ws.append(np.eye(64, dtype=np.float32))
+    ws = [torch.from_numpy(w).to(cuda_device) for w in ws]
+    x = torch.from_numpy(x).to(cuda_device)
+    g = torch.from_numpy(rng.normal(size=(rows, 64)).astype(np.float32)).to(cuda_device)
+    outs, dxs = [], []
+    for plain in (False, True):
+        xr = x.clone().requires_grad_(True)
+        h = tmlp.mlp_apply(ws, xr, None, torch.bfloat16, plain=plain)
+        outs.append(h.detach())
+        dxs.append(torch.autograd.grad(h, xr, g)[0])
+    (h, h_p), (dx, dx_p) = outs, dxs
+    assert torch.equal(h > 0, h_p > 0)
+    assert torch.equal(h[:crafted, :16], h_p[:crafted, :16])
+    torch.testing.assert_close(dx, dx_p, rtol=0, atol=_mlp_tol(dx_p, torch.bfloat16))
+
+
+@pytest.mark.parametrize("seed", range(8))
+@pytest.mark.parametrize("in_dim,n_hidden,out_dim,act", [(32, 1, 4, None), (32, 1, 16, None),
+                                                         (16, 2, 3, "sigmoid")])
+def test_torch_mlp_bf16_dx_at_the_style_stream_size(cuda_device, in_dim, n_hidden, out_dim, act,
+                                                    seed):
+    """The three color heads' shapes at the style stream's 670,322 rows
+    under bf16: among ~4 x 10^7 hidden pre-activations a few lie within the
+    fp32 sum-order noise of 0, and each one whose ReLU mask differed from the
+    plain chain's would move its row's d x by a whole term.  Output and d x
+    (frozen weights) within _mlp_tol on every row."""
+    from nerfstyle_torch.ops import mlp as tmlp
+
+    ws, x, g = _mlp_case(np.random.default_rng(100 + seed), cuda_device, in_dim, n_hidden,
+                         out_dim, rows=670322)
+    if seed % 2:
+        x = x * 0.3
+    res = []
+    for plain in (False, True):
+        xr = x.clone().requires_grad_(True)
+        out = tmlp.mlp_apply(ws, xr, act, torch.bfloat16, plain=plain)
+        res.append((out.detach(), torch.autograd.grad(out, xr, g)[0]))
+    for got, want in zip(*res):
+        torch.testing.assert_close(got, want, rtol=0, atol=_mlp_tol(want, torch.bfloat16))
 
 
 def test_torch_mlp_kernel_frozen_weights(cuda_device):

@@ -14,13 +14,16 @@
    space nearly opaque (sigma ~ e^6, ~7 samples to saturate), so rays end
    as in a trained scene.
 3. Per kernel, at the shapes of the main path (a 2^16-ray chunk of the
-   1008x756 frame; 2^20 points for K1, K1s, K2s; the 2 x 128^3 grid for
-   K6c): the CUDA kernel against its plain PyTorch version on the same
-   inputs, with the tolerance stated at each check, and both timed with
-   CUDA events after warm-up (K7 and its `index_add_` yardstick, shorter
-   than the host's work a call, from a CUDA graph of 20 launches).  The
-   two-stage march (K3s) is also held against the dense march (K3), bit
-   for bit; K7 also on rays longer than its staged tile.
+   1008x756 frame; the 2 x 128^3 grid for K6c): the CUDA kernel against
+   its plain PyTorch version on the same inputs, with the tolerance stated
+   at each check, and both timed with CUDA events after warm-up (K7 and its
+   `index_add_` yardstick, shorter than the host's work a call, from a CUDA
+   graph of 20 launches).  The two-stage march (K3s) is also held against
+   the dense march (K3), bit for bit; K7 also on rays longer than its
+   staged tile.  K1 and K1s on the chunk's two streams in march order
+   (phase A's marched samples, phase B's kept ones) and on a probe chunk of
+   each occupancy update; K1, K1s and K2s also at 2^20 random picks of the
+   chunk's stream, the earlier tables' shape, logged only.
 4. The main path: ``python -m nerfstyle_torch.render <ckpt> --out-dims 1008
    756 --max-count 1 --yes``, in-process, with every launch counter set to 0
    just before and read just after; each kernel must have launched (the
@@ -48,8 +51,9 @@
    memory.
 8. One more step with the kernels against the same step with every plain
    version, from the same state and rays (tolerances at step_vs_plain);
-   K3 and K3s at a late batch, K2, K4b and K6 against their plain versions
-   at the step's shapes, and K5 with its weight gradients at a batch's
+   K3 and K3s at a late batch, K1 on its marched and kept streams, K2 on
+   the kept one, K4b and K6 against their plain versions at the step's
+   shapes, and K5 with its weight gradients at a batch's
    shape; K5's backward with every weight gradient at 2^20 rows (two
    launches must give the same bits), timed; late steps with
    adaptive_march on and off in turns (the
@@ -66,7 +70,8 @@
    phase's only in x_color_embedder.  Prints the cache builds, the first
    epoch (30 builds), the median steady iteration, the whole run, peak
    memory and each kernel's launches a step.  Then one style step with the
-   kernels against the same step with every plain version, K5 forward and
+   kernels against the same step with every plain version, K1 and K2 on a
+   pose's cached stream, K5 forward and
    backward and K7b at the style stream's shape against their plain
    versions, timed, K5's cuBLAS chain (its library yardstick:
    mlp_library_chain, with K5's rounding points) held against the plain
@@ -74,8 +79,12 @@
 10. The simplex path: ``python -m nerfstyle_torch.train
    --pos_enc.simplex_from 10`` at the default width for 150 steps (its
    launches counted: K1s, K2s), the test PSNR must rise 5 dB, one step
-   against every plain version, and one frame from its checkpoint through
-   the render entry point.
+   against every plain version, K1s and K2s on a late batch's streams, and
+   one frame from its checkpoint through the render entry point.
+
+K1 and K2 have a row in the kernel table for each stream they run on,
+timed on that stream and given that stream's launches: each launch of
+theirs on a path is counted by stream (``count_hashgrid_streams``).
 
 Prints the kernel table as one JSON line, then the last line
 ``{"ok": true, "device": {...}}``.  Exits nonzero, printing no result,
@@ -288,6 +297,201 @@ def touched_rows(spec, x: torch.Tensor) -> int:
     return int(mask.sum())
 
 
+# ---------------------------------------------------------------------------
+# K1 and K2 by stream
+#
+# K1 (encode) and K2 (table gradient) run on several streams: a frame
+# chunk's marched samples (phase A, density table) and kept samples (phase
+# B, color table), a train batch's marched samples (phase A) and kept
+# samples (phase B, the fused [T, 4] table), a style pose's cached samples
+# (color table), and the occupancy updates' probes (density table).  Each
+# has a row of its own in the kernel table, timed on that stream in the
+# order the path hands it over, with the launches of that stream.  A
+# launch's stream is read off the call stack at the launch (K1: the field
+# function and the step that called it) or off its table width (K2: the
+# train step's fused table is 4 wide, the style step's color table 2).
+# ---------------------------------------------------------------------------
+
+# Stream -> the callers that mark it, looked for from the launch outwards.
+ENCODE_STREAMS = (
+    ("train B", ("field_apply",)),
+    ("style", ("render_cache",)),
+    ("frame B", ("field_color",)),
+    ("probe full", ("occupancy_update_full",)),
+    ("probe random", ("occupancy_update_random",)),
+    ("train A", ("eval_composite",)),
+    ("frame A", ("render_chunk", "_build_geom_cache")),
+)
+BACKWARD_STREAMS = {4: "train B", 2: "style"}
+_stream_counts: dict = {}
+
+
+def _encode_stream() -> str:
+    names, f = set(), sys._getframe(2)
+    while f is not None and len(names) < 40:
+        names.add(f.f_code.co_name)
+        f = f.f_back
+    for stream, callers in ENCODE_STREAMS:
+        if any(c in names for c in callers):
+            return stream
+    return "other"
+
+
+def count_hashgrid_streams() -> None:
+    """Wrap the K1 and K2 wrappers so that each launch also counts under
+    ``<kernel>:<stream>`` (read_counts); the wrappers' own counts are
+    untouched."""
+    from nerfstyle_torch import kernels
+
+    enc, bwd = kernels.hashgrid_encode, kernels.hashgrid_backward
+
+    def tally(name, stream, before):
+        if kernels.launch_counts[name] > before:
+            key = f"{name}:{stream}"
+            _stream_counts[key] = _stream_counts.get(key, 0) + 1
+
+    def encode(x, table, levels):
+        before = kernels.launch_counts["hashgrid_encode"]
+        out = enc(x, table, levels)
+        tally("hashgrid_encode", _encode_stream(), before)
+        return out
+
+    def backward(x, g, levels, num_rows):
+        before = kernels.launch_counts["hashgrid_backward"]
+        out = bwd(x, g, levels, num_rows)
+        c = g.shape[1] // levels.shape[1]
+        tally("hashgrid_backward", BACKWARD_STREAMS.get(c, "other"), before)
+        return out
+
+    kernels.hashgrid_encode, kernels.hashgrid_backward = encode, backward
+
+
+def reset_counts() -> None:
+    from nerfstyle_torch import kernels
+
+    kernels.reset_launch_counts()
+    _stream_counts.clear()
+
+
+def read_counts() -> dict:
+    """Every wrapper's launches since reset_counts, and K1's and K2's by
+    stream."""
+    from nerfstyle_torch import kernels
+
+    return {**kernels.launch_counts, **_stream_counts}
+
+
+def k1_row(grid, table, x, what: str, fails) -> dict:
+    """K1 on the stream x (as the path hands it over) against its plain
+    version, bit for bit (the same rounding); both timed (the kernel from a
+    CUDA graph); its bound from the distinct rows read.  Returns the
+    kernel-table entry."""
+    from nerfstyle_torch.ops import hashgrid
+
+    kid = "K1s" if grid.simplex_start < grid.num_levels else "K1"
+    enc = hashgrid.hashgrid_encode(grid, table, x)
+    ref = hashgrid.hashgrid_encode(grid, table, x, plain=True)
+    err = float((enc - ref).abs().max()) if x.shape[0] else 0.0
+    if not torch.equal(enc, ref):
+        fails.append(f"{kid} encode at {what} differs from its plain version (max abs err {err})")
+    del enc, ref
+    # From a CUDA graph: at a train batch's or a kept stream's size the
+    # host's work a call outlasts the kernel.
+    ms = graph_ms(lambda: hashgrid.hashgrid_encode(grid, table, x))
+    plain_ms = cuda_ms(lambda: hashgrid.hashgrid_encode(grid, table, x, plain=True), reps=3,
+                       warmup=1)
+    n, c, rows = x.shape[0], table.shape[1], touched_rows(grid, x)
+    lc, nl = grid.simplex_start, grid.num_levels
+    corners = 8 * lc + 4 * (nl - lc)
+    # Bytes: points, the distinct rows read, the features written once.
+    # Operations: per corner or vertex the weight's few and 2C for the sum.
+    b_ms, b_by = bound_ms(nbytes=n * 12 + rows * c * 4 + n * nl * c * 4,
+                          flops=n * corners * (3 + 2 * c))
+    log(f"{kid} hashgrid_encode at {what}: {n} points x {nl} levels (C={c}), {rows} distinct rows "
+        f"read ({n * corners / max(rows, 1):.1f} corner reads a row); bit-equal to plain: "
+        f"{err == 0.0}; ms {ms:.4f}, plain_ms {plain_ms:.3f}, bound_ms {b_ms:.4f} ({b_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def k2_row(grid, x, c: int, what: str, gen, fails) -> dict:
+    """K2 on the stream x for a random cotangent, against the plain version's
+    float64 sums: its fp32 atomics add in an order that varies from run to
+    run, up to ~10^5 contributions a row on the coarse levels: each level's
+    rows within 1e-4 of the level's largest on simplex grids (K2s: a coarse
+    trilinear row sums hundreds of contributions, a fine simplex row a few,
+    so one tolerance for the whole table would not see an error on the
+    simplex levels), and within 1e-4 of the largest row on trilinear ones.
+    Timed (from a CUDA graph, as its ``index_add_`` of the same
+    contributions; the plain version launch by launch).  Returns the
+    kernel-table entry."""
+    from nerfstyle_torch import kernels
+    from nerfstyle_torch.ops import hashgrid
+
+    n, nl, rows = x.shape[0], grid.num_levels, grid.total_params
+    lc = grid.simplex_start
+    kid = "K2s" if lc < nl else "K2"
+    lv = hashgrid.level_table(grid, x.device)
+    cot = torch.randn((n, nl * c), generator=gen, device=x.device)
+    got = kernels.hashgrid_backward(x, cot, lv, rows)
+    ref = hashgrid.hashgrid_backward_plain(grid, x, cot.double(), rows)
+    diff = (got.double() - ref).abs()
+    err = float(diff.max())
+    spans = ([(grid.offsets[i], grid.offsets[i + 1]) for i in range(nl)] if kid == "K2s"
+             else [(0, rows)])
+    worst = 0.0  # the largest error of a level (K2: of the table) over its tolerance
+    for a, b in spans:
+        span_err, span_tol = float(diff[a:b].max()), 1e-4 * float(ref[a:b].abs().max())
+        worst = max(worst, span_err / max(span_tol, 1e-30))
+        if not span_err <= span_tol:
+            fails.append(f"{kid} table gradient at {what}: error {span_err} > {span_tol} on rows "
+                         f"{a}-{b}")
+    del got, ref, diff
+    ms = graph_ms(lambda: kernels.hashgrid_backward(x, cot, lv, rows))
+    plain_ms = cuda_ms(lambda: hashgrid.hashgrid_backward_plain(grid, x, cot, rows), reps=3,
+                       warmup=1)
+    corners, oob = hashgrid._corners(grid, x)
+    g3 = torch.where(oob[:, None, None], 0.0, cot.reshape(n, nl, c))
+    flat_rows = torch.cat([r.reshape(-1) for _, _, r, _ in corners])
+    vals = torch.cat([(w[..., None] * g3[:, a:b]).reshape(-1, c) for a, b, _, w in corners])
+    del corners, g3
+    acc = torch.zeros((rows, c), device=x.device)
+    lib_ms = graph_ms(lambda: acc.zero_().index_add_(0, flat_rows, vals))
+    del flat_rows, vals, acc
+    per_point = 8 * lc + 4 * (nl - lc)
+    # Bytes: points, cotangent, the [T, C] gradient written once.
+    # Operations: per (point, level, corner or vertex) the weight's few and
+    # 2C for w * g and the add.
+    b_ms, b_by = bound_ms(nbytes=n * 12 + n * nl * c * 4 + rows * c * 4,
+                          flops=n * per_point * (5 + 2 * c))
+    log(f"{kid} hashgrid_backward at {what}: {n} points x {nl} levels ({per_point} corners and "
+        f"vertices a point) into [{rows}, {c}]; max_abs_err {err:.3e}, worst "
+        f"{'level' if kid == 'K2s' else 'table'} at {worst:.3f} of its tolerance; ms {ms:.4f}, "
+        f"plain_ms {plain_ms:.3f}, index_add_ ms {lib_ms:.4f}, bound_ms {b_ms:.4f} ({b_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
+
+
+def probe_streams(renderer, table_dev):
+    """Encoder inputs of one probe chunk of each occupancy update, as the
+    updates hand them over: the middle PROBE_CHUNK of cascade 0's full sweep
+    (cells in linear order, jittered) and the first of cascade 0's random
+    update (uniformly drawn cells)."""
+    from nerfstyle_torch.models.fields import _encoder_input
+    from nerfstyle_torch.ops import occupancy
+
+    plan, bbox = renderer.plan, renderer.bbox
+    h, k = plan.grid_size, occupancy.PROBE_CHUNK
+    gen = torch.Generator(device=table_dev).manual_seed(13)
+    mid = (h**3 // k) // 2
+    coords = occupancy.all_cell_coords(h, table_dev)[mid * k: (mid + 1) * k]
+    full = occupancy.cells_to_cascade_points(coords, 0, h, plan.bound, generator=gen)
+    idx = torch.randint(0, h**3, (k,), generator=gen, device=table_dev)
+    coords = torch.stack([idx // (h * h), (idx // h) % h, idx % h], dim=-1)
+    rand = occupancy.cells_to_cascade_points(coords, 0, h, plan.bound, generator=gen)
+    return (_encoder_input(bbox, full).contiguous(), _encoder_input(bbox, rand).contiguous())
+
+
 def march_phase(plan, state, o, d, fails, what: str):
     """The two-stage march (K3s) against its plain version and against the
     dense march (K3), and K3 against its plain version, on rays (o, d) over
@@ -367,14 +571,15 @@ def march_phase(plan, state, o, d, fails, what: str):
 
 
 def kernel_phases(renderer, params, rays_o, rays_d):
-    """K6c on the checkpoint's grid; K3, K3s, K1, K1s, K2s, K4, K7 on a
-    2^16-ray chunk of the frame; returns the kernel table (without
+    """K6c on the checkpoint's grid; K3, K3s, K4, K1 and K1s (phase A's and
+    phase B's streams), K7 on a 2^16-ray chunk of the frame; K1 and K1s on
+    the occupancy updates' probe chunks; returns the kernel table (without
     launches) and a list of failures."""
     from nerfstyle_torch import kernels
     from nerfstyle_torch.models.fields import _encoder_input, field_color, field_density
-    from nerfstyle_torch.ops import compositing, hashgrid, marching, occupancy
+    from nerfstyle_torch.ops import compositing, marching, occupancy
     from nerfstyle_torch.ops.aabb import near_far_from_aabb
-    from nerfstyle_torch.render.renderer import CHUNK_RAYS
+    from nerfstyle_torch.render.renderer import CHUNK_RAYS, FIELD_BATCH
 
     fails, table = [], {}
     plan, spec, bbox = renderer.plan, renderer.field_spec, renderer.bbox
@@ -414,102 +619,6 @@ def kernel_phases(renderer, params, rays_o, rays_d):
     table.update(march_table)
     sb = marching.march_rays(plan, renderer.occ_field, o, d, nears, fars)
     m = sb.num_kept
-
-    # K1: hash-grid encode on 2^20 points of the chunk's stream (density
-    # table).  Same rounding as the plain version: tolerance 1e-6 of the
-    # largest output.
-    pick = torch.randint(0, m, (K1_POINTS,), generator=torch.Generator().manual_seed(1))
-    x = _encoder_input(bbox, sb.xyz[pick.to(sb.xyz.device)]).contiguous()
-    tab = params["x_density_embedder"]
-    enc = hashgrid.hashgrid_encode(spec.grid, tab, x)
-    enc_ref = hashgrid.hashgrid_encode(spec.grid, tab, x, plain=True)
-    err = float((enc - enc_ref).abs().max())
-    tol = 1e-6 * float(enc_ref.abs().max())
-    if not err <= tol:
-        fails.append(f"K1 encode error {err} > {tol}")
-    ms = cuda_ms(lambda: hashgrid.hashgrid_encode(spec.grid, tab, x), reps=20)
-    plain_ms = cuda_ms(lambda: hashgrid.hashgrid_encode(spec.grid, tab, x, plain=True), reps=3)
-    rows = touched_rows(spec.grid, x)
-    c = tab.shape[1]
-    b_ms, b_by = bound_ms(
-        nbytes=K1_POINTS * 12 + rows * c * 4 + K1_POINTS * spec.grid.output_dim * 4,
-        flops=K1_POINTS * spec.grid.num_levels * 8 * (3 + 2 * c),
-    )
-    table["K1"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                       bound_by=b_by, library_ms=None)
-    log(f"K1 hashgrid_encode: {K1_POINTS} points x {spec.grid.num_levels} levels, "
-        f"{rows} distinct rows read; max_abs_err {err:.3e} (tol {tol:.3e}); ms {ms:.3f}, "
-        f"plain_ms {plain_ms:.3f}, bound_ms {b_ms:.4f} ({b_by})")
-
-    # K1s and K2s: the simplex configuration (levels from SIMPLEX_FROM on
-    # 4 vertices) on the same 2^20 points.  K1s rounds as the plain version
-    # does: within 1e-6 of the largest output.  K2s on the fused [T, 4]
-    # tables' width for a random cotangent: its fp32 atomics add in a
-    # varying order; against the plain version's float64 sums, each level's
-    # rows within 1e-4 of that level's largest (a coarse trilinear row sums
-    # hundreds of contributions, a fine simplex row a few, so one tolerance
-    # for the whole table would not see an error on the simplex levels).
-    grid_s = dataclasses.replace(spec.grid, simplex_from=SIMPLEX_FROM)
-    enc = hashgrid.hashgrid_encode(grid_s, tab, x)
-    enc_ref = hashgrid.hashgrid_encode(grid_s, tab, x, plain=True)
-    err = float((enc - enc_ref).abs().max())
-    tol = 1e-6 * float(enc_ref.abs().max())
-    if not err <= tol:
-        fails.append(f"K1s encode error {err} > {tol}")
-    ms = cuda_ms(lambda: hashgrid.hashgrid_encode(grid_s, tab, x), reps=20)
-    plain_ms = cuda_ms(lambda: hashgrid.hashgrid_encode(grid_s, tab, x, plain=True), reps=3)
-    rows_s = touched_rows(grid_s, x)
-    lc, nl = grid_s.simplex_start, grid_s.num_levels
-    corners_a_point = 8 * lc + 4 * (nl - lc)
-    b_ms, b_by = bound_ms(
-        nbytes=K1_POINTS * 12 + rows_s * c * 4 + K1_POINTS * grid_s.output_dim * 4,
-        flops=K1_POINTS * corners_a_point * (3 + 2 * c),
-    )
-    table["K1s"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                        bound_by=b_by, library_ms=None)
-    log(f"K1s hashgrid_encode, simplex from level {lc}: {K1_POINTS} points, {rows_s} distinct "
-        f"rows read; max_abs_err {err:.3e} (tol {tol:.3e}); ms {ms:.3f}, plain_ms "
-        f"{plain_ms:.3f}, bound_ms {b_ms:.4f} ({b_by})")
-    del enc, enc_ref
-    c4, rows = 2 * grid_s.level_dim, grid_s.total_params
-    lv = hashgrid.level_table(grid_s, x.device)
-    cot = torch.randn((K1_POINTS, nl * c4), generator=torch.Generator(device=x.device)
-                      .manual_seed(2), device=x.device)
-    got = kernels.hashgrid_backward(x, cot, lv, rows)
-    ref = hashgrid.hashgrid_backward_plain(grid_s, x, cot.double(), rows)
-    diff = (got.double() - ref).abs()
-    err = float(diff.max())
-    worst = 0.0  # the largest error of a level over its tolerance
-    for lvl in range(nl):
-        a, b = grid_s.offsets[lvl], grid_s.offsets[lvl + 1]
-        lvl_err, lvl_tol = float(diff[a:b].max()), 1e-4 * float(ref[a:b].abs().max())
-        worst = max(worst, lvl_err / max(lvl_tol, 1e-30))
-        if not lvl_err <= lvl_tol:
-            fails.append(f"K2s table gradient error {lvl_err} > {lvl_tol} on level {lvl} "
-                         f"({'simplex' if lvl >= lc else 'trilinear'})")
-    del got, ref, diff
-    ms = cuda_ms(lambda: kernels.hashgrid_backward(x, cot, lv, rows), reps=10)
-    plain_ms = cuda_ms(lambda: hashgrid.hashgrid_backward_plain(grid_s, x, cot, rows), reps=3)
-    corners, oob = hashgrid._corners(grid_s, x)
-    g3 = torch.where(oob[:, None, None], 0.0, cot.reshape(K1_POINTS, nl, c4))
-    flat_rows = torch.cat([r.reshape(-1) for _, _, r, _ in corners])
-    vals = torch.cat([(w[..., None] * g3[:, a:b]).reshape(-1, c4) for a, b, _, w in corners])
-    del corners, g3
-    acc = torch.zeros((rows, c4), device=x.device)
-    lib_ms = cuda_ms(lambda: acc.zero_().index_add_(0, flat_rows, vals), reps=10)
-    del flat_rows, vals, acc
-    # Bytes: points, cotangent, the [T, C] gradient written once.
-    # Operations: per (point, level, corner or vertex) the weight's few and
-    # 2C for w * g and the add.
-    b_ms, b_by = bound_ms(nbytes=K1_POINTS * 12 + K1_POINTS * nl * c4 * 4 + rows * c4 * 4,
-                          flops=K1_POINTS * corners_a_point * (5 + 2 * c4))
-    table["K2s"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                        bound_by=b_by, library_ms=lib_ms)
-    log(f"K2s hashgrid_backward, simplex from level {lc}: {K1_POINTS} points x {nl} levels "
-        f"({corners_a_point} corners and vertices a point) into [{rows}, {c4}]; max_abs_err "
-        f"{err:.3e}, worst level at {worst:.3f} of its tolerance; ms {ms:.3f}, plain_ms "
-        f"{plain_ms:.3f}, index_add_ ms {lib_ms:.3f}, bound_ms {b_ms:.4f} ({b_by})")
-    del cot
 
     # K4: weights on the chunk's stream with the path's densities.  The
     # reference is the plain version on the same inputs in float64 (exact).
@@ -558,11 +667,45 @@ def kernel_phases(renderer, params, rays_o, rays_d):
         f"w/ws/depth inner, edge {errs} (tol {tols}); ms {ms:.3f}, plain_ms {plain_ms:.3f}, "
         f"bound_ms {b_ms:.4f} ({b_by})")
 
+    keep = w > s.sig_eps
+    idx = torch.nonzero(keep).squeeze(1)
+
+    # K1 and K1s on the frame's streams, in march order: phase A encodes
+    # the chunk's marched samples with the density table, FIELD_BATCH a
+    # launch (the chunk's first launch), phase B the kept ones with the
+    # color table; and on a probe chunk of each occupancy update (density
+    # table).  K1s: the same streams with simplex levels
+    # from SIMPLEX_FROM (the simplex run's own checkpoint has other weights;
+    # the streams are of the same kind).
+    grid_s = dataclasses.replace(spec.grid, simplex_from=SIMPLEX_FROM)
+    dens, color = params["x_density_embedder"], params["x_color_embedder"]
+    x_a = _encoder_input(bbox, sb.xyz[:FIELD_BATCH]).contiguous()
+    x_b = _encoder_input(bbox, sb.xyz[idx]).contiguous()
+    full, rand = probe_streams(renderer, x_a.device)
+    for grid, kid in ((spec.grid, "K1"), (grid_s, "K1s")):
+        table[f"{kid} frame A"] = k1_row(grid, dens, x_a, "a frame chunk's marched samples "
+                                         "(phase A, density)", fails)
+        table[f"{kid} frame B"] = k1_row(grid, color, x_b, "a frame chunk's kept samples "
+                                         "(phase B, color)", fails)
+        table[f"{kid} probe full"] = k1_row(grid, dens, full, "a full sweep's probe chunk", fails)
+    table["K1 probe random"] = k1_row(spec.grid, dens, rand, "a random update's probe chunk",
+                                      fails)
+    # The yardstick of earlier tables, no longer a row: 2^20 random picks
+    # from the chunk's stream, K1 and K1s on the density table, K2s on the
+    # fused tables' width.
+    pick = torch.randint(0, m, (K1_POINTS,), generator=torch.Generator().manual_seed(1))
+    x = _encoder_input(bbox, sb.xyz[pick.to(sb.xyz.device)]).contiguous()
+    bridge = {"K1": k1_row(spec.grid, dens, x, "2^20 random picks", fails),
+              "K1s": k1_row(grid_s, dens, x, "2^20 random picks", fails),
+              "K2s": k2_row(grid_s, x, 2 * spec.grid.level_dim, "2^20 random picks",
+                            torch.Generator(device=x.device).manual_seed(2), fails)}
+    log("at 2^20 random picks of the chunk's stream (the earlier tables' shape): " + ", ".join(
+        f"{k} ms {v['ms']:.4f} (bound {v['bound_ms']:.4f})" for k, v in bridge.items()))
+    del x, x_a, x_b, full, rand
+
     # K7: phase B's channel sum over the significant samples.  Reference:
     # the plain version (float64 sums); the kernel sums in fp32 in stream
     # order: tolerance 1e-5 of the largest output.
-    keep = w > s.sig_eps
-    idx = torch.nonzero(keep).squeeze(1)
     before = torch.zeros(m + 1, dtype=torch.int64, device=w.device)
     before[1:] = torch.cumsum(keep, 0)
     sig_off = before[sb.offsets]
@@ -720,86 +863,94 @@ def step_vs_plain(trainer, fails):
         fails.append(f"train step gradients or state differ from the plain step: {errs}")
 
 
-def train_kernel_phases(trainer, fails):
-    """K3 and K3s, K2, K4b and K6 at the train step's shapes (a batch of the
-    trained state; the random occupancy update's probe count) against their
-    plain versions; returns the K2, K4b and K6 kernel-table entries."""
-    from nerfstyle_torch import kernels
-    from nerfstyle_torch.models.fields import _encoder_input, field_apply, field_density
-    from nerfstyle_torch.ops import compositing, hashgrid, marching, occupancy
+def late_batch(trainer) -> dict:
+    """A late train batch as the step builds it (``eval_composite``): its
+    rays, the marched stream (phase A) and the kept prefix of each ray
+    (phase B), with both streams' encoder inputs in march order."""
+    from nerfstyle_torch.models.fields import _encoder_input, field_density
+    from nerfstyle_torch.ops import compositing, marching
     from nerfstyle_torch.ops.aabb import near_far_from_aabb
     from nerfstyle_torch.render.pipeline import kept_prefix
 
-    table = {}
     r, spec, s = trainer.renderer, trainer.field_spec, trainer.settings
-    plan, bbox, dev = r.plan, r.bbox, trainer.device
-    gen = torch.Generator(device=dev).manual_seed(5)
+    plan, bbox = r.plan, r.bbox
     frame, idx = trainer.sample_batch()
     o, d, _ = trainer.ray_batch(frame, idx)
-    n = o.shape[0]
-    nears, fars = near_far_from_aabb(o, d, plan.aabb(dev), plan.min_near)
-    march_phase(plan, r.occ_state, o.contiguous(), d.contiguous(), fails, "a late train batch")
+    nears, fars = near_far_from_aabb(o, d, plan.aabb(o.device), plan.min_near)
     sb = marching.march_rays(plan, r.occ_field, o, d, nears, fars)
     with torch.no_grad():
         sig_a = field_density(spec, trainer.params, bbox, sb.xyz, trainer.compute_dtype)
         *_, n_inc = compositing.sample_weights(sig_a * s.density_scale, sb.tau, sb.offsets,
                                                plan.dt, s.t_thresh)
         keep, offsets = kept_prefix(sb, n_inc)
-        xyz, tau = sb.xyz[keep], sb.tau[keep].contiguous()
-        ch, sig = field_apply(spec, trainer.params, bbox, xyz, trainer.compute_dtype)
-    k = keep.shape[0]
+    return dict(o=o.contiguous(), d=d.contiguous(), nears=nears, fars=fars, sb=sb, keep=keep,
+                offsets=offsets, x_a=_encoder_input(bbox, sb.xyz).contiguous(),
+                x_b=_encoder_input(bbox, sb.xyz[keep]).contiguous())
 
-    # K2: the table gradient of phase B's encode (the [T, 4] fused tables)
-    # for a random cotangent.  The fp32 atomics add in an order that varies
-    # from run to run, up to ~10^5 contributions a row on the coarse levels;
-    # against the plain version's float64 sums: 1e-4 of the largest row.
-    x = _encoder_input(bbox, xyz).contiguous()
+
+def train_stream_rows(trainer, batch, fails, gen) -> dict:
+    """K1 on a late train batch's two streams (phase A: density table;
+    phase B: the fused [T, 4] tables) and K2 on phase B's; K1s and K2s when
+    the trainer's grid has simplex levels."""
+    grid, params = trainer.field_spec.grid, trainer.params
+    simplex = grid.simplex_start < grid.num_levels
+    k1, k2 = ("K1s", "K2s") if simplex else ("K1", "K2")
+    fused = torch.cat([params["x_density_embedder"], params["x_color_embedder"]], dim=1).detach()
+    return {
+        f"{k1} train A": k1_row(grid, params["x_density_embedder"].detach(), batch["x_a"],
+                                "a late train batch's marched samples (phase A, density)", fails),
+        f"{k1} train B": k1_row(grid, fused, batch["x_b"], "a late train batch's kept samples "
+                                "(phase B, fused [T, 4])", fails),
+        f"{k2} train B": k2_row(grid, batch["x_b"], fused.shape[1], "a late train batch's kept "
+                                "samples (phase B, fused [T, 4])", gen, fails),
+    }
+
+
+def train_kernel_phases(trainer, fails):
+    """K3 and K3s, K1 and K2 on a late batch's streams, K4b and K6 at the
+    train step's shapes (a batch of the trained state; the random occupancy
+    update's probe count) against their plain versions; returns the K1, K2,
+    K4b and K6 kernel-table entries."""
+    from nerfstyle_torch import kernels
+    from nerfstyle_torch.models.fields import _encoder_input, field_apply
+    from nerfstyle_torch.ops import compositing, hashgrid, marching, occupancy
+
+    r, spec, s = trainer.renderer, trainer.field_spec, trainer.settings
+    plan, bbox, dev = r.plan, r.bbox, trainer.device
+    gen = torch.Generator(device=dev).manual_seed(5)
+    batch = late_batch(trainer)
+    o, d, nears, fars = batch["o"], batch["d"], batch["nears"], batch["fars"]
+    n = o.shape[0]
+    march_phase(plan, r.occ_state, o, d, fails, "a late train batch")
+    sb, keep, offsets, x = batch["sb"], batch["keep"], batch["offsets"], batch["x_b"]
+    with torch.no_grad():
+        tau = sb.tau[keep].contiguous()
+        ch, sig = field_apply(spec, trainer.params, bbox, sb.xyz[keep], trainer.compute_dtype)
+    k = keep.shape[0]
+    table = train_stream_rows(trainer, batch, fails, gen)
+
+    # K2 at an early step's shape: with every cell occupied (the grid before
+    # the first updates prune it) a batch marches all its lattice samples,
+    # and phase B keeps them all.  The fused [T, 4] tables' width, a random
+    # cotangent; against the plain version's float64 sums: 1e-4 of the
+    # largest row (k2_row).
     lvl, c, rows = spec.grid.num_levels, 2 * spec.grid.level_dim, spec.grid.total_params
     lv = hashgrid.level_table(spec.grid, dev)
-
-    def k2_check(pts, what):
-        cot = torch.randn((pts.shape[0], lvl * c), generator=gen, device=dev)
-        ref = hashgrid.hashgrid_backward_plain(spec.grid, pts, cot.double(), rows)
-        got = kernels.hashgrid_backward(pts, cot, lv, rows)
-        err = float((got.double() - ref).abs().max())
-        tol = 1e-4 * float(ref.abs().max())
-        if not err <= tol:
-            fails.append(f"K2 table gradient error {err} > {tol} ({what})")
-        return cot, err, tol
-
-    # At an early step's shape first: with every cell occupied (the grid
-    # before the first updates prune it) a batch marches all its lattice
-    # samples, and phase B keeps them all.
     sb0 = marching.march_rays(plan, torch.ones_like(r.occ_state.bitfield), o, d, nears, fars)
     x0 = _encoder_input(bbox, sb0.xyz).contiguous()
     del sb0
-    g0, err0, tol0 = k2_check(x0, "early shape")
+    g0 = torch.randn((x0.shape[0], lvl * c), generator=gen, device=dev)
+    ref0 = hashgrid.hashgrid_backward_plain(spec.grid, x0, g0.double(), rows)
+    err0 = float((kernels.hashgrid_backward(x0, g0, lv, rows).double() - ref0).abs().max())
+    tol0 = 1e-4 * float(ref0.abs().max())
+    if not err0 <= tol0:
+        fails.append(f"K2 table gradient error {err0} > {tol0} (early shape)")
+    del ref0
     ms0 = cuda_ms(lambda: kernels.hashgrid_backward(x0, g0, lv, rows), reps=3, warmup=1)
     log(f"K2 hashgrid_backward at an early step's shape: {x0.shape[0]} samples "
         f"({x0.shape[0] / n:.1f} a ray) x {lvl} levels x 8 corners; max_abs_err {err0:.3e} "
         f"(tol {tol0:.3e}); ms {ms0:.3f}")
     del x0, g0
-    g, err, tol = k2_check(x, "late shape")
-    ms = cuda_ms(lambda: kernels.hashgrid_backward(x, g, lv, rows), reps=10)
-    plain_ms = cuda_ms(lambda: hashgrid.hashgrid_backward_plain(spec.grid, x, g, rows), reps=3)
-    corners, oob = hashgrid._corners(spec.grid, x)
-    g3 = torch.where(oob[:, None, None], 0.0, g.reshape(k, lvl, c))
-    flat_rows = torch.cat([r.reshape(-1) for _, _, r, _ in corners])
-    vals = torch.cat([(w[..., None] * g3[:, a:b]).reshape(-1, c) for a, b, _, w in corners])
-    del corners, g3
-    acc = torch.zeros((rows, c), device=dev)
-    lib_ms = cuda_ms(lambda: acc.zero_().index_add_(0, flat_rows, vals), reps=10)
-    del flat_rows, vals, acc
-    # Bytes: points, cotangent, the [T, C] gradient written once.
-    # Operations: per (point, level, corner) 5 for the weight, 2C for w * g
-    # and the add.
-    b_ms, b_by = bound_ms(nbytes=k * 12 + k * lvl * c * 4 + rows * c * 4,
-                          flops=k * lvl * 8 * (5 + 2 * c))
-    table["K2"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                       bound_by=b_by, library_ms=lib_ms)
-    log(f"K2 hashgrid_backward: {k} kept samples x {lvl} levels x 8 corners into [{rows}, {c}]; "
-        f"max_abs_err {err:.3e} (tol {tol:.3e}); ms {ms:.3f}, plain_ms {plain_ms:.3f}, "
-        f"index_add_ ms {lib_ms:.3f}, bound_ms {b_ms:.4f} ({b_by})")
 
     # K4b: the compositor's backward on phase B's stream for random
     # cotangents, against the plain backward on float64 inputs.  Rays with
@@ -994,9 +1145,15 @@ def mlp_library_chain(weights, x, act, dtype):
     Under bf16 each hidden layer is one bf16 ``torch.matmul`` (fp32 sums,
     output rounded to bf16) followed by the ReLU: ReLU and round-to-nearest
     commute, so this is r(relu(h r(W))) up to the order of the fp32 sums.
-    The output layer is an fp32 ``torch.matmul`` of the bf16-exact operands
-    (h_L and r(W_L)), then the sigmoid where the head has one.  In fp32 it
-    is the plain fp32 chain.  Run it under :func:`cublas_fp32_sums`."""
+    The first of two hidden layers, which K5 sums on fp32 FMAs in the plain
+    chain's order, is an fp32 ``torch.matmul`` of the bf16-exact operands,
+    then the ReLU and the rounding: the plain chain's masks and roundings
+    there, as K5's (a bf16 GEMM sums in another order, and a first-layer
+    value that rounds to the other bf16 neighbour moves the head's output
+    by up to a few 2^-8 of it).  The output layer is an fp32
+    ``torch.matmul`` of the bf16-exact operands (h_L and r(W_L)), then the
+    sigmoid where the head has one.  In fp32 it is the plain fp32 chain.
+    Run it under :func:`cublas_fp32_sums`."""
     if dtype == torch.float32:
         h = x
         for i, w in enumerate(weights):
@@ -1005,8 +1162,11 @@ def mlp_library_chain(weights, x, act, dtype):
                 h = torch.relu(h)
     else:
         h = x.to(dtype)
-        for w in weights[:-1]:
-            h = torch.relu(torch.matmul(h, w.to(dtype)))
+        for i, w in enumerate(weights[:-1]):
+            if i == 0 and len(weights) > 2:
+                h = torch.relu(torch.matmul(h.float(), w.to(dtype).float())).to(dtype)
+            else:
+                h = torch.relu(torch.matmul(h, w.to(dtype)))
         h = torch.matmul(h.float(), weights[-1].to(dtype).float())
     return torch.sigmoid(h) if act == "sigmoid" else h
 
@@ -1128,7 +1288,7 @@ def profile_once(fn, label: str, card: str) -> None:
 def train_phase(card: str, fails):
     """The train path through ``python -m nerfstyle_torch.train`` (in-process)
     at the default configs; returns the trainer and its kernel launches."""
-    from nerfstyle_torch import kernels, train
+    from nerfstyle_torch import train
 
     (WORK / "data.yaml").write_text(
         f"root_path: {WORK / 'scene'}\ntype: Synthetic\nbound: 2.0\nscale: 1.0\n")
@@ -1137,12 +1297,12 @@ def train_phase(card: str, fails):
     untrained = train.main(train_argv(0, "--test_before_train")).test_history[0]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     trainer = train.main(train_argv(TRAIN_STEPS))
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = dict(kernels.launch_counts)
+    launches = read_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     for name in TRAIN_COUNTERS:
         if launches[name] <= 0:
@@ -1181,7 +1341,6 @@ def step_ms_on_off(trainer, card: str, steps: int = 10):
     """Late train steps with adaptive_march on and off, in turns (on, off,
     off, on), ``steps`` a turn: the median step ms of each side, and the
     kernel launches of the off turns (the dense march's)."""
-    from nerfstyle_torch import kernels
 
     r = trainer.renderer
     on = r.settings
@@ -1189,12 +1348,12 @@ def step_ms_on_off(trainer, card: str, steps: int = 10):
     off_launches = {}
     for adaptive in (True, False, False, True):
         r.settings = dataclasses.replace(on, adaptive_march=adaptive)
-        kernels.reset_launch_counts()
+        reset_counts()
         for _ in range(steps):
             trainer.run_iter()
         times[adaptive] += trainer.iter_ms[-steps:]
         if not adaptive:
-            for k, v in kernels.launch_counts.items():
+            for k, v in read_counts().items():
                 off_launches[k] = off_launches.get(k, 0) + v
     r.settings = on
     med = {k: float(np.median(v)) for k, v in times.items()}
@@ -1209,21 +1368,22 @@ def simplex_phase(card: str, fails):
     --pos_enc.simplex_from 10`` (in-process, default width, SIMPLEX_STEPS
     steps): the test PSNR must rise 5 dB, one step must match its plain
     version, and one frame must render from its checkpoint through
-    ``python -m nerfstyle_torch.render``.  Returns the run's and the
-    frame's kernel launches."""
-    from nerfstyle_torch import kernels, train
+    ``python -m nerfstyle_torch.render``; then K1s and K2s on a late batch's
+    streams.  Returns the run's and the frame's kernel launches, and the K1s
+    and K2s table entries."""
+    from nerfstyle_torch import train
     from nerfstyle_torch.render import cli
 
     extra = ("--pos_enc.simplex_from", str(SIMPLEX_FROM))
     untrained = train.main(train_argv(0, "--test_before_train", *extra,
                                       log_dir="simplex")).test_history[0]
     torch.cuda.synchronize()
-    kernels.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     trainer = train.main(train_argv(SIMPLEX_STEPS, *extra, log_dir="simplex"))
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = dict(kernels.launch_counts)
+    launches = read_counts()
     # Fewer steps than update_thres: only full sweeps, no scatter-max.
     for name in TRAIN_COUNTERS:
         if name != "occupancy_scatter_max" and launches[name] <= 0:
@@ -1244,13 +1404,15 @@ def simplex_phase(card: str, fails):
         fails.append(f"simplex run: test PSNR rose from {untrained['psnr']:.3f} to "
                      f"{final['psnr']:.3f} dB, less than 5 dB")
     step_vs_plain(trainer, fails)
+    table = train_stream_rows(trainer, late_batch(trainer), fails,
+                              torch.Generator(device=DEVICE).manual_seed(6))
     ckpt = trainer.log_dir / f"iter_{SIMPLEX_STEPS}.ckpt"
     del trainer
     torch.cuda.empty_cache()
-    kernels.reset_launch_counts()
+    reset_counts()
     summary = cli.main([str(ckpt), "--out-dims", *map(str, OUT_DIMS), "--max-count", "1",
                         "--yes", "--out-dir", str(WORK / "simplex_render"), "--device", DEVICE])
-    frame_launches = dict(kernels.launch_counts)
+    frame_launches = read_counts()
     out = summary["last"]
     if not (tuple(out["rgb_map"].shape) == (OUT_DIMS[0] * OUT_DIMS[1], 3)
             and bool(torch.isfinite(out["rgb_map"]).all())):
@@ -1261,7 +1423,8 @@ def simplex_phase(card: str, fails):
     log(f"simplex frame ({card}): {summary['frame_ms'][0]:.1f} ms, "
         f"{out['num_marched'] / out['rgb_map'].shape[0]:.2f} samples/ray; launches "
         f"{frame_launches}")
-    return {k: launches[k] + frame_launches[k] for k in launches}
+    both = {k: launches.get(k, 0) + frame_launches.get(k, 0) for k in {*launches, *frame_launches}}
+    return both, table
 
 
 def _reference_cfg(**fields):
@@ -1329,12 +1492,12 @@ def import_phase(card: str, ckpt: Path, spec, frame, fails):
                      for i, w in enumerate(params[net])})
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    kernels.reset_launch_counts()
+    reset_counts()
     import_reference.main([str(pth), "--out", str(out_ckpt), "--mlp-npz", str(npz),
                            "--root-path", str(WORK / "scene"), "--device", DEVICE])
     torch.cuda.synchronize()
     import_s = time.perf_counter() - t1
-    launches = dict(kernels.launch_counts)
+    launches = read_counts()
     for name in IMPORT_COUNTERS:
         if launches[name] <= 0:
             fails.append(f"the import path launched no {name} kernel")
@@ -1418,7 +1581,7 @@ def style_assets():
 def style_phase(card: str, ckpt: Path, fails):
     """The style path through ``python -m nerfstyle_torch.train`` (in-process)
     from the train phase's checkpoint; returns the trainer and its launches."""
-    from nerfstyle_torch import kernels, train
+    from nerfstyle_torch import train
     from nerfstyle_torch.training import checkpoint as ckpt_lib
 
     t0 = time.perf_counter()
@@ -1433,12 +1596,12 @@ def style_phase(card: str, ckpt: Path, fails):
             "--intervals.ckpt", "200", "--yes"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     st = train.main(argv)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = dict(kernels.launch_counts)
+    launches = read_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     n_iter = st.train_cfg.num_iterations
     for name in STYLE_COUNTERS:
@@ -1524,9 +1687,9 @@ def style_step_vs_plain(st, fails):
 
 
 def style_kernel_phases(st, fails):
-    """K5 (the three color heads) forward and backward, and K7b, at the style
-    stream's shape, against their plain versions; returns their table
-    entries."""
+    """K1 and K2 on a pose's cached stream, K5 (the three color heads)
+    forward and backward, and K7b, at the style stream's shape, against
+    their plain versions; returns their table entries."""
     from nerfstyle_torch import kernels
     from nerfstyle_torch.models.fields import _encoder_input
     from nerfstyle_torch.ops import compositing, hashgrid
@@ -1541,6 +1704,11 @@ def style_kernel_phases(st, fails):
         x = _encoder_input(st.renderer.bbox, cache["xyz"]).contiguous()
         h_c = hashgrid.hashgrid_encode(st.field_spec.grid, params["x_color_embedder"], x)
         c1 = mlp_apply(params["color1_net"], h_c, None, dtype)
+    what = "a style pose's cached samples (color)"
+    table["K1 style"] = k1_row(st.field_spec.grid, params["x_color_embedder"].detach(), x, what,
+                               fails)
+    table["K2 style"] = k2_row(st.field_spec.grid, x, params["x_color_embedder"].shape[1], what,
+                               torch.Generator(device=dev).manual_seed(12), fails)
     heads = [(params["class_net"], h_c, None), (params["color1_net"], h_c, None),
              (params["color2_net"], c1, "sigmoid")]
     errs = [mlp_check(w, hh, act, dtype, False, gen, fails, f"head {i} at the style stream")
@@ -1669,17 +1837,16 @@ def frame_on_off(renderer, params, pose, out, card: str, fails):
     (K3s) at sig_eps 0: the same samples, so the same maps; then steady
     frames with it on and off in turns (on, off, off, on).  Returns the off
     frame's kernel launches."""
-    from nerfstyle_torch import kernels
     from nerfstyle_torch.ops.marching import WINDOW
 
     on = renderer.settings
     off = dataclasses.replace(on, adaptive_march=False)
     renderer.settings = off
-    kernels.reset_launch_counts()
+    reset_counts()
     with torch.no_grad():
         dense = renderer.render(params, pose)
     torch.cuda.synchronize()
-    launches = dict(kernels.launch_counts)
+    launches = read_counts()
     # The dense frame colors every sample of nonzero weight (sig_eps 0, as
     # JAX's single-phase frame): the two-stage march at sig_eps 0 gives the
     # same samples, so the same maps.
@@ -1747,16 +1914,17 @@ def main() -> int:
     pose = torch.from_numpy(np.asarray(test_set[0][1]))
     rays = generate_rays(pose.to(DEVICE), renderer.intr, renderer.settings.flip_camera)
 
+    count_hashgrid_streams()
     table, fails = kernel_phases(renderer, params, rays.origins, rays.dirs)
 
     # The main path, through the CLI entry point (the checkpoint's restore
     # rebuilds the skip distance: K6c).
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
+    reset_counts()
     summary = cli.main([str(ckpt), "--out-dims", *map(str, OUT_DIMS), "--max-count", "1",
                         "--yes", "--out-dir", str(WORK / "render"), "--device", DEVICE])
-    runs = {"render": dict(kernels.launch_counts)}
+    runs = {"render": read_counts()}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     for name in RENDER_COUNTERS:
         if runs["render"][name] <= 0:
@@ -1838,25 +2006,51 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # The simplex configuration: a short run and a frame from its checkpoint.
-    runs["simplex"] = simplex_phase(card, fails)
+    runs["simplex"], simplex_table = simplex_phase(card, fails)
+    table.update(simplex_table)
 
     # A kernel's launches: its counts on the paths it serves (K3's on the
     # adaptive_march=False frame and steps; K1s's and K2s's on the simplex
-    # run and its frame; K8a unpack's and K8b morton3d's on the import).
+    # run and its frame, K1's and K2's on the main paths, each by stream;
+    # K8a unpack's and K8b morton3d's on the import).
     # K8a pack and K8b invert serve no path: 0 launches, checked against
     # their plain versions only.  K3 and K3s are two passes each (count and
     # write), K6's merge two kernels (merge and threshold), K6c three
     # launches a rebuild (one an axis): their launches are all of theirs.
     main_paths = ("render", "train", "style")
-    meta = [
-        ("K1", "K1 hashgrid_encode", "nerfstyle_torch/csrc/hashgrid.cu",
-         "nerfstyle_tpu/ops/hashgrid.py:818", ("hashgrid_encode",), main_paths),
-        ("K1s", "K1s hashgrid_encode (simplex levels)", "nerfstyle_torch/csrc/hashgrid.cu",
-         "nerfstyle_tpu/ops/hashgrid.py:483", ("hashgrid_encode",), ("simplex",)),
-        ("K2", "K2 hashgrid_backward", "nerfstyle_torch/csrc/hashgrid.cu",
-         "nerfstyle_tpu/ops/hashgrid.py:959", ("hashgrid_backward",), main_paths),
-        ("K2s", "K2s hashgrid_backward (simplex levels)", "nerfstyle_torch/csrc/hashgrid.cu",
-         "nerfstyle_tpu/ops/hashgrid.py:979", ("hashgrid_backward",), ("simplex",)),
+    # K1 and K2: a row a stream, with that stream's launches (see
+    # ENCODE_STREAMS); every launch of theirs must fall in a stream with a
+    # row.
+    for path in (*main_paths, "simplex"):
+        for name in ("hashgrid_encode", "hashgrid_backward"):
+            split = {k.split(":")[1]: v for k, v in runs[path].items()
+                     if k.startswith(name + ":")}
+            log(f"{name} launches on the {path} path by stream: {split}")
+            if sum(split.values()) != runs[path][name] or split.get("other"):
+                fails.append(f"{name} launches on the {path} path fall outside the streams "
+                             f"with a row: {split} of {runs[path][name]}")
+    hg = "nerfstyle_torch/csrc/hashgrid.cu"
+    encode_rows = {
+        "frame A": "a frame chunk's marched samples (phase A: density, C=2)",
+        "frame B": "a frame chunk's kept samples (phase B: color, C=2)",
+        "train A": "a late train batch's marched samples (phase A: density, C=2)",
+        "train B": "a late train batch's kept samples (phase B: fused [T, 4])",
+        "style": "a style pose's cached samples (color, C=2)",
+        "probe full": "a full occupancy sweep's probe chunk (density, C=2)",
+        "probe random": "a random occupancy update's probe chunk (density, C=2)",
+    }
+    meta = [(f"K1 {k}", f"K1 hashgrid_encode, {v}", hg, "nerfstyle_tpu/ops/hashgrid.py:818",
+             (f"hashgrid_encode:{k}",), main_paths) for k, v in encode_rows.items()]
+    meta += [(f"K1s {k}", f"K1s hashgrid_encode (simplex levels), {encode_rows[k]}", hg,
+              "nerfstyle_tpu/ops/hashgrid.py:483", (f"hashgrid_encode:{k}",), ("simplex",))
+             for k in ("frame A", "frame B", "train A", "train B", "probe full")]
+    meta += [
+        ("K2 train B", f"K2 hashgrid_backward, {encode_rows['train B']}", hg,
+         "nerfstyle_tpu/ops/hashgrid.py:959", ("hashgrid_backward:train B",), main_paths),
+        ("K2 style", f"K2 hashgrid_backward, {encode_rows['style']}", hg,
+         "nerfstyle_tpu/ops/hashgrid.py:959", ("hashgrid_backward:style",), main_paths),
+        ("K2s train B", f"K2s hashgrid_backward (simplex levels), {encode_rows['train B']}", hg,
+         "nerfstyle_tpu/ops/hashgrid.py:979", ("hashgrid_backward:train B",), ("simplex",)),
         ("K3", "K3 march_rays (dense)", "nerfstyle_torch/csrc/march.cu",
          "nerfstyle_tpu/ops/marching.py:166", DENSE_COUNTERS, ("dense frame", "dense train")),
         ("K3s", "K3s march_rays (two-stage)", "nerfstyle_torch/csrc/march.cu",
@@ -1895,7 +2089,7 @@ def main() -> int:
     ]
     rows = []
     for kid, name, source, replaces, counters, paths in meta:
-        launches = sum(runs[p][c] for p in paths for c in counters)
+        launches = sum(runs[p].get(c, 0) for p in paths for c in counters)
         if paths and launches <= 0:
             fails.append(f"{name} launched no time on {paths}")
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -177,6 +177,94 @@ def test_torch_simplex_encode_kernels_match_plain(cuda_device, simplex_from, cha
                                atol=1e-6 * float(want_g.abs().max()))
 
 
+def _ordered_stream(rng, case, res0=16):
+    """Points [N, 3] float32 as a path hands them to K1 and K2: ray-major
+    and t-ordered, neighbouring rays next to each other (K1 and K2 take 32
+    consecutive points a warp).  ``res0`` is the grid's level-0 resolution."""
+    if case == "one cell":  # every point in the level-0 cell (3, 4, 5)
+        return ((np.array([3, 4, 5]) + rng.uniform(0.1, 0.9, size=(700, 3))) / res0).astype(
+            np.float32)
+    if case in ("31 points", "32 points", "33 points", "one point"):
+        n = 1 if case == "one point" else int(case.split()[0])
+        t = np.linspace(0.0, 0.05, n)[:, None]
+        return (np.array([0.3, 0.4, 0.5]) + t * np.array([0.6, 0.48, 0.64])).astype(np.float32)
+    if case == "cell edges":  # x on edges of level 0, even and odd, 0 and 1.0
+        xs = np.concatenate([np.arange(res0 + 1) / res0, [0.0, 1.0, 1.0, 0.0]]).astype(np.float32)
+        yz = rng.uniform(0, 1, size=(xs.shape[0], 2)).astype(np.float32)
+        pts = np.concatenate([xs[:, None], yz], axis=1)
+        return np.concatenate([pts, pts[:, [1, 0, 2]], np.ones((5, 3), np.float32)])
+    if case == "outside in a tile":  # rays entering and leaving [0, 1]^3 mid-tile
+        o = np.array([[-0.05, 0.5, 0.5], [0.5, -0.02, 0.4], [0.4, 0.6, 1.03]])
+        d = np.array([[1.0, 0.1, 0.05], [0.05, 1.0, 0.1], [0.1, 0.05, -1.0]])
+        t = np.arange(0.0, 1.2, 0.004)[:, None, None]
+        return (o[None] + t * d[None]).transpose(1, 0, 2).reshape(-1, 3).astype(np.float32)
+    # "rays": 16 neighbouring rays of 160 samples each, dt ~ 1/500
+    o = np.array([0.1, 0.15, 0.2]) + rng.uniform(0, 0.01, size=(16, 1, 3))
+    d = np.array([0.5, 0.45, 0.4]) + rng.uniform(0, 0.01, size=(16, 1, 3))
+    t = np.arange(160)[None, :, None] * 0.004
+    return (o + t * d).reshape(-1, 3).astype(np.float32)
+
+
+STREAM_CASES = ["rays", "one cell", "31 points", "32 points", "33 points", "one point",
+                "cell edges", "outside in a tile", "unaligned table"]
+
+
+@pytest.mark.parametrize("simplex_from", [-1, 2])
+@pytest.mark.parametrize("channels", [1, 2, 4])
+@pytest.mark.parametrize("case", STREAM_CASES)
+def test_torch_hashgrid_kernels_on_ordered_streams(cuda_device, case, channels, simplex_from):
+    """K1 and K2 on ray-ordered streams, where neighbouring lanes share
+    cells and rows: K1 equals the plain version bit for bit; K2 the plain
+    version's float64 sums within rtol 1e-5 and 1e-6 of the largest row
+    (only the order of the fp32 sums differs).  Tiles of 1, 31, 32 and 33
+    points; x on cell edges, at 0 and at 1.0; points outside [0, 1]^3 inside
+    a tile (they add nothing); a table that is not 16-byte aligned (no pair
+    loads).  One launch each."""
+    rng = np.random.default_rng(STREAM_CASES.index(case) + 10 * channels)
+    spec = th.hashgrid_spec(**TINY, simplex_from=simplex_from)
+    x = torch.from_numpy(_ordered_stream(rng, case)).to(cuda_device)
+    values = rng.uniform(-1, 1, size=(spec.total_params + 1, channels)).astype(np.float32)
+    base = torch.from_numpy(values).to(cuda_device)
+    table = base[1:] if case == "unaligned table" else base[:-1]
+    assert (table.data_ptr() % 16 != 0) == (case == "unaligned table" and channels < 4)
+    g = torch.from_numpy(rng.normal(size=(x.shape[0], spec.num_levels * channels))
+                         .astype(np.float32)).to(cuda_device)
+    kernels.reset_launch_counts()
+    got = kernels.hashgrid_encode(x, table, th.level_table(spec, cuda_device))
+    grad = kernels.hashgrid_backward(x, g, th.level_table(spec, cuda_device), spec.total_params)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["hashgrid_encode"] == 1
+    assert kernels.launch_counts["hashgrid_backward"] == 1
+    torch.testing.assert_close(got, th.hashgrid_encode(spec, table, x, plain=True), rtol=0, atol=0)
+    want = th.hashgrid_backward_plain(spec, x, g.double(), spec.total_params)
+    torch.testing.assert_close(grad.double(), want, rtol=1e-5,
+                               atol=1e-6 * float(want.abs().max()))
+    inside = ((x >= 0) & (x <= 1)).all(dim=-1)
+    if case == "outside in a tile":
+        assert 0 < int((~inside).sum()) < x.shape[0]
+        assert not bool(got[~inside].any())
+
+
+@pytest.mark.parametrize("channels", [2, 4])
+def test_torch_hashgrid_kernels_with_many_levels(cuda_device, channels):
+    """48 levels: K1's and K2's tiles take more than 48 KB of shared memory a
+    CTA (the launch raises the kernel's limit first)."""
+    rng = np.random.default_rng(channels)
+    spec = th.hashgrid_spec(num_levels=48, level_dim=2, base_resolution=4,
+                            per_level_scale=1.1, log2_hashmap_size=10, simplex_from=40)
+    x = torch.from_numpy(_ordered_stream(rng, "rays", res0=4)).to(cuda_device)
+    table = torch.from_numpy(rng.uniform(-1, 1, size=(spec.total_params, channels))
+                             .astype(np.float32)).to(cuda_device)
+    g = torch.from_numpy(rng.normal(size=(x.shape[0], 48 * channels)).astype(np.float32)).to(
+        cuda_device)
+    lv = th.level_table(spec, cuda_device)
+    torch.testing.assert_close(kernels.hashgrid_encode(x, table, lv),
+                               th.hashgrid_encode(spec, table, x, plain=True), rtol=0, atol=0)
+    want = th.hashgrid_backward_plain(spec, x, g.double(), spec.total_params)
+    torch.testing.assert_close(kernels.hashgrid_backward(x, g, lv, spec.total_params).double(),
+                               want, rtol=1e-5, atol=1e-6 * float(want.abs().max()))
+
+
 def test_torch_interop_kernels_match_plain(cuda_device):
     """K8a (pack, unpack) and K8b (Morton code, inverse) equal their plain
     versions bit for bit, and a grid's round trip through the reference

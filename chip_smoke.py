@@ -16,9 +16,9 @@
 3. Per kernel, at the shapes of the main path (a 2^16-ray chunk of the
    1008x756 frame; the 2 x 128^3 grid for K6c): the CUDA kernel against
    its plain PyTorch version on the same inputs, with the tolerance stated
-   at each check, and both timed with CUDA events after warm-up (K7 and its
-   `index_add_` yardstick, shorter than the host's work a call, from a CUDA
-   graph of 20 launches).  The two-stage march (K3s) is also held against
+   at each check, and both timed with CUDA events after warm-up (K4, K7 and
+   K7's `index_add_` yardstick, shorter than the host's work a call, from a
+   CUDA graph of 20 launches).  The two-stage march (K3s) is also held against
    the dense march (K3), bit for bit; K7 also on rays longer than its
    staged tile.  K1 and K1s on the chunk's two streams in march order
    (phase A's marched samples, phase B's kept ones) and on a probe chunk of
@@ -51,9 +51,9 @@
    memory.
 8. One more step with the kernels against the same step with every plain
    version, from the same state and rays (tolerances at step_vs_plain);
-   K3 and K3s at a late batch, K1 on its marched and kept streams, K2 on
-   the kept one, K4b and K6 against their plain versions at the step's
-   shapes, and K5 with its weight gradients at a batch's
+   K3 and K3s at a late batch, K1 and K4 on its marched and kept streams,
+   K2 and K4b on the kept one, K6 against their plain versions at the
+   step's shapes, and K5 with its weight gradients at a batch's
    shape; K5's backward with every weight gradient at 2^20 rows (two
    launches must give the same bits), timed; late steps with
    adaptive_march on and off in turns (the
@@ -71,7 +71,7 @@
    epoch (30 builds), the median steady iteration, the whole run, peak
    memory and each kernel's launches a step.  Then one style step with the
    kernels against the same step with every plain version, K1 and K2 on a
-   pose's cached stream, K5 forward and
+   pose's cached stream, K4 on a pose's marched chunk, K5 forward and
    backward and K7b at the style stream's shape against their plain
    versions, timed, K5's cuBLAS chain (its library yardstick:
    mlp_library_chain, with K5's rounding points) held against the plain
@@ -84,7 +84,12 @@
 
 K1 and K2 have a row in the kernel table for each stream they run on,
 timed on that stream and given that stream's launches: each launch of
-theirs on a path is counted by stream (``count_hashgrid_streams``).
+theirs on a path is counted by stream (``count_hashgrid_streams``).  So
+have K4 (a frame chunk's and a style pose's marched chunk, a late train
+batch's marched stream and its kept prefix) and K4b (the kept prefix),
+timed from CUDA graphs of the kernel call alone
+(``count_composite_streams``); a launch outside these streams fails the
+run.
 
 Prints the kernel table as one JSON line, then the last line
 ``{"ok": true, "device": {...}}``.  Exits nonzero, printing no result,
@@ -326,6 +331,16 @@ BACKWARD_STREAMS = {4: "train B", 2: "style"}
 _stream_counts: dict = {}
 
 
+def _tally(name: str, stream: str, before: int) -> None:
+    """Count a launch of kernel ``name`` under ``<name>:<stream>`` if its
+    wrapper's own count moved past ``before``."""
+    from nerfstyle_torch import kernels
+
+    if kernels.launch_counts[name] > before:
+        key = f"{name}:{stream}"
+        _stream_counts[key] = _stream_counts.get(key, 0) + 1
+
+
 def _encode_stream() -> str:
     names, f = set(), sys._getframe(2)
     while f is not None and len(names) < 40:
@@ -345,25 +360,79 @@ def count_hashgrid_streams() -> None:
 
     enc, bwd = kernels.hashgrid_encode, kernels.hashgrid_backward
 
-    def tally(name, stream, before):
-        if kernels.launch_counts[name] > before:
-            key = f"{name}:{stream}"
-            _stream_counts[key] = _stream_counts.get(key, 0) + 1
-
     def encode(x, table, levels):
         before = kernels.launch_counts["hashgrid_encode"]
         out = enc(x, table, levels)
-        tally("hashgrid_encode", _encode_stream(), before)
+        _tally("hashgrid_encode", _encode_stream(), before)
         return out
 
     def backward(x, g, levels, num_rows):
         before = kernels.launch_counts["hashgrid_backward"]
         out = bwd(x, g, levels, num_rows)
         c = g.shape[1] // levels.shape[1]
-        tally("hashgrid_backward", BACKWARD_STREAMS.get(c, "other"), before)
+        _tally("hashgrid_backward", BACKWARD_STREAMS.get(c, "other"), before)
         return out
 
     kernels.hashgrid_encode, kernels.hashgrid_backward = encode, backward
+
+
+# ---------------------------------------------------------------------------
+# K4 and K4b by stream
+#
+# K4 (compositing weights) runs on a frame chunk's marched samples (phase A
+# of render_chunk), a style pose's marched chunk (the cache build), a train
+# batch's marched samples (phase A of eval_composite, which keeps only
+# n_inc) and its kept prefix (phase B, inside CompositeRays.forward).  K4b
+# (its backward) runs where that forward ran: the stream of a K4b launch is
+# the stream of the K4 launch that wrote its w.  A single-phase train step
+# (two_phase_train off) runs on no path; its launches would be "other".
+# ---------------------------------------------------------------------------
+
+COMPOSITE_STREAMS = (
+    ("style", "StyleTrainer._build_geom_cache"),
+    ("train A", "eval_composite"),
+    ("frame A", "render_chunk"),
+)
+
+
+def _composite_stream() -> str:
+    frames, f = {}, sys._getframe(2)
+    while f is not None and len(frames) < 40:
+        frames.setdefault(f.f_code.co_qualname, f)
+        f = f.f_back
+    if "CompositeRays.forward" in frames:
+        ev = frames.get("eval_composite")
+        return "train B" if ev is not None and ev.f_locals.get("two_phase") else "other"
+    for stream, caller in COMPOSITE_STREAMS:
+        if caller in frames:
+            return stream
+    return "other"
+
+
+def count_composite_streams() -> None:
+    """Wrap the K4 and K4b wrappers so that each launch also counts under
+    ``<kernel>:<stream>`` (read_counts); the wrappers' own counts are
+    untouched."""
+    from nerfstyle_torch import kernels
+
+    fwd, bwd = kernels.composite_weights, kernels.composite_backward
+    writer = {}  # w's data pointer -> the stream of the K4 launch that wrote it
+
+    def weights(sigmas, tau, offsets, dt, t_thresh):
+        before = kernels.launch_counts["composite_weights"]
+        out = fwd(sigmas, tau, offsets, dt, t_thresh)
+        stream = _composite_stream()
+        writer[out[0].data_ptr()] = stream
+        _tally("composite_weights", stream, before)
+        return out
+
+    def backward(sigmas, ch, tau, w, *rest):
+        before = kernels.launch_counts["composite_backward"]
+        out = bwd(sigmas, ch, tau, w, *rest)
+        _tally("composite_backward", writer.get(w.data_ptr(), "other"), before)
+        return out
+
+    kernels.composite_weights, kernels.composite_backward = weights, backward
 
 
 def reset_counts() -> None:
@@ -470,6 +539,91 @@ def k2_row(grid, x, c: int, what: str, gen, fails) -> dict:
         f"plain_ms {plain_ms:.3f}, index_add_ ms {lib_ms:.4f}, bound_ms {b_ms:.4f} ({b_by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib_ms)
+
+
+def ray_stats(offsets: torch.Tensor, n_inc: torch.Tensor) -> str:
+    """A stream's shape as a warp a ray sees it: samples and included
+    samples a ray, and the 32-sample chunks the rays span."""
+    lens = (offsets[1:] - offsets[:-1]).double()
+    inc = n_inc.double()
+    chunks = int(torch.ceil(lens / 32).sum())
+    return (f"{lens.shape[0]} rays, samples/ray mean {float(lens.mean()):.2f} max "
+            f"{int(lens.max())}, empty {float((lens == 0).double().mean()):.3f}, <= 32 "
+            f"{float((lens <= 32).double().mean()):.3f}; n_inc mean {float(inc.mean()):.2f} max "
+            f"{int(inc.max())}, <= 32 {float((inc <= 32).double().mean()):.3f}; {chunks} "
+            f"32-sample chunks")
+
+
+def k4_row(sig, tau, offsets, dt: float, t_thresh: float, what: str, fails,
+           same_last_weight: bool = False):
+    """K4 on the stream (sig, tau, offsets) as the path hands it over
+    (densities with density_scale applied) against its plain version;
+    timed from a CUDA graph of the kernel call alone (and launch by launch,
+    logged).  Returns the kernel-table entry and the kernel's w.
+
+    A ray stops where its entering T falls below t_thresh: the kernel's
+    n_inc must be the plain version's.  ``same_last_weight`` (the frame
+    chunk's check) also asks for the same last nonzero weight:
+    that is the stop wherever no included sample has a density so low that
+    its fp32 alpha, 1 - e^-sdt, rounds to 0 (a trained field's samples can;
+    the frame's seeded densities, ~e^6, cannot)."""
+    from nerfstyle_torch import kernels
+    from nerfstyle_torch.ops import compositing
+
+    n, m = offsets.shape[0] - 1, sig.shape[0]
+    # The reference is the plain version on the same inputs in float64
+    # (exact).  Every ray must stop at the same sample as the reference,
+    # except an edge ray: one with a sample whose exact entering T lies
+    # within 1e-4 relative of t_thresh, where the kernel's fp32 optical depth
+    # (~5e-7 rounding an addition near ln 1e4) may decide the other way.
+    # Other rays agree to fp32 rounding: atol 2e-6 on w and weights_sum,
+    # 2e-6 * max(tau) on depth; an edge ray may gain or lose one weight
+    # below t_thresh: atol 1e-4, 1e-4 * max(tau).
+    w, ws, dep, n_inc = compositing.sample_weights(sig, tau, offsets, dt, t_thresh)
+    w64, ws64, dep64, n_inc64 = compositing.sample_weights(sig.double(), tau.double(), offsets,
+                                                           dt, t_thresh, plain=True)
+    _, trans64 = compositing.entering_transmittance_plain(sig.double(), offsets, dt)
+    near = (trans64 - t_thresh).abs() <= 1e-4 * t_thresh
+    edge = compositing.segment_totals_plain(near.double(), offsets) > 0
+    cut_k = compositing.weight_cutoffs(w, offsets)
+    cut_p = compositing.weight_cutoffs(w64, offsets)
+    other = ((n_inc != n_inc64) | ((cut_k != cut_p) if same_last_weight else False)) & ~edge
+    bad_cuts = int(other.sum())
+    moved = torch.nonzero((cut_k != cut_p) & ~edge).squeeze(1)[:4].tolist()
+    if moved:
+        log(f"K4 at {what}: rays {moved} end their nonzero weights elsewhere than the float64 "
+            f"plain version: n_inc {n_inc[moved].tolist()} vs {n_inc64[moved].tolist()}, last "
+            f"nonzero weight at {cut_k[moved].tolist()} vs {cut_p[moved].tolist()} (float64 "
+            f"weight there {[float(w64[offsets[r] + cut_p[r] - 1]) for r in moved]})")
+    on_edge = edge[compositing.ray_ids(offsets)]
+    tau_max = float(tau.max()) if m else 0.0
+    errs, tols = [], []
+    for mask_s, mask_r, tight in ((~on_edge, ~edge, 2e-6), (on_edge, edge, 1e-4)):
+        errs += [float((a.double() - b)[mk].abs().max()) if bool(mk.any()) else 0.0
+                 for a, b, mk in ((w, w64, mask_s), (ws, ws64, mask_r), (dep, dep64, mask_r))]
+        tols += [tight, tight, tight * tau_max]
+    if bad_cuts or not all(e <= t for e, t in zip(errs, tols)):
+        fails.append(f"K4 at {what}: {bad_cuts} rays stop at another sample than the plain "
+                     f"version; errors w/ws/depth (inner rays, then edge rays) {errs} vs {tols}")
+    # From a CUDA graph: the wrapper's checks and allocations stay outside
+    # the window.  Launch by launch (host work included), logged beside.
+    ms = graph_ms(lambda: kernels.composite_weights(sig, tau, offsets, dt, t_thresh))
+    host_ms = cuda_ms(lambda: kernels.composite_weights(sig, tau, offsets, dt, t_thresh),
+                      reps=20)
+    plain_ms = cuda_ms(lambda: compositing.sample_weights(sig, tau, offsets, dt, t_thresh,
+                                                          plain=True), reps=5)
+    # Bytes: offsets, sigma and tau of the samples in front of each ray's
+    # cutoff (entering T >= t_thresh: the rest are never read), w of every
+    # sample, weights_sum and depth.  About 8 operations a read sample.
+    n_read = int((trans64 >= t_thresh).sum())
+    b_ms, b_by = bound_ms(nbytes=(n + 1) * 8 + n_read * 8 + m * 4 + n * 8, flops=n_read * 8)
+    log(f"K4 composite_weights at {what}: {m} samples, {n_read} in front of the cutoffs, "
+        f"{int(edge.sum())} edge rays, {bad_cuts} other rays stopping elsewhere; "
+        f"{ray_stats(offsets, n_inc)}; max_abs_err w/ws/depth inner, edge {errs} (tol {tols}); "
+        f"ms {ms:.4f} (graph; {host_ms:.4f} launched one by one), plain_ms {plain_ms:.3f}, "
+        f"bound_ms {b_ms:.4f} ({b_by})")
+    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None), w
 
 
 def probe_streams(renderer, table_dev):
@@ -620,52 +774,12 @@ def kernel_phases(renderer, params, rays_o, rays_d):
     sb = marching.march_rays(plan, renderer.occ_field, o, d, nears, fars)
     m = sb.num_kept
 
-    # K4: weights on the chunk's stream with the path's densities.  The
-    # reference is the plain version on the same inputs in float64 (exact).
-    # Every ray must stop at the same sample as the reference, except an
-    # edge ray: one with a sample whose exact entering T lies within 1e-4
-    # relative of t_thresh, where the kernel's fp32 optical depth (~5e-7
-    # rounding an addition near ln 1e4) may decide the other way.  Other
-    # rays agree to fp32 rounding: atol 2e-6 on w and weights_sum, 2e-6 *
-    # max(tau) on depth; an edge ray may gain or lose one weight below
-    # t_thresh: atol 1e-4, 1e-4 * max(tau).
+    # K4: weights on the chunk's stream with the path's densities.
     s = renderer.settings
     sig = field_density(spec, params, bbox, sb.xyz, renderer.compute_dtype) * s.density_scale
-    w, ws, dep, _ = compositing.sample_weights(sig, sb.tau, sb.offsets, plan.dt, s.t_thresh)
-    w64, ws64, dep64, _ = compositing.sample_weights(sig.double(), sb.tau.double(), sb.offsets,
-                                                     plan.dt, s.t_thresh, plain=True)
-    _, trans64 = compositing.entering_transmittance_plain(sig.double(), sb.offsets, plan.dt)
-    near = (trans64 - s.t_thresh).abs() <= 1e-4 * s.t_thresh
-    edge = compositing.segment_totals_plain(near.double(), sb.offsets) > 0
-    cut_diff = compositing.weight_cutoffs(w, sb.offsets) != compositing.weight_cutoffs(w64,
-                                                                                        sb.offsets)
-    bad_cuts = int((cut_diff & ~edge).sum())
-    on_edge = edge[sb.ray_id.long()]
-    tau_max = float(sb.tau.max())
-    errs, tols = [], []
-    for mask_s, mask_r, tight in ((~on_edge, ~edge, 2e-6), (on_edge, edge, 1e-4)):
-        errs += [float((a.double() - b)[mk].abs().max()) if bool(mk.any()) else 0.0
-                 for a, b, mk in ((w, w64, mask_s), (ws, ws64, mask_r), (dep, dep64, mask_r))]
-        tols += [tight, tight, tight * tau_max]
-    if bad_cuts or not all(e <= t for e, t in zip(errs, tols)):
-        fails.append(f"K4: {bad_cuts} rays stop at another sample than the plain version; "
-                     f"errors w/ws/depth (inner rays, then edge rays) {errs} vs {tols}")
-    ms = cuda_ms(lambda: compositing.sample_weights(sig, sb.tau, sb.offsets, plan.dt,
-                                                    s.t_thresh), reps=20)
-    plain_ms = cuda_ms(lambda: compositing.sample_weights(sig, sb.tau, sb.offsets, plan.dt,
-                                                          s.t_thresh, plain=True), reps=5)
-    # Bytes: offsets, sigma and tau of the samples in front of each ray's
-    # cutoff (entering T >= t_thresh: the rest are never read), w of every
-    # sample, weights_sum and depth.  About 8 operations a read sample.
-    n_read = int((trans64 >= s.t_thresh).sum())
-    b_ms, b_by = bound_ms(nbytes=(CHUNK_RAYS + 1) * 8 + n_read * 8 + m * 4 + CHUNK_RAYS * 8,
-                          flops=n_read * 8)
-    table["K4"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                       bound_by=b_by, library_ms=None)
-    log(f"K4 composite_weights: {m} samples, {n_read} in front of the cutoffs, "
-        f"{int(edge.sum())} edge rays, {bad_cuts} other rays stopping elsewhere; max_abs_err "
-        f"w/ws/depth inner, edge {errs} (tol {tols}); ms {ms:.3f}, plain_ms {plain_ms:.3f}, "
-        f"bound_ms {b_ms:.4f} ({b_by})")
+    table["K4 frame A"], w = k4_row(sig, sb.tau, sb.offsets, plan.dt, s.t_thresh,
+                                    "a frame chunk's marched samples (phase A)", fails,
+                                    same_last_weight=True)
 
     keep = w > s.sig_eps
     idx = torch.nonzero(keep).squeeze(1)
@@ -865,8 +979,9 @@ def step_vs_plain(trainer, fails):
 
 def late_batch(trainer) -> dict:
     """A late train batch as the step builds it (``eval_composite``): its
-    rays, the marched stream (phase A) and the kept prefix of each ray
-    (phase B), with both streams' encoder inputs in march order."""
+    rays, the marched stream (phase A) with its densities (density_scale
+    applied) and the kept prefix of each ray (phase B), with both streams'
+    encoder inputs in march order."""
     from nerfstyle_torch.models.fields import _encoder_input, field_density
     from nerfstyle_torch.ops import compositing, marching
     from nerfstyle_torch.ops.aabb import near_far_from_aabb
@@ -879,12 +994,12 @@ def late_batch(trainer) -> dict:
     nears, fars = near_far_from_aabb(o, d, plan.aabb(o.device), plan.min_near)
     sb = marching.march_rays(plan, r.occ_field, o, d, nears, fars)
     with torch.no_grad():
-        sig_a = field_density(spec, trainer.params, bbox, sb.xyz, trainer.compute_dtype)
-        *_, n_inc = compositing.sample_weights(sig_a * s.density_scale, sb.tau, sb.offsets,
-                                               plan.dt, s.t_thresh)
+        sig_a = field_density(spec, trainer.params, bbox, sb.xyz,
+                              trainer.compute_dtype) * s.density_scale
+        *_, n_inc = compositing.sample_weights(sig_a, sb.tau, sb.offsets, plan.dt, s.t_thresh)
         keep, offsets = kept_prefix(sb, n_inc)
-    return dict(o=o.contiguous(), d=d.contiguous(), nears=nears, fars=fars, sb=sb, keep=keep,
-                offsets=offsets, x_a=_encoder_input(bbox, sb.xyz).contiguous(),
+    return dict(o=o.contiguous(), d=d.contiguous(), nears=nears, fars=fars, sb=sb, sig_a=sig_a,
+                keep=keep, offsets=offsets, x_a=_encoder_input(bbox, sb.xyz).contiguous(),
                 x_b=_encoder_input(bbox, sb.xyz[keep]).contiguous())
 
 
@@ -907,10 +1022,10 @@ def train_stream_rows(trainer, batch, fails, gen) -> dict:
 
 
 def train_kernel_phases(trainer, fails):
-    """K3 and K3s, K1 and K2 on a late batch's streams, K4b and K6 at the
-    train step's shapes (a batch of the trained state; the random occupancy
-    update's probe count) against their plain versions; returns the K1, K2,
-    K4b and K6 kernel-table entries."""
+    """K3 and K3s, K1, K2 and K4 on a late batch's streams, K4b and K6 at
+    the train step's shapes (a batch of the trained state; the random
+    occupancy update's probe count) against their plain versions; returns
+    the K1, K2, K4, K4b and K6 kernel-table entries."""
     from nerfstyle_torch import kernels
     from nerfstyle_torch.models.fields import _encoder_input, field_apply
     from nerfstyle_torch.ops import compositing, hashgrid, marching, occupancy
@@ -952,13 +1067,21 @@ def train_kernel_phases(trainer, fails):
         f"(tol {tol0:.3e}); ms {ms0:.3f}")
     del x0, g0
 
+    # K4 on the batch's two streams: phase A's marched samples (only n_inc
+    # is used) and phase B's kept prefix (inside the differentiable
+    # compositor).
+    sigmas = (sig * s.density_scale).contiguous()
+    table["K4 train A"], _ = k4_row(batch["sig_a"], sb.tau, sb.offsets, plan.dt, s.t_thresh,
+                                    "a late train batch's marched samples (phase A)", fails)
+    table["K4 train B"], _ = k4_row(sigmas, tau, offsets, plan.dt, s.t_thresh,
+                                    "a late train batch's kept prefix (phase B)", fails)
+
     # K4b: the compositor's backward on phase B's stream for random
     # cotangents, against the plain backward on float64 inputs.  Rays with
     # an entering T within 1e-4 relative of t_thresh may include one sample
     # more or less in fp32 and are left out.  d ch = w * gI: 1e-5 of the
     # largest (w's fp32 rounding); d sigma = dt (T_{i+1} v - suffix) loses
     # digits to the difference: 1e-4 of the largest.
-    sigmas = (sig * s.density_scale).contiguous()
     chc = ch.contiguous()
     gi = torch.randn((n, chc.shape[1]), generator=gen, device=dev)
     gw = torch.randn((n,), generator=gen, device=dev)
@@ -978,8 +1101,11 @@ def train_kernel_phases(trainer, fails):
     tol_s, tol_c = 1e-4 * float(ref_s.abs().max()), 1e-5 * float(ref_c.abs().max())
     if not (err_s <= tol_s and err_c <= tol_c):
         fails.append(f"K4b errors d_sigma {err_s} (tol {tol_s}), d_ch {err_c} (tol {tol_c})")
-    ms = cuda_ms(lambda: kernels.composite_backward(sigmas, chc, tau, w, offsets, n_inc_b, gi,
-                                                    gw, gd, plan.dt), reps=20)
+    # From a CUDA graph of the kernel call alone; launch by launch logged.
+    ms = graph_ms(lambda: kernels.composite_backward(sigmas, chc, tau, w, offsets, n_inc_b, gi,
+                                                     gw, gd, plan.dt))
+    host_ms = cuda_ms(lambda: kernels.composite_backward(sigmas, chc, tau, w, offsets, n_inc_b,
+                                                         gi, gw, gd, plan.dt), reps=20)
     plain_ms = cuda_ms(lambda: compositing.composite_backward_plain(
         sigmas, chc, tau, offsets, gi, gw, gd, plan.dt, s.t_thresh), reps=5)
     cc = chc.shape[1]
@@ -987,11 +1113,13 @@ def train_kernel_phases(trainer, fails):
     # cotangents of every ray; d sigma and d ch written once.
     b_ms, b_by = bound_ms(nbytes=k * 4 * (3 + cc) + (n + 1) * 8 + n * 4 * (3 + cc)
                           + k * 4 * (1 + cc), flops=k * (4 * cc + 12))
-    table["K4b"] = dict(max_abs_err=max(err_s, err_c), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                        bound_by=b_by, library_ms=None)
-    log(f"K4b composite_backward: {k} kept samples x {cc} channels, {int(edge.sum())} edge rays "
-        f"left out; max_abs_err d_sigma {err_s:.3e} (tol {tol_s:.3e}), d_ch {err_c:.3e} "
-        f"(tol {tol_c:.3e}); ms {ms:.3f}, plain_ms {plain_ms:.3f}, bound_ms {b_ms:.4f} ({b_by})")
+    table["K4b train B"] = dict(max_abs_err=max(err_s, err_c), ms=ms, plain_ms=plain_ms,
+                                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log(f"K4b composite_backward at a late train batch's kept prefix (phase B): {k} kept samples "
+        f"x {cc} channels, {ray_stats(offsets, n_inc_b)}, {int(edge.sum())} edge rays left out; "
+        f"max_abs_err d_sigma {err_s:.3e} (tol {tol_s:.3e}), d_ch {err_c:.3e} (tol "
+        f"{tol_c:.3e}); ms {ms:.4f} (graph; {host_ms:.4f} launched one by one), plain_ms "
+        f"{plain_ms:.3f}, bound_ms {b_ms:.4f} ({b_by})")
 
     # K5 at a train batch's shape, with weight gradients: the color1 head on
     # the kept samples' color features and the density head on their density
@@ -1686,10 +1814,37 @@ def style_step_vs_plain(st, fails):
     return ck
 
 
+def style_chunk(st):
+    """K4's stream at a style cache build, as ``_build_geom_cache`` hands it
+    over: the second CHUNK_RAYS rays of the first pose (the middle chunk of
+    a 504x378 pose's three), marched, with their densities (density_scale
+    applied): (sigmas, tau, offsets, dt, t_thresh)."""
+    from nerfstyle_torch.core.types import make_rays
+    from nerfstyle_torch.models.fields import field_density
+    from nerfstyle_torch.ops.aabb import near_far_from_aabb
+    from nerfstyle_torch.ops.marching import march_rays
+    from nerfstyle_torch.render.renderer import CHUNK_RAYS, FIELD_BATCH, _batched
+
+    s, plan, r = st.settings, st.renderer.plan, st.renderer
+    cam_dirs, _, _ = st._frame_grid()
+    pose = st._poses_dev[0]
+    rays = make_rays(pose[:3, 3], cam_dirs @ pose[:3, :3].T)
+    i = min(CHUNK_RAYS, max(rays.dirs.shape[0] - CHUNK_RAYS, 0))
+    o = rays.origins[i:i + CHUNK_RAYS].contiguous()
+    d = rays.dirs[i:i + CHUNK_RAYS].contiguous()
+    nears, fars = near_far_from_aabb(o, d, plan.aabb(o.device), plan.min_near)
+    with torch.no_grad():
+        sb = march_rays(plan, r.occ_field, o, d, nears, fars)
+        sig = _batched(lambda x: field_density(st.field_spec, st.params, r.bbox, x,
+                                               st.compute_dtype), sb.xyz, FIELD_BATCH)
+    return (sig * s.density_scale).contiguous(), sb.tau, sb.offsets, plan.dt, s.t_thresh
+
+
 def style_kernel_phases(st, fails):
     """K1 and K2 on a pose's cached stream, K5 (the three color heads)
-    forward and backward, and K7b, at the style stream's shape, against
-    their plain versions; returns their table entries."""
+    forward and backward, and K7b, at the style stream's shape, and K4 on a
+    pose's marched chunk, against their plain versions; returns their table
+    entries."""
     from nerfstyle_torch import kernels
     from nerfstyle_torch.models.fields import _encoder_input
     from nerfstyle_torch.ops import compositing, hashgrid
@@ -1775,6 +1930,8 @@ def style_kernel_phases(st, fails):
         f"{b_plain:.3f}, cuBLAS chain + autograd {b_lib:.3f}), bound_ms {bb_ms:.4f} ({bb_by})")
 
     log_unported_bounds(n_rows)
+    table["K4 style"] = k4_row(*style_chunk(st), "a style pose's marched chunk (the cache "
+                               "build)", fails)[0]
 
     # K7b: d ch = w * g[ray] for a random pixel cotangent: one fp32 product,
     # equal bits.
@@ -1915,6 +2072,7 @@ def main() -> int:
     rays = generate_rays(pose.to(DEVICE), renderer.intr, renderer.settings.flip_camera)
 
     count_hashgrid_streams()
+    count_composite_streams()
     table, fails = kernel_phases(renderer, params, rays.origins, rays.dirs)
 
     # The main path, through the CLI entry point (the checkpoint's restore
@@ -2029,7 +2187,21 @@ def main() -> int:
             if sum(split.values()) != runs[path][name] or split.get("other"):
                 fails.append(f"{name} launches on the {path} path fall outside the streams "
                              f"with a row: {split} of {runs[path][name]}")
-    hg = "nerfstyle_torch/csrc/hashgrid.cu"
+    # K4 and K4b: likewise, on every run (see COMPOSITE_STREAMS).
+    composite_rows = {
+        "frame A": "a frame chunk's marched samples (phase A)",
+        "style": "a style pose's marched chunk (the cache build)",
+        "train A": "a late train batch's marched samples (phase A: n_inc only)",
+        "train B": "a late train batch's kept prefix (phase B)",
+    }
+    for path, counts in runs.items():
+        for name in ("composite_weights", "composite_backward"):
+            split = {k.split(":")[1]: v for k, v in counts.items() if k.startswith(name + ":")}
+            log(f"{name} launches on the {path} run by stream: {split}")
+            if sum(split.values()) != counts[name] or set(split) - set(composite_rows):
+                fails.append(f"{name} launches on the {path} run fall outside the streams "
+                             f"with a row: {split} of {counts[name]}")
+    hg, cp = "nerfstyle_torch/csrc/hashgrid.cu", "nerfstyle_torch/csrc/composite.cu"
     encode_rows = {
         "frame A": "a frame chunk's marched samples (phase A: density, C=2)",
         "frame B": "a frame chunk's kept samples (phase B: color, C=2)",
@@ -2056,10 +2228,10 @@ def main() -> int:
         ("K3s", "K3s march_rays (two-stage)", "nerfstyle_torch/csrc/march.cu",
          "nerfstyle_tpu/ops/marching.py:191", ("march_skip_count", "march_skip_write"),
          main_paths),
-        ("K4", "K4 composite_weights", "nerfstyle_torch/csrc/composite.cu",
-         "nerfstyle_tpu/ops/compositing.py:94", ("composite_weights",), main_paths),
-        ("K4b", "K4b composite_backward", "nerfstyle_torch/csrc/composite.cu",
-         "nerfstyle_tpu/ops/compositing.py:116", ("composite_backward",), main_paths),
+        *[(f"K4 {k}", f"K4 composite_weights, {v}", cp, "nerfstyle_tpu/ops/compositing.py:94",
+           (f"composite_weights:{k}",), main_paths) for k, v in composite_rows.items()],
+        ("K4b train B", f"K4b composite_backward, {composite_rows['train B']}", cp,
+         "nerfstyle_tpu/ops/compositing.py:116", ("composite_backward:train B",), main_paths),
         ("K5f", "K5 mlp_forward", "nerfstyle_torch/csrc/mlp.cu",
          "nerfstyle_tpu/ops/mlp.py:45", ("mlp_forward",), main_paths),
         ("K5b", "K5 mlp_backward", "nerfstyle_torch/csrc/mlp.cu",

@@ -3,8 +3,8 @@
 //
 // Both take ray offsets [N+1] (int64): ray r owns samples offsets[r] ..
 // offsets[r+1]-1, as the marcher (march.cu) and the significance
-// compaction emit them.  Neither needs atomics, and both sum in stream order,
-// so results are deterministic.
+// compaction emit them.  Neither needs atomics, and every sum is taken in a
+// fixed order, so results are deterministic.
 //
 // K4 replaces nerfstyle_tpu/ops/compositing.py:sample_weights (significance,
 // segment_exclusive_cumsum) plus the per-ray weights_sum and depth sums of
@@ -13,25 +13,38 @@
 //     T_i = exp(-sum_{j<i} sdt_j), w_i = alpha_i * T_i while T_i >= t_thresh,
 //     weights_sum = sum w_i, depth = sum w_i * tau_i.
 // The JAX form takes a flat fp32 cumsum over the whole stream minus per-ray
-// totals, which loses digits as the stream grows; this kernel accumulates
-// each ray's optical depth on its own, front to back, and stops at the first
+// totals, which loses digits as the stream grows; this kernel sums each
+// ray's optical depth on its own, front to back, and stops at the first
 // sample with T < t_thresh (T never rises again, so every later w is 0).
 // It also writes each ray's included count n_inc: the samples with entering
 // T >= t_thresh, the prefix a train step's phase B keeps.
 //
+// One warp a ray, in chunks of 32 consecutive samples, a lane a sample, so
+// that sigma, tau and w move coalesced.  A chunk's optical depth is an
+// inclusive warp scan of sdt (shuffles, a fixed tree) on top of the carry
+// of the chunks in front; __ballot_sync on T < t_thresh finds the cutoff's
+// lane, and weights_sum and depth are fixed-order warp sums carried chunk
+// to chunk.  The warp stops after the cutoff's chunk and writes the rest of
+// the ray's w as zeros (16 bytes a lane).  Against a sequential sum the scan
+// only reassociates the optical depth (~5 roundings deep in a chunk, one
+// more for the carry); results are the same bits on every launch.
+//
 // K4 backward replaces JAX's autodiff of ops/compositing.py:composite_rays
 // (:116-148) with the reference's composite_rays_train_backward, given the
 // cotangents gI [N, C] of the image, gW [N] of weights_sum and gD [N] of
-// depth.  With v_i = gI . ch_i + gW + gD * tau_i, over a ray's n_inc
+// depth.  With v_i = gW + gD * tau_i + gI . ch_i, over a ray's n_inc
 // included samples:
 //     d ch_i  = w_i * gI,
 //     d sdt_i = T_{i+1} * v_i - sum_{k>i} w_k * v_k,   T_{i+1} = T_i e^{-sdt_i},
 //     d sigma_i = dt * d sdt_i where sigma_i * dt < 100 (the cap), else 0,
-// and 0 for every sample past the cutoff.  One thread per ray makes two
-// passes: forward, it recomputes T_{i+1} exactly as the forward pass does
-// and parks it in d_sigma; then in reverse it accumulates the suffix sum
-// from the back, so no late sample's gradient is a difference of two large
-// prefix sums.  This also makes channels' gradients exact products.
+// and 0 for every sample past the cutoff.  Also one warp a ray: forward,
+// T_{i+1} by K4's scan (the same bits as K4's); a ray's last chunk keeps it
+// in registers, earlier chunks park it in d_sigma.  Then in reverse, chunk
+// by chunk from the back, sum_{k>i} w_k v_k is a reverse warp scan on top
+// of the later chunks' carry: a sum of later terms only, so no late
+// sample's gradient is a difference of two large prefix sums.  d ch, zero
+// rows past the cutoff included, is written as one coalesced span of the
+// ray's [n, C] rows, as K7b writes.
 //
 // K7 replaces the phase-B segment sum of make_two_phase_renderer
 // (render/renderer.py:648-659) and of the style stage's cached stream
@@ -55,85 +68,172 @@
 // when asked, d w_i = sum_c ch[i, c] * g[r, c].  One warp a ray: its lanes
 // walk the ray's contiguous rows of d ch, so the writes coalesce; no atomics.
 //
-// Bound on the H100: bytes (a few flops per 4-byte sample value).  K4 and
-// K4b run one thread per ray walking its contiguous segment; a warp's
-// threads read different segments, so their loads coalesce poorly (a
-// warp-per-ray scan is the faster form, left for later).
+// Bound on the H100: bytes (a few flops per 4-byte sample value).  At a
+// train batch (4096 rays, ~0.2 MB moved) K4 and K4b take a few microseconds
+// against a bound of a fraction of one: a launch and the longest ray's
+// chain of chunks (~7), each a dependent load, scan and exp, hold them.
 #include "common.cuh"
 
 namespace {
 
-__global__ void composite_weights_kernel(const float* __restrict__ sigmas,
-                                         const float* __restrict__ tau,
-                                         const long long* __restrict__ offsets, int num_rays,
-                                         float dt, float t_thresh, float* __restrict__ w,
-                                         float* __restrict__ weights_sum,
-                                         float* __restrict__ depth, int* __restrict__ n_inc) {
-    const int r = blockIdx.x * blockDim.x + threadIdx.x;
-    if (r >= num_rays) return;
-    const long long begin = offsets[r];
-    const long long end = offsets[r + 1];
-    float od = 0.f;  // optical depth in front of sample i
-    float ws = 0.f;
-    float dep = 0.f;
-    long long i = begin;
-    for (; i < end; ++i) {
-        const float trans = expf(-od);
-        if (!(trans >= t_thresh)) break;
-        const float sdt = fminf(__fmul_rn(sigmas[i], dt), 100.f);
-        const float wi = __fmul_rn(__fsub_rn(1.f, expf(-sdt)), trans);
-        w[i] = wi;
-        ws = __fadd_rn(ws, wi);
-        dep = __fadd_rn(dep, __fmul_rn(wi, tau[i]));
-        od = __fadd_rn(od, sdt);
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// Inclusive scan of x over the warp's lanes in lane order, each sum rounded
+// on its own, in a fixed tree (the same bits on every launch).
+__device__ __forceinline__ float warp_inclusive_scan(float x, int lane) {
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+        const float y = __shfl_up_sync(kFullMask, x, off);
+        if (lane >= off) x = __fadd_rn(y, x);
     }
-    n_inc[r] = static_cast<int>(i - begin);
-    for (; i < end; ++i) w[i] = 0.f;
-    weights_sum[r] = ws;
-    depth[r] = dep;
+    return x;
 }
 
-__global__ void composite_backward_kernel(
+// Inclusive scan of x from the last lane down: lane l gets the sum over
+// lanes >= l, in a fixed tree.
+__device__ __forceinline__ float warp_suffix_scan(float x, int lane) {
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+        const float y = __shfl_down_sync(kFullMask, x, off);
+        if (lane + off < 32) x = __fadd_rn(x, y);
+    }
+    return x;
+}
+
+// Sum over the warp's lanes; every lane gets the same bits (a butterfly:
+// partners add the same two values).
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) x = __fadd_rn(x, __shfl_xor_sync(kFullMask, x, off));
+    return x;
+}
+
+// p[0 .. n) = 0 by the warp: scalar head and tail, 16 bytes a lane between.
+__device__ __forceinline__ void warp_zero(float* __restrict__ p, long long n, int lane) {
+    if (n <= 0) return;
+    const int head = static_cast<int>(
+        min(n, static_cast<long long>((4 - (reinterpret_cast<uintptr_t>(p) >> 2 & 3)) & 3)));
+    if (lane < head) p[lane] = 0.f;
+    const long long body = (n - head) >> 2;
+    float4* p4 = reinterpret_cast<float4*>(p + head);
+    for (long long q = lane; q < body; q += 32) p4[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (long long q = head + 4 * body + lane; q < n; q += 32) p[q] = 0.f;
+}
+
+__global__ void __launch_bounds__(nst::kThreads)
+    composite_weights_kernel(const float* __restrict__ sigmas, const float* __restrict__ tau,
+                             const long long* __restrict__ offsets, int num_rays, float dt,
+                             float t_thresh, float* __restrict__ w,
+                             float* __restrict__ weights_sum, float* __restrict__ depth,
+                             int* __restrict__ n_inc) {
+    const long long r = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+    const int lane = threadIdx.x & 31;
+    if (r >= num_rays) return;  // the whole warp
+    const long long begin = offsets[r];
+    const long long end = offsets[r + 1];
+    float carry = 0.f;  // optical depth in front of the chunk
+    float ws = 0.f;
+    float dep = 0.f;
+    long long stop = end;  // the first excluded sample
+    long long base = begin;
+    for (; base < end; base += 32) {
+        const long long i = base + lane;
+        const bool valid = i < end;
+        const float sdt = valid ? fminf(__fmul_rn(sigmas[i], dt), 100.f) : 0.f;
+        const float incl = warp_inclusive_scan(sdt, lane);
+        const float excl = __shfl_up_sync(kFullMask, incl, 1);
+        const float trans = expf(-__fadd_rn(carry, lane == 0 ? 0.f : excl));
+        const unsigned out = __ballot_sync(kFullMask, valid && !(trans >= t_thresh));
+        const int cut = out ? __ffs(out) - 1 : 32;  // the first excluded lane
+        const bool inc = valid && lane < cut;
+        const float wi = inc ? __fmul_rn(__fsub_rn(1.f, expf(-sdt)), trans) : 0.f;
+        if (valid) w[i] = wi;
+        ws = __fadd_rn(ws, warp_sum(wi));
+        dep = __fadd_rn(dep, warp_sum(inc ? __fmul_rn(wi, tau[i]) : 0.f));
+        if (out) {
+            stop = base + cut;
+            base += 32;
+            break;
+        }
+        carry = __fadd_rn(carry, __shfl_sync(kFullMask, incl, 31));
+    }
+    warp_zero(w + base, end - base, lane);  // the chunks past the cutoff's
+    if (lane == 0) {
+        n_inc[r] = static_cast<int>(stop - begin);
+        weights_sum[r] = ws;
+        depth[r] = dep;
+    }
+}
+
+__global__ void __launch_bounds__(nst::kThreads) composite_backward_kernel(
     const float* __restrict__ sigmas, const float* __restrict__ ch,
     const float* __restrict__ tau, const float* __restrict__ w,
     const long long* __restrict__ offsets, const int* __restrict__ n_inc,
     const float* __restrict__ g_img, const float* __restrict__ g_ws,
     const float* __restrict__ g_depth, int num_rays, int channels, float dt,
     float* __restrict__ d_sigmas, float* __restrict__ d_ch) {
-    const int r = blockIdx.x * blockDim.x + threadIdx.x;
-    if (r >= num_rays) return;
+    const long long r = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+    const int lane = threadIdx.x & 31;
+    if (r >= num_rays) return;  // the whole warp
     const long long begin = offsets[r];
     const long long end = offsets[r + 1];
     const long long stop = begin + n_inc[r];
-    const float* gi = g_img + static_cast<long long>(r) * channels;
+    const float* gi = g_img + r * channels;
     const float gw = g_ws[r];
     const float gd = g_depth[r];
 
-    // Forward: T_{i+1} of every included sample, parked in d_sigmas.
-    float od = 0.f;
-    for (long long i = begin; i < stop; ++i) {
-        od = __fadd_rn(od, fminf(__fmul_rn(sigmas[i], dt), 100.f));
-        d_sigmas[i] = expf(-od);
-    }
-    // Reverse: suffix = sum_{k>i} w_k v_k.
-    float suffix = 0.f;
-    for (long long i = stop - 1; i >= begin; --i) {
-        const float* chi = ch + i * channels;
-        float* dchi = d_ch + i * channels;
-        const float wi = w[i];
-        float v = __fadd_rn(gw, __fmul_rn(gd, tau[i]));
-        for (int c = 0; c < channels; ++c) {
-            v = __fadd_rn(v, __fmul_rn(gi[c], chi[c]));
-            dchi[c] = __fmul_rn(wi, gi[c]);
+    if (stop > begin) {
+        // Forward: T_{i+1} of every included sample by K4's scan; the last
+        // chunk's stays in t_next, earlier chunks' are parked in d_sigmas.
+        float carry = 0.f;
+        float t_next = 0.f;
+        long long last = begin;  // the last chunk's first sample
+        for (long long base = begin; base < stop; base += 32) {
+            const long long i = base + lane;
+            const float sdt = i < stop ? fminf(__fmul_rn(sigmas[i], dt), 100.f) : 0.f;
+            const float incl = warp_inclusive_scan(sdt, lane);
+            t_next = expf(-__fadd_rn(carry, incl));
+            last = base;
+            if (base + 32 < stop) {  // a full chunk with more behind it
+                d_sigmas[i] = t_next;
+                carry = __fadd_rn(carry, __shfl_sync(kFullMask, incl, 31));
+            }
         }
-        const float dsdt = __fsub_rn(__fmul_rn(d_sigmas[i], v), suffix);
-        d_sigmas[i] = __fmul_rn(sigmas[i], dt) < 100.f ? __fmul_rn(dt, dsdt) : 0.f;
-        suffix = __fadd_rn(suffix, __fmul_rn(wi, v));
+        // Reverse, chunk by chunk from the back: suffix = sum_{k>i} w_k v_k,
+        // the later chunks' carry plus a reverse scan in this one.
+        float later = 0.f;
+        for (long long base = last; base >= begin; base -= 32) {
+            const long long i = base + lane;
+            const bool valid = i < stop;
+            float v = 0.f;
+            float p = 0.f;
+            if (valid) {
+                v = __fadd_rn(gw, __fmul_rn(gd, tau[i]));
+                const float* chi = ch + i * channels;
+                for (int c = 0; c < channels; ++c) v = __fadd_rn(v, __fmul_rn(gi[c], chi[c]));
+                p = __fmul_rn(w[i], v);
+            }
+            const float incl = warp_suffix_scan(p, lane);
+            const float excl = __shfl_down_sync(kFullMask, incl, 1);
+            if (valid) {
+                const float suffix = __fadd_rn(later, lane == 31 ? 0.f : excl);
+                const float tn = base == last ? t_next : d_sigmas[i];
+                const float dsdt = __fsub_rn(__fmul_rn(tn, v), suffix);
+                d_sigmas[i] = __fmul_rn(sigmas[i], dt) < 100.f ? __fmul_rn(dt, dsdt) : 0.f;
+            }
+            later = __fadd_rn(later, __shfl_sync(kFullMask, incl, 0));
+        }
     }
-    for (long long i = stop; i < end; ++i) {
-        d_sigmas[i] = 0.f;
-        for (int c = 0; c < channels; ++c) d_ch[i * channels + c] = 0.f;
+    warp_zero(d_sigmas + stop, end - stop, lane);
+    // d ch = w * gI over the included rows and 0 past them: the ray's [n, C]
+    // rows as one contiguous span, consecutive lanes on consecutive floats.
+    const long long n_in = (stop - begin) * channels;
+    float* dst = d_ch + begin * channels;
+    for (long long e = lane; e < n_in; e += 32) {
+        const long long j = e / channels;
+        dst[e] = __fmul_rn(w[begin + j], gi[e - j * channels]);
     }
+    warp_zero(dst + n_in, (end - stop) * channels, lane);
 }
 
 constexpr int kSegRays = 128;          // rays (one a thread) a CTA
@@ -249,7 +349,8 @@ NST_API int nst_composite_weights(const void* sigmas, const void* tau, const voi
                                   int num_rays, float dt, float t_thresh, void* w,
                                   void* weights_sum, void* depth, void* n_inc, void* stream) {
     if (num_rays <= 0) return 0;
-    composite_weights_kernel<<<nst::blocks_for(num_rays), nst::kThreads, 0,
+    const long long threads = static_cast<long long>(num_rays) * 32;  // a warp a ray
+    composite_weights_kernel<<<nst::blocks_for(threads), nst::kThreads, 0,
                                static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(sigmas), static_cast<const float*>(tau),
         static_cast<const long long*>(offsets), num_rays, dt, t_thresh, static_cast<float*>(w),
@@ -265,7 +366,8 @@ NST_API int nst_composite_backward(const void* sigmas, const void* ch, const voi
                                    int num_rays, int channels, float dt, void* d_sigmas,
                                    void* d_ch, void* stream) {
     if (num_rays <= 0) return 0;
-    composite_backward_kernel<<<nst::blocks_for(num_rays), nst::kThreads, 0,
+    const long long threads = static_cast<long long>(num_rays) * 32;  // a warp a ray
+    composite_backward_kernel<<<nst::blocks_for(threads), nst::kThreads, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(sigmas), static_cast<const float*>(ch),
         static_cast<const float*>(tau), static_cast<const float*>(w),

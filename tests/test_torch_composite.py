@@ -9,11 +9,10 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from composite_layouts import (DT, LAYOUTS, T_THRESH, edge_rays, emulate_weights, layout,
+                               per_ray)
 from nerfstyle_tpu.ops import compositing as jc
 from nerfstyle_torch.ops import compositing as tc
-
-DT = 2.0 * 1.7320508075688772 / 128
-T_THRESH = 1e-4
 
 
 def _stream(seed, n=48, channels=6):
@@ -137,3 +136,62 @@ def test_torch_ray_ids_from_offsets():
     offsets = torch.tensor([0, 0, 3, 3, 5])
     assert tc.ray_ids(offsets).tolist() == [1, 1, 1, 3, 3]
 
+
+
+# ---------------------------------------------------------------------------
+# Crafted layouts (tests/composite_layouts.py): ray lengths 0 to 1000 across
+# the 32-sample chunks of the warp-a-ray kernel, cutoffs on a chunk's last
+# lane and on the next chunk's first, rays saturated at their first sample,
+# infinite densities mid-chunk, zero-density rays.
+# ---------------------------------------------------------------------------
+
+def _jax_ray_weights(s, t, valid):
+    rid = jnp.where(valid, 0, 1)
+    w, _ = jc.sample_weights(s, rid, valid, 1, DT, T_THRESH)
+    return (w, jax.ops.segment_sum(w, rid, num_segments=2)[0],
+            jax.ops.segment_sum(w * t, rid, num_segments=2)[0])
+
+
+_jax_rays_weights = jax.jit(jax.vmap(_jax_ray_weights))
+
+
+@pytest.mark.parametrize("name", LAYOUTS)
+def test_torch_sample_weights_plain_matches_jax_on_crafted_layouts(name):
+    """Plain K4 against JAX's sample_weights and segment sums.  JAX gets one
+    ray a row (vmap over rows padded with invalid samples), so that its
+    flat fp32 cumsum holds one ray's optical depth: the file's tolerance
+    (rtol 1e-5, atol 1e-6).  No ray lies in the 1e-4 band around t_thresh,
+    and every crafted cutoff is where it was put."""
+    sigmas, tau, _, offsets, _, want = layout(name, 3)
+    off = torch.from_numpy(offsets)
+    w, ws, dep, n_inc = tc.sample_weights(torch.from_numpy(sigmas), torch.from_numpy(tau), off,
+                                          DT, T_THRESH)
+    crafted = want >= 0
+    assert n_inc.numpy()[crafted].tolist() == want[crafted].tolist()
+    _, trans = tc.entering_transmittance_plain(torch.from_numpy(sigmas).double(), off, DT)
+    assert not edge_rays(trans.numpy(), offsets).any()
+    valid = per_ray(np.ones(sigmas.shape, bool), offsets, False)
+    w_j, ws_j, dep_j = (np.asarray(a) for a in _jax_rays_weights(
+        per_ray(sigmas, offsets), per_ray(tau, offsets), valid))
+    n = offsets.shape[0] - 1
+    np.testing.assert_allclose(w.numpy(), w_j[valid], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(ws.numpy(), ws_j[:n], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(dep.numpy(), dep_j[:n], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", LAYOUTS)
+def test_torch_sample_weights_warp_scan_emulation(name):
+    """K4's order of operations (a warp a ray: 32-sample chunks, a warp scan
+    of the optical depth on the chunks' carry, butterfly sums), emulated in
+    numpy float32, against the plain version on float64 inputs: the card
+    test's tolerances for rays outside the t_thresh band (none is in it):
+    the same cutoffs, atol 2e-6 on w and weights_sum, 6e-6 on depth."""
+    sigmas, tau, _, offsets, _, _ = layout(name, 3)
+    w_e, ws_e, dep_e, n_inc_e = emulate_weights(sigmas, tau, offsets)
+    w_p, ws_p, dep_p, n_inc_p = tc.sample_weights(
+        torch.from_numpy(sigmas).double(), torch.from_numpy(tau).double(),
+        torch.from_numpy(offsets), DT, T_THRESH, plain=True)
+    assert n_inc_e.tolist() == n_inc_p.tolist()
+    np.testing.assert_allclose(w_e, w_p.numpy(), rtol=0, atol=2e-6)
+    np.testing.assert_allclose(ws_e, ws_p.numpy(), rtol=0, atol=2e-6)
+    np.testing.assert_allclose(dep_e, dep_p.numpy(), rtol=0, atol=6e-6)

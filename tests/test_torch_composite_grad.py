@@ -10,13 +10,13 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from composite_layouts import (CHANNELS, DT, LAYOUTS, T_THRESH, emulate_backward,
+                               emulate_weights, layout, per_ray)
 from nerfstyle_tpu.ops import compositing as jc
 from nerfstyle_tpu.ops.marching import SampleBatch
 from nerfstyle_torch import kernels
 from nerfstyle_torch.ops import compositing as tc
 
-DT = 2.0 * 1.7320508075688772 / 128
-T_THRESH = 1e-4
 C = 5
 
 
@@ -112,3 +112,73 @@ def test_torch_composite_rays_forward_equals_sample_weights_and_segment_sum():
                                                    args[2], DT, T_THRESH)
     assert torch.equal(ws, ws2) and torch.equal(depth, depth2) and torch.equal(n_inc, n_inc2)
     assert torch.equal(image, tc.segment_sum(w, torch.from_numpy(ch), args[2]))
+
+
+# ---------------------------------------------------------------------------
+# Crafted layouts (tests/composite_layouts.py), channel counts 3, 4 and 7.
+# ---------------------------------------------------------------------------
+
+def _jax_ray_loss(s, c, t, valid, gi, gw, gd):
+    row = s.shape[0]
+    rid = jnp.where(valid, 0, 1).astype(jnp.int32)
+    sb = SampleBatch(xyz=jnp.zeros((row, 3)), dirs=jnp.zeros((row, 3)), tau=t, ray_id=rid,
+                     valid=valid, num_kept=jnp.int32(row), num_cand=jnp.int32(0))
+    out = jc.composite_rays(s, c, sb, 1, DT, T_THRESH)
+    return jnp.sum(out.image[0] * gi) + out.weights_sum[0] * gw + out.depth[0] * gd
+
+
+_jax_rays_grads = jax.jit(jax.vmap(jax.grad(_jax_ray_loss, argnums=(0, 1))))
+
+
+def _plain_grads(sigmas, tau, ch, offsets, g, dtype=torch.float32):
+    s = torch.from_numpy(sigmas).to(dtype).requires_grad_(True)
+    c = torch.from_numpy(ch).to(dtype).requires_grad_(True)
+    image, ws, depth, n_inc = tc.composite_rays(s, c, torch.from_numpy(tau).to(dtype),
+                                                torch.from_numpy(offsets), DT, T_THRESH)
+    torch.autograd.backward((image, ws, depth), [torch.from_numpy(a).to(dtype) for a in g])
+    return s.grad.numpy(), c.grad.numpy(), n_inc.numpy()
+
+
+@pytest.mark.parametrize("channels", CHANNELS)
+@pytest.mark.parametrize("name", LAYOUTS)
+def test_torch_composite_grad_matches_jax_on_crafted_layouts(name, channels):
+    """Plain K4b against jax.grad of JAX's composite_rays, one ray a row
+    (vmap over rows padded with invalid samples, so that JAX's flat fp32
+    cumsum holds one ray's optical depth): the file's tolerance, rtol 1e-4
+    and atol 1e-6 of the largest gradient.  Capped samples (an infinite
+    density) and every sample past a cutoff get 0."""
+    sigmas, tau, ch, offsets, g, want = layout(name, channels)
+    got_s, got_c, n_inc = _plain_grads(sigmas, tau, ch, offsets, g)
+    crafted = want >= 0
+    assert n_inc[crafted].tolist() == want[crafted].tolist()
+    valid = per_ray(np.ones(sigmas.shape, bool), offsets, False)
+    n = offsets.shape[0] - 1
+    rows = [np.zeros((valid.shape[0] - n,) + a.shape[1:], np.float32) for a in g]
+    want_s, want_c = (np.asarray(a)[valid] for a in _jax_rays_grads(
+        per_ray(sigmas, offsets), per_ray(ch, offsets), per_ray(tau, offsets), valid,
+        *(np.concatenate([a, z]) for a, z in zip(g, rows))))
+    np.testing.assert_allclose(got_s, want_s, rtol=1e-4, atol=1e-6 * np.abs(want_s).max())
+    np.testing.assert_allclose(got_c, want_c, rtol=1e-4, atol=1e-6 * np.abs(want_c).max())
+    assert not np.any(got_s[np.isinf(sigmas)])
+    rid = np.repeat(np.arange(n), np.diff(offsets))
+    past = np.arange(sigmas.shape[0]) - offsets[:-1][rid] >= n_inc[rid]
+    assert not np.any(got_s[past]) and not np.any(got_c[past])
+
+
+@pytest.mark.parametrize("channels", CHANNELS)
+@pytest.mark.parametrize("name", LAYOUTS)
+def test_torch_composite_backward_warp_scan_emulation(name, channels):
+    """K4b's order of operations (a warp a ray: T_{i+1} by K4's scan, the
+    suffix sum of w v as a reverse warp scan on the later chunks' carry),
+    emulated in numpy float32 on the emulated forward, against the plain
+    backward on float64 inputs: the card test's tolerances (no ray lies in
+    the t_thresh band): d ch rtol 1e-5, atol 1e-6; d sigma rtol 1e-4, atol
+    1e-5 of the largest."""
+    sigmas, tau, ch, offsets, g, _ = layout(name, channels)
+    w, _, _, n_inc = emulate_weights(sigmas, tau, offsets)
+    d_s, d_c = emulate_backward(sigmas, ch, tau, w, offsets, n_inc, *g)
+    want_s, want_c, n_inc_p = _plain_grads(sigmas, tau, ch, offsets, g, torch.float64)
+    assert n_inc.tolist() == n_inc_p.tolist()
+    assert np.isfinite(d_s).all() and np.isfinite(d_c).all()
+    np.testing.assert_allclose(d_c, want_c, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(d_s, want_s, rtol=1e-4, atol=1e-5 * np.abs(want_s).max())

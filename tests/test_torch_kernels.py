@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from composite_layouts import CHANNELS, LAYOUTS, layout
 from nerfstyle_torch import interop, kernels
 from nerfstyle_torch.ops import compositing as tc
 from nerfstyle_torch.ops import hashgrid as th
@@ -424,6 +425,63 @@ def test_torch_composite_backward_kernel_matches_plain(cuda_device):
     local = torch.arange(s.shape[0], device=cuda_device) - o[:-1][tc.ray_ids(o)]
     past = local >= n_inc.long()[tc.ray_ids(o)]
     assert bool(past.any()) and not bool(s_k.grad[past].any()) and not bool(c_k.grad[past].any())
+
+
+@pytest.mark.parametrize("channels", CHANNELS)
+@pytest.mark.parametrize("name", LAYOUTS)
+def test_torch_composite_kernels_on_crafted_layouts(cuda_device, name, channels):
+    """K4 and K4b (a warp a ray, in 32-sample chunks) on crafted layouts
+    (tests/composite_layouts.py: ray lengths 0 to 1000 across the chunks,
+    cutoffs on lane 31 and on the next chunk's lane 0, rays saturated at
+    their first sample, an infinite density mid-chunk, zero-density rays)
+    against their plain versions on float64 inputs, at the two tests'
+    tolerances above.  No ray of these layouts lies in the 1e-4 band
+    around t_thresh, so every ray is held to the tight ones: the plain
+    version's cutoff (n_inc), atol 2e-6 on w and weights_sum, 6e-6 on
+    depth; the channel sum rtol 1e-5; d ch rtol 1e-5, atol 1e-6; d sigma
+    rtol 1e-4, atol 1e-5 of the largest.  composite_rays launches each
+    kernel once, and a second launch of either gives the same bits."""
+    sigmas, tau, ch, offsets, g, want = layout(name, channels)
+    s, t, c, o = (torch.from_numpy(a).to(cuda_device) for a in (sigmas, tau, ch, offsets))
+    gs = [torch.from_numpy(a).to(cuda_device) for a in g]
+    s_k, c_k = s.clone().requires_grad_(True), c.clone().requires_grad_(True)
+    kernels.reset_launch_counts()
+    image, ws, depth, n_inc = tc.composite_rays(s_k, c_k, t, o, DT, T_THRESH)
+    torch.autograd.backward((image, ws, depth), gs)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["composite_weights"] == 1
+    assert kernels.launch_counts["composite_backward"] == 1
+    fwd = [kernels.composite_weights(s, t, o, DT, T_THRESH) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*fwd))
+    w = fwd[0][0]
+    assert torch.equal(fwd[0][1], ws) and torch.equal(fwd[0][2], depth)
+    assert torch.equal(fwd[0][3], n_inc)
+    bwd = [kernels.composite_backward(s, c, t, w, o, n_inc, *gs, DT) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*bwd))
+    assert torch.equal(bwd[0][0], s_k.grad) and torch.equal(bwd[0][1], c_k.grad)
+
+    crafted = torch.from_numpy(want >= 0).to(cuda_device)
+    assert n_inc[crafted].tolist() == want[want >= 0].tolist()
+    _, trans = tc.entering_transmittance_plain(s.double(), o, DT)
+    assert not bool(((trans - T_THRESH).abs() <= 1e-4 * T_THRESH).any())
+    s_p, c_p = s.double().requires_grad_(True), c.double().requires_grad_(True)
+    image_p, ws_p, depth_p, n_inc_p = tc.composite_rays(s_p, c_p, t.double(), o, DT, T_THRESH,
+                                                        plain=True)
+    torch.autograd.backward((image_p, ws_p, depth_p), [v.double() for v in gs])
+    w_p = tc.sample_weights(s.double(), t.double(), o, DT, T_THRESH, plain=True)[0]
+    assert torch.equal(n_inc, n_inc_p)
+    torch.testing.assert_close(w.double(), w_p, rtol=0, atol=2e-6)
+    torch.testing.assert_close(ws.double(), ws_p, rtol=0, atol=2e-6)
+    torch.testing.assert_close(depth.double(), depth_p, rtol=0, atol=6e-6)
+    torch.testing.assert_close(image, tc.segment_sum(w, c, o, plain=True), rtol=1e-5, atol=1e-6)
+    assert bool(torch.isfinite(s_k.grad).all()) and bool(torch.isfinite(c_k.grad).all())
+    torch.testing.assert_close(c_k.grad.double(), c_p.grad, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(s_k.grad.double(), s_p.grad, rtol=1e-4,
+                               atol=1e-5 * float(s_p.grad.abs().max()))
+    local = torch.arange(s.shape[0], device=cuda_device) - o[:-1][tc.ray_ids(o)]
+    past = local >= n_inc.long()[tc.ray_ids(o)]
+    assert not bool(s_k.grad[past].any()) and not bool(c_k.grad[past].any())
+    assert not bool(w[past].any())
 
 
 def test_torch_occupancy_kernels_match_plain(cuda_device):

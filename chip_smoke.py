@@ -14,11 +14,12 @@
    space nearly opaque (sigma ~ e^6, ~7 samples to saturate), so rays end
    as in a trained scene.
 3. Per kernel, at the shapes of the main path (a 2^16-ray chunk of the
-   1008x756 frame; the 2 x 128^3 grid for K6c): the CUDA kernel against
-   its plain PyTorch version on the same inputs, with the tolerance stated
-   at each check, and both timed with CUDA events after warm-up (K4, K7 and
-   K7's `index_add_` yardstick, shorter than the host's work a call, from a
-   CUDA graph of 20 launches).  The two-stage march (K3s) is also held against
+   1008x756 frame; the 2 x 128^3 grid for K6c, and a sparse random grid):
+   the CUDA kernel against its plain PyTorch version on the same inputs,
+   with the tolerance stated at each check, and both timed with CUDA events
+   after warm-up (K4, K6c, K7 and K7's `index_add_` yardstick, shorter than
+   the host's work a call, from a CUDA graph of 20 calls).  The two-stage
+   march (K3s) is also held against
    the dense march (K3), bit for bit; K7 also on rays longer than its
    staged tile.  K1 and K1s on the chunk's two streams in march order
    (phase A's marched samples, phase B's kept ones) and on a probe chunk of
@@ -70,7 +71,12 @@
    phase's only in x_color_embedder.  Prints the cache builds, the first
    epoch (30 builds), the median steady iteration, the whole run, peak
    memory and each kernel's launches a step.  Then one style step with the
-   kernels against the same step with every plain version, K1 and K2 on a
+   kernels against the same step with every plain version, the gradient
+   compared with the step's discrete choices pinned to the plain step's
+   and the flips bounded (style_step_vs_plain); the error split by source
+   (style_error_split: each step's noise, one kernel family at a time
+   routed to its plain version, the flips, a rounding-sized nudge of the
+   plain step's image, pinned and not); K1 and K2 on a
    pose's cached stream, K4 on a pose's marched chunk, K5 forward and
    backward and K7b at the style stream's shape against their plain
    versions, timed, K5's cuBLAS chain (its library yardstick:
@@ -89,7 +95,10 @@ have K4 (a frame chunk's and a style pose's marched chunk, a late train
 batch's marched stream and its kept prefix) and K4b (the kept prefix),
 timed from CUDA graphs of the kernel call alone
 (``count_composite_streams``); a launch outside these streams fails the
-run.
+run.  K6, K6c, K7b and K8 are timed from CUDA graphs too.  Each row has
+``calls`` beside ``launches``: the calls of a row's wrapper (K3, K3s and
+K6m launch two kernels a call, K6c kernels.SKIPDIST_LAUNCHES), and the
+rule-2 queue, calls x (ms - bound_ms), is logged.
 
 Prints the kernel table as one JSON line, then the last line
 ``{"ok": true, "device": {...}}``.  Exits nonzero, printing no result,
@@ -150,6 +159,11 @@ STYLE_COUNTERS = ("hashgrid_encode", "hashgrid_backward", "march_skip_count",
                   "segment_sum", "segment_sum_backward", "occupancy_skipdist")
 STYLE_STEP_COUNTERS = ("hashgrid_encode", "hashgrid_backward", "mlp_forward", "mlp_backward",
                        "segment_sum", "segment_sum_backward")
+# Flips of a style step's discrete choices, kernels against plain, allowed
+# at most: about 4x the most of five poses measured on an H100 (class
+# argmax 0, nearest style feature 5-14, VGG16 ReLU masks 3-7, max-pool
+# picks of a window above 0 5-11; PERF.md §6).
+STYLE_FLIP_BOUND = {"preds": 50, "nearest": 60, "relu": 40, "pool": 60}
 K1_POINTS = 1 << 20
 # Rows of the timed K5 backward with every weight gradient (a train batch).
 K5_DW_ROWS = 1 << 20
@@ -554,6 +568,13 @@ def ray_stats(offsets: torch.Tensor, n_inc: torch.Tensor) -> str:
             f"32-sample chunks")
 
 
+def ray_length_stats(offsets: torch.Tensor) -> str:
+    """Samples a ray of a stream: mean, max and the share of empty rays."""
+    lens = (offsets[1:] - offsets[:-1]).double()
+    return (f"samples/ray mean {float(lens.mean()):.2f} max {int(lens.max())}, empty "
+            f"{float((lens == 0).double().mean()):.3f}")
+
+
 def k4_row(sig, tau, offsets, dt: float, t_thresh: float, what: str, fails,
            same_last_weight: bool = False):
     """K4 on the stream (sig, tau, offsets) as the path hands it over
@@ -746,27 +767,33 @@ def kernel_phases(renderer, params, rays_o, rays_d):
 
     # K6c: the skip distance of the checkpoint's grid (2 x 128^3), and of a
     # sparse random grid (distances up to the cap).  Integer arithmetic:
-    # equal to the plain version.
+    # equal to the plain version.  Each grid timed from a CUDA graph of the
+    # kernel call alone (launch by launch logged beside); the row is the
+    # checkpoint's grid.
     h = plan.grid_size
     sparse = torch.rand(state.bitfield.shape, generator=torch.Generator().manual_seed(3)) < 2e-4
     for label, bits in (("checkpoint", state.bitfield), ("random 0.02%", sparse.to(DEVICE))):
         got = occupancy.skipdist_from_bitfield(bits, h)
         ref = occupancy.skipdist_from_bitfield(bits, h, plain=True)
-        if not torch.equal(got, ref):
-            fails.append(f"K6c skip distance differs from plain ({label} grid)")
+        again = occupancy.skipdist_from_bitfield(bits, h)
+        if not (torch.equal(got, ref) and torch.equal(got, again)):
+            fails.append(f"K6c skip distance differs from plain or between two launches "
+                         f"({label} grid)")
+        ms = graph_ms(lambda: kernels.occupancy_skipdist(bits, h, occupancy.SKIP_DMAX))
+        host_ms = cuda_ms(lambda: kernels.occupancy_skipdist(bits, h, occupancy.SKIP_DMAX),
+                          reps=20)
+        plain_ms = cuda_ms(lambda: occupancy.skipdist_from_bitfield(bits, h, plain=True), reps=3)
+        # Bytes: the bitfield in, the distances out.  Operations: the
+        # function's least, about 6 integer operations a cell.
+        b_ms, b_by = bound_ms(nbytes=2 * bits.numel(), flops=6 * bits.numel())
         log(f"K6c skipdist ({label} grid, {int(bits.sum())} occupied of {bits.numel()}): equal "
-            f"to plain: {torch.equal(got, ref)}; distance histogram "
-            f"{torch.bincount(got.long(), minlength=16).tolist()}")
-    bits = state.bitfield
-    ms = cuda_ms(lambda: kernels.occupancy_skipdist(bits, h, occupancy.SKIP_DMAX), reps=20)
-    plain_ms = cuda_ms(lambda: occupancy.skipdist_from_bitfield(bits, h, plain=True), reps=3)
-    # Bytes: the bitfield in, the distances out.  Operations: a compare and
-    # a max a neighbour, about 6 a cell over the three passes at least.
-    b_ms, b_by = bound_ms(nbytes=2 * bits.numel(), flops=6 * bits.numel())
-    table["K6c"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                        library_ms=None)
-    log(f"K6c occupancy_skipdist: {bits.numel()} cells; ms {ms:.4f} (3 launches), plain_ms "
-        f"{plain_ms:.3f}, bound_ms {b_ms:.4f} ({b_by})")
+            f"to plain: {torch.equal(got, ref)}, two launches equal: {torch.equal(got, again)}; "
+            f"distance histogram {torch.bincount(got.long(), minlength=16).tolist()}; ms "
+            f"{ms:.4f} (graph; {host_ms:.4f} launched one by one; {kernels.SKIPDIST_LAUNCHES} "
+            f"launches a call), plain_ms {plain_ms:.3f}, bound_ms {b_ms:.4f} ({b_by})")
+        if label == "checkpoint":
+            table["K6c"] = dict(max_abs_err=float((got.int() - ref.int()).abs().max()), ms=ms,
+                                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
     # K3 and K3s on the chunk.
     march_table, _ = march_phase(plan, state, o, d, fails, "the frame chunk")
@@ -1151,16 +1178,20 @@ def train_kernel_phases(trainer, fails):
     if not torch.equal(tmp, tmp_ref):
         fails.append("K6 scatter-max differs from scatter_reduce_")
     scratch = torch.full((cascade * ncell,), -1.0, device=dev)
-    ms = cuda_ms(lambda: kernels.occupancy_scatter_max(scratch, pidx, psig), reps=20)
+    # Kernel and library call from CUDA graphs of the call alone; launch by
+    # launch logged beside.
+    ms = graph_ms(lambda: kernels.occupancy_scatter_max(scratch, pidx, psig))
+    host_ms = cuda_ms(lambda: kernels.occupancy_scatter_max(scratch, pidx, psig), reps=20)
     plain_ms = cuda_ms(lambda: occupancy.scatter_max_plain(scratch, pidx, psig), reps=20)
-    lib_ms = cuda_ms(lambda: scratch.scatter_reduce_(0, pidx, psig, "amax"), reps=20)
+    lib_ms = graph_ms(lambda: scratch.scatter_reduce_(0, pidx, psig, "amax"))
     p, kc = pidx.shape[0], cascade * ncell
     b_ms, b_by = bound_ms(nbytes=p * 12 + kc * 8, flops=p)
     table["K6s"] = dict(max_abs_err=float((tmp - tmp_ref).abs().max()), ms=ms, plain_ms=plain_ms,
                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
     log(f"K6 occupancy_scatter_max: {p} probes into {kc} cells; equal to plain: "
-        f"{torch.equal(tmp, tmp_ref)}; ms {ms:.3f}, plain_ms {plain_ms:.3f}, scatter_reduce_ ms "
-        f"{lib_ms:.3f}, bound_ms {b_ms:.4f} ({b_by})")
+        f"{torch.equal(tmp, tmp_ref)}; ms {ms:.4f} (graph; {host_ms:.4f} launched one by one), "
+        f"plain_ms {plain_ms:.3f}, scatter_reduce_ ms {lib_ms:.4f} (graph), bound_ms {b_ms:.4f} "
+        f"({b_by})")
 
     flat = grid.reshape(-1).contiguous()
     merged, bits, mean = kernels.occupancy_merge(flat, tmp, s.density_decay, s.density_thresh)
@@ -1169,8 +1200,9 @@ def train_kernel_phases(trainer, fails):
     mean_err = abs(float(mean) - float(mean_p)) / max(abs(float(mean_p)), 1e-30)
     if not (torch.equal(merged, merged_p) and torch.equal(bits, bits_p) and mean_err <= 1e-6):
         fails.append(f"K6 merge differs from plain (mean relative error {mean_err})")
-    ms = cuda_ms(lambda: kernels.occupancy_merge(flat, tmp, s.density_decay, s.density_thresh),
-                 reps=20)
+    ms = graph_ms(lambda: kernels.occupancy_merge(flat, tmp, s.density_decay, s.density_thresh))
+    host_ms = cuda_ms(lambda: kernels.occupancy_merge(flat, tmp, s.density_decay,
+                                                      s.density_thresh), reps=20)
     plain_ms = cuda_ms(lambda: occupancy.merge_and_threshold_plain(
         flat, tmp, s.density_decay, s.density_thresh), reps=20)
     # Bytes: grid and probe grid read, merged grid and bitfield written.
@@ -1178,7 +1210,8 @@ def train_kernel_phases(trainer, fails):
     table["K6m"] = dict(max_abs_err=float((merged - merged_p).abs().max()), ms=ms,
                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
     log(f"K6 occupancy_merge + threshold: {kc} cells, {int(bits.sum())} occupied, mean "
-        f"{float(mean):.5f} (relative error {mean_err:.2e}); ms {ms:.3f}, plain_ms "
+        f"{float(mean):.5f} (relative error {mean_err:.2e}); ms {ms:.4f} (graph; {host_ms:.4f} "
+        f"launched one by one; 2 launches a call), plain_ms "
         f"{plain_ms:.3f}, bound_ms {b_ms:.4f} ({b_by})")
     return table
 
@@ -1673,13 +1706,15 @@ def import_phase(card: str, ckpt: Path, spec, frame, fails):
         exact = torch.equal(fn(), plain_fn())
         if not exact:
             fails.append(f"{kid} differs from its plain version")
-        ms = cuda_ms(fn, reps=20)
+        ms = graph_ms(fn)
+        host_ms = cuda_ms(fn, reps=20)
         plain_ms = cuda_ms(plain_fn, reps=5)
         b_ms, b_by = bound_ms(nbytes=nbytes, flops=flops)
         table[kid] = dict(max_abs_err=0.0 if exact else float("inf"), ms=ms, plain_ms=plain_ms,
                           bound_ms=b_ms, bound_by=b_by, library_ms=None)
         log(f"{kid}: {n if 'K8a' in kid else h**3} cells; equal to plain: {exact}; ms "
-            f"{ms:.4f}, plain_ms {plain_ms:.4f}, bound_ms {b_ms:.5f} ({b_by})")
+            f"{ms:.4f} (graph; {host_ms:.4f} launched one by one), plain_ms {plain_ms:.4f}, "
+            f"bound_ms {b_ms:.5f} ({b_by})")
     return launches, table
 
 
@@ -1780,38 +1815,247 @@ def style_phase(card: str, ckpt: Path, fails):
     return st, launches
 
 
-def style_step_vs_plain(st, fails):
+def style_step_vs_plain(st, fails) -> dict:
     """One style step with the kernels and the same step with every plain
     version, from the same params and pose cache.  Loss terms: 1e-5
-    relative; the color-table gradient: relative L2 error 5e-3 (K2's atomics
-    and fp32 sums in another order, and under bf16 a cotangent landing on the
-    other side of a rounding step)."""
-    from nerfstyle_torch import kernels
-
+    relative.  The colour-table gradient: relative L2 error 5e-3 with the
+    step's discrete choices (class map, nearest style features, VGG16's ReLU
+    masks and max-pool picks) pinned to the plain step's in both steps (K2's
+    atomics, fp32 sums in another order, bf16 rounding steps); unpinned, a
+    rounding-sized change of the forward flips a few of them, which moves a
+    flipped pixel's gradient and not the loss (the error split below).  The
+    flips, of each kind at most STYLE_FLIP_BOUND.  The unpinned error is
+    logged.  Returns the numbers."""
     pose = next(iter(st._geom_cache))
     cache = st.geom_cache(pose)
-    runs = {}
-    for plain in (False, True):
-        kernels.reset_launch_counts()
-        losses, grads = st.loss_and_grads(cache, plain=plain)
-        torch.cuda.synchronize()
-        runs[plain] = (losses, grads["x_color_embedder"], dict(kernels.launch_counts))
-    (lk, gk, ck), (lp, gp, cp) = runs[False], runs[True]
+    k, p = style_step_run(st, cache), style_step_run(st, cache, True)
+    kp, pp = style_step_run(st, cache, pin=p[2]), style_step_run(st, cache, True, pin=p[2])
+    ck, cp = k[3], p[3]
     missing = [c for c in STYLE_STEP_COUNTERS if ck[c] <= 0]
     if missing:
         fails.append(f"the style step launched no {missing}")
-    if any(cp.values()):
+    if any(cp.values()) or any(pp[3].values()):
         fails.append(f"the plain style step launched kernels: {cp}")
-    loss_err = {k: abs(float(lk[k]) - float(v)) / max(abs(float(v)), 1e-30)
-                for k, v in lp.items()}
-    grad_err = rel_l2(gk, gp)
+    loss_err = {n: abs(float(k[0][n]) - float(v)) / max(abs(float(v)), 1e-30)
+                for n, v in p[0].items()}
+    out = {"unpinned": rel_l2(k[1], p[1]), "pinned": rel_l2(kp[1], pp[1]),
+           "flips": k[2].flips(p[2]), "loss": loss_err}
     log(f"style step with kernels vs plain (pose {pose}): loss relative errors {loss_err}; "
-        f"color-table gradient relative L2 error {grad_err:.3e}; launches a step {ck}")
+        f"color-table gradient relative L2 error {out['pinned']:.3e} with every discrete choice "
+        f"pinned to the plain step's (tol 5e-3), {out['unpinned']:.3e} unpinned; flips "
+        f"{out['flips']} (at most {STYLE_FLIP_BOUND}) of {p[2].sizes()}; launches a step {ck}")
     if not all(e <= 1e-5 for e in loss_err.values()):
         fails.append(f"style step losses differ from the plain step: {loss_err}")
-    if not grad_err <= 5e-3:
-        fails.append(f"style step gradient differs from the plain step: {grad_err}")
-    return ck
+    if not out["pinned"] <= 5e-3:
+        fails.append(f"style step gradient differs from the plain step with the choices "
+                     f"pinned: {out['pinned']}")
+    over = {n: v for n, v in out["flips"].items() if v > STYLE_FLIP_BOUND[n]}
+    if over:
+        fails.append(f"the style step's discrete choices flipped more than "
+                     f"{STYLE_FLIP_BOUND}: {over}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The style step's gradient against its plain step, split by source
+#
+# A style step makes discrete choices from values the kernels compute: the
+# class argmax that segments the frame (StyleTrainer._preds), each relu3
+# pixel's nearest style feature (torch.amin over the masked cosine
+# distances, SemanticStyleLoss), and inside VGG16 every ReLU's mask and
+# every max-pool's pick.  A near-tie that a rounding difference in the
+# forward flips moves the gradient and not the loss.  StepChoices records a
+# step's choices, or pins them to another step's, and style_step_run routes
+# kernel families to their plain versions, each by wrapping functions for
+# the length of one step: the package has no switch for it.
+# ---------------------------------------------------------------------------
+
+
+class _Proxy:
+    """A module whose names are ``base``'s, except those given."""
+
+    def __init__(self, base, **names):
+        self._base, self._names = base, names
+
+    def __getattr__(self, name):
+        return self._names[name] if name in self._names else getattr(self._base, name)
+
+
+class StepChoices:
+    """The discrete choices of one style step, in the order the step makes
+    them: ``preds`` (the class map), ``nearest`` (each relu3 pixel's style
+    feature), ``relu`` (VGG16's masks), ``pool`` (its max-pool picks).
+    Given ``pinned`` choices, the step takes those instead of its own."""
+
+    KINDS = ("preds", "nearest", "relu", "pool")
+
+    def __init__(self, pinned: "StepChoices" = None):
+        self.pinned = pinned
+        self.made = {k: [] for k in self.KINDS}
+        self.pool_live = []
+
+    def _take(self, kind, own):
+        i = len(self.made[kind])
+        choice = own() if self.pinned is None else self.pinned.made[kind][i]
+        self.made[kind].append(choice)
+        return choice
+
+    def preds(self, st, cls):
+        return self._take("preds", lambda: type(st)._preds(st, cls))
+
+    def amin(self, t, dim):
+        idx = self._take("nearest", lambda: torch.argmin(t, dim=dim))
+        if self.pinned is None:
+            return torch.amin(t, dim=dim)
+        return t.gather(dim, idx[:, None]).squeeze(dim)
+
+    def relu(self, x):
+        mask = self._take("relu", lambda: x > 0)
+        return torch.relu(x) if self.pinned is None else torch.where(mask, x, 0.0)
+
+    def max_pool2d(self, x, k, s):
+        if self.pinned is None:
+            out, idx = torch.nn.functional.max_pool2d(x, k, s, return_indices=True)
+            self.made["pool"].append(idx)
+            self.pool_live.append(out > 0)
+            return out
+        idx = self._take("pool", None)
+        return x.flatten(-2).gather(-1, idx.flatten(-2)).view(idx.shape)
+
+    def flips(self, other: "StepChoices") -> dict:
+        """Choices that differ from ``other``'s, by kind; a max-pool pick
+        only where ``other``'s window max is above 0 (after a ReLU a window
+        of zeros is a tie whose pick takes no gradient)."""
+        out = {k: sum(int((a != b).sum()) for a, b in zip(self.made[k], other.made[k]))
+               for k in self.KINDS}
+        out["pool"] = sum(int(((a != b) & live).sum()) for a, b, live in
+                          zip(self.made["pool"], other.made["pool"], other.pool_live))
+        return out
+
+    def sizes(self) -> dict:
+        return {k: sum(c.numel() for c in self.made[k]) for k in self.KINDS}
+
+
+def _style_families(spec):
+    """Kernel family -> {wrapper name in nerfstyle_torch.kernels: its plain
+    version with the wrapper's signature}, for a style step."""
+    from nerfstyle_torch.ops import compositing, hashgrid
+    from nerfstyle_torch.ops.mlp import mlp_apply_plain
+
+    def act(sigmoid):
+        return "sigmoid" if sigmoid else None
+
+    def dtype(bf16):
+        return torch.bfloat16 if bf16 else torch.float32
+
+    def mlp_backward(x, weights, g, sigmoid, bf16, need_dw):
+        with torch.enable_grad():
+            xr = x.detach().requires_grad_(True)
+            ws = [w.detach().requires_grad_(bool(n)) for w, n in zip(weights, need_dw)]
+            out = mlp_apply_plain(ws, xr, act(sigmoid), dtype(bf16))
+            wanted = [xr] + [w for w, n in zip(ws, need_dw) if n]
+            grads = list(torch.autograd.grad(out, wanted, g))
+        dx, dws = grads[0], iter(grads[1:])
+        return dx, [next(dws) if n else None for n in need_dw]
+
+    return {
+        "K1": {"hashgrid_encode": lambda x, table, levels:
+               hashgrid.hashgrid_encode_plain(spec, table, x)},
+        "K5 forward": {"mlp_forward": lambda x, weights, sigmoid, bf16:
+                       mlp_apply_plain(weights, x, act(sigmoid), dtype(bf16))},
+        "K5 backward": {"mlp_backward": mlp_backward},
+        "K7/K7b": {"segment_sum": compositing.segment_sum_plain,
+                   "segment_sum_backward": compositing.segment_sum_backward_plain},
+        "K2": {"hashgrid_backward": lambda x, g, levels, num_rows:
+               hashgrid.hashgrid_backward_plain(spec, x, g, num_rows)},
+    }
+
+
+def style_step_run(st, cache, plain=False, route=(), pin=None, nudge=0.0):
+    """One style step over ``cache``: (losses, colour-table gradient, its
+    StepChoices, its kernel launches).  ``route`` names kernel families run as their plain
+    versions; ``pin`` (a StepChoices) pins the discrete choices to its
+    own; ``nudge`` scales the rendered image by 1 + nudge * (+-1 a value,
+    from a fixed seed), a rounding-sized change of the forward."""
+    from unittest import mock
+
+    from nerfstyle_torch import kernels
+    from nerfstyle_torch.losses import style as style_loss
+    from nerfstyle_torch.models import vgg
+
+    choices = StepChoices(pin)
+    render = st.render_cache
+    kernels.reset_launch_counts()
+
+    def nudged(params, cache, plain=False):
+        rgb, cls = render(params, cache, plain)
+        sign = torch.randint(0, 2, rgb.shape, generator=torch.Generator(rgb.device).manual_seed(5),
+                             device=rgb.device) * 2.0 - 1.0
+        return rgb * (1.0 + nudge * sign), cls
+
+    families = _style_families(st.field_spec.grid)
+    with contextlib.ExitStack() as stack:
+        for fam in route:
+            for name, fn in families[fam].items():
+                stack.enter_context(mock.patch.object(kernels, name, fn))
+        stack.enter_context(mock.patch.object(st, "_preds", lambda cls: choices.preds(st, cls)))
+        stack.enter_context(mock.patch.object(style_loss, "torch",
+                                              _Proxy(torch, amin=choices.amin)))
+        stack.enter_context(mock.patch.object(vgg, "torch", _Proxy(torch, relu=choices.relu)))
+        stack.enter_context(mock.patch.object(vgg, "F", _Proxy(
+            torch.nn.functional, max_pool2d=choices.max_pool2d)))
+        if nudge:
+            stack.enter_context(mock.patch.object(st, "render_cache", nudged))
+        losses, grads = st.loss_and_grads(cache, plain=plain)
+    torch.cuda.synchronize()
+    return losses, grads["x_color_embedder"], choices, dict(kernels.launch_counts)
+
+
+def style_error_split(st, poses: int = 4) -> None:
+    """The style step's colour-table gradient error against the plain step,
+    split by source, on the first pose cache: each step's run-to-run noise,
+    the error with one kernel family at a time routed to its plain version,
+    the flips of the discrete choices, the plain step against itself with
+    its image nudged by one rounding step, and the errors with the plain
+    step's choices pinned in both steps (also with each family routed).
+    Then the unpinned and pinned errors and the flips on ``poses`` poses."""
+    keys = list(st._geom_cache)[:poses]
+    cache = st.geom_cache(keys[0])
+    run = lambda plain=False, **kw: style_step_run(st, cache, plain, **kw)  # noqa: E731
+    k1, k2, p1, p2 = run(), run(), run(True), run(True)
+    pp, kp = run(True, pin=p1[2]), run(pin=p1[2])
+    fams = list(_style_families(st.field_spec.grid))
+    nudged = run(True, nudge=2.0**-23)
+    out = {
+        "kernel noise": rel_l2(k2[1], k1[1]),
+        "plain noise": rel_l2(p2[1], p1[1]),
+        "unpinned": rel_l2(k1[1], p1[1]),
+        "routed": {f: rel_l2(run(route=(f,))[1], p1[1]) for f in fams},
+        "all routed": rel_l2(run(route=fams)[1], p1[1]),
+        "flips": k1[2].flips(p1[2]),
+        "nudged plain": rel_l2(nudged[1], p1[1]),
+        "nudged flips": nudged[2].flips(p1[2]),
+        "nudged pinned": rel_l2(run(True, nudge=2.0**-23, pin=p1[2])[1], pp[1]),
+        "pinned": rel_l2(kp[1], pp[1]),
+        "pinned routed": {f: rel_l2(run(route=(f,), pin=p1[2])[1], pp[1]) for f in fams},
+        "pinned loss equal": all(float(pp[0][k]) == float(v) for k, v in p1[0].items()),
+    }
+    fmt = lambda d: {f: f"{e:.3e}" for f, e in d.items()}  # noqa: E731
+    log(f"style step error split (pose {keys[0]}): kernel step against itself "
+        f"{out['kernel noise']:.3e}, plain step against itself {out['plain noise']:.3e}; kernel "
+        f"against plain {out['unpinned']:.3e}; one family routed to plain {fmt(out['routed'])}, "
+        f"all routed {out['all routed']:.3e}; flips {out['flips']} of {p1[2].sizes()}; the plain "
+        f"step with its image nudged by 2^-23 (relative, +-1 a value) {out['nudged plain']:.3e}, "
+        f"flips {out['nudged flips']}, pinned {out['nudged pinned']:.3e}; kernel against plain "
+        f"with every choice pinned (the plain step's) {out['pinned']:.3e} (pinned plain loss "
+        f"equal to its unpinned loss: {out['pinned loss equal']}); pinned, one family routed "
+        f"{fmt(out['pinned routed'])}")
+    for key in keys:
+        cache = st.geom_cache(key)
+        k, p = run(), run(True)
+        kp, pp = run(pin=p[2]), run(True, pin=p[2])
+        log(f"style step, pose {key}: kernel against plain {rel_l2(k[1], p[1]):.3e}, every "
+            f"choice pinned {rel_l2(kp[1], pp[1]):.3e}; flips {k[2].flips(p[2])}")
 
 
 def style_chunk(st):
@@ -1943,7 +2187,11 @@ def style_kernel_phases(st, fails):
     err = float((d_ch - ref).abs().max())
     if not torch.equal(d_ch, ref):
         fails.append(f"K7b differs from its plain version: max abs err {err}")
-    ms = cuda_ms(lambda: kernels.segment_sum_backward(w, None, g, offsets), reps=20)
+    again, _ = kernels.segment_sum_backward(w, None, g, offsets)
+    if not torch.equal(d_ch, again):
+        fails.append("K7b: two launches on the same inputs gave different bits")
+    ms = graph_ms(lambda: kernels.segment_sum_backward(w, None, g, offsets))
+    host_ms = cuda_ms(lambda: kernels.segment_sum_backward(w, None, g, offsets), reps=20)
     plain_ms = cuda_ms(lambda: compositing.segment_sum_backward_plain(w, None, g, offsets),
                        reps=10)
     b_ms, b_by = bound_ms(n_rows * 4 + n_pix * cc * 4 + (n_pix + 1) * 8 + n_rows * cc * 4,
@@ -1951,8 +2199,9 @@ def style_kernel_phases(st, fails):
     table["K7b"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                         library_ms=None)
     log(f"K7b segment_sum_backward: {n_rows} samples x {cc} channels over {n_pix} rays; equal "
-        f"to plain: {torch.equal(d_ch, ref)}; ms {ms:.3f}, plain_ms {plain_ms:.3f}, bound_ms "
-        f"{b_ms:.4f} ({b_by})")
+        f"to plain: {torch.equal(d_ch, ref)}; {ray_length_stats(offsets)}; ms {ms:.4f} (graph; "
+        f"{host_ms:.4f} launched one by one), plain_ms {plain_ms:.3f}, bound_ms {b_ms:.4f} "
+        f"({b_by})")
     return table
 
 
@@ -2158,6 +2407,7 @@ def main() -> int:
     # one steady iteration under the profiler.
     st, runs["style"] = style_phase(card, ckpt_train, fails)
     style_step_vs_plain(st, fails)
+    style_error_split(st)
     table.update(style_kernel_phases(st, fails))
     profile_once(st.run_iter, "steady style iteration", card)
     del st
@@ -2173,8 +2423,8 @@ def main() -> int:
     # K8a unpack's and K8b morton3d's on the import).
     # K8a pack and K8b invert serve no path: 0 launches, checked against
     # their plain versions only.  K3 and K3s are two passes each (count and
-    # write), K6's merge two kernels (merge and threshold), K6c three
-    # launches a rebuild (one an axis): their launches are all of theirs.
+    # write), K6's merge two kernels (merge and threshold), K6c
+    # kernels.SKIPDIST_LAUNCHES a rebuild: their launches are all of theirs.
     main_paths = ("render", "train", "style")
     # K1 and K2: a row a stream, with that stream's launches (see
     # ENCODE_STREAMS); every launch of theirs must fall in a stream with a
@@ -2259,13 +2509,27 @@ def main() -> int:
         ("K8b invert", "K8b morton3d_invert", "nerfstyle_torch/csrc/interop.cu",
          "nerfstyle_tpu/ops/morton.py:44", ("morton3d_invert",), ()),
     ]
-    rows = []
+    # Calls: a row's launches over the launches a call makes.  The rule-2
+    # queue ranks the rows by calls x (ms - bound), where ms times a call.
+    # A call of a row with several counters (K3, K3s: count and write, the
+    # write skipped when nothing is kept; K6m: merge and threshold) is a
+    # launch of its first; K6c launches kernels.SKIPDIST_LAUNCHES a call.
+    per_call = {"K6c": kernels.SKIPDIST_LAUNCHES}
+    rows, loss = [], {}
     for kid, name, source, replaces, counters, paths in meta:
         launches = sum(runs[p].get(c, 0) for p in paths for c in counters)
         if paths and launches <= 0:
             fails.append(f"{name} launched no time on {paths}")
+        calls, rem = divmod(sum(runs[p].get(counters[0], 0) for p in paths),
+                            per_call.get(kid, 1))
+        if rem:
+            fails.append(f"{name}: {launches} launches are not whole calls of "
+                         f"{per_call[kid]} launches")
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                     "launches": launches, **table[kid]})
+                     "launches": launches, "calls": calls, **table[kid]})
+        loss[kid] = calls * (table[kid]["ms"] - table[kid]["bound_ms"])
+    log("rule-2 queue, calls x (ms - bound_ms) in ms over the run: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in sorted(loss.items(), key=lambda kv: -kv[1])))
     if fails:
         for f in fails:
             print(f"FAIL: {f}", file=sys.stderr)

@@ -65,8 +65,20 @@
 // K7b is its backward on its own (JAX's autodiff of that segment_sum, written
 // out at training/style_trainer.py:875), for a stream whose weights are
 // fixed: d ch[i, c] = w_i * g[r, c] for every sample i of ray r, and, only
-// when asked, d w_i = sum_c ch[i, c] * g[r, c].  One warp a ray: its lanes
-// walk the ray's contiguous rows of d ch, so the writes coalesce; no atomics.
+// when asked, d w_i = sum_c ch[i, c] * g[r, c] in order of c.  Rays are
+// short and most are empty (a style cache: ~4 samples a ray, 84% of rays
+// empty, the rest ~26), so neither a warp a ray nor a CTA a run of rays
+// balances: the work is cut by samples instead.  A CTA takes a tile of
+// kBwdTile consecutive samples (a few CTAs an SM walk the tiles: the
+// stream's length is on the device), finds the tile's first and last ray
+// by a warp's 32-way search of the offsets, and gives each sample its ray
+// without a search: each non-empty ray of the tile marks the sample it
+// starts at, and a block scan takes the running max.  Then a thread a
+// sample writes its C products w_i * g[r, c] (and d w) into a staged piece
+// of d ch in shared memory, which the CTA copies out flat, 16 bytes a
+// thread (a piece starts on a 16-byte boundary).  32-bit indices inside a
+// tile, no division; one fp32 product a float, the plain version's bits;
+// no atomics.
 //
 // Bound on the H100: bytes (a few flops per 4-byte sample value).  At a
 // train batch (4096 rays, ~0.2 MB moved) K4 and K4b take a few microseconds
@@ -312,31 +324,112 @@ __global__ void __launch_bounds__(kSegRays)
     for (int e = t; e < nr * c_n; e += kSegRays) dst[e] = sums[e];
 }
 
-__global__ void segment_sum_backward_kernel(const float* __restrict__ w,
-                                            const float* __restrict__ ch,
-                                            const float* __restrict__ g,
-                                            const long long* __restrict__ offsets, int num_rays,
-                                            int channels, float* __restrict__ d_ch,
-                                            float* __restrict__ d_w) {
-    const long long warp = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-    const int lane = threadIdx.x & 31;
-    if (warp >= num_rays) return;
-    const long long begin = offsets[warp];
-    const long long end = offsets[warp + 1];
-    const float* gr = g + warp * channels;
-    const long long n = (end - begin) * channels;
-    float* dst = d_ch + begin * channels;
-    for (long long e = lane; e < n; e += 32) {
-        const long long i = e / channels;
-        dst[e] = __fmul_rn(w[begin + i], gr[e - i * channels]);
+constexpr int kBwdTile = 1024;         // samples a tile (a CTA's unit of work)
+constexpr int kBwdThreads = 256;       // kBwdTile / 4: four samples a thread in the scan
+constexpr int kBwdOutFloats = 4096;    // d ch floats a tile stages before writing (16 KB)
+constexpr int kBwdCtasPerSm = 8;
+static_assert(4 * kBwdThreads == kBwdTile, "the ray scan takes four samples a thread");
+
+// The last ray r of [0, n) with offsets[r] <= key (the ray that holds
+// sample key; an empty ray never is), by a warp: 32 probes a step, so a
+// step narrows the range 32 times.
+__device__ int warp_last_ray_at_most(const long long* __restrict__ offsets, int n, long long key,
+                                     int lane) {
+    int lo = 0, hi = n - 1;
+    while (lo < hi) {
+        const int step = (hi - lo + 32) / 32;
+        const int p = lo + lane * step;
+        const unsigned ok = __ballot_sync(kFullMask, p <= hi && offsets[p] <= key);
+        const int next = lo + (31 - __clz(ok)) * step;  // lane 0 (p = lo) always holds
+        hi = min(hi, next + step - 1);
+        lo = next;
     }
-    if (d_w != nullptr) {
-        for (long long i = begin + lane; i < end; i += 32) {
-            float acc = 0.f;
-            for (int c = 0; c < channels; ++c) {
-                acc = __fadd_rn(acc, __fmul_rn(ch[i * channels + c], gr[c]));
+    return lo;
+}
+
+__global__ void __launch_bounds__(kBwdThreads)
+segment_sum_backward_kernel(const float* __restrict__ w, const float* __restrict__ ch,
+                            const float* __restrict__ g, const long long* __restrict__ offsets,
+                            int num_rays, int channels, float* __restrict__ d_ch,
+                            float* __restrict__ d_w) {
+    __shared__ float4 out4[kBwdOutFloats / 4];
+    __shared__ int ray[kBwdTile];  // a sample's ray, counted from the tile's first
+    __shared__ int span[2];
+    __shared__ int warp_max[kBwdThreads / 32];
+    float* out = reinterpret_cast<float*>(out4);
+    const int c_n = channels;
+    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+    const long long num_samples = offsets[num_rays];
+    // Samples a staged piece of d ch holds: a multiple of 4, so that each
+    // piece starts on a 16-byte boundary of d ch.
+    const int piece = kBwdOutFloats / c_n & ~3;
+    for (long long s0 = static_cast<long long>(blockIdx.x) * kBwdTile; s0 < num_samples;
+         s0 += static_cast<long long>(gridDim.x) * kBwdTile) {
+        const int n = static_cast<int>(min(static_cast<long long>(kBwdTile), num_samples - s0));
+        if (warp < 2) {
+            const int r = warp_last_ray_at_most(offsets, num_rays, s0 + (warp ? n - 1 : 0), lane);
+            if (lane == 0) span[warp] = r;
+        }
+        for (int q = t; q < kBwdTile; q += kBwdThreads) ray[q] = 0;
+        __syncthreads();
+        const int r0 = span[0], nr = span[1] - span[0] + 1;
+        // Each non-empty ray after the first marks the sample it starts at
+        // (an empty ray marks nothing: the next ray starts there); the first
+        // ray holds sample 0.
+        for (int j = 1 + t; j < nr; j += kBwdThreads) {
+            const long long a = offsets[r0 + j] - s0;
+            if (a < offsets[r0 + j + 1] - s0) ray[a] = j;
+        }
+        __syncthreads();
+        // A sample's ray: the running max of the marks (an inclusive scan,
+        // four samples a thread, then across lanes and warps).
+        int m[4], run = 0;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            run = max(run, ray[4 * t + k]);
+            m[k] = run;
+        }
+        int scan = run;
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+            const int up = __shfl_up_sync(kFullMask, scan, d);
+            if (lane >= d) scan = max(scan, up);
+        }
+        if (lane == 31) warp_max[warp] = scan;
+        const int prev = __shfl_up_sync(kFullMask, scan, 1);
+        __syncthreads();
+        int before = lane > 0 ? prev : 0;  // the max over the samples in front
+        for (int k = 0; k < warp; ++k) before = max(before, warp_max[k]);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) ray[4 * t + k] = max(before, m[k]);
+        __syncthreads();
+        const float* gr = g + static_cast<long long>(r0) * c_n;
+        for (int p0 = 0; p0 < n; p0 += piece) {
+            const int m_n = min(piece, n - p0);
+            // A thread a sample: its C products (and d w, in order of c)
+            // into the staged piece.
+            for (int q = t; q < m_n; q += kBwdThreads) {
+                const long long i = s0 + p0 + q;
+                const float wi = w[i];
+                const float* gq = gr + ray[p0 + q] * c_n;
+                float* o = out + q * c_n;
+                for (int c = 0; c < c_n; ++c) o[c] = __fmul_rn(wi, gq[c]);
+                if (d_w != nullptr) {
+                    const float* row = ch + i * c_n;
+                    float acc = 0.f;
+                    for (int c = 0; c < c_n; ++c) acc = __fadd_rn(acc, __fmul_rn(row[c], gq[c]));
+                    d_w[i] = acc;
+                }
             }
-            d_w[i] = acc;
+            __syncthreads();
+            // The piece's [m_n, C] block of d ch, flat: 16 bytes a thread.
+            float* dst = d_ch + (s0 + p0) * c_n;
+            const int total = m_n * c_n, body = total >> 2;
+            for (int v = t; v < body; v += kBwdThreads) {
+                reinterpret_cast<float4*>(dst)[v] = out4[v];
+            }
+            for (int e = 4 * body + t; e < total; e += kBwdThreads) dst[e] = out[e];
+            __syncthreads();
         }
     }
 }
@@ -391,15 +484,24 @@ NST_API int nst_segment_sum(const void* w, const void* ch, const void* offsets, 
     return nst::launch_status();
 }
 
-// w [S] f32, ch [S, C] f32 (read only for d_w), g [N, C] f32, offsets [N+1]
+// w [S] f32, ch [S, C] f32 (read only for d_w), g [N, C] f32 (C <= 64), offsets [N+1]
 // i64 covering the stream (offsets[0] = 0, offsets[N] = S) -> d_ch [S, C] f32
 // and, when d_w is not null, d_w [S] f32.
 NST_API int nst_segment_sum_backward(const void* w, const void* ch, const void* g,
                                      const void* offsets, int num_rays, int channels,
                                      void* d_ch, void* d_w, void* stream) {
+    if (channels > kSegMaxChannels) return static_cast<int>(cudaErrorInvalidValue);
     if (num_rays <= 0 || channels <= 0) return 0;
-    const long long threads = static_cast<long long>(num_rays) * 32;
-    segment_sum_backward_kernel<<<nst::blocks_for(threads), nst::kThreads, 0,
+    // The stream's length is on the device (offsets[N]): a grid of a few
+    // CTAs an SM walks its tiles.
+    static int sms = 0;
+    if (sms == 0) {
+        int dev = 0;
+        cudaGetDevice(&dev);
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        if (sms <= 0) sms = 1;
+    }
+    segment_sum_backward_kernel<<<sms * kBwdCtasPerSm, kBwdThreads, 0,
                                   static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(w), static_cast<const float*>(ch),
         static_cast<const float*>(g), static_cast<const long long*>(offsets), num_rays,

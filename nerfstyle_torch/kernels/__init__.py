@@ -92,7 +92,8 @@ _SIGNATURES = {
     "nst_occupancy_num_partials": (),
     "nst_occupancy_merge": (_P, _P, _F, _LL, _P, _P, _P),
     "nst_occupancy_threshold": (_P, _P, _LL, _F, _P, _P, _P),
-    "nst_occupancy_skipdist_pass": (_P, _I, _I, _LL, _LL, _I, _P, _P),
+    "nst_occupancy_skipdist_max_grid": (),
+    "nst_occupancy_skipdist": (_P, _I, _LL, _I, _P, _P),
     "nst_packbits": (_P, _LL, _P, _P),
     "nst_unpackbits": (_P, _LL, _P, _P),
     "nst_morton3d": (_P, _LL, _P, _P),
@@ -427,6 +428,9 @@ def segment_sum(w: torch.Tensor, ch: torch.Tensor, offsets: torch.Tensor) -> tor
     return out
 
 
+SEGMENT_MAX_CHANNELS = 64
+
+
 def segment_sum_backward(
     w: torch.Tensor, ch: Optional[torch.Tensor], g: torch.Tensor, offsets: torch.Tensor,
     need_dw: bool = False,
@@ -442,6 +446,9 @@ def segment_sum_backward(
     _check("offsets", offsets, torch.int64, (n + 1,))
     c = g.shape[1]
     _same_device(w, g, offsets)
+    if c > SEGMENT_MAX_CHANNELS:
+        raise ValueError(f"K7b stages a CTA's g rows in shared memory: at most "
+                         f"{SEGMENT_MAX_CHANNELS} channels, got {c}")
     if need_dw:
         _check("ch", ch, torch.float32, (s, c))
         _same_device(w, ch)
@@ -604,10 +611,16 @@ def occupancy_merge(grid: torch.Tensor, tmp: torch.Tensor, decay: float, density
     return out, bitfield, mean
 
 
+# Launches a call of occupancy_skipdist (K6c): one fused pass.
+SKIPDIST_LAUNCHES = 1
+
+
 def occupancy_skipdist(bitfield: torch.Tensor, grid_size: int, dmax: int) -> torch.Tensor:
     """K6c: the [cascade*H^3] u8 skip distance of a bool bitfield (L-inf
     cells to the nearest occupied cell of the cascade, capped at ``dmax``),
-    in three axis passes (z, y, x), three launches (see csrc/occupancy.cu)."""
+    in one launch: a CTA dilates a slab of x-planes and its halo, packed as
+    bits, in shared memory (see csrc/occupancy.cu).  Takes grid sizes that
+    are multiples of 16 up to 128, and ``dmax`` up to 15."""
     _check("bitfield", bitfield, torch.bool, (None,))
     n, h3 = bitfield.shape[0], grid_size**3
     if n % h3:
@@ -615,14 +628,19 @@ def occupancy_skipdist(bitfield: torch.Tensor, grid_size: int, dmax: int) -> tor
     out = torch.empty((n,), dtype=torch.uint8, device=bitfield.device)
     if n == 0:
         return out
-    tmp = torch.empty_like(out)
     lib = library()
-    stream = _stream(bitfield)
-    for src, dst, stride in ((bitfield, out, 1), (out, tmp, grid_size),
-                             (tmp, out, grid_size * grid_size)):
-        status = lib.nst_occupancy_skipdist_pass(src.data_ptr(), int(src is bitfield), grid_size,
-                                                 n, stride, dmax, dst.data_ptr(), stream)
-        _launched(lib, status, "occupancy_skipdist")
+    max_grid = lib.nst_occupancy_skipdist_max_grid()
+    if grid_size % 16 or grid_size > max_grid:
+        raise ValueError(f"K6c takes grid sizes that are multiples of 16 up to {max_grid} "
+                         f"(a slab and its halo in shared memory), got {grid_size}")
+    if not 1 <= dmax <= 15:
+        raise ValueError(f"K6c counts distances in 4 bits: dmax 1..15, got {dmax}")
+    if bitfield.data_ptr() % 16:
+        raise ValueError("bitfield: K6c reads 16 cells at once and needs a 16-byte aligned "
+                         "tensor")
+    status = lib.nst_occupancy_skipdist(bitfield.data_ptr(), grid_size, n, dmax, out.data_ptr(),
+                                        _stream(bitfield))
+    _launched(lib, status, "occupancy_skipdist")
     return out
 
 

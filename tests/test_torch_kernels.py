@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+import segment_layouts as sg
+import skipdist_layouts as sl
 from composite_layouts import CHANNELS, LAYOUTS, layout
 from nerfstyle_torch import interop, kernels
 from nerfstyle_torch.ops import compositing as tc
@@ -122,14 +124,14 @@ def test_torch_two_stage_march_kernel_matches_plain_and_dense(cuda_device, bound
 @pytest.mark.parametrize("grid,cascade,density", [(16, 1, 0.01), (32, 2, 0.0005), (32, 2, 0.2),
                                                   (16, 2, 0.0)])
 def test_torch_skipdist_kernel_matches_plain(cuda_device, grid, cascade, density):
-    """K6c (three separable axis passes) equals the plain iterated dilation
-    bit for bit, in three launches."""
+    """K6c (one fused pass over a slab and its halo in shared memory) equals
+    the plain iterated dilation bit for bit, in one launch."""
     bits = torch.from_numpy(
         np.random.default_rng(grid + cascade).random(cascade * grid**3) < density).to(cuda_device)
     kernels.reset_launch_counts()
     got = to.skipdist_from_bitfield(bits, grid)
     torch.cuda.synchronize()
-    assert kernels.launch_counts["occupancy_skipdist"] == 3
+    assert kernels.launch_counts["occupancy_skipdist"] == 1
     want = to.skipdist_from_bitfield(bits, grid, plain=True)
     assert got.dtype == torch.uint8 and torch.equal(got, want)
 
@@ -145,9 +147,72 @@ def test_torch_occupancy_restore_and_merge_launch_skipdist(cuda_device):
     merged = to.merge_and_threshold(restored, torch.full_like(restored.density_grid, -1.0),
                                     0.95, 1.0, grid_size=16)
     torch.cuda.synchronize()
-    assert kernels.launch_counts["occupancy_skipdist"] == 6
+    assert kernels.launch_counts["occupancy_skipdist"] == 2
     for s in (restored, merged):
         assert torch.equal(s.skipdist, to.skipdist_from_bitfield(s.bitfield, 16, plain=True))
+
+
+SKIPDIST_CASES = [(h, cas, name) for h in (16, 32, 128) for cas in (1, 2) for name in sl.names(h)]
+
+
+def _skipdist_case(bits: np.ndarray, h: int, device) -> None:
+    t = torch.from_numpy(bits).to(device)
+    kernels.reset_launch_counts()
+    got = kernels.occupancy_skipdist(t, h, to.SKIP_DMAX)
+    again = kernels.occupancy_skipdist(t, h, to.SKIP_DMAX)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["occupancy_skipdist"] == 2 * kernels.SKIPDIST_LAUNCHES == 2
+    want = to.skipdist_from_bitfield(t, h, plain=True)
+    assert torch.equal(got, want) and torch.equal(got, again)
+
+
+@pytest.mark.parametrize("h,cascade,name", SKIPDIST_CASES)
+def test_torch_skipdist_kernel_on_crafted_grids(cuda_device, h, cascade, name):
+    """K6c on the crafted grids of tests/skipdist_layouts.py (empty, full,
+    single cells at corners, edges and centre, cells 14 and 15 from a probe
+    along each axis and the diagonal, on a slab border, in a halo, across a
+    z-word border; h = 16, 32, 128; 1 and 2 cascades): equal to the plain
+    version bit for bit, two launches equal, one launch a call."""
+    _skipdist_case(sl.grid(name, h, cascade), h, cuda_device)
+
+
+def test_torch_skipdist_kernel_on_a_sparse_random_grid(cuda_device):
+    _skipdist_case(sl.sparse_random(), 128, cuda_device)
+
+
+@pytest.mark.parametrize("h", [24, 256])
+def test_torch_skipdist_kernel_refuses_grids_its_tiles_do_not_hold(cuda_device, h):
+    """Grid sizes that are not a multiple of 16, or above 128, raise."""
+    bits = torch.zeros(h**3, dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError, match="multiples of 16 up to 128"):
+        kernels.occupancy_skipdist(bits, h, to.SKIP_DMAX)
+
+
+@pytest.mark.parametrize("need_dw", [False, True])
+@pytest.mark.parametrize("channels", sg.CHANNELS)
+@pytest.mark.parametrize("name", sg.LAYOUTS)
+def test_torch_segment_sum_backward_kernel_on_crafted_layouts(cuda_device, name, channels,
+                                                              need_dw):
+    """K7b on the crafted layouts of tests/segment_layouts.py (runs of
+    empty rays, a ray across a tile edge, one ray longer than a tile, a
+    style-like stream, a tile spanning more rays than it stages, one
+    sample): d ch equal to the plain version's bits, d w within 1e-6 of the
+    largest (C products in another order), two launches equal, one launch
+    a call."""
+    w, ch, g, offsets = (torch.from_numpy(a).to(cuda_device)
+                         for a in sg.layout(name, channels))
+    kernels.reset_launch_counts()
+    d_ch, d_w = kernels.segment_sum_backward(w, ch, g, offsets, need_dw)
+    d_ch2, d_w2 = kernels.segment_sum_backward(w, ch, g, offsets, need_dw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["segment_sum_backward"] == 2
+    p_ch, p_w = tc.segment_sum_backward_plain(w, ch, g, offsets, need_dw)
+    assert torch.equal(d_ch, p_ch) and torch.equal(d_ch, d_ch2)
+    if need_dw:
+        torch.testing.assert_close(d_w, p_w, rtol=0, atol=1e-6 * float(p_w.abs().max()))
+        assert torch.equal(d_w, d_w2)
+    else:
+        assert d_w is None
 
 
 @pytest.mark.parametrize("simplex_from", [0, 2])
@@ -797,3 +862,44 @@ def test_torch_mlp_backward_bf16_weight_grad_bit_reproducible(cuda_device, in_di
     for a, b in zip(first[1], dws_p):
         b = b.to(torch.bfloat16).float()
         assert float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)) <= 5e-3
+
+
+def test_torch_style_step_pinned_against_plain(cuda_device, tmp_path):
+    """chip_smoke.py's style-step check on a small style stage on the card:
+    the step with the kernels against the step with every plain version,
+    the colour-table gradient within 5e-3 relative L2 with every discrete
+    choice (class map, nearest style features, VGG16's ReLU masks and
+    max-pool picks) pinned to the plain step's, the flips of each kind
+    within their bound, the losses within 1e-5; the pinned plain step
+    gives the unpinned plain step's losses."""
+    import sys
+    from pathlib import Path
+
+    from nerfstyle_torch import train, utils
+    from nerfstyle_torch.data.synthetic import generate_scene
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    generate_scene(tmp_path / "scene", num_train=6, num_test=2, h=48, w=64)
+    data = tmp_path / "data.yaml"
+    data.write_text(f"root_path: {tmp_path / 'scene'}\ntype: Synthetic\nbound: 2.0\nscale: 1.0\n")
+    small = ["--pos_enc.n_lvls", "8", "--pos_enc.hashmap_size", "12", "--pos_enc.max_res_coeff",
+             "16", "--grid_size", "32", "--max_steps", "128", "--intervals.test", "0", "--yes"]
+    train.main(["--device", "cuda", "--log-dir", str(tmp_path / "recon"), "--data-cfg",
+                str(data), "--num_iterations", "40", "--num_rays_per_batch", "256", *small])
+    yy, xx = np.meshgrid(np.linspace(0, 1, 40), np.linspace(0, 1, 56), indexing="ij")
+    utils.save_image(np.stack([yy, xx, 1 - yy], -1), tmp_path / "style.png")
+    np.savez(tmp_path / "seg.npz", seg_map=(yy > .5).astype(int) * 2 + (xx > .5).astype(int))
+    st = train.main(["--device", "cuda", "--ckpt", str(tmp_path / "recon" / "iter_40.ckpt"),
+                     "--log-dir", str(tmp_path / "style"), "--style-image",
+                     str(tmp_path / "style.png"), "--style_seg_path", str(tmp_path / "seg.npz"),
+                     "--num_iterations", "2", *small])
+    fails = []
+    out = chip_smoke.style_step_vs_plain(st, fails)
+    assert not fails, fails
+    assert out["pinned"] <= 5e-3
+    cache = st.geom_cache(next(iter(st._geom_cache)))
+    plain = chip_smoke.style_step_run(st, cache, True)
+    pinned = chip_smoke.style_step_run(st, cache, True, pin=plain[2])
+    assert all(float(pinned[0][k]) == float(v) for k, v in plain[0].items())

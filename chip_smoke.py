@@ -95,10 +95,22 @@ have K4 (a frame chunk's and a style pose's marched chunk, a late train
 batch's marched stream and its kept prefix) and K4b (the kept prefix),
 timed from CUDA graphs of the kernel call alone
 (``count_composite_streams``); a launch outside these streams fails the
-run.  K6, K6c, K7b and K8 are timed from CUDA graphs too.  Each row has
-``calls`` beside ``launches``: the calls of a row's wrapper (K3, K3s and
-K6m launch two kernels a call, K6c kernels.SKIPDIST_LAUNCHES), and the
-rule-2 queue, calls x (ms - bound_ms), is logged.
+run.  K6, K6c, K7b and K8 are timed from CUDA graphs too, K8a beside an
+empty kernel's time (the launch floor).  Each row has ``calls`` beside
+``launches``: the calls of a row's wrapper (K3 and K3s launch two kernels
+a call, K6c kernels.SKIPDIST_LAUNCHES, K6c general
+kernels.SKIPDIST_GENERAL_LAUNCHES), and the rule-2 queue, calls x (ms -
+bound_ms), is logged.
+
+Grid sizes and class heads off the defaults: K6c's general entry (grid
+sizes that are not multiples of 16, or above 128) against the plain
+version at 2 x 256^3, 2 x 100^3 and 1 x 24^3, an occupancy restore and
+merge at grid 256 through ops/occupancy.py (the general entry, no plain
+version), and a 4096-ray crop rendered at grid 256 against the plain path
+(skipdist_general_phase); class heads of width 0 (field_apply and
+field_color forward and backward) and 70 (the head through K5 in 64-column
+slices, K7 and K7b at 73 channels) against their plain versions
+(class_head_phase).
 
 Prints the kernel table as one JSON line, then the last line
 ``{"ok": true, "device": {...}}``.  Exits nonzero, printing no result,
@@ -139,7 +151,7 @@ DENSE_COUNTERS = ("march_count", "march_write")
 TRAIN_COUNTERS = ("hashgrid_encode", "hashgrid_backward", "march_skip_count", "march_skip_write",
                   "composite_weights", "composite_backward", "segment_sum", "mlp_forward",
                   "mlp_backward", "occupancy_scatter_max", "occupancy_merge",
-                  "occupancy_threshold", "occupancy_skipdist")
+                  "occupancy_skipdist")
 STEP_COUNTERS = ("hashgrid_encode", "hashgrid_backward", "march_skip_count", "march_skip_write",
                  "composite_weights", "composite_backward", "segment_sum", "mlp_forward",
                  "mlp_backward")
@@ -165,6 +177,10 @@ STYLE_STEP_COUNTERS = ("hashgrid_encode", "hashgrid_backward", "mlp_forward", "m
 # picks of a window above 0 5-11; PERF.md §6).
 STYLE_FLIP_BOUND = {"preds": 50, "nearest": 60, "relu": 40, "pool": 60}
 K1_POINTS = 1 << 20
+# Grid sizes of K6c's general entry: above the one-launch kernel's 128 (the
+# timed row, a restore, a merge and a crop at it), one that is not a
+# multiple of 16 (timed too), and a small one.
+GENERAL_GRIDS = (256, 100, 24)
 # Rows of the timed K5 backward with every weight gradient (a train batch).
 K5_DW_ROWS = 1 << 20
 DENSITY_OFFSET = 6.0
@@ -907,6 +923,240 @@ def kernel_phases(renderer, params, rays_o, rays_d):
 # ---------------------------------------------------------------------------
 
 
+def skipdist_general_phase(renderer, params, rays_o, rays_d, fails) -> dict:
+    """K6c's general entry (three axis passes: grid sizes that are not
+    multiples of 16, or above 128), reached through
+    ``ops.occupancy.skipdist_from_bitfield``: equal to the plain version bit
+    for bit and between two calls, at 2 x 256^3 (the scene's spheres and a
+    sparse random grid), 2 x 100^3 and 1 x 24^3, each timed from a CUDA
+    graph of the call alone; an occupancy restore and merge at grid 256
+    launch it and neither the one-launch K6c nor the plain version; and a
+    4096-ray crop (the frame's central 64x64 pixels) rendered at grid 256,
+    where K3s forms its window reach from a finer cell, equal to the plain
+    path within the main crop's tolerances.  Returns the table entry
+    (2 x 256^3, the spheres)."""
+    from nerfstyle_torch import kernels
+    from nerfstyle_torch.data.synthetic import _SPHERES
+    from nerfstyle_torch.ops import occupancy
+    from nerfstyle_torch.render.renderer import Renderer
+
+    dev = torch.device(DEVICE)
+    cascade, bound = renderer.cascade, renderer.bound
+    big, odd, small = GENERAL_GRIDS
+    spheres = torch.from_numpy(sphere_bitfield(cascade, big, bound, _SPHERES)).to(dev)
+
+    def sparse(h: int, cas: int, density: float) -> torch.Tensor:
+        gen = torch.Generator().manual_seed(h)
+        return (torch.rand(cas * h**3, generator=gen) < density).to(dev)
+
+    cases = {f"{cascade} x {big}^3, the spheres": (spheres, big),
+             f"2 x {big}^3, random 0.02%": (sparse(big, 2, 2e-4), big),
+             f"2 x {odd}^3, random 0.02%": (sparse(odd, 2, 2e-4), odd),
+             f"1 x {small}^3, random 0.1%": (sparse(small, 1, 1e-3), small)}
+    entry = None
+    for label, (bits, h) in cases.items():
+        reset_counts()
+        got = occupancy.skipdist_from_bitfield(bits, h)
+        again = occupancy.skipdist_from_bitfield(bits, h)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        ref = occupancy.skipdist_from_bitfield(bits, h, plain=True)
+        routed = (counts["occupancy_skipdist_general"] == 2 * kernels.SKIPDIST_GENERAL_LAUNCHES
+                  and counts["occupancy_skipdist"] == 0)
+        if not (torch.equal(got, ref) and torch.equal(got, again) and routed):
+            fails.append(f"K6c general ({label}): equal to plain {torch.equal(got, ref)}, two "
+                         f"calls equal {torch.equal(got, again)}, launches "
+                         f"{counts['occupancy_skipdist_general']} general and "
+                         f"{counts['occupancy_skipdist']} one-launch for two calls")
+        ms = graph_ms(lambda: kernels.occupancy_skipdist_general(bits, h, occupancy.SKIP_DMAX))
+        host_ms = cuda_ms(lambda: kernels.occupancy_skipdist_general(bits, h,
+                                                                     occupancy.SKIP_DMAX), reps=5)
+        plain_ms = cuda_ms(lambda: occupancy.skipdist_plain(bits, h), reps=3)
+        # Bytes: the bitfield in, the distances out (as the one-launch row).
+        b_ms, b_by = bound_ms(nbytes=2 * bits.numel(), flops=6 * bits.numel())
+        log(f"K6c general skipdist ({label}, {int(bits.sum())} occupied): equal to plain: "
+            f"{torch.equal(got, ref)}, two calls equal: {torch.equal(got, again)}; distance "
+            f"histogram {torch.bincount(got.long(), minlength=16).tolist()}; ms {ms:.4f} (graph; "
+            f"{host_ms:.4f} launched one by one; {kernels.SKIPDIST_GENERAL_LAUNCHES} launches a "
+            f"call), plain_ms {plain_ms:.3f}, bound_ms {b_ms:.4f} ({b_by})")
+        if entry is None:
+            entry = dict(max_abs_err=float((got.int() - ref.int()).abs().max()), ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        del got, again, ref
+
+    # A restore and a merge at grid 256 through ops/occupancy.py: the
+    # general entry, never the plain version.
+    persisted = occupancy.PersistedOccupancy(
+        spheres.float().reshape(cascade, -1).cpu(), spheres.cpu(),
+        torch.tensor(float(spheres.float().mean())), torch.tensor(0, dtype=torch.int32),
+        torch.tensor(0, dtype=torch.int32))
+    plain_calls = []
+    skipdist_plain = occupancy.skipdist_plain
+
+    def counted_plain(*args, **kwargs):
+        plain_calls.append(1)
+        return skipdist_plain(*args, **kwargs)
+
+    occupancy.skipdist_plain = counted_plain
+    try:
+        reset_counts()
+        state = occupancy.occupancy_restore(persisted, big, dev)
+        merged = occupancy.merge_and_threshold(state, torch.full_like(state.density_grid, -1.0),
+                                               renderer.settings.density_decay,
+                                               renderer.settings.density_thresh, grid_size=big)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    finally:
+        occupancy.skipdist_plain = skipdist_plain
+    exact = all(torch.equal(st.skipdist, skipdist_plain(st.bitfield, big))
+                for st in (state, merged))
+    if plain_calls or counts["occupancy_skipdist"] or not exact or (
+            counts["occupancy_skipdist_general"] != 2 * kernels.SKIPDIST_GENERAL_LAUNCHES):
+        fails.append(f"the grid-{big} restore and merge: plain calls {len(plain_calls)}, launches "
+                     f"{counts['occupancy_skipdist_general']} general and "
+                     f"{counts['occupancy_skipdist']} one-launch, equal to plain {exact}")
+    del state, merged
+
+    # A crop rendered at the large grid: K3s over the general entry's
+    # distances.
+    r_big = Renderer(renderer.field_spec, renderer.bbox,
+                     dataclasses.replace(renderer.settings, grid_size=big), renderer.intr, bound,
+                     raymarch_channels=renderer.raymarch_channels,
+                     compute_dtype=renderer.compute_dtype, device=DEVICE)
+    reset_counts()
+    r_big.restore_occupancy(persisted)
+    w, h = OUT_DIMS
+    ys, xs = np.meshgrid(np.arange(h // 2 - 32, h // 2 + 32), np.arange(w // 2 - 32, w // 2 + 32),
+                         indexing="ij")
+    crop = torch.from_numpy((ys * w + xs).reshape(-1)).to(dev)
+    with torch.no_grad():
+        got = r_big.render_rays(params, rays_o[crop], rays_d[crop])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        ref = r_big.render_rays(params, rays_o[crop], rays_d[crop], plain=True)
+    tol = {"rgb_map": 2e-3, "trans_map": 2e-3, "weights_sum": 2e-3, "classes": 2e-2}
+    err = {k: float((got[k] - ref[k]).abs().max()) for k in tol}
+    if not (all(err[k] <= tol[k] for k in tol) and got["num_marched"] == ref["num_marched"]
+            and counts["march_skip_count"] > 0 and counts["occupancy_skipdist_general"] > 0):
+        fails.append(f"the grid-{big} crop: max abs err {err} (tol {tol}), samples "
+                     f"{got['num_marched']} vs {ref['num_marched']}, launches {counts}")
+    log(f"grid {big}: restore + merge launched the general entry "
+        f"({counts['occupancy_skipdist_general']} launches at the crop's restore), no plain "
+        f"version; a 4096-ray crop: samples {got['num_marched']} (plain {ref['num_marched']}), "
+        f"candidate windows {got['num_cand']}, max abs err against plain {err} (tol {tol})")
+    del r_big
+    torch.cuda.empty_cache()
+    return entry
+
+
+def class_head_phase(renderer, params, fails) -> None:
+    """Class heads off the default width, on the card, against their plain
+    versions.  Width 0 (a dataset without segment maps): ``field_apply`` and
+    ``field_color`` of the checkpoint's field with an empty class head,
+    forward within K5's tolerance and each parameter's gradient within 5e-3
+    relative L2 (the train step's tolerance), the class head launching
+    nothing.  Width 70: the class head (K5 twice, 64 + 6 columns) forward and
+    backward with every d W within K5's tolerance (mlp_check), and K7 and K7b
+    at 3 + 70 channels (two launches each): K7 against the float64 sums
+    (rtol 1e-5, atol 1e-6 of the largest), K7b's d ch equal to the plain
+    bits and d w within 1e-6 of the largest."""
+    from nerfstyle_torch import kernels
+    from nerfstyle_torch.models.fields import field_apply, field_color
+    from nerfstyle_torch.ops import compositing, hashgrid
+    from nerfstyle_torch.ops.mlp import mlp_init
+    from nerfstyle_torch.training.checkpoint import tree_flatten
+
+    spec, bbox, dtype = renderer.field_spec, renderer.bbox, renderer.compute_dtype
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    pts = bbox.min_pt + torch.rand((1 << 17, 3), generator=gen, device=dev) * bbox.size
+    enc = spec.grid.output_dim
+
+    def head(width: int):
+        return mlp_init(torch.Generator().manual_seed(width), enc, spec.density_hidden_dims,
+                        spec.density_hidden_layers, width, dev)
+
+    spec0 = dataclasses.replace(spec, class_dim=0)
+    base0 = {**params, "class_net": head(0)}
+    for branch in ("field_apply", "field_color"):
+        g = torch.randn((pts.shape[0], 3), generator=gen, device=dev)
+        g_sig = torch.randn((pts.shape[0],), generator=gen, device=dev) * 1e-3
+        runs = {}
+        for plain in (False, True):
+            p = {k: [w.detach().clone().requires_grad_(True) for w in v] if isinstance(v, list)
+                 else v.detach().clone().requires_grad_(True) for k, v in base0.items()}
+            reset_counts()
+            if branch == "field_apply":
+                ch, sig = field_apply(spec0, p, bbox, pts, dtype, plain=plain)
+                loss = (ch * g).sum() + (sig * g_sig).sum()
+            else:
+                ch = field_color(spec0, p, bbox, pts, dtype, plain=plain)
+                loss = (ch * g).sum()
+            leaves = tree_flatten(p)
+            grads = [torch.zeros_like(w) if d is None else d
+                     for w, d in zip(leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
+            torch.cuda.synchronize()
+            runs[plain] = (ch.detach(), grads, read_counts())
+        (ch, grads, counts), (ch_p, grads_p, counts_p) = runs[False], runs[True]
+        err, tol = float((ch - ch_p).abs().max()), k5_tolerance(ch_p, dtype)
+        grad_err = max(rel_l2(a, b) for a, b in zip(grads, grads_p))
+        heads = 3 if branch == "field_apply" else 2  # density (apply), color1, color2
+        ok = (tuple(ch.shape) == (pts.shape[0], 3) and err <= tol and grad_err <= 5e-3
+              and counts["mlp_forward"] == heads and not any(
+                  v for k, v in counts_p.items() if ":" not in k))
+        if not ok:
+            fails.append(f"class_dim 0, {branch}: shape {tuple(ch.shape)}, max abs err {err} "
+                         f"(tol {tol}), worst gradient relative L2 {grad_err} (tol 5e-3), K5 "
+                         f"launches {counts['mlp_forward']} (want {heads})")
+        log(f"class_dim 0, {branch} on {pts.shape[0]} points ({dtype}): channels "
+            f"{tuple(ch.shape)}, max abs err {err:.3e} (tol {tol:.3e}), worst gradient relative "
+            f"L2 {grad_err:.3e} (tol 5e-3), K5 forward launches {counts['mlp_forward']}")
+
+    # Width 70: the class head in two K5 calls, forward and backward.
+    with torch.no_grad():
+        h_color = hashgrid.hashgrid_encode(spec.grid, params["x_color_embedder"], pts)
+    reset_counts()
+    errs = mlp_check(head(70), h_color, None, dtype, True, gen, fails, "a 70-class head")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts["mlp_forward"] != 2 or counts["mlp_backward"] != 2:
+        fails.append(f"a 70-class head: K5 launches {counts['mlp_forward']} forward, "
+                     f"{counts['mlp_backward']} backward (want 2 each)")
+    log(f"a 70-class head on {h_color.shape[0]} rows ({dtype}): max abs err (out, d x, d W...) "
+        f"{errs}; K5 launches {counts['mlp_forward']} forward, {counts['mlp_backward']} "
+        f"backward")
+
+    # K7 and K7b at 3 + 70 channels on a ragged stream of 2^16 rays.
+    counts_ray = torch.randint(0, 24, (1 << 16,), generator=gen, device=dev)
+    offsets = torch.zeros((counts_ray.shape[0] + 1,), dtype=torch.int64, device=dev)
+    offsets[1:] = torch.cumsum(counts_ray, 0)
+    n_s = int(offsets[-1])
+    w = torch.rand((n_s,), generator=gen, device=dev)
+    ch = torch.randn((n_s, 73), generator=gen, device=dev)
+    g = torch.randn((counts_ray.shape[0], 73), generator=gen, device=dev)
+    reset_counts()
+    got = kernels.segment_sum(w, ch, offsets)
+    d_ch, d_w = kernels.segment_sum_backward(w, ch, g, offsets, True)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = compositing.segment_sum(w.double(), ch.double(), offsets, plain=True)
+    p_ch, p_w = compositing.segment_sum_backward_plain(w, ch, g, offsets, True)
+    k7_err = float((got.double() - want).abs().max())
+    k7_tol = 1e-6 * float(want.abs().max())
+    k7_rel = float(((got.double() - want).abs() - 1e-5 * want.abs()).max())
+    dw_err, dw_tol = float((d_w - p_w).abs().max()), 1e-6 * float(p_w.abs().max())
+    ok = (k7_rel <= k7_tol and torch.equal(d_ch, p_ch) and dw_err <= dw_tol
+          and counts["segment_sum"] == 2 and counts["segment_sum_backward"] == 2)
+    if not ok:
+        fails.append(f"K7/K7b at 73 channels: K7 max abs err {k7_err}, d ch equal "
+                     f"{torch.equal(d_ch, p_ch)}, d w err {dw_err} (tol {dw_tol}), launches "
+                     f"{counts['segment_sum']} and {counts['segment_sum_backward']} (want 2)")
+    log(f"K7/K7b at 73 channels on {n_s} samples of {counts_ray.shape[0]} rays: K7 max abs err "
+        f"{k7_err:.3e}; K7b d ch equal to plain: {torch.equal(d_ch, p_ch)}, d w max abs err "
+        f"{dw_err:.3e} (tol {dw_tol:.3e}); launches {counts['segment_sum']} + "
+        f"{counts['segment_sum_backward']}")
+
+
 def train_argv(steps: int, *extra: str, log_dir: str = "train"):
     """Flags of ``python -m nerfstyle_torch.train`` at the default configs on
     the synthetic scene (24 train views of 128x96, 6 test views)."""
@@ -1193,13 +1443,21 @@ def train_kernel_phases(trainer, fails):
         f"plain_ms {plain_ms:.3f}, scatter_reduce_ ms {lib_ms:.4f} (graph), bound_ms {b_ms:.4f} "
         f"({b_by})")
 
+    # The merge: the grid and the bitfield equal the plain bits; the mean
+    # within 1e-6 relative (float64 partial sums in another order); a second
+    # launch gives the same bits, mean included.
     flat = grid.reshape(-1).contiguous()
     merged, bits, mean = kernels.occupancy_merge(flat, tmp, s.density_decay, s.density_thresh)
+    again = kernels.occupancy_merge(flat, tmp, s.density_decay, s.density_thresh)
     merged_p, bits_p, mean_p = occupancy.merge_and_threshold_plain(flat, tmp, s.density_decay,
                                                                    s.density_thresh)
     mean_err = abs(float(mean) - float(mean_p)) / max(abs(float(mean_p)), 1e-30)
     if not (torch.equal(merged, merged_p) and torch.equal(bits, bits_p) and mean_err <= 1e-6):
         fails.append(f"K6 merge differs from plain (mean relative error {mean_err})")
+    same = (torch.equal(merged, again[0]) and torch.equal(bits, again[1])
+            and float(mean) == float(again[2]))
+    if not same:
+        fails.append("K6 merge differs between two launches")
     ms = graph_ms(lambda: kernels.occupancy_merge(flat, tmp, s.density_decay, s.density_thresh))
     host_ms = cuda_ms(lambda: kernels.occupancy_merge(flat, tmp, s.density_decay,
                                                       s.density_thresh), reps=20)
@@ -1210,8 +1468,8 @@ def train_kernel_phases(trainer, fails):
     table["K6m"] = dict(max_abs_err=float((merged - merged_p).abs().max()), ms=ms,
                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
     log(f"K6 occupancy_merge + threshold: {kc} cells, {int(bits.sum())} occupied, mean "
-        f"{float(mean):.5f} (relative error {mean_err:.2e}); ms {ms:.4f} (graph; {host_ms:.4f} "
-        f"launched one by one; 2 launches a call), plain_ms "
+        f"{float(mean):.5f} (relative error {mean_err:.2e}); two launches equal: {same}; ms "
+        f"{ms:.4f} (graph; {host_ms:.4f} launched one by one; 1 launch a call), plain_ms "
         f"{plain_ms:.3f}, bound_ms {b_ms:.4f} ({b_by})")
     return table
 
@@ -1702,6 +1960,10 @@ def import_phase(card: str, ckpt: Path, spec, frame, fails):
         "K8b invert": (lambda: kernels.morton3d_invert(codes),
                        lambda: morton.morton3d_invert_plain(codes), 16 * h**3, 3 * 12 * h**3),
     }
+    # The floor of kernels this short: an empty kernel's time from a CUDA
+    # graph, printed beside the K8a rows.
+    floor_ms = graph_ms(lambda: kernels.empty_kernel(torch.device(DEVICE)))
+    log(f"empty kernel (one warp): ms {floor_ms:.4f} (graph), the launch floor beside K8a")
     for kid, (fn, plain_fn, nbytes, flops) in cases.items():
         exact = torch.equal(fn(), plain_fn())
         if not exact:
@@ -1712,9 +1974,11 @@ def import_phase(card: str, ckpt: Path, spec, frame, fails):
         b_ms, b_by = bound_ms(nbytes=nbytes, flops=flops)
         table[kid] = dict(max_abs_err=0.0 if exact else float("inf"), ms=ms, plain_ms=plain_ms,
                           bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        if kid.startswith("K8a"):
+            table[kid]["empty_kernel_ms"] = floor_ms
         log(f"{kid}: {n if 'K8a' in kid else h**3} cells; equal to plain: {exact}; ms "
-            f"{ms:.4f} (graph; {host_ms:.4f} launched one by one), plain_ms {plain_ms:.4f}, "
-            f"bound_ms {b_ms:.5f} ({b_by})")
+            f"{ms:.4f} (graph; {host_ms:.4f} launched one by one; empty kernel {floor_ms:.4f}), "
+            f"plain_ms {plain_ms:.4f}, bound_ms {b_ms:.5f} ({b_by})")
     return launches, table
 
 
@@ -2206,15 +2470,19 @@ def style_kernel_phases(st, fails):
 
 
 def log_unported_bounds(n_rows: int) -> None:
-    """Bounds of the two kernels not yet ported, from their shapes: K5d
+    """Bounds of the three kernels not yet ported, from their shapes: K5d
     (sh_encode of color2's view-direction input, at the style stream's rows:
-    a direction of 3 fp32 in, 16 fp32 basis values out) and K9
+    a direction of 3 fp32 in, 16 fp32 basis values out), K9
     (grid_initialize at the default 16 levels x 2^19 rows x 2 features: the
-    style-0 table read once and the new table written once)."""
+    style-0 table read once and the new table written once) and P0 (the
+    row gather of tools/exp_encoder_r4.py: 256 int32 indices and 256 rows
+    of 128 fp32 read, the 256 rows written)."""
     k5d = bound_ms(n_rows * (3 + 16) * 4, n_rows * 40)
     k9 = bound_ms(2 * 16 * (1 << 19) * 2 * 4, 0)
+    p0 = bound_ms(256 * 4 + 2 * 256 * 128 * 4, 0)
     log(f"not yet ported: K5d sh_encode at {n_rows} rows bound_ms {k5d[0]:.4f} ({k5d[1]}); "
-        f"K9 grid_initialize at 16 x 2^19 x 2 bound_ms {k9[0]:.4f} ({k9[1]})")
+        f"K9 grid_initialize at 16 x 2^19 x 2 bound_ms {k9[0]:.4f} ({k9[1]}); P0 row gather "
+        f"of 256 x 128 fp32 bound_ms {p0[0]:.5f} ({p0[1]})")
 
 
 # ---------------------------------------------------------------------------
@@ -2323,6 +2591,9 @@ def main() -> int:
     count_hashgrid_streams()
     count_composite_streams()
     table, fails = kernel_phases(renderer, params, rays.origins, rays.dirs)
+    # Grid sizes and class heads off the defaults.
+    table["K6c general"] = skipdist_general_phase(renderer, params, rays.origins, rays.dirs, fails)
+    class_head_phase(renderer, params, fails)
 
     # The main path, through the CLI entry point (the checkpoint's restore
     # rebuilds the skip distance: K6c).
@@ -2423,8 +2694,8 @@ def main() -> int:
     # K8a unpack's and K8b morton3d's on the import).
     # K8a pack and K8b invert serve no path: 0 launches, checked against
     # their plain versions only.  K3 and K3s are two passes each (count and
-    # write), K6's merge two kernels (merge and threshold), K6c
-    # kernels.SKIPDIST_LAUNCHES a rebuild: their launches are all of theirs.
+    # write), K6c kernels.SKIPDIST_LAUNCHES a rebuild: their launches are all
+    # of theirs.
     main_paths = ("render", "train", "style")
     # K1 and K2: a row a stream, with that stream's launches (see
     # ENCODE_STREAMS); every launch of theirs must fall in a stream with a
@@ -2492,10 +2763,12 @@ def main() -> int:
         ("K6s", "K6 occupancy_scatter_max", "nerfstyle_torch/csrc/occupancy.cu",
          "nerfstyle_tpu/ops/occupancy.py:281", ("occupancy_scatter_max",), main_paths),
         ("K6m", "K6 occupancy_merge", "nerfstyle_torch/csrc/occupancy.cu",
-         "nerfstyle_tpu/ops/occupancy.py:157", ("occupancy_merge", "occupancy_threshold"),
-         main_paths),
+         "nerfstyle_tpu/ops/occupancy.py:157", ("occupancy_merge",), main_paths),
         ("K6c", "K6c occupancy_skipdist", "nerfstyle_torch/csrc/occupancy.cu",
          "nerfstyle_tpu/ops/occupancy.py:99", ("occupancy_skipdist",), main_paths),
+        ("K6c general", "K6c occupancy_skipdist_general (grid sizes off the one-launch tiles)",
+         "nerfstyle_torch/csrc/occupancy.cu", "nerfstyle_tpu/ops/occupancy.py:99",
+         ("occupancy_skipdist_general",), main_paths),
         ("K7", "K7 segment_sum", "nerfstyle_torch/csrc/composite.cu",
          "nerfstyle_tpu/render/renderer.py:648", ("segment_sum",), main_paths),
         ("K7b", "K7b segment_sum_backward", "nerfstyle_torch/csrc/composite.cu",
@@ -2512,13 +2785,18 @@ def main() -> int:
     # Calls: a row's launches over the launches a call makes.  The rule-2
     # queue ranks the rows by calls x (ms - bound), where ms times a call.
     # A call of a row with several counters (K3, K3s: count and write, the
-    # write skipped when nothing is kept; K6m: merge and threshold) is a
-    # launch of its first; K6c launches kernels.SKIPDIST_LAUNCHES a call.
-    per_call = {"K6c": kernels.SKIPDIST_LAUNCHES}
+    # write skipped when nothing is kept) is a launch of its first; K6c
+    # launches kernels.SKIPDIST_LAUNCHES a call, K6c general
+    # kernels.SKIPDIST_GENERAL_LAUNCHES.
+    per_call = {"K6c": kernels.SKIPDIST_LAUNCHES,
+                "K6c general": kernels.SKIPDIST_GENERAL_LAUNCHES}
+    # K6c general serves grid sizes the main paths' default (128) does not
+    # use: its launches there are 0; skipdist_general_phase runs it.
+    off_default = {"K6c general"}
     rows, loss = [], {}
     for kid, name, source, replaces, counters, paths in meta:
         launches = sum(runs[p].get(c, 0) for p in paths for c in counters)
-        if paths and launches <= 0:
+        if paths and launches <= 0 and kid not in off_default:
             fails.append(f"{name} launched no time on {paths}")
         calls, rem = divmod(sum(runs[p].get(counters[0], 0) for p in paths),
                             per_call.get(kid, 1))

@@ -13,14 +13,23 @@
 // sigmas are exp(.) * density_scale >= 0.  A max is order-free, so the
 // result is exact and deterministic whatever the atomics' order.
 //
-// Merge + threshold: a fixed number of blocks walks the grid (grid-stride),
-// merges each cell into a new grid and sums max(grid, 0) in double, one
-// partial per block; the threshold kernel sums those partials in a fixed
-// order (so the mean is deterministic), writes the mean, and thresholds.
-// Two launches, no host round trip for the mean.
+// Merge + threshold (K6m): one cooperative launch, every CTA resident (2 an
+// SM), with a grid-wide barrier between the merge and the threshold.  A CTA
+// takes one contiguous chunk of the grid: it reads grid and tmp with 16-byte
+// streaming loads (evict first, so the L2 keeps the outputs; two a thread in
+// flight before the first use), writes the merged cells with 16-byte stores,
+// keeps them in shared memory (up to 96 KiB a CTA: the whole 2 x 128^3 grid
+// fits the 132 SMs) and sums max(cell, 0) in double: a thread in a fixed
+// order, then a fixed shuffle tree and the warps in order, one partial a CTA.
+// After the barrier every CTA sums the partials in one fixed order (so every
+// CTA, and every launch, gets the same mean bits), and thresholds its chunk
+// from shared memory (cells past the 96 KiB read back from the merged grid, L2
+// at most sizes) four cells, one 4-byte store, a thread.  So the grid is read
+// once; tmp once; the merged grid and the bitfield written once.  Unaligned
+// pointers take the same walk a cell at a time.
 //
-// Bound on the H100: bytes (a 2 x 128^3 grid is 16.8 MB f32: read grid and
-// tmp, write grid and bitfield, read grid again: ~88 MB, ~0.03 ms).  The
+// Bound on the H100: bytes (a 2 x 128^3 grid: grid and tmp read, the merged
+// grid and the bitfield written, 13 bytes a cell: 54.6 MB, ~0.016 ms).  The
 // scatter-max moves 12 bytes a probe (index + sigma) and one random 4-byte
 // read-modify-write in L2.
 //
@@ -55,11 +64,27 @@
 // cells: 4 MiB each, ~2.5 us).  The kernel is held by instructions instead:
 // ~40 a line a round from shared memory, 14 rounds over a slab 15 times
 // wider than its central planes, at ~1 CTA an SM.
+//
+// K6c general: every other grid size (not a multiple of 16, or above 128)
+// takes three separable axis passes instead, one launch an axis (z, y, x),
+// one thread a cell.  The L-inf distance is separable:
+//     d(x, y, z) = min_x' max(|x - x'|, min_y' max(|y - y'|,
+//                  min_z' max(|z - z'|, occupied(x', y', z') ? 0 : dmax)))
+// and the cap commutes with each step (a window never reaches past dmax).
+// A pass takes the min of max(|delta|, d_prev) over the cell's neighbours
+// along its axis, walking outward from delta 0 and stopping once |delta|
+// reaches the best so far; the first pass reads the bitfield.  Integer
+// arithmetic: equal bits to the iterated dilation at any grid size.  Each
+// pass reads up to 2 (dmax - 1) neighbours a cell again from L1/L2 and
+// writes a 1-byte intermediate.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kMergeBlocks = 264;  // 2 per SM of the H100
+constexpr int kMergeThreads = 512;
+constexpr int kMergeBlocksPerSm = 2;
+constexpr int kMergeKeep = 24576;  // merged cells a CTA keeps in shared memory (96 KiB)
+constexpr int kMergeUnroll = 2;    // 16-byte loads of grid and of tmp a thread in flight
 
 __global__ void scatter_max_kernel(float* __restrict__ tmp, const long long* __restrict__ idx,
                                    const float* __restrict__ sig, long long num_probes) {
@@ -68,47 +93,216 @@ __global__ void scatter_max_kernel(float* __restrict__ tmp, const long long* __r
     atomicMax(reinterpret_cast<int*>(tmp + idx[i]), __float_as_int(sig[i]));
 }
 
-__device__ double block_sum(double v, double* shared) {
-    shared[threadIdx.x] = v;
+// The grid-wide barrier of K6m (cooperative groups' scheme): CTA 0 adds
+// 2^31 - (G - 1), every other CTA 1, so the word's top bit flips exactly
+// when all G have arrived and its low bits are back where they were.
+__device__ unsigned int merge_barrier_word = 0u;
+
+__device__ __forceinline__ void grid_barrier() {
     __syncthreads();
-    for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-        if (threadIdx.x < s) shared[threadIdx.x] += shared[threadIdx.x + s];
-        __syncthreads();
+    if (threadIdx.x == 0) {
+        const unsigned int add = blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1u) : 1u;
+        __threadfence();
+        const unsigned int old = atomicAdd(&merge_barrier_word, add);
+        while (((old ^ *static_cast<volatile unsigned int*>(&merge_barrier_word)) &
+                0x80000000u) == 0u) {
+        }
+        __threadfence();
     }
-    return shared[0];
+    __syncthreads();
 }
 
-__global__ void merge_kernel(const float* __restrict__ grid, const float* __restrict__ tmp,
-                             float decay, long long n, float* __restrict__ out,
-                             double* __restrict__ partials) {
-    __shared__ double shared[nst::kThreads];
-    double acc = 0.0;
-    for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-         i += static_cast<long long>(gridDim.x) * blockDim.x) {
-        float g = grid[i];
-        const float t = tmp[i];
-        if (g >= 0.f && t >= 0.f) g = fmaxf(__fmul_rn(g, decay), t);
-        out[i] = g;
-        acc += static_cast<double>(fmaxf(g, 0.f));
-    }
-    const double total = block_sum(acc, shared);
-    if (threadIdx.x == 0) partials[blockIdx.x] = total;
+// A warp's sum of v in a fixed order (a shuffle-down tree), broadcast from
+// lane 0 so every lane holds the same bits.
+__device__ __forceinline__ double warp_sum(double v) {
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) v += __shfl_down_sync(0xffffffffu, v, s);
+    return __shfl_sync(0xffffffffu, v, 0);
 }
 
-__global__ void threshold_kernel(const float* __restrict__ grid,
-                                 const double* __restrict__ partials, int num_partials,
-                                 long long n, float density_thresh, bool* __restrict__ bitfield,
-                                 float* __restrict__ mean_out) {
-    __shared__ double shared[nst::kThreads];
+__device__ __forceinline__ float merge_cell(float g, float t, float decay) {
+    return (g >= 0.f && t >= 0.f) ? fmaxf(__fmul_rn(g, decay), t) : g;
+}
+
+// V cells: one 4V-byte load or store; V flags: one V-byte store.
+template <int V>
+struct alignas(4 * V) Cells {
+    float v[V];
+};
+template <int V>
+struct alignas(V) Flags {
+    unsigned char v[V];
+};
+
+// A streaming load (evict first): grid and tmp are read once, so the L2
+// keeps the merged grid and the bitfield instead.
+template <int V>
+__device__ __forceinline__ Cells<V> load_streaming(const Cells<V>* p) {
+    Cells<V> c;
+    if constexpr (V == 4) {
+        *reinterpret_cast<float4*>(c.v) = __ldcs(reinterpret_cast<const float4*>(p));
+    } else {
+        c.v[0] = __ldcs(p->v);
+    }
+    return c;
+}
+
+// K6m, see the header.  V = 4 (16-byte aligned grid, tmp and merged grid,
+// 4-byte aligned bitfield) or 1.  A CTA's chunk starts at a multiple of 16
+// cells.
+template <int V>
+__global__ void __launch_bounds__(kMergeThreads, kMergeBlocksPerSm)
+merge_threshold_kernel(const float* __restrict__ grid, const float* __restrict__ tmp, float decay,
+                       long long n, long long chunk, float density_thresh,
+                       float* __restrict__ out, unsigned char* __restrict__ bits,
+                       double* __restrict__ partials, float* __restrict__ mean_out) {
+    extern __shared__ float4 merge_smem4[];
+    float* keep = reinterpret_cast<float*>(merge_smem4);
+    __shared__ double warp_part[kMergeThreads / 32];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const long long begin = min(n, static_cast<long long>(blockIdx.x) * chunk);
+    const int len = static_cast<int>(min(n, begin + chunk) - begin);
+    const int kept = min(len, kMergeKeep);
+    const int nv = len / V;
+    using C = Cells<V>;
+    const C* g_v = reinterpret_cast<const C*>(grid + begin);
+    const C* t_v = reinterpret_cast<const C*>(tmp + begin);
+    C* o_v = reinterpret_cast<C*>(out + begin);
+    C* k_v = reinterpret_cast<C*>(keep);
+
+    // Merge: vectors v = t, t + T, ... (kMergeUnroll loaded before use).
     double acc = 0.0;
-    for (int j = threadIdx.x; j < num_partials; j += blockDim.x) acc += partials[j];
-    const float mean = static_cast<float>(block_sum(acc, shared) / static_cast<double>(n));
+    for (int v0 = threadIdx.x; v0 < nv; v0 += kMergeThreads * kMergeUnroll) {
+        C a[kMergeUnroll], b[kMergeUnroll];
+#pragma unroll
+        for (int u = 0; u < kMergeUnroll; ++u) {
+            const int v = v0 + u * kMergeThreads;
+            if (v < nv) {
+                a[u] = load_streaming(g_v + v);
+                b[u] = load_streaming(t_v + v);
+            }
+        }
+#pragma unroll
+        for (int u = 0; u < kMergeUnroll; ++u) {
+            const int v = v0 + u * kMergeThreads;
+            if (v < nv) {
+                C m;
+#pragma unroll
+                for (int j = 0; j < V; ++j) {
+                    m.v[j] = merge_cell(a[u].v[j], b[u].v[j], decay);
+                    acc += static_cast<double>(fmaxf(m.v[j], 0.f));
+                }
+                o_v[v] = m;
+                if (V * v < kept) k_v[v] = m;
+            }
+        }
+    }
+    for (int i = V * nv + threadIdx.x; i < len; i += kMergeThreads) {  // V = 4: the tail
+        const float m = merge_cell(grid[begin + i], tmp[begin + i], decay);
+        acc += static_cast<double>(fmaxf(m, 0.f));
+        out[begin + i] = m;
+        if (i < kept) keep[i] = m;
+    }
+    acc = warp_sum(acc);
+    if (lane == 0) warp_part[warp] = acc;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        double s = 0.0;
+        for (int w = 0; w < kMergeThreads / 32; ++w) s += warp_part[w];
+        partials[blockIdx.x] = s;
+    }
+
+    grid_barrier();
+
+    // The mean: the CTAs' partials in one fixed order, the same in every CTA.
+    if (warp == 0) {
+        double s = 0.0;
+        for (int j = lane; j < static_cast<int>(gridDim.x); j += 32) s += __ldcg(partials + j);
+        s = warp_sum(s);
+        if (lane == 0) warp_part[0] = s;
+    }
+    __syncthreads();
+    const float mean = static_cast<float>(warp_part[0] / static_cast<double>(n));
     if (blockIdx.x == 0 && threadIdx.x == 0) *mean_out = mean;
     const float thresh = fminf(mean, density_thresh);
-    for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-         i += static_cast<long long>(gridDim.x) * blockDim.x) {
-        bitfield[i] = grid[i] > thresh;
+
+    // Threshold: V cells a thread a store, from shared memory (or read back).
+    using F = Flags<V>;
+    F* b_v = reinterpret_cast<F*>(bits + begin);
+    for (int v = threadIdx.x; v < nv; v += kMergeThreads) {
+        C m;
+        if (V * v < kept) {
+            m = k_v[v];
+        } else {
+#pragma unroll
+            for (int j = 0; j < V; ++j) m.v[j] = __ldcg(out + begin + V * v + j);
+        }
+        F f;
+#pragma unroll
+        for (int j = 0; j < V; ++j) f.v[j] = m.v[j] > thresh;
+        b_v[v] = f;
     }
+    for (int i = V * nv + threadIdx.x; i < len; i += kMergeThreads) {
+        bits[begin + i] = (i < kept ? keep[i] : __ldcg(out + begin + i)) > thresh;
+    }
+}
+
+// CTAs of K6m: kMergeBlocksPerSm on every SM of the current device.
+int merge_grid() {
+    static int grid = 0;
+    if (grid == 0) {
+        int dev = 0, sms = 0;
+        if (cudaGetDevice(&dev) != cudaSuccess ||
+            cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+            return 0;
+        }
+        grid = sms * kMergeBlocksPerSm;
+    }
+    return grid;
+}
+
+template <int V>
+int launch_merge(const float* grid, const float* tmp, float decay, long long n, long long chunk,
+                 float density_thresh, float* out, unsigned char* bits, double* partials,
+                 float* mean, int ctas, cudaStream_t stream) {
+    const int smem = static_cast<int>(chunk < kMergeKeep ? chunk : kMergeKeep) *
+                     static_cast<int>(sizeof(float));
+    static bool smem_set = false;
+    if (!smem_set) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            merge_threshold_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            kMergeKeep * static_cast<int>(sizeof(float)));
+        if (e != cudaSuccess) return static_cast<int>(e);
+        smem_set = true;
+    }
+    void* args[] = {&grid, &tmp, &decay, &n, &chunk, &density_thresh, &out, &bits, &partials,
+                    &mean};
+    const cudaError_t e = cudaLaunchCooperativeKernel(
+        reinterpret_cast<const void*>(merge_threshold_kernel<V>), dim3(ctas),
+        dim3(kMergeThreads), args, static_cast<size_t>(smem), stream);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return nst::launch_status();
+}
+
+// One K6c axis pass over n cells (cascade * h^3), axis stride 1 (z), h (y)
+// or h * h (x).  from_bits: in is the bitfield (0 where occupied, dmax
+// elsewhere); else in holds the previous pass's distances.
+__global__ void skipdist_pass_kernel(const unsigned char* __restrict__ in, bool from_bits,
+                                     int h, long long n, long long stride, int dmax,
+                                     unsigned char* __restrict__ out) {
+    const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const int c = static_cast<int>((i / stride) % h);
+    auto dist = [&](long long j) -> int {
+        const int v = in[j];
+        return from_bits ? (v ? 0 : dmax) : v;
+    };
+    int best = dist(i);
+    for (int r = 1; r < best; ++r) {
+        if (c - r >= 0) best = min(best, max(r, dist(i - r * stride)));
+        if (c + r < h) best = min(best, max(r, dist(i + r * stride)));
+    }
+    out[i] = static_cast<unsigned char>(best);
 }
 
 // K6c, see the header.  Shared memory: two buffers of pmax planes x h lines
@@ -116,7 +310,7 @@ __global__ void threshold_kernel(const float* __restrict__ grid,
 // words a word of the central planes.
 constexpr int kSkipSlab = 2;       // central x-planes a CTA
 constexpr int kSkipThreads = 512;
-constexpr int kSkipMaxGrid = 128;  // W <= 4 words a line
+constexpr int kSkipMaxGrid = 128;  // W <= 4 words a line (kernels.SKIPDIST_MAX_GRID)
 
 template <int W>
 __device__ __forceinline__ void load_line(const uint32_t* s, uint32_t (&v)[W]) {
@@ -344,32 +538,31 @@ NST_API int nst_occupancy_scatter_max(void* tmp, const void* idx, const void* si
     return nst::launch_status();
 }
 
-// Number of double partial sums nst_occupancy_merge writes.
-NST_API int nst_occupancy_num_partials() { return kMergeBlocks; }
+// Number of double partial sums nst_occupancy_merge writes (its CTAs).
+NST_API int nst_occupancy_num_partials() { return merge_grid(); }
 
-// grid, tmp [K] f32 -> out [K] f32 (the merged grid), partials [264] f64.
+// K6m: grid, tmp [K] f32 -> out [K] f32 (the merged grid), bitfield [K]
+// bool, mean [1] f32; partials [nst_occupancy_num_partials()] f64 scratch.
 NST_API int nst_occupancy_merge(const void* grid, const void* tmp, float decay, long long n,
-                                void* out, void* partials, void* stream) {
+                                float density_thresh, void* out, void* bitfield, void* partials,
+                                void* mean, void* stream) {
     if (n <= 0) return 0;
-    merge_kernel<<<kMergeBlocks, nst::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(grid), static_cast<const float*>(tmp), decay, n,
-        static_cast<float*>(out), static_cast<double*>(partials));
-    return nst::launch_status();
+    const int ctas = merge_grid();
+    if (ctas <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+    const long long chunk = ((n + ctas - 1) / ctas + 15) / 16 * 16;
+    const auto* g = static_cast<const float*>(grid);
+    const auto* t = static_cast<const float*>(tmp);
+    auto* o = static_cast<float*>(out);
+    auto* b = static_cast<unsigned char*>(bitfield);
+    auto* p = static_cast<double*>(partials);
+    auto* m = static_cast<float*>(mean);
+    const auto s = static_cast<cudaStream_t>(stream);
+    const bool vec = (reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(t) |
+                      reinterpret_cast<uintptr_t>(o)) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(b) % 4 == 0;
+    if (vec) return launch_merge<4>(g, t, decay, n, chunk, density_thresh, o, b, p, m, ctas, s);
+    return launch_merge<1>(g, t, decay, n, chunk, density_thresh, o, b, p, m, ctas, s);
 }
-
-// grid [K] f32 (merged), partials [264] f64 -> bitfield [K] bool, mean [1] f32.
-NST_API int nst_occupancy_threshold(const void* grid, const void* partials, long long n,
-                                    float density_thresh, void* bitfield, void* mean,
-                                    void* stream) {
-    if (n <= 0) return 0;
-    threshold_kernel<<<kMergeBlocks, nst::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(grid), static_cast<const double*>(partials), kMergeBlocks, n,
-        density_thresh, static_cast<bool*>(bitfield), static_cast<float*>(mean));
-    return nst::launch_status();
-}
-
-// Largest grid_size K6c takes.
-NST_API int nst_occupancy_skipdist_max_grid() { return kSkipMaxGrid; }
 
 // K6c: bitfield [cascades * h^3] bool (16-byte aligned) -> out [same] u8,
 // h a multiple of 16 and at most kSkipMaxGrid, 1 <= dmax <= 15.
@@ -390,4 +583,18 @@ NST_API int nst_occupancy_skipdist(const void* bitfield, int grid_size, long lon
         case 3: return launch_skipdist<3>(in, h, cascades, dmax, o, s);
         default: return launch_skipdist<4>(in, h, cascades, dmax, o, s);
     }
+}
+
+// K6c general, one axis pass: in [n] u8 (the bitfield when from_bits), out
+// [n] u8; any grid size.
+NST_API int nst_occupancy_skipdist_pass(const void* in, int from_bits, int grid_size,
+                                        long long n, long long stride, int dmax, void* out,
+                                        void* stream) {
+    if (grid_size <= 0 || dmax < 1 || dmax > 255) return static_cast<int>(cudaErrorInvalidValue);
+    if (n <= 0) return 0;
+    skipdist_pass_kernel<<<nst::blocks_for(n), nst::kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const unsigned char*>(in), from_bits != 0, grid_size, n, stride, dmax,
+        static_cast<unsigned char*>(out));
+    return nst::launch_status();
 }

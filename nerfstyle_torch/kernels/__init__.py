@@ -55,12 +55,13 @@ launch_counts: Dict[str, int] = {
     "mlp_dw_reduce": 0,
     "occupancy_scatter_max": 0,
     "occupancy_merge": 0,
-    "occupancy_threshold": 0,
     "occupancy_skipdist": 0,
+    "occupancy_skipdist_general": 0,
     "packbits": 0,
     "unpackbits": 0,
     "morton3d": 0,
     "morton3d_invert": 0,
+    "empty_kernel": 0,
 }
 
 _lock = threading.Lock()
@@ -90,14 +91,14 @@ _SIGNATURES = {
     "nst_mlp_dw_reduce": (_P, _I, _I, _I, _I, _I, _I, _P, _P),
     "nst_occupancy_scatter_max": (_P, _P, _P, _LL, _P),
     "nst_occupancy_num_partials": (),
-    "nst_occupancy_merge": (_P, _P, _F, _LL, _P, _P, _P),
-    "nst_occupancy_threshold": (_P, _P, _LL, _F, _P, _P, _P),
-    "nst_occupancy_skipdist_max_grid": (),
+    "nst_occupancy_merge": (_P, _P, _F, _LL, _F, _P, _P, _P, _P, _P),
     "nst_occupancy_skipdist": (_P, _I, _LL, _I, _P, _P),
+    "nst_occupancy_skipdist_pass": (_P, _I, _I, _LL, _LL, _I, _P, _P),
     "nst_packbits": (_P, _LL, _P, _P),
     "nst_unpackbits": (_P, _LL, _P, _P),
     "nst_morton3d": (_P, _LL, _P, _P),
     "nst_morton3d_invert": (_P, _LL, _P, _P),
+    "nst_empty_kernel": (_P,),
 }
 
 
@@ -208,6 +209,10 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+# Table row widths K1 and K2 take (csrc/hashgrid.cu's instantiations).
+HASHGRID_WIDTHS = (1, 2, 4)
+
+
 def hashgrid_encode(x: torch.Tensor, table: torch.Tensor, levels: torch.Tensor) -> torch.Tensor:
     """K1: [B, 3] points in [0, 1] -> [B, L*C] features (see csrc/hashgrid.cu).
 
@@ -219,8 +224,8 @@ def hashgrid_encode(x: torch.Tensor, table: torch.Tensor, levels: torch.Tensor) 
     _check("levels", levels, torch.int32, (4, None))
     _same_device(x, table, levels)
     num_levels, c = levels.shape[1], table.shape[1]
-    if c not in (1, 2, 4):
-        raise ValueError(f"table rows of width {c} are not supported (1, 2 or 4)")
+    if c not in HASHGRID_WIDTHS:
+        raise ValueError(f"table rows of width {c} are not supported {HASHGRID_WIDTHS}")
     out = torch.empty((b, num_levels * c), dtype=torch.float32, device=x.device)
     if b == 0:
         return out
@@ -245,8 +250,8 @@ def hashgrid_backward(
     _check("g", g, torch.float32, (b, None))
     _same_device(x, g, levels)
     c = g.shape[1] // num_levels
-    if c not in (1, 2, 4) or g.shape[1] != num_levels * c:
-        raise ValueError(f"cotangent of width {g.shape[1]} is not L*C for C in (1, 2, 4)")
+    if c not in HASHGRID_WIDTHS or g.shape[1] != num_levels * c:
+        raise ValueError(f"cotangent of width {g.shape[1]} is not L*C for C in {HASHGRID_WIDTHS}")
     grad = torch.zeros((num_rows, c), dtype=torch.float32, device=x.device)
     if b == 0:
         return grad
@@ -408,8 +413,21 @@ def composite_backward(sigmas, ch, tau, w, offsets, n_inc, g_img, g_ws, g_depth,
     return d_sigmas, d_ch
 
 
+# Channels a K7 or K7b launch takes (a CTA stages its rays' rows in shared
+# memory, csrc/composite.cu).  A wider stream launches once a slice of at
+# most this many channels: channels are independent, so the result is the
+# same.
+SEGMENT_MAX_CHANNELS = 64
+
+
+def _channel_slices(c: int) -> List[slice]:
+    return [slice(a, min(c, a + SEGMENT_MAX_CHANNELS))
+            for a in range(0, c, SEGMENT_MAX_CHANNELS)]
+
+
 def segment_sum(w: torch.Tensor, ch: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
-    """K7: out[r] = sum of w[i] * ch[i] over ray r's segment -> [N, C]."""
+    """K7: out[r] = sum of w[i] * ch[i] over ray r's segment -> [N, C]; one
+    launch a slice of SEGMENT_MAX_CHANNELS channels."""
     s = w.shape[0]
     n = offsets.shape[0] - 1
     _check("w", w, torch.float32, (s,))
@@ -417,6 +435,9 @@ def segment_sum(w: torch.Tensor, ch: torch.Tensor, offsets: torch.Tensor) -> tor
     _check("offsets", offsets, torch.int64, (n + 1,))
     _same_device(w, ch, offsets)
     c = ch.shape[1]
+    if c > SEGMENT_MAX_CHANNELS:
+        return torch.cat([segment_sum(w, ch[:, cs].contiguous(), offsets)
+                          for cs in _channel_slices(c)], dim=1)
     out = torch.empty((n, c), dtype=torch.float32, device=w.device)
     if n > 0 and c > 0:
         lib = library()
@@ -428,9 +449,6 @@ def segment_sum(w: torch.Tensor, ch: torch.Tensor, offsets: torch.Tensor) -> tor
     return out
 
 
-SEGMENT_MAX_CHANNELS = 64
-
-
 def segment_sum_backward(
     w: torch.Tensor, ch: Optional[torch.Tensor], g: torch.Tensor, offsets: torch.Tensor,
     need_dw: bool = False,
@@ -438,7 +456,9 @@ def segment_sum_backward(
     """K7b: (d_ch [S, C], d_w [S] or None) of K7 for the output cotangent
     ``g`` [N, C]: d_ch = w * g[ray], d_w = sum_c ch * g[ray] (only with
     ``need_dw``, which reads ``ch``).  ``offsets`` [N+1] must cover the
-    stream: offsets[0] = 0, offsets[N] = S (see csrc/composite.cu)."""
+    stream: offsets[0] = 0, offsets[N] = S (see csrc/composite.cu).  One
+    launch a slice of SEGMENT_MAX_CHANNELS channels; d_w then adds the
+    slices' sums in order."""
     s = w.shape[0]
     n = offsets.shape[0] - 1
     _check("w", w, torch.float32, (s,))
@@ -446,12 +466,19 @@ def segment_sum_backward(
     _check("offsets", offsets, torch.int64, (n + 1,))
     c = g.shape[1]
     _same_device(w, g, offsets)
-    if c > SEGMENT_MAX_CHANNELS:
-        raise ValueError(f"K7b stages a CTA's g rows in shared memory: at most "
-                         f"{SEGMENT_MAX_CHANNELS} channels, got {c}")
     if need_dw:
         _check("ch", ch, torch.float32, (s, c))
         _same_device(w, ch)
+    if c > SEGMENT_MAX_CHANNELS:
+        parts = [segment_sum_backward(w, ch[:, cs].contiguous() if need_dw else None,
+                                      g[:, cs].contiguous(), offsets, need_dw)
+                 for cs in _channel_slices(c)]
+        d_w = None
+        if need_dw:
+            d_w = parts[0][1]
+            for _, part in parts[1:]:
+                d_w = d_w + part
+        return torch.cat([d for d, _ in parts], dim=1), d_w
     d_ch = torch.empty((s, c), dtype=torch.float32, device=w.device)
     d_w = torch.empty((s,), dtype=torch.float32, device=w.device) if need_dw else None
     if n > 0 and c > 0 and s > 0:
@@ -464,8 +491,11 @@ def segment_sum_backward(
     return d_ch, d_w
 
 
+# K5's instantiations (csrc/mlp.cu): input widths, hidden width, hidden
+# layers, output widths 1..MLP_MAX_OUT.
 MLP_IN_DIMS = (16, 32)
 MLP_HIDDEN = 64
+MLP_HIDDEN_LAYERS = (1, 2)
 MLP_MAX_OUT = 64
 
 
@@ -474,7 +504,7 @@ def _mlp_args(x: torch.Tensor, weights) -> Tuple[torch.Tensor, int, int]:
     depth and the output width."""
     _check("x", x, torch.float32, (None, None))
     in_dim, n = x.shape[1], len(weights)
-    if in_dim not in MLP_IN_DIMS or n not in (2, 3):
+    if in_dim not in MLP_IN_DIMS or n - 1 not in MLP_HIDDEN_LAYERS:
         raise ValueError(f"K5 takes inputs of width {MLP_IN_DIMS} and 1 or 2 hidden layers, "
                          f"got width {in_dim} and {n} layers")
     out_dim = weights[-1].shape[1]
@@ -588,7 +618,8 @@ def occupancy_scatter_max(tmp: torch.Tensor, idx: torch.Tensor, sig: torch.Tenso
 def occupancy_merge(grid: torch.Tensor, tmp: torch.Tensor, decay: float, density_thresh: float):
     """K6 merge and threshold of a density grid [K] with the probe grid
     ``tmp`` [K]: (merged grid [K], bitfield [K] bool, mean density f32
-    scalar), see csrc/occupancy.cu.  Two launches, no host sync."""
+    scalar), see csrc/occupancy.cu.  One cooperative launch, no host sync;
+    the same bits from launch to launch."""
     k = grid.shape[0]
     _check("grid", grid, torch.float32, (k,))
     _check("tmp", tmp, torch.float32, (k,))
@@ -600,19 +631,33 @@ def occupancy_merge(grid: torch.Tensor, tmp: torch.Tensor, decay: float, density
         lib = library()
         partials = torch.empty((lib.nst_occupancy_num_partials(),), dtype=torch.float64,
                                device=grid.device)
-        stream = _stream(grid)
         status = lib.nst_occupancy_merge(grid.data_ptr(), tmp.data_ptr(), decay, k,
-                                         out.data_ptr(), partials.data_ptr(), stream)
+                                         density_thresh, out.data_ptr(), bitfield.data_ptr(),
+                                         partials.data_ptr(), mean.data_ptr(), _stream(grid))
         _launched(lib, status, "occupancy_merge")
-        status = lib.nst_occupancy_threshold(out.data_ptr(), partials.data_ptr(), k,
-                                             density_thresh, bitfield.data_ptr(),
-                                             mean.data_ptr(), stream)
-        _launched(lib, status, "occupancy_threshold")
     return out, bitfield, mean
 
 
-# Launches a call of occupancy_skipdist (K6c): one fused pass.
+# Launches a call of occupancy_skipdist (K6c): one fused pass; of
+# occupancy_skipdist_general: three axis passes.
 SKIPDIST_LAUNCHES = 1
+SKIPDIST_GENERAL_LAUNCHES = 3
+# Largest grid size the one-launch K6c takes (kSkipMaxGrid, csrc/occupancy.cu).
+SKIPDIST_MAX_GRID = 128
+
+
+def skipdist_one_launch_holds(grid_size: int) -> bool:
+    """True for the grid sizes the one-launch K6c takes: multiples of 16 up
+    to SKIPDIST_MAX_GRID (a slab and its halo in shared memory)."""
+    return grid_size % 16 == 0 and 0 < grid_size <= SKIPDIST_MAX_GRID
+
+
+def _skipdist_args(bitfield: torch.Tensor, grid_size: int) -> Tuple[int, torch.Tensor]:
+    _check("bitfield", bitfield, torch.bool, (None,))
+    n, h3 = bitfield.shape[0], grid_size**3
+    if n % h3:
+        raise ValueError(f"bitfield of {n} cells does not fit a {grid_size}^3 grid")
+    return n, torch.empty((n,), dtype=torch.uint8, device=bitfield.device)
 
 
 def occupancy_skipdist(bitfield: torch.Tensor, grid_size: int, dmax: int) -> torch.Tensor:
@@ -620,27 +665,45 @@ def occupancy_skipdist(bitfield: torch.Tensor, grid_size: int, dmax: int) -> tor
     cells to the nearest occupied cell of the cascade, capped at ``dmax``),
     in one launch: a CTA dilates a slab of x-planes and its halo, packed as
     bits, in shared memory (see csrc/occupancy.cu).  Takes grid sizes that
-    are multiples of 16 up to 128, and ``dmax`` up to 15."""
-    _check("bitfield", bitfield, torch.bool, (None,))
-    n, h3 = bitfield.shape[0], grid_size**3
-    if n % h3:
-        raise ValueError(f"bitfield of {n} cells does not fit a {grid_size}^3 grid")
-    out = torch.empty((n,), dtype=torch.uint8, device=bitfield.device)
+    are multiples of 16 up to 128, and ``dmax`` up to 15; other grid sizes
+    go to :func:`occupancy_skipdist_general`."""
+    n, out = _skipdist_args(bitfield, grid_size)
     if n == 0:
         return out
-    lib = library()
-    max_grid = lib.nst_occupancy_skipdist_max_grid()
-    if grid_size % 16 or grid_size > max_grid:
-        raise ValueError(f"K6c takes grid sizes that are multiples of 16 up to {max_grid} "
-                         f"(a slab and its halo in shared memory), got {grid_size}")
+    if not skipdist_one_launch_holds(grid_size):
+        raise ValueError(f"K6c takes grid sizes that are multiples of 16 up to "
+                         f"{SKIPDIST_MAX_GRID} (a slab and its halo in shared memory), got "
+                         f"{grid_size}")
     if not 1 <= dmax <= 15:
         raise ValueError(f"K6c counts distances in 4 bits: dmax 1..15, got {dmax}")
     if bitfield.data_ptr() % 16:
         raise ValueError("bitfield: K6c reads 16 cells at once and needs a 16-byte aligned "
                          "tensor")
+    lib = library()
     status = lib.nst_occupancy_skipdist(bitfield.data_ptr(), grid_size, n, dmax, out.data_ptr(),
                                         _stream(bitfield))
     _launched(lib, status, "occupancy_skipdist")
+    return out
+
+
+def occupancy_skipdist_general(bitfield: torch.Tensor, grid_size: int,
+                               dmax: int) -> torch.Tensor:
+    """K6c at any grid size: the same skip distance as
+    :func:`occupancy_skipdist`, in three separable axis passes (z, y, x),
+    one launch each (see csrc/occupancy.cu)."""
+    n, out = _skipdist_args(bitfield, grid_size)
+    if n == 0:
+        return out
+    if not 1 <= dmax <= 255:
+        raise ValueError(f"K6c general keeps distances in a byte: dmax 1..255, got {dmax}")
+    tmp = torch.empty_like(out)
+    lib = library()
+    stream = _stream(bitfield)
+    for src, dst, stride in ((bitfield, out, 1), (out, tmp, grid_size),
+                             (tmp, out, grid_size * grid_size)):
+        status = lib.nst_occupancy_skipdist_pass(src.data_ptr(), int(src is bitfield), grid_size,
+                                                 n, stride, dmax, dst.data_ptr(), stream)
+        _launched(lib, status, "occupancy_skipdist_general")
     return out
 
 
@@ -700,3 +763,12 @@ def morton3d_invert(codes: torch.Tensor) -> torch.Tensor:
         status = lib.nst_morton3d_invert(codes.data_ptr(), n, out.data_ptr(), _stream(codes))
         _launched(lib, status, "morton3d_invert")
     return out
+
+
+def empty_kernel(device: torch.device) -> None:
+    """Launch an empty kernel (one warp) on ``device``'s current stream: the
+    least time a launch takes, which K8a's few microseconds are held
+    against."""
+    lib = library()
+    status = lib.nst_empty_kernel(torch.cuda.current_stream(device).cuda_stream)
+    _launched(lib, status, "empty_kernel")

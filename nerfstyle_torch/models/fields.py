@@ -30,6 +30,8 @@ from typing import Any, Dict, List, Tuple, Union
 import numpy as np
 import torch
 
+from .. import kernels
+from ..config import ConfigError
 from ..core.types import BBox
 from ..ops.hashgrid import HashGridSpec, hashgrid_encode, hashgrid_init, hashgrid_spec
 from ..ops.mlp import mlp_apply, mlp_init, trunc_exp
@@ -57,6 +59,59 @@ class FieldSpec:
     @property
     def out_channels(self) -> int:
         return 3 + self.class_dim
+
+
+def _check_kernel_shapes(device, *, density_hidden_dims: int, density_hidden_layers: int,
+                         rgb_hidden_dims: int, rgb_hidden_layers: int, n_lvls: int,
+                         n_feats_per_lvl: int) -> None:
+    """On a CUDA device, raise ConfigError listing each network flag whose
+    value the CUDA kernels do not take, with the range it may take: K5's
+    hidden width, hidden depths and input widths (csrc/mlp.cu), K1/K2's
+    table row widths (csrc/hashgrid.cu).  The CPU path takes any value."""
+    if torch.device(device).type != "cuda":
+        return
+    errors = []
+    for flag, v in (("density_hidden_dims", density_hidden_dims),
+                    ("rgb_hidden_dims", rgb_hidden_dims)):
+        if v != kernels.MLP_HIDDEN:
+            errors.append(f"--{flag} {v}: the CUDA MLP kernel takes {kernels.MLP_HIDDEN}")
+    for flag, v in (("density_hidden_layers", density_hidden_layers),
+                    ("rgb_hidden_layers", rgb_hidden_layers)):
+        if v not in kernels.MLP_HIDDEN_LAYERS:
+            errors.append(f"--{flag} {v}: the CUDA MLP kernel takes "
+                          f"{' or '.join(map(str, kernels.MLP_HIDDEN_LAYERS))}")
+    if n_feats_per_lvl not in kernels.HASHGRID_WIDTHS:
+        errors.append(f"--pos_enc.n_feats_per_lvl {n_feats_per_lvl}: the CUDA hash-grid "
+                      f"kernels take {', '.join(map(str, kernels.HASHGRID_WIDTHS))}")
+    elif n_lvls * n_feats_per_lvl not in kernels.MLP_IN_DIMS:
+        errors.append(f"--pos_enc.n_lvls {n_lvls} x --pos_enc.n_feats_per_lvl "
+                      f"{n_feats_per_lvl} = {n_lvls * n_feats_per_lvl}: the CUDA MLP kernel "
+                      f"takes encodings {' or '.join(map(str, kernels.MLP_IN_DIMS))} wide")
+    if errors:
+        raise ConfigError("network config outside what the CUDA kernels take (the CPU path "
+                          "takes it): " + "; ".join(errors))
+
+
+def check_kernel_config(net_cfg, device) -> None:
+    """Raise ConfigError, naming each flag and its range, where a
+    NetworkConfig asks for a network the CUDA kernels do not take, on a
+    CUDA ``device``; any config on the CPU.  Entry points call it before
+    they load data."""
+    pe = net_cfg.pos_enc
+    _check_kernel_shapes(
+        device, density_hidden_dims=net_cfg.density_hidden_dims,
+        density_hidden_layers=net_cfg.density_hidden_layers,
+        rgb_hidden_dims=net_cfg.rgb_hidden_dims, rgb_hidden_layers=net_cfg.rgb_hidden_layers,
+        n_lvls=pe.n_lvls, n_feats_per_lvl=pe.n_feats_per_lvl)
+
+
+def check_field_spec(spec: "FieldSpec", device) -> None:
+    """:func:`check_kernel_config` for a built field spec."""
+    _check_kernel_shapes(
+        device, density_hidden_dims=spec.density_hidden_dims,
+        density_hidden_layers=spec.density_hidden_layers,
+        rgb_hidden_dims=spec.rgb_hidden_dims, rgb_hidden_layers=spec.rgb_hidden_layers,
+        n_lvls=spec.grid.num_levels, n_feats_per_lvl=spec.grid.level_dim)
 
 
 def make_grid_spec(
@@ -241,13 +296,20 @@ def field_apply(
     """Full forward: [M, 3] world points -> (channels [M, 3 + class_dim],
     sigmas [M]).  The density and color tables share their corners, so one
     encode of the concatenated [T, 2C] table serves both (as in JAX); its
-    table gradient splits back into the two tables through the concat."""
+    table gradient splits back into the two tables through the concat.
+    Where 2C is wider than K1's rows (C = 4) each table is encoded on its
+    own: the same features."""
     x = _encoder_input(bbox, pts)
     c = spec.grid.level_dim
-    fused = torch.cat([params["x_density_embedder"], params["x_color_embedder"]], dim=1)
-    h = hashgrid_encode(spec.grid, fused, x, plain=plain).reshape(-1, spec.grid.num_levels, 2 * c)
-    h_density = h[..., :c].reshape(-1, spec.grid.output_dim)
-    h_color = h[..., c:].reshape(-1, spec.grid.output_dim)
+    if 2 * c in kernels.HASHGRID_WIDTHS:
+        fused = torch.cat([params["x_density_embedder"], params["x_color_embedder"]], dim=1)
+        h = hashgrid_encode(spec.grid, fused, x, plain=plain)
+        h = h.reshape(-1, spec.grid.num_levels, 2 * c)
+        h_density = h[..., :c].reshape(-1, spec.grid.output_dim)
+        h_color = h[..., c:].reshape(-1, spec.grid.output_dim)
+    else:
+        h_density = hashgrid_encode(spec.grid, params["x_density_embedder"], x, plain=plain)
+        h_color = hashgrid_encode(spec.grid, params["x_color_embedder"], x, plain=plain)
     out = mlp_apply(params["density_net"], h_density, compute_dtype=compute_dtype, plain=plain)
     sigmas = trunc_exp(out[:, 0] + spec.density_offset)
     return _color_heads(params, h_color, compute_dtype, plain), sigmas

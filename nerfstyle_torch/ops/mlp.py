@@ -104,6 +104,22 @@ class MlpApply(torch.autograd.Function):
         return (dx, None, None, *dws)
 
 
+class EmptyMlp(torch.autograd.Function):
+    """An MLP with a last layer of width 0: the [M, 0] output with no
+    launch; its weights' gradients are zeros (the last layer's of size 0)
+    and its input's none, as the plain chain and JAX's ``mlp_apply`` give."""
+
+    @staticmethod
+    def forward(ctx, x, *weights):
+        ctx.shapes = [w.shape for w in weights]
+        return x.new_empty((x.shape[0], 0))
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, *(g.new_zeros(shape) if need else None
+                        for shape, need in zip(ctx.shapes, ctx.needs_input_grad[1:])))
+
+
 def mlp_apply(
     weights: Sequence[torch.Tensor],
     x: torch.Tensor,
@@ -116,14 +132,26 @@ def mlp_apply(
     with ``compute_dtype`` bf16 as under mixed precision.
 
     CUDA tensors go through kernel K5 (:class:`MlpApply`); CPU tensors (or
-    ``plain=True``) through :func:`mlp_apply_plain`."""
+    ``plain=True``) through :func:`mlp_apply_plain`.  On CUDA an MLP with no
+    outputs (a class head without classes) launches nothing
+    (:class:`EmptyMlp`), and one with more outputs than K5 takes runs K5
+    once for each slice of at most ``kernels.MLP_MAX_OUT`` last-layer
+    columns, the hidden layers computed again each time: the columns are
+    independent, so the output is the same."""
     _check_activation(output_activation)
     if not use_kernel(x, plain):
         return mlp_apply_plain(weights, x, output_activation, compute_dtype)
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"K5 computes in float32 or bfloat16, not {compute_dtype}")
-    return MlpApply.apply(x, output_activation == "sigmoid", compute_dtype == torch.bfloat16,
-                          *weights)
+    sigmoid, bf16 = output_activation == "sigmoid", compute_dtype == torch.bfloat16
+    out_dim = weights[-1].shape[1]
+    if out_dim == 0:
+        return EmptyMlp.apply(x, *weights)
+    if out_dim <= kernels.MLP_MAX_OUT:
+        return MlpApply.apply(x, sigmoid, bf16, *weights)
+    *hidden, last = weights
+    return torch.cat([MlpApply.apply(x, sigmoid, bf16, *hidden, last[:, a:a + kernels.MLP_MAX_OUT])
+                      for a in range(0, out_dim, kernels.MLP_MAX_OUT)], dim=1)
 
 
 class TruncExp(torch.autograd.Function):

@@ -8,7 +8,7 @@ cell's L-inf distance in cells to the nearest occupied cell of its cascade
 windows of a ray.  It is derived data: a checkpoint keeps the five
 persisted leaves (:class:`PersistedOccupancy`), and the skip distance is
 rebuilt on every restore and after every merge (kernel K6c on CUDA tensors,
-:func:`skipdist_from_bitfield`).
+at any grid size, :func:`skipdist_from_bitfield`).
 
 Maintenance, every ``update_iter`` train steps: jittered probes of every cell
 (:func:`occupancy_update_full`) or of H^3/4 uniform plus H^3/4 occupied cells
@@ -131,10 +131,14 @@ def skipdist_from_bitfield(bitfield: torch.Tensor, grid_size: int, *,
                            plain: bool = False) -> torch.Tensor:
     """[cascade * H^3] bool -> [cascade * H^3] u8: each cell's L-inf distance
     in cells to the nearest occupied cell of its cascade, capped at
-    SKIP_DMAX, the grid not wrapping; kernel K6c on CUDA tensors."""
+    SKIP_DMAX, the grid not wrapping.  On CUDA tensors kernel K6c: the
+    one-launch kernel at the grid sizes its tiles hold (multiples of 16 up
+    to 128), its general form (three axis passes) at every other size."""
     if not use_kernel(bitfield, plain):
         return skipdist_plain(bitfield, grid_size)
-    return kernels.occupancy_skipdist(bitfield.contiguous(), grid_size, SKIP_DMAX)
+    if kernels.skipdist_one_launch_holds(grid_size):
+        return kernels.occupancy_skipdist(bitfield.contiguous(), grid_size, SKIP_DMAX)
+    return kernels.occupancy_skipdist_general(bitfield.contiguous(), grid_size, SKIP_DMAX)
 
 
 def cell_linear_index(coords: torch.Tensor, grid_size: int) -> torch.Tensor:

@@ -24,7 +24,7 @@ from ..config import DatasetConfig, NetworkConfig, RendererConfig, TrainConfig, 
 from ..core.types import DatasetSplit
 from ..data import get_dataset
 from ..data.base import BaseDataset
-from ..models.fields import FieldSpec, Params, make_grid_spec, style_field_spec
+from ..models.fields import FieldSpec, Params, check_kernel_config, make_grid_spec, style_field_spec
 from ..ops.occupancy import occupancy_init, occupancy_persistable
 from ..training import checkpoint as ckpt_lib
 from .renderer import Renderer, RenderSettings
@@ -83,6 +83,7 @@ def load_renderer(
     net_cfg = _from_dict(NetworkConfig, meta["net_cfg"])
     render_cfg = _from_dict(RendererConfig, meta["render_cfg"])
     train_cfg = _from_dict(TrainConfig, meta["train_cfg"])
+    check_kernel_config(net_cfg, dev)
 
     # Train split only for the class count, then the test poses.
     train_set = get_dataset(dataset_cfg, split=DatasetSplit.TRAIN)

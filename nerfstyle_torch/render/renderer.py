@@ -42,7 +42,7 @@ import torch
 from .. import DeviceLike, resolve_device
 from ..core.cameras import generate_rays
 from ..core.types import BBox, Intrinsics
-from ..models.fields import FieldSpec, Params, field_color, field_density
+from ..models.fields import FieldSpec, Params, check_field_spec, field_color, field_density
 from ..ops.aabb import near_far_from_aabb
 from ..ops.compositing import sample_weights, segment_sum
 from ..ops.marching import MarchPlan, OccField, march_rays
@@ -242,6 +242,7 @@ class Renderer:
         if settings.use_ndc:
             raise NotImplementedError("NDC rendering is not implemented (nor enabled by the reference)")
         self.device = resolve_device(device)
+        check_field_spec(field_spec, self.device)
         # fp32 products must not run in TF32 (see ops/mlp.py).
         torch.backends.cuda.matmul.allow_tf32 = False
         self.field_spec = field_spec

@@ -53,7 +53,14 @@ from ..core.cameras import camera_dir_grid, pixel_rays, sample_pixels
 from ..core.types import DatasetSplit
 from ..data import get_dataset
 from ..losses.recon import cross_entropy_ignore, mse_loss, sparsity_loss, weight_reg_loss
-from ..models.fields import Params, field_density, field_init, make_grid_spec, style_field_spec
+from ..models.fields import (
+    Params,
+    check_kernel_config,
+    field_density,
+    field_init,
+    make_grid_spec,
+    style_field_spec,
+)
 from ..ops.occupancy import occupancy_init, occupancy_persistable
 from ..render.renderer import Renderer, RenderSettings, render_rays
 from . import checkpoint as ckpt_lib
@@ -148,6 +155,7 @@ class Trainer:
             raise NotImplementedError(
                 "--profile_dir (with --profile_start, --profile_steps): the profiler trace "
                 "window is not ported yet (ROADMAP.md section 1, item 2)")
+        check_kernel_config(self.net_cfg, self.device)
 
         dev = self.device
         self._data_gen = torch.Generator(device=dev).manual_seed(tc.rng_seed)

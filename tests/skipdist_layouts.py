@@ -4,9 +4,10 @@ bitfield packed as 32-bit words a z-line, a CTA's slab of SLAB x-planes with a
 halo of dmax - 1 planes each side, dmax - 1 rounds of a dilation (y and z
 of each plane, then x across three planes, into the other buffer) over the
 planes still exact, and the distance kept as a bit-sliced 4-bit counter,
-expanded to bytes at the end.  The CPU tests hold
-it against the JAX package's iterated dilation; the card tests hand the same
-grids to the kernel.
+expanded to bytes at the end.  Beside it, :func:`emulate_axis_passes`,
+the general K6c's three separable axis passes, which take every grid size.
+The CPU tests hold both against the JAX package's iterated dilation; the
+card tests hand the same grids to the kernels.
 
 A grid is a flat bool array ``[cascade * h^3]``, cell (c, x, y, z) at
 ``((c * h + x) * h + y) * h + z``.
@@ -160,3 +161,25 @@ def emulate(bits: np.ndarray, h: int, dmax: int = DMAX) -> np.ndarray:
                 cells[..., idx] = four.reshape(sc, h, -1)
             out[cas, x0:x0 + sc] = cells[..., :h]
     return out.reshape(-1)
+
+
+def emulate_axis_passes(bits: np.ndarray, h: int, dmax: int = DMAX) -> np.ndarray:
+    """The general K6c -> u8 [n]: passes along z, y, then x, each taking a
+    cell's min over its axis neighbours of max(|delta|, the previous pass's
+    distance), from the bitfield's 0 (occupied) or dmax.  The kernel walks
+    outward and stops once |delta| reaches the best so far; every farther
+    neighbour gives max(|delta|, .) >= the best, so the full min is the
+    same."""
+    d = np.where(bits.reshape(-1, h, h, h), 0, dmax).astype(np.int64)
+    for ax in (3, 2, 1):
+        best = d.copy()
+        for r in range(1, dmax):
+            if r >= h:
+                break
+            fwd = [slice(None)] * 4
+            bwd = [slice(None)] * 4
+            fwd[ax], bwd[ax] = slice(r, None), slice(None, -r)
+            best[tuple(bwd)] = np.minimum(best[tuple(bwd)], np.maximum(r, d[tuple(fwd)]))
+            best[tuple(fwd)] = np.minimum(best[tuple(fwd)], np.maximum(r, d[tuple(bwd)]))
+        d = best
+    return d.astype(np.uint8).reshape(-1)

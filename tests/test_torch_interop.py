@@ -61,6 +61,51 @@ def test_torch_packbits_matches_jax():
     assert torch.equal(back, torch.from_numpy(bits))
 
 
+def _k8a_unpack(packed: np.ndarray) -> np.ndarray:
+    """K8a unpack's word layout (csrc/interop.cu) in numpy: a 16-cell unit
+    from a little-endian 2-byte word, 4 bits a multiply-and-mask into 4
+    bytes; an odd last byte an 8-cell unit."""
+    def spread(x):
+        return (x * np.uint32(0x00204081)) & np.uint32(0x01010101)
+    nu = packed.size // 2
+    words = packed[:2 * nu].copy().view("<u2").astype(np.uint32)
+    quads = spread((words[:, None] >> (np.uint32(4) * np.arange(4, dtype=np.uint32))) & 0xF)
+    cells = [quads.astype("<u4").view(np.uint8).reshape(-1)]
+    if packed.size % 2:
+        last = np.uint32(packed[-1])
+        cells.append(spread(np.array([last & 0xF, last >> 4], np.uint32)).astype("<u4")
+                     .view(np.uint8))
+    return np.concatenate(cells).astype(bool)
+
+
+def _k8a_pack(bits: np.ndarray) -> np.ndarray:
+    """K8a pack's word layout: 16 bool bytes as 4 little-endian words, each
+    masked and folded to 4 bits by one multiply, the unit's 16 bits a
+    little-endian 2-byte word; an 8-cell tail one byte."""
+    def nibble(x):
+        return (((x & np.uint32(0x01010101)) * np.uint32(0x01020408)) >> np.uint32(24)) & 0xF
+    b = bits.astype(np.uint8)
+    nu = b.size // 16
+    quads = nibble(b[:16 * nu].copy().view("<u4").astype(np.uint32).reshape(nu, 4))
+    words = np.bitwise_or.reduce(quads << (np.uint32(4) * np.arange(4, dtype=np.uint32)), axis=1)
+    out = [words.astype("<u2").view(np.uint8)]
+    if b.size % 16:
+        q = nibble(b[16 * nu:].copy().view("<u4").astype(np.uint32))
+        out.append(np.array([q[0] | q[1] << 4], np.uint8))
+    return np.concatenate(out)
+
+
+@pytest.mark.parametrize("k", [8, 24, 16 * 1001 + 8, CASCADE * GRID**3])
+def test_torch_packbits_kernel_word_layout_matches_jax(k):
+    """The kernel's unit layout, emulated, equals JAX's LSB-first packing
+    both ways, at K of one byte, an odd byte count (an 8-cell tail) and
+    the grid's size."""
+    bits = np.random.default_rng(k).random(k) < 0.4
+    want = np.asarray(jocc.packbits(jnp.asarray(bits)))
+    np.testing.assert_array_equal(_k8a_pack(bits), want)
+    np.testing.assert_array_equal(_k8a_unpack(want), bits)
+
+
 def test_torch_occupancy_layout_conversion_matches_jax():
     rng = np.random.default_rng(2)
     grid = rng.normal(size=(CASCADE, GRID**3)).astype(np.float32)

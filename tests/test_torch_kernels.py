@@ -180,6 +180,58 @@ def test_torch_skipdist_kernel_on_a_sparse_random_grid(cuda_device):
     _skipdist_case(sl.sparse_random(), 128, cuda_device)
 
 
+GENERAL_CASES = [(h, cas, name) for h in (24, 40, 100, 256) for cas in (1, 2)
+                 for name in sl.names(h)]
+
+
+def _skipdist_general_case(bits: np.ndarray, h: int, device) -> None:
+    t = torch.from_numpy(bits).to(device)
+    kernels.reset_launch_counts()
+    got = to.skipdist_from_bitfield(t, h)
+    again = to.skipdist_from_bitfield(t, h)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["occupancy_skipdist_general"] == (
+        2 * kernels.SKIPDIST_GENERAL_LAUNCHES)
+    assert kernels.launch_counts["occupancy_skipdist"] == 0
+    want = to.skipdist_from_bitfield(t, h, plain=True)
+    assert torch.equal(got, want) and torch.equal(got, again)
+
+
+@pytest.mark.parametrize("h,cascade,name", GENERAL_CASES)
+def test_torch_skipdist_general_kernel_on_crafted_grids(cuda_device, h, cascade, name):
+    """K6c's general entry (three axis passes) at grid sizes the one-launch
+    kernel does not take (24, 40, 100: not multiples of 16; 256: above
+    128), reached through skipdist_from_bitfield, on the crafted grids of
+    tests/skipdist_layouts.py: equal to the plain version bit for bit, two
+    calls equal, three launches a call."""
+    _skipdist_general_case(sl.grid(name, h, cascade), h, cuda_device)
+
+
+def test_torch_skipdist_general_kernel_on_a_sparse_random_grid(cuda_device):
+    """2 x 256^3 cells, 0.02% occupied: every distance up to the cap."""
+    _skipdist_general_case(sl.sparse_random(h=256), 256, cuda_device)
+
+
+@pytest.mark.parametrize("h", [24, 100, 256])
+def test_torch_occupancy_restore_and_merge_at_grid_sizes_off_the_tiles(cuda_device, h):
+    """A restore and a merge at such a grid size rebuild the skip distance
+    through the general entry: no one-launch K6c, the plain result."""
+    rng = np.random.default_rng(h)
+    grid = torch.from_numpy(rng.exponential(1.0, size=(2, h**3)).astype(np.float32))
+    state = to.occupancy_init(2, h)._replace(density_grid=grid)
+    persisted = to.occupancy_persistable(state._replace(bitfield=grid.reshape(-1) > 6.0))
+    kernels.reset_launch_counts()
+    restored = to.occupancy_restore(persisted, h, cuda_device)
+    merged = to.merge_and_threshold(restored, torch.full_like(restored.density_grid, -1.0),
+                                    0.95, 1.0, grid_size=h)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["occupancy_skipdist_general"] == (
+        2 * kernels.SKIPDIST_GENERAL_LAUNCHES)
+    assert kernels.launch_counts["occupancy_skipdist"] == 0
+    for s in (restored, merged):
+        assert torch.equal(s.skipdist, to.skipdist_from_bitfield(s.bitfield, h, plain=True))
+
+
 @pytest.mark.parametrize("h", [24, 256])
 def test_torch_skipdist_kernel_refuses_grids_its_tiles_do_not_hold(cuda_device, h):
     """Grid sizes that are not a multiple of 16, or above 128, raise."""
@@ -569,7 +621,6 @@ def test_torch_occupancy_kernels_match_plain(cuda_device):
     torch.cuda.synchronize()
     assert kernels.launch_counts["occupancy_scatter_max"] == 1
     assert kernels.launch_counts["occupancy_merge"] == 1
-    assert kernels.launch_counts["occupancy_threshold"] == 1
     tmp_p = to.scatter_max(torch.full((cascade * n,), -1.0, device=cuda_device), i_d, s_d,
                            plain=True)
     assert torch.equal(tmp, tmp_p)
@@ -577,6 +628,62 @@ def test_torch_occupancy_kernels_match_plain(cuda_device):
     assert torch.equal(merged, merged_p)
     torch.testing.assert_close(mean, mean_p, rtol=1e-6, atol=0)
     assert torch.equal(bits, bits_p) and 0 < int(bits.sum()) < bits.numel()
+
+
+def _merge_inputs(k: int, seed: int):
+    rng = np.random.default_rng(seed)
+    grid = rng.exponential(1.0, size=k).astype(np.float32)
+    grid[rng.random(k) < 0.3] = 0.0
+    grid[rng.random(k) < 0.05] = -1.0
+    tmp = np.where(rng.random(k) < 0.5, rng.exponential(2.0, size=k), -1.0).astype(np.float32)
+    return grid, tmp
+
+
+@pytest.mark.parametrize("k,offset", [(16**3, 0), (2 * 128**3, 0), (1_000_003, 0),
+                                      (2 * 128**3, 1), (777, 3)])
+def test_torch_occupancy_merge_kernel_bit_equal_and_deterministic(cuda_device, k, offset):
+    """K6m (one cooperative launch): the merged grid and the bitfield equal
+    the plain version's bits, the mean within 1e-6 relative (float64 sums
+    in another order), and a second launch gives the same bits, mean
+    included.  K = 16^3, 2 x 128^3 (every CTA's chunk in shared memory), an
+    odd K that no vector width divides (a tail), and inputs offset by
+    ``offset`` floats (not 16-byte aligned: the cell-at-a-time walk)."""
+    grid, tmp = _merge_inputs(k + offset, k)
+    g_d = torch.from_numpy(grid).to(cuda_device)[offset:]
+    t_d = torch.from_numpy(tmp).to(cuda_device)[offset:]
+    kernels.reset_launch_counts()
+    merged, bits, mean = kernels.occupancy_merge(g_d, t_d, 0.95, 10.0)
+    merged2, bits2, mean2 = kernels.occupancy_merge(g_d, t_d, 0.95, 10.0)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["occupancy_merge"] == 2
+    merged_p, bits_p, mean_p = to.merge_and_threshold_plain(g_d, t_d, 0.95, 10.0)
+    assert torch.equal(merged, merged_p) and torch.equal(bits, bits_p)
+    torch.testing.assert_close(mean, mean_p, rtol=1e-6, atol=0)
+    assert torch.equal(merged, merged2) and torch.equal(bits, bits2)
+    assert float(mean) == float(mean2)
+    assert 0 < int(bits.sum()) < k
+
+
+@pytest.mark.parametrize("k,offset", [(8, 0), (8 * 1001, 0), (2 * 128**3, 0), (8 * 1001, 8),
+                                      (24, 8)])
+def test_torch_packbits_kernels_bit_equal_at_any_length(cuda_device, k, offset):
+    """K8a both ways at K = 8 (one byte), K = 8008 (an odd byte count: an
+    8-cell tail), the 2 x 128^3 grid, and with ``offset`` a bitfield 8- but
+    not 16-byte aligned and packed bytes at an odd address (8-cell units
+    throughout): equal to the plain versions bit for bit, one launch a
+    call."""
+    rng = np.random.default_rng(k + offset)
+    bits = torch.from_numpy(rng.random(k + offset) < 0.4).to(cuda_device)[offset:]
+    packed_p = to.packbits(bits, plain=True)
+    src = torch.cat([packed_p[:1], packed_p])[1:] if offset else packed_p
+    kernels.reset_launch_counts()
+    packed = kernels.packbits(bits)
+    unpacked = kernels.unpackbits(src)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["packbits"] == 1 and kernels.launch_counts["unpackbits"] == 1
+    assert torch.equal(packed, packed_p)
+    assert torch.equal(unpacked, bits)
+    assert torch.equal(unpacked, to.unpackbits(packed_p, plain=True))
 
 
 def test_torch_kernels_reject_cpu_and_bad_inputs(cuda_device):
@@ -646,7 +753,9 @@ def test_torch_mlp_kernel_matches_plain(cuda_device, in_dim, n_hidden, out_dim, 
         _mlp_kernel_against_plain(ws, x, g, act, dtype)
 
 
-def _mlp_kernel_against_plain(ws, x, g, act, dtype):
+def _mlp_kernel_against_plain(ws, x, g, act, dtype, launches=1):
+    """``launches``: K5 calls a forward (and a backward) makes: one a
+    64-column slice of the last layer."""
     from nerfstyle_torch.ops import mlp as tmlp
 
     for need_dw in (False, True):
@@ -660,13 +769,145 @@ def _mlp_kernel_against_plain(ws, x, g, act, dtype):
             torch.cuda.synchronize()
             runs[plain] = (out.detach(), grads, dict(kernels.launch_counts))
         (out, grads, counts), (out_p, grads_p, counts_p) = runs[False], runs[True]
-        assert counts["mlp_forward"] == 1 and counts["mlp_backward"] == 1
-        assert counts["mlp_dw_reduce"] == int(need_dw and dtype == torch.bfloat16)
+        assert counts["mlp_forward"] == launches and counts["mlp_backward"] == launches
+        assert counts["mlp_dw_reduce"] == launches * int(need_dw and dtype == torch.bfloat16)
         assert not any(counts_p.values())
         assert len(grads) == len(grads_p) == 1 + need_dw * len(ws)
         for got, want in [(out, out_p)] + list(zip(grads, grads_p)):
             assert got.shape == want.shape
             torch.testing.assert_close(got, want, rtol=0, atol=_mlp_tol(want, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("in_dim,n_hidden", [(32, 1), (16, 2)])
+def test_torch_mlp_kernel_with_a_head_wider_than_64(cuda_device, in_dim, n_hidden, dtype):
+    """A 70-wide last layer (a 70-class head): K5 twice, on columns 0-63 and
+    64-69, the hidden layers computed again; forward, d x and every d W
+    against the plain chain at K5's tolerances (the hidden layers' d W sum
+    the two calls' d W)."""
+    ws, x, g = _mlp_case(np.random.default_rng(70 + in_dim), cuda_device, in_dim, n_hidden, 70)
+    _mlp_kernel_against_plain(ws, x, g, None, dtype, launches=2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_torch_mlp_kernel_with_an_empty_head(cuda_device, dtype):
+    """A last layer of width 0 (no classes): [M, 0] with no launch, zero
+    gradients for every weight, as the plain chain gives."""
+    from nerfstyle_torch.ops import mlp as tmlp
+
+    ws, x, g = _mlp_case(np.random.default_rng(0), cuda_device, 32, 1, 0)
+    runs = {}
+    for plain in (False, True):
+        wr = [w.clone().requires_grad_(True) for w in ws]
+        kernels.reset_launch_counts()
+        out = tmlp.mlp_apply(wr, x, None, dtype, plain=plain)
+        grads = torch.autograd.grad((out * g).sum(), wr)
+        torch.cuda.synchronize()
+        runs[plain] = (out, grads, dict(kernels.launch_counts))
+    (out, grads, counts), (out_p, grads_p, _) = runs[False], runs[True]
+    assert out.shape == out_p.shape == (x.shape[0], 0)
+    assert not any(counts.values())
+    for a, b in zip(grads, grads_p):
+        assert a.shape == b.shape and not bool(a.any()) and not bool(b.any())
+
+
+def test_torch_segment_sum_kernels_at_73_channels(cuda_device):
+    """K7 and K7b at 3 + 70 channels (a 70-class head): one launch a
+    64-channel slice.  K7 against the float64 sums: rtol 1e-5, atol 1e-6 of
+    the largest; K7b's d ch equal to the plain bits, d w within 1e-6 of the
+    largest (C products summed in another order), both equal on a second
+    call."""
+    w, ch, g, offsets = (torch.from_numpy(a).to(cuda_device)
+                         for a in sg.layout("style-like", 73))
+    kernels.reset_launch_counts()
+    got = kernels.segment_sum(w, ch, offsets)
+    d_ch, d_w = kernels.segment_sum_backward(w, ch, g, offsets, True)
+    d_ch2, d_w2 = kernels.segment_sum_backward(w, ch, g, offsets, True)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["segment_sum"] == 2
+    assert kernels.launch_counts["segment_sum_backward"] == 4
+    want = tc.segment_sum(w.double(), ch.double(), offsets, plain=True)
+    torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-6 * float(want.abs().max()))
+    p_ch, p_w = tc.segment_sum_backward_plain(w, ch, g, offsets, True)
+    assert torch.equal(d_ch, p_ch) and torch.equal(d_ch, d_ch2) and torch.equal(d_w, d_w2)
+    torch.testing.assert_close(d_w, p_w, rtol=0, atol=1e-6 * float(p_w.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_torch_field_apply_at_four_features_a_level(cuda_device, dtype):
+    """At 4 features a level (8 levels: 32-wide encodings) field_apply
+    encodes the two tables on their own, K1 and K2 once each a table, as
+    the fused [T, 8] rows are wider than K1 takes: channels and densities
+    within K5's tolerance of the plain field, each gradient leaf within
+    5e-3 relative L2 (the train step's tolerance)."""
+    from nerfstyle_torch.core.types import BBox
+    from nerfstyle_torch.models import fields as tf
+    from nerfstyle_torch.training.checkpoint import tree_flatten
+
+    grid = th.hashgrid_spec(num_levels=8, level_dim=4, base_resolution=16, per_level_scale=1.5,
+                            log2_hashmap_size=12)
+    spec = tf.style_field_spec(grid, class_dim=3)
+    base = tf.field_init(spec, torch.Generator().manual_seed(0), cuda_device)
+    rng = np.random.default_rng(0)
+    for k in ("x_density_embedder", "x_color_embedder"):
+        base[k] = torch.from_numpy(rng.uniform(-1, 1, tuple(base[k].shape)).astype(
+            np.float32)).to(cuda_device)
+    pts = torch.from_numpy(rng.uniform(-1, 1, size=(20000, 3)).astype(np.float32)).to(cuda_device)
+    g = torch.from_numpy(rng.normal(size=(20000, 6)).astype(np.float32)).to(cuda_device)
+    runs = {}
+    for plain in (False, True):
+        params = {k: [w.clone().requires_grad_(True) for w in v] if isinstance(v, list)
+                  else v.clone().requires_grad_(True) for k, v in base.items()}
+        leaves = tree_flatten(params)
+        kernels.reset_launch_counts()
+        ch, sig = tf.field_apply(spec, params, BBox.from_radius(1.0, cuda_device), pts, dtype,
+                                 plain=plain)
+        grads = torch.autograd.grad((ch * g).sum() + sig.sum() * 1e-3, leaves)
+        torch.cuda.synchronize()
+        runs[plain] = (ch.detach(), sig.detach(), grads, dict(kernels.launch_counts))
+    (ch, sig, grads, counts), (ch_p, sig_p, grads_p, _) = runs[False], runs[True]
+    assert counts["hashgrid_encode"] == 2 and counts["hashgrid_backward"] == 2
+    for got, want in ((ch, ch_p), (sig, sig_p)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=_mlp_tol(want, dtype))
+    for a, b in zip(grads, grads_p):
+        assert float(torch.linalg.vector_norm(a - b)) <= 5e-3 * float(torch.linalg.vector_norm(b))
+
+
+def test_torch_train_step_without_classes_against_plain(cuda_device, tmp_path, monkeypatch):
+    """A small train run on the card on the synthetic scene with its
+    segment channel dropped (class_dim 0, as a dataset without seg maps
+    gives), then chip_smoke.py's one step with the kernels against the
+    plain step: its losses, gradients, Adam moments and updates within
+    that check's tolerances."""
+    import sys
+    from pathlib import Path
+
+    from nerfstyle_torch import train
+    from nerfstyle_torch.data import synthetic
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    init = synthetic.SyntheticDataset.__init__
+
+    def without_segments(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        self.seg_groups, self.num_classes = None, 0
+
+    monkeypatch.setattr(synthetic.SyntheticDataset, "__init__", without_segments)
+    synthetic.generate_scene(tmp_path / "scene", num_train=6, num_test=2, h=48, w=64)
+    data = tmp_path / "data.yaml"
+    data.write_text(f"root_path: {tmp_path / 'scene'}\ntype: Synthetic\nbound: 2.0\nscale: 1.0\n")
+    trainer = train.main(["--device", "cuda", "--log-dir", str(tmp_path / "recon"), "--data-cfg",
+                          str(data), "--num_iterations", "40", "--num_rays_per_batch", "1024",
+                          "--pos_enc.n_lvls", "8", "--pos_enc.hashmap_size", "12",
+                          "--pos_enc.max_res_coeff", "16", "--grid_size", "32", "--max_steps",
+                          "128", "--intervals.test", "0", "--yes"])
+    assert trainer.field_spec.class_dim == 0
+    assert [tuple(w.shape) for w in trainer.params["class_net"]][-1] == (64, 0)
+    fails = []
+    chip_smoke.step_vs_plain(trainer, fails)
+    assert not fails, fails
 
 
 @pytest.mark.parametrize("rows", [4096, 670322])

@@ -23,6 +23,11 @@ SMALL = [(h, cas, name) for h, cas in itertools.product((16, 32), (1, 2))
 # the far corner of a second cascade; the sparse grid below adds every
 # distance up to the cap.
 LARGE = [(128, 1, "word border"), (128, 1, "inside a halo"), (128, 2, "far corner")]
+# Five more 128-cell grids, several seconds each on the CPU: marked slow, so
+# they stay runnable (`-m slow`) and cost the quick tier nothing.
+LARGE_SLOW = [pytest.param(128, *case, marks=pytest.mark.slow)
+              for case in ((1, "corner"), (2, "centre"), (1, "slab border"),
+                           (2, "15 along the diagonal"), (1, "full"))]
 
 
 def _jax(bits: np.ndarray, h: int) -> np.ndarray:
@@ -37,7 +42,7 @@ def _check(bits: np.ndarray, h: int) -> None:
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("h,cascade,name", SMALL + LARGE)
+@pytest.mark.parametrize("h,cascade,name", SMALL + LARGE + LARGE_SLOW)
 def test_torch_skipdist_crafted_grids_match_jax(h, cascade, name):
     _check(sl.grid(name, h, cascade), h)
 

@@ -87,6 +87,29 @@
    launches counted: K1s, K2s), the test PSNR must rise 5 dB, one step
    against every plain version, K1s and K2s on a late batch's streams, and
    one frame from its checkpoint through the render entry point.
+11. The view configuration (``view_phase``, after the main frame): the
+   render checkpoint's network as the style field with the view-direction
+   input (``use_dir``, SH degree 4: color2 [32, 64, 64, 3]) and as the base
+   field (``kind="base"``, density_out_dims 16: rgb_net [31 padded to 32,
+   64, 64, 3]), seeded random weights, each through ``Renderer.render``
+   (library API: the entry points build neither) on the 1008x756 frame,
+   launch counters set to 0 before the occupancy restore and read after
+   the frame: K5d (sh_encode), K1, K3s, K4, K5, K7 and K6c must launch;
+   finite maps, the opacity IoU with the spheres >= 0.8, a 4096-ray crop
+   within the render phase's tolerances of the plain path; steady frames
+   of the default field and both families in turns.  No other run may
+   launch K5d.
+
+Before the main path: K5d at a frame chunk's kept stream (129,929 rows)
+and at a style cache's size (640,000), bit for bit against plain; K9
+(grid_initialize, on no path) at the default grid with one style (bit for
+bit against plain at full size: the reference on every reached row) and
+two styles, and at a small spec with three styles every reached row
+holding a colliding corner's value; P0 (take_rows, on no path) at its own
+shape and at 2^20 indices, bit for bit, beside ``index_select``.  K9's
+bound counts its corner traffic, a row (4C bytes) an access, at an L2 rate
+the script measures (``l2_rate``, the launch floor taken off).  The run's
+seconds are logged at the end.
 
 K1 and K2 have a row in the kernel table for each stream they run on,
 timed on that stream and given that stream's launches: each launch of
@@ -115,6 +138,15 @@ slices, K7 and K7b at 73 channels) against their plain versions
 Prints the kernel table as one JSON line, then the last line
 ``{"ok": true, "device": {...}}``.  Exits nonzero, printing no result,
 without a CUDA device or when any phase fails.
+
+    python3 chip_smoke.py --late-step
+
+runs the train path alone (the train phase above) and then five late
+steps, each under the profiler, and prints what each step issued
+(operators, kernel launches, device events, synchronizations) and its
+device busy time as one JSON line.  A copy of this file in each of two
+checkouts compares their late steps by what they issue, which the host's
+noise does not move.
 """
 
 from __future__ import annotations
@@ -1681,9 +1713,11 @@ def mlp_check(weights, x, act, dtype, need_dw: bool, gen, fails, what: str):
     return errs
 
 
-def profile_once(fn, label: str, card: str) -> None:
-    """One call of fn under torch.profiler: the kernel table by device time
-    and the device's idle share of the call's wall time."""
+def profile_once(fn, label: str, card: str) -> dict:
+    """One call of fn under torch.profiler: the kernel table by device time,
+    the device's idle share of the call's wall time, and what the call
+    issued: operators (``aten::`` events), kernel launches (the runtime's
+    launch calls), device events and synchronizations.  Returns these."""
     try:
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
@@ -1698,10 +1732,19 @@ def profile_once(fn, label: str, card: str) -> None:
         # Device events only: an operator's row repeats its kernels' time.
         busy_ms = sum(e.self_device_time_total for e in events
                       if e.device_type == DeviceType.CUDA) / 1e3
+        host = [e for e in events if e.device_type == DeviceType.CPU]
+        issued = {
+            "operators": sum(e.count for e in host if e.key.startswith("aten::")),
+            "launches": sum(e.count for e in host if "LaunchKernel" in e.key),
+            "device_events": sum(e.count for e in events if e.device_type == DeviceType.CUDA),
+            "syncs": sum(e.count for e in host if "Synchronize" in e.key),
+        }
         log(f"profiled {label} ({card}): device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms wall, "
-            f"idle share {1 - busy_ms / wall_ms:.3f}")
+            f"idle share {1 - busy_ms / wall_ms:.3f}; issued {issued}")
+        return {"busy_ms": busy_ms, "wall_ms": wall_ms, **issued}
     except Exception as e:  # the profiler is a diagnostic only; report and go on
         log(f"profiler unavailable: {type(e).__name__}: {e}")
+        return {}
 
 
 def train_phase(card: str, fails):
@@ -2437,7 +2480,6 @@ def style_kernel_phases(st, fails):
         f"{['%.3f' % t for t in head_ms]}, grids {grids} CTAs; plain forward + autograd "
         f"{b_plain:.3f}, cuBLAS chain + autograd {b_lib:.3f}), bound_ms {bb_ms:.4f} ({bb_by})")
 
-    log_unported_bounds(n_rows)
     table["K4 style"] = k4_row(*style_chunk(st), "a style pose's marched chunk (the cache "
                                "build)", fails)[0]
 
@@ -2469,20 +2511,278 @@ def style_kernel_phases(st, fails):
     return table
 
 
-def log_unported_bounds(n_rows: int) -> None:
-    """Bounds of the three kernels not yet ported, from their shapes: K5d
-    (sh_encode of color2's view-direction input, at the style stream's rows:
-    a direction of 3 fp32 in, 16 fp32 basis values out), K9
-    (grid_initialize at the default 16 levels x 2^19 rows x 2 features: the
-    style-0 table read once and the new table written once) and P0 (the
-    row gather of tools/exp_encoder_r4.py: 256 int32 indices and 256 rows
-    of 128 fp32 read, the 256 rows written)."""
-    k5d = bound_ms(n_rows * (3 + 16) * 4, n_rows * 40)
-    k9 = bound_ms(2 * 16 * (1 << 19) * 2 * 4, 0)
-    p0 = bound_ms(256 * 4 + 2 * 256 * 128 * 4, 0)
-    log(f"not yet ported: K5d sh_encode at {n_rows} rows bound_ms {k5d[0]:.4f} ({k5d[1]}); "
-        f"K9 grid_initialize at 16 x 2^19 x 2 bound_ms {k9[0]:.4f} ({k9[1]}); P0 row gather "
-        f"of 256 x 128 fp32 bound_ms {p0[0]:.5f} ({p0[1]})")
+# ---------------------------------------------------------------------------
+# K5d, K9 and P0, and the view-dependent field families
+# ---------------------------------------------------------------------------
+
+
+def k5d_row(dirs: torch.Tensor, what: str, fails) -> dict:
+    """K5d at degree 4 on ``dirs`` [M, 3] unit directions (the field hands it
+    (dirs + 1) / 2) against its plain version, bit for bit (the same
+    rounding); both timed (the kernel from a CUDA graph)."""
+    from nerfstyle_torch.ops import sh
+
+    d01 = ((dirs + 1.0) / 2.0).contiguous()
+    got, ref = sh.sh_encode(d01, 4), sh.sh_encode(d01, 4, plain=True)
+    err = float((got - ref).abs().max())
+    if not torch.equal(got, ref):
+        fails.append(f"K5d sh_encode at {what} differs from its plain version (max abs err {err})")
+    ms = graph_ms(lambda: sh.sh_encode(d01, 4))
+    plain_ms = cuda_ms(lambda: sh.sh_encode(d01, 4, plain=True), reps=5)
+    m = d01.shape[0]
+    # Bytes: 12 in, 64 out a row.  Operations: 45 fp32 a row at degree 4
+    # (the map to [-1, 1] 6, degree 2 3, degree 3 11, degree 4 25).
+    b_ms, b_by = bound_ms(nbytes=m * (12 + 64), flops=m * 45)
+    log(f"K5d sh_encode at {what}: {m} rows, degree 4; bit-equal to plain: {err == 0.0}; ms "
+        f"{ms:.4f} (graph), plain_ms {plain_ms:.3f}, bound_ms {b_ms:.4f} ({b_by}); library: "
+        f"none (no single PyTorch call)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def l2_rate() -> tuple[float, float, float]:
+    """Bytes a second that a device copy moves inside the 50 MB L2, the
+    rate K9's corner traffic is held against (NVIDIA publishes none for the
+    H100): 8 MiB read and 8 MiB written a copy, 50 copies in one CUDA
+    graph, less 50 empty kernels' time in one graph (the launch floor, ~40%
+    of a copy this short).  Returns the rate, a copy's ms and the floor's."""
+    from nerfstyle_torch import kernels
+
+    a = torch.ones(1 << 21, device=DEVICE)
+    b = torch.empty_like(a)
+    copy_ms = graph_ms(lambda: b.copy_(a), reps=50)
+    floor_ms = graph_ms(lambda: kernels.empty_kernel(torch.device(DEVICE)), reps=50)
+    return 2 * a.numel() * 4 / (max(copy_ms - floor_ms, 1e-6) * 1e-3), copy_ms, floor_ms
+
+
+def grid_init_holds(out, spec, ref_spec, ref, num_styles):
+    """Check (b): every row of ``out`` reached by a (corner, style) pair
+    holds the style-0 value of one such pair; every other row is 0.
+    Returns the reached mask and the number of rows that break the check."""
+    from nerfstyle_torch.ops import hashgrid as th
+
+    ok = torch.zeros(out.shape[0], dtype=torch.bool, device=out.device)
+    reached = torch.zeros_like(ok)
+    for lvl in range(spec.num_levels):
+        res = spec.resolutions[lvl]
+        pos = th._corner_ids(res, 0, (res + 1) ** 3, out.device)
+        vals = ref[th.level_indices(pos, res, ref_spec.table_sizes[lvl]) + ref_spec.offsets[lvl]]
+        for s in range(num_styles):
+            rows = th.level_indices(pos, res, spec.table_sizes[lvl], s) + spec.offsets[lvl]
+            reached[rows] = True
+            ok[rows[(out[rows] == vals).all(dim=1)]] = True
+    bad = int((reached & ~ok).sum()) + int((~reached & out.ne(0).any(dim=1)).sum())
+    return reached, bad
+
+
+def k9_rows(grid, table: torch.Tensor, fails) -> dict:
+    """K9 (grid_initialize) at the default grid (``grid``, the render
+    checkpoint's 16 levels; its color table the reference), one style
+    (check (a): the reference on every reached row and 0 elsewhere, so
+    bit-equal to the plain version at full size) and two styles (the
+    reached rows equal to plain's), each timed; check (b) at a small spec
+    with three styles.  The bound is the larger of the table read and the
+    new table written once at the HBM rate, and every corner's row read
+    and its num_styles rows written at the L2 rate ``l2_rate`` measures
+    (the launch floor taken off)
+    (4C bytes an access: neighbouring x of a column land in one 32-byte
+    sector, so whole sectors need a quarter of the sector-an-access traffic
+    this kernel moves, which is logged beside)."""
+    from nerfstyle_torch.ops import hashgrid as th
+
+    rate, copy_ms, floor_ms = l2_rate()
+    log(f"L2 copy rate: {rate / 1e12:.3f} TB/s (8 MiB copied in {copy_ms:.5f} ms from a graph, "
+        f"less an empty kernel's {floor_ms:.5f} ms; {2 * 8 * 2**20 / copy_ms / 1e9:.3f} TB/s "
+        f"with the floor in)")
+    corners = sum((r + 1) ** 3 for r in grid.resolutions)
+    row_bytes = 4 * table.shape[1]
+    rows = {}
+    for styles, reps in ((1, 2), (2, 1)):
+        t0 = time.perf_counter()
+        got = th.grid_initialize(grid, grid, table, num_styles=styles)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        ms = cuda_ms(lambda: th.grid_initialize(grid, grid, table, num_styles=styles), reps=reps,
+                     warmup=0)
+        t0 = time.perf_counter()
+        ref = th.grid_initialize(grid, grid, table, num_styles=styles, plain=True)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        reached = got.ne(0).any(dim=1)
+        same_rows = torch.equal(reached, ref.ne(0).any(dim=1))
+        err = float((got - ref).abs().max()) if styles == 1 else 0.0
+        if styles == 1 and not (torch.equal(got, ref) and torch.equal(got[reached], table[reached])
+                                and same_rows):
+            fails.append(f"K9 grid_initialize at the default grid, one style, differs from its "
+                         f"plain version or from the reference (max abs err {err})")
+        if styles > 1 and not same_rows:
+            fails.append("K9 grid_initialize at two styles reaches other rows than plain")
+        t_hbm = 2 * table.numel() * 4 / PEAK_BYTES_PER_S * 1e3
+        t_l2 = corners * (1 + styles) * row_bytes / rate * 1e3
+        b_ms, b_by = max((t_hbm, "table bytes at HBM"), (t_l2, "corner rows at the L2 rate"))
+        log(f"K9 grid_initialize, {styles} style(s), the default grid: {corners} corners, "
+            f"{grid.total_params} rows x {table.shape[1]}, {int(reached.sum())} rows reached; "
+            f"equal to plain (1 style, bit for bit, and the reference on every reached row) or "
+            f"its reached rows (2 styles): {err == 0.0 and same_rows}; ms {ms:.1f} (first call "
+            f"{first_s:.2f} s), plain_ms {plain_ms:.1f} (one call), bound_ms {b_ms:.1f} "
+            f"({b_by}: table bytes at HBM {t_hbm:.4f} ms, corner rows at the L2 rate "
+            f"{rate / 1e12:.3f} TB/s measured here {t_l2:.1f} ms, a 32-byte sector an access "
+            f"{t_l2 * 32 / row_bytes:.1f} ms); library: none")
+        rows[f"K9 {styles}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                    bound_by="bytes", bound_from=b_by, library_ms=None,
+                                    l2_tb_s=rate / 1e12)
+        del got, ref, reached
+    small = th.hashgrid_spec(num_levels=4, level_dim=2, base_resolution=16, per_level_scale=1.5,
+                             log2_hashmap_size=14)
+    ref = torch.rand((small.total_params, 2), generator=torch.Generator().manual_seed(9))
+    ref = (ref * 2 - 1).to(DEVICE)
+    out = th.grid_initialize(small, small, ref, num_styles=3)
+    plain = th.grid_initialize(small, small, ref, num_styles=3, plain=True)
+    reached, bad = grid_init_holds(out, small, small, ref, 3)
+    ok = bad == 0
+    same = torch.equal(reached, plain.ne(0).any(dim=1))
+    log(f"K9 check (b) at 4 levels x 2^14 rows, three styles: every reached row holds a "
+        f"colliding corner's value: {ok}; reached rows equal to plain: {same}")
+    if not (ok and same):
+        fails.append("K9 grid_initialize at three styles fails check (b)")
+    return rows
+
+
+def p0_rows(fails) -> dict:
+    """P0 (take_rows) at its own shape (256 int32 indices into a [1024, 128]
+    f32 table; launch-bound) and at 2^20 indices into the same table,
+    bit-equal to ``table[idx]``, the kernel and ``index_select`` (its
+    library yardstick) from CUDA graphs.  Bound: the indices and the
+    distinct rows read once, the output written once."""
+    from nerfstyle_torch.ops import gather
+
+    gen = torch.Generator().manual_seed(12)
+    table = torch.randn((1024, 128), generator=gen).to(DEVICE)
+    rows = {}
+    for n, key in ((256, "P0"), (1 << 20, "P0 2^20")):
+        idx = torch.randint(0, 1024, (n,), generator=gen, dtype=torch.int32).to(DEVICE)
+        got, ref = gather.take_rows(table, idx), gather.take_rows(table, idx, plain=True)
+        if not torch.equal(got, ref):
+            fails.append(f"P0 take_rows at {n} indices differs from table[idx]")
+        ms = graph_ms(lambda: gather.take_rows(table, idx))
+        plain_ms = graph_ms(lambda: gather.take_rows(table, idx, plain=True))
+        lib_ms = graph_ms(lambda: torch.index_select(table, 0, idx))
+        distinct = int(torch.unique(idx).numel())
+        b_ms, b_by = bound_ms(nbytes=n * 4 + distinct * 512 + n * 512, flops=0)
+        log(f"P0 take_rows: {n} indices ({distinct} distinct rows) into [1024, 128]; bit-equal "
+            f"to table[idx]: {torch.equal(got, ref)}; ms {ms:.5f} (graph), plain_ms "
+            f"{plain_ms:.5f}, index_select ms {lib_ms:.5f}, bound_ms {b_ms:.5f} ({b_by}; "
+            f"{n * 1024 / 1e9:.3f} GB if every gathered row were read from memory)")
+        rows[key] = dict(max_abs_err=float((got - ref).abs().max()), ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    return rows
+
+
+def new_kernel_phases(renderer, params, rays_d, fails) -> dict:
+    """K5d at a frame chunk's kept stream and at a style cache's size, K9
+    and P0 (on no path), against their plain versions; returns their
+    kernel-table rows."""
+    table = {"K5d": k5d_row(rays_d[:129929], "a frame chunk's kept stream (129,929 rows)",
+                            fails),
+             "K5d style": k5d_row(rays_d[:640000], "a style cache's size (640,000 rows)", fails)}
+    table.update(k9_rows(renderer.field_spec.grid, params["x_color_embedder"], fails))
+    table.update(p0_rows(fails))
+    return table
+
+
+# The view configuration: the render checkpoint's network with a view
+# direction input (the style field under use_dir, SH degree 4: color2 [32,
+# 64, 64, 3]) and the base field (density_out_dims 16, rgb_net [31 -> 32,
+# 64, 64, 3]); each field must launch these on its frame (K6c on the
+# restore).
+VIEW_COUNTERS = ("sh_encode", "hashgrid_encode", "march_skip_count", "march_skip_write",
+                 "composite_weights", "mlp_forward", "segment_sum", "occupancy_skipdist")
+
+
+def view_phase(renderer, default_params, pose, rays, card: str, fails) -> dict:
+    """Each view-dependent family (seeded random weights at the render
+    checkpoint's full width) through ``Renderer.render`` on the 1008x756
+    frame, the way the render phase drives its frame: a Renderer on the
+    family's FieldSpec, the checkpoint's occupancy restored (K6c), the
+    launch counters set to 0 before the restore and read after the frame;
+    the maps finite and of the family's channels, the opacity's IoU with
+    the spheres >= 0.8, a 4096-ray crop within the render phase's
+    tolerances of the plain path; then steady frames of the default field
+    (``renderer``, ``default_params``) and both families in turns.
+    Returns each family's launches."""
+    from nerfstyle_torch.models.fields import FieldSpec, field_init
+    from nerfstyle_torch.ops.occupancy import occupancy_persistable
+    from nerfstyle_torch.render.renderer import Renderer
+
+    spec = renderer.field_spec
+    specs = {
+        "view style": dataclasses.replace(spec, use_dir=True, sh_degree=4),
+        "view base": FieldSpec(grid=spec.grid, kind="base", density_out_dims=16,
+                               density_offset=spec.density_offset),
+    }
+    persisted = occupancy_persistable(renderer.occ_state)
+    w, h = OUT_DIMS
+    npix = w * h
+    ys, xs = np.meshgrid(np.arange(h // 2 - 32, h // 2 + 32), np.arange(w // 2 - 32, w // 2 + 32),
+                         indexing="ij")
+    crop = torch.from_numpy((ys * w + xs).reshape(-1)).to(DEVICE)
+    runs, frames = {}, {"default": (renderer, default_params)}
+    for seed, (name, fspec) in enumerate(specs.items(), start=1):
+        params = field_init(fspec, torch.Generator().manual_seed(seed), DEVICE)
+        r = Renderer(fspec, renderer.bbox, renderer.settings, renderer.intr, renderer.bound,
+                     raymarch_channels=fspec.out_channels, compute_dtype=renderer.compute_dtype,
+                     device=DEVICE)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        r.restore_occupancy(persisted)
+        with torch.no_grad():
+            out = r.render(params, pose)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        runs[name] = read_counts()
+        for counter in VIEW_COUNTERS:
+            if runs[name][counter] <= 0:
+                fails.append(f"{name} frame launched no {counter} kernel")
+        shapes = {"rgb_map": (npix, 3), "trans_map": (npix,), "weights_sum": (npix,),
+                  "classes": (npix, fspec.out_channels - 3)}
+        for k, shp in shapes.items():
+            if tuple(out[k].shape) != shp or not bool(torch.isfinite(out[k]).all()):
+                fails.append(f"{name} frame {k}: shape {tuple(out[k].shape)} (want {shp}) or "
+                             f"not finite")
+        iou = silhouette_iou(rays.origins, rays.dirs, out["weights_sum"])
+        if not iou >= 0.8:
+            fails.append(f"{name} frame opacity IoU with the spheres {iou:.4f} < 0.8")
+        with torch.no_grad():
+            ref = r.render_rays(params, rays.origins[crop], rays.dirs[crop], plain=True)
+        crop_tol = {"rgb_map": 2e-3, "trans_map": 2e-3, "weights_sum": 2e-3, "classes": 2e-2}
+        crop_err = {k: float((out[k][crop] - ref[k]).abs().max()) if ref[k].numel() else 0.0
+                    for k in crop_tol}
+        for k, tol in crop_tol.items():
+            if not crop_err[k] <= tol:
+                fails.append(f"{name} crop {k} error {crop_err[k]} > {tol}")
+        log(f"{name} frame ({card}): {fspec.kind} field, use_dir {fspec.use_dir}, SH degree "
+            f"{fspec.sh_degree}, color head input {fspec.rgb_in_dims} wide, {fspec.out_channels} "
+            f"channels; restore + first frame {first_ms:.1f} ms, {out['num_marched'] / npix:.2f} "
+            f"samples/ray marched, {out['num_sig'] / npix:.2f} significant; opacity IoU "
+            f"{iou:.4f}; crop of 4096 rays vs plain max abs err {crop_err} (tol {crop_tol}); "
+            f"launches {runs[name]}")
+        frames[name] = (r, params)
+        del out, ref
+    times = {k: [] for k in frames}
+    order = list(frames) + list(frames)[::-1]
+    for name in order:
+        r, params = frames[name]
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with torch.no_grad():
+                r.render(params, pose)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t) * 1e3)
+    log(f"steady frames ({card}) at {w}x{h}, in turns {order}: " + ", ".join(
+        f"{k} min {min(v):.1f} ms {['%.1f' % t for t in v]}" for k, v in times.items()))
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -2573,6 +2873,7 @@ def main() -> int:
     from nerfstyle_torch.core.cameras import generate_rays
     from nerfstyle_torch.render import cli
 
+    t_start = time.perf_counter()
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
@@ -2594,6 +2895,8 @@ def main() -> int:
     # Grid sizes and class heads off the defaults.
     table["K6c general"] = skipdist_general_phase(renderer, params, rays.origins, rays.dirs, fails)
     class_head_phase(renderer, params, fails)
+    # K5d, K9 and P0 against their plain versions.
+    table.update(new_kernel_phases(renderer, params, rays.dirs, fails))
 
     # The main path, through the CLI entry point (the checkpoint's restore
     # rebuilds the skip distance: K6c).
@@ -2650,6 +2953,9 @@ def main() -> int:
     # with adaptive_march on and off; the on frame's device time by kernel.
     runs["dense frame"] = frame_on_off(renderer, params, pose, out, card, fails)
     profile_once(lambda: renderer.render(params, pose), "frame", card)
+    # The view configuration: both view-dependent families through the
+    # Renderer on the same frame.
+    runs.update(view_phase(renderer, params, pose, rays, card, fails))
 
     # The import path, from the render checkpoint; its frame must equal the
     # main path's.
@@ -2722,6 +3028,10 @@ def main() -> int:
             if sum(split.values()) != counts[name] or set(split) - set(composite_rows):
                 fails.append(f"{name} launches on the {path} run fall outside the streams "
                              f"with a row: {split} of {counts[name]}")
+    # The default paths launch no K5d: their field reads no direction.
+    for path, counts in runs.items():
+        if not path.startswith("view") and counts["sh_encode"]:
+            fails.append(f"the {path} run launched K5d {counts['sh_encode']} times")
     hg, cp = "nerfstyle_torch/csrc/hashgrid.cu", "nerfstyle_torch/csrc/composite.cu"
     encode_rows = {
         "frame A": "a frame chunk's marched samples (phase A: density, C=2)",
@@ -2781,6 +3091,20 @@ def main() -> int:
          "nerfstyle_tpu/ops/morton.py:27", ("morton3d",), ("import",)),
         ("K8b invert", "K8b morton3d_invert", "nerfstyle_torch/csrc/interop.cu",
          "nerfstyle_tpu/ops/morton.py:44", ("morton3d_invert",), ()),
+        ("K5d", "K5d sh_encode, a frame chunk's kept samples (the view frames' phase B)",
+         "nerfstyle_torch/csrc/sh.cu", "nerfstyle_tpu/ops/sh.py:19", ("sh_encode",),
+         ("view style", "view base")),
+        ("K5d style", "K5d sh_encode at a style cache's size, 640,000 rows (no path: the style "
+         "stage's view-direction input is not ported)", "nerfstyle_torch/csrc/sh.cu",
+         "nerfstyle_tpu/ops/sh.py:19", ("sh_encode",), ()),
+        ("K9 1", "K9 grid_initialize, default grid, one style (on no path)", hg,
+         "nerfstyle_tpu/ops/hashgrid.py:351", ("grid_initialize",), ()),
+        ("K9 2", "K9 grid_initialize, default grid, two styles (on no path)", hg,
+         "nerfstyle_tpu/ops/hashgrid.py:351", ("grid_initialize",), ()),
+        ("P0", "P0 take_rows, 256 int32 indices into [1024, 128] f32 (on no path)",
+         "nerfstyle_torch/csrc/gather.cu", "tools/exp_encoder_r4.py:120", ("take_rows",), ()),
+        ("P0 2^20", "P0 take_rows, 2^20 int32 indices into [1024, 128] f32 (on no path)",
+         "nerfstyle_torch/csrc/gather.cu", "tools/exp_encoder_r4.py:120", ("take_rows",), ()),
     ]
     # Calls: a row's launches over the launches a call makes.  The rule-2
     # queue ranks the rows by calls x (ms - bound), where ms times a call.
@@ -2808,6 +3132,7 @@ def main() -> int:
         loss[kid] = calls * (table[kid]["ms"] - table[kid]["bound_ms"])
     log("rule-2 queue, calls x (ms - bound_ms) in ms over the run: "
         + ", ".join(f"{k} {v:.2f}" for k, v in sorted(loss.items(), key=lambda kv: -kv[1])))
+    log(f"chip_smoke ran {time.perf_counter() - t_start:.1f} s, the kernels' build included")
     if fails:
         for f in fails:
             print(f"FAIL: {f}", file=sys.stderr)
@@ -2820,5 +3145,37 @@ def main() -> int:
     return 0
 
 
+def late_step_main(steps: int = 5) -> int:
+    """``--late-step``: the train phase, then ``steps`` late steps each
+    under the profiler; one JSON line of what each issued."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this check needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from nerfstyle_torch import kernels
+
+    card = card_line()
+    log(f"card: {card}")
+    kernels.build(verbose=True)
+    kernels.library()
+    WORK.mkdir(parents=True, exist_ok=True)
+    write_checkpoint(WORK / "smoke.ckpt")  # and the synthetic scene
+    count_hashgrid_streams()
+    count_composite_streams()
+    fails = []
+    trainer, _ = train_phase(card, fails)
+    late_ms = float(np.median(trainer.iter_ms[-50:]))
+    profiled = [profile_once(trainer.run_iter, f"late train step {i}", card)
+                for i in range(steps)]
+    if fails or not all(profiled):
+        for f in fails:
+            print(f"FAIL: {f}", file=sys.stderr)
+        return 1
+    print(card)
+    print(json.dumps({"late_median_ms": late_ms, "steps": profiled}))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(late_step_main() if sys.argv[1:] == ["--late-step"] else main())

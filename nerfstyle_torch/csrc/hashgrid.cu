@@ -1,4 +1,5 @@
 // K1: multiresolution hash-grid encode, forward, and K2: its table gradient.
+// (K9, the multi-style table init over the same index law, is at the end.)
 //
 // K1 replaces the JAX encoder nerfstyle_tpu/ops/hashgrid.py:hashgrid_encode ->
 // _encode_fast -> _encode_flat, on trilinear levels (_flat_block_tri) and on
@@ -455,6 +456,110 @@ NST_API int nst_hashgrid_backward(const void* x, const void* g, const void* leve
                                     num_levels, 2, s);
         case 4: return launch_tiles(hashgrid_backward_kernel<4>, xf, gf, lv, df, num_points,
                                     num_levels, 4, s);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// K9: multi-style grid init.
+//
+// Replaces nerfstyle_tpu/ops/hashgrid.py:grid_initialize (:351; the
+// reference's gridencoder.cu:495-571, a one-time init that the reference
+// never calls): for each level and each integer corner (x, y, z) of
+// [0, res]^3, read the reference table's style-0 row at the corner and
+// write it at the corner's row of every style slot s < num_styles of a new
+// zero table.  The index law is JAX's _level_indices in uint32 arithmetic
+// with wraparound: a hashed level x ^ y * 2654435761 ^ z * 805459861 ^
+// s * 3674653429, a dense one (every axis and the style slot fit the table)
+// x + y * (res + 1) + z * (res + 1)^2 + s * (res + 1)^3; then % size +
+// offset.  Stores of corners that collide on a row race, so its surviving
+// value is arbitrary, as in the reference kernel and in JAX's .at[].set.
+//
+// Bound on the H100: the corner traffic.  The default grid has
+// sum_l (res_l + 1)^3 = 1.385e10 corners, each a random row read and
+// num_styles random row stores (32-byte sectors, mostly in L2: a level's
+// table is 4 MiB), against a table of 52 MB read and written once.  A
+// thread takes one (y, z) column of a level and walks its x, so the 64-bit
+// corner count needs no 64-bit division: the column's hash part is formed
+// once and each x adds one XOR (dense: one add) and a remainder a style.
+// The columns of every level are one grid-stride range, one launch a call.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+__device__ __forceinline__ unsigned grid_row(unsigned x, unsigned column, unsigned side,
+                                             unsigned size, bool dense, unsigned style) {
+    const unsigned h = dense ? x + column + style * side * side * side
+                             : x ^ column ^ (style * 3674653429u);
+    return h % size;
+}
+
+template <int C>
+__global__ void __launch_bounds__(nst::kThreads)
+    grid_initialize_kernel(const float* __restrict__ ref, const int* __restrict__ levels,
+                           int num_levels, int num_styles, float* __restrict__ out) {
+    const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+    long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+    for (int l = 0; l < num_levels; ++l) {
+        const unsigned side = static_cast<unsigned>(__ldg(levels + l)) + 1u;
+        const unsigned ref_size = static_cast<unsigned>(__ldg(levels + num_levels + l));
+        const int ref_off = __ldg(levels + 2 * num_levels + l);
+        const bool ref_dense = __ldg(levels + 3 * num_levels + l) != 0;
+        const unsigned size = static_cast<unsigned>(__ldg(levels + 4 * num_levels + l));
+        const int off = __ldg(levels + 5 * num_levels + l);
+        const bool dense = __ldg(levels + 6 * num_levels + l) != 0;
+        const long long columns = static_cast<long long>(side) * side;
+        for (long long j = first; j < columns; j += step) {
+            const unsigned column = static_cast<unsigned>(j);  // < side^2 < 2^32
+            const unsigned y = column / side, z = column % side;
+            const unsigned hashed = y * 2654435761u ^ z * 805459861u;
+            const unsigned dense_part = y * side + z * side * side;
+            for (unsigned x = 0; x < side; ++x) {
+                float v[C];
+                const unsigned r = grid_row(x, ref_dense ? dense_part : hashed, side, ref_size,
+                                            ref_dense, 0u);
+                load_row<C>(ref + static_cast<long long>(static_cast<int>(r) + ref_off) * C, v);
+                for (int s = 0; s < num_styles; ++s) {
+                    const unsigned w = grid_row(x, dense ? dense_part : hashed, side, size, dense,
+                                                static_cast<unsigned>(s));
+                    store_row<C>(out + static_cast<long long>(static_cast<int>(w) + off) * C, v);
+                }
+            }
+        }
+        // The next level's columns start where this level's range ended.
+        first = ((first - columns) % step + step) % step;
+    }
+}
+
+template <int C>
+int launch_grid_initialize(const float* ref, const int* levels, int num_levels, int num_styles,
+                           float* out, cudaStream_t stream) {
+    int device = 0, sms = 0;
+    cudaError_t e = cudaGetDevice(&device);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    grid_initialize_kernel<C><<<8 * sms, nst::kThreads, 0, stream>>>(ref, levels, num_levels,
+                                                                     num_styles, out);
+    return nst::launch_status();
+}
+
+}  // namespace
+
+// ref [T_ref, C] f32, levels int32 [7, L] (resolution; the reference
+// table's size, row offset and dense flag; the new table's size, row
+// offset and dense flag), out [T, C] f32 zeroed by the caller.
+// cudaErrorInvalidValue for an unsupported row width C.
+NST_API int nst_grid_initialize(const void* ref, const void* levels, int num_levels, int channels,
+                                int num_styles, void* out, void* stream) {
+    const float* r = static_cast<const float*>(ref);
+    const int* lv = static_cast<const int*>(levels);
+    float* o = static_cast<float*>(out);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (num_levels <= 0 || num_styles <= 0) return 0;
+    switch (channels) {
+        case 1: return launch_grid_initialize<1>(r, lv, num_levels, num_styles, o, s);
+        case 2: return launch_grid_initialize<2>(r, lv, num_levels, num_styles, o, s);
+        case 4: return launch_grid_initialize<4>(r, lv, num_levels, num_styles, o, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

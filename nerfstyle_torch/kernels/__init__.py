@@ -62,6 +62,9 @@ launch_counts: Dict[str, int] = {
     "morton3d": 0,
     "morton3d_invert": 0,
     "empty_kernel": 0,
+    "sh_encode": 0,
+    "grid_initialize": 0,
+    "take_rows": 0,
 }
 
 _lock = threading.Lock()
@@ -99,6 +102,9 @@ _SIGNATURES = {
     "nst_morton3d": (_P, _LL, _P, _P),
     "nst_morton3d_invert": (_P, _LL, _P, _P),
     "nst_empty_kernel": (_P,),
+    "nst_sh_encode": (_P, _LL, _I, _P, _P),
+    "nst_grid_initialize": (_P, _P, _I, _I, _I, _P, _P),
+    "nst_take_rows": (_P, _P, _LL, _LL, _P, _P),
 }
 
 
@@ -772,3 +778,59 @@ def empty_kernel(device: torch.device) -> None:
     lib = library()
     status = lib.nst_empty_kernel(torch.cuda.current_stream(device).cuda_stream)
     _launched(lib, status, "empty_kernel")
+
+
+def sh_encode(dirs01: torch.Tensor, degree: int) -> torch.Tensor:
+    """K5d: the [M, degree**2] real SH basis of [M, 3] directions in [0, 1]
+    (see csrc/sh.cu)."""
+    _check("dirs01", dirs01, torch.float32, (None, 3))
+    if not 1 <= degree <= 4:
+        raise ValueError(f"K5d takes SH degrees 1..4, got {degree}")
+    m = dirs01.shape[0]
+    out = torch.empty((m, degree * degree), dtype=torch.float32, device=dirs01.device)
+    if m > 0:
+        lib = library()
+        status = lib.nst_sh_encode(dirs01.data_ptr(), m, degree, out.data_ptr(),
+                                   _stream(dirs01))
+        _launched(lib, status, "sh_encode")
+    return out
+
+
+def grid_initialize(ref_table: torch.Tensor, levels: torch.Tensor, num_styles: int,
+                    num_rows: int) -> torch.Tensor:
+    """K9: a new zero [num_rows, C] table holding, for each level and each
+    integer corner of [0, res]^3, the corner's style-0 row of ``ref_table``
+    at its row of every style slot < ``num_styles``.  ``levels`` is the
+    int32 [7, L] table of ``ops.hashgrid.grid_init_levels`` (see
+    csrc/hashgrid.cu).  One launch."""
+    _check("ref_table", ref_table, torch.float32, (None, None))
+    _check("levels", levels, torch.int32, (7, None))
+    _same_device(ref_table, levels)
+    c = ref_table.shape[1]
+    if c not in HASHGRID_WIDTHS:
+        raise ValueError(f"K9 takes table rows of width {HASHGRID_WIDTHS}, got {c}")
+    if not 1 <= num_styles <= 512 or num_rows >= 2**31:
+        raise ValueError(f"K9 takes 1..512 styles and fewer than 2^31 rows, got {num_styles} "
+                         f"and {num_rows}")
+    out = torch.zeros((num_rows, c), dtype=torch.float32, device=ref_table.device)
+    lib = library()
+    status = lib.nst_grid_initialize(ref_table.data_ptr(), levels.data_ptr(), levels.shape[1], c,
+                                     num_styles, out.data_ptr(), _stream(ref_table))
+    _launched(lib, status, "grid_initialize")
+    return out
+
+
+def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """P0: ``table[idx]`` for a [T, C] float32 table and [N] int32 indices
+    in [0, T), a warp a row (see csrc/gather.cu)."""
+    _check("table", table, torch.float32, (None, None))
+    _check("idx", idx, torch.int32, (None,))
+    _same_device(table, idx)
+    n, c = idx.shape[0], table.shape[1]
+    out = torch.empty((n, c), dtype=torch.float32, device=table.device)
+    if n > 0 and c > 0:
+        lib = library()
+        status = lib.nst_take_rows(table.data_ptr(), idx.data_ptr(), n, c, out.data_ptr(),
+                                   _stream(table))
+        _launched(lib, status, "take_rows")
+    return out

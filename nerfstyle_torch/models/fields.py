@@ -1,21 +1,30 @@
-"""Hash-grid neural field, ``style`` kind (counterpart of
-``nerfstyle_tpu/models/fields.py``).
+"""Hash-grid neural fields (counterpart of ``nerfstyle_tpu/models/fields.py``).
 
-Parameters are a plain dict under the JAX keys: two hash tables
-``x_density_embedder`` and ``x_color_embedder`` ([T, C] each) and four
-bias-free MLPs ``density_net``, ``color1_net``, ``color2_net``,
-``class_net`` (lists of [d_in, d_out] matrices).  :func:`params_from_numpy`
-and :func:`params_to_numpy` carry weights between the JAX package's numpy
-trees and the port's tensors.
+Two kinds, as in JAX.  ``style`` (the reference's StyleTCNerf, the model
+the trainers build): two hash tables ``x_density_embedder`` and
+``x_color_embedder`` ([T, C] each) and four bias-free MLPs
+``density_net``, ``color1_net``, ``color2_net``, ``class_net``; with
+``use_dir`` color2 reads color1's 16 outputs and the SH basis of the view
+direction.  ``base`` (the reference's TCNerf, reached through the library
+API only, as in JAX): one table ``x_embedder``, ``density_net`` (its first
+output the density, the other ``density_out_dims - 1`` the color head's
+features) and ``rgb_net`` on those features and the direction's SH basis.
+MLPs are lists of [d_in, d_out] matrices.  :func:`params_from_numpy` and
+:func:`params_to_numpy` carry weights between the JAX package's numpy trees
+and the port's tensors.
 
 Every MLP goes through :func:`~nerfstyle_torch.ops.mlp.mlp_apply` (kernel K5
-on CUDA tensors).  Rendering reads the field in two halves: :func:`field_density` (density
-table + density MLP) and :func:`field_color` (color table + class, color1
-and color2 heads); a train step's phase B reads it whole with
-:func:`field_apply`, one encode of the concatenated ``[T, 4]`` tables.  All
-three are differentiable in the params.  The view-direction (SH) input and
-the ``base`` field kind are not ported yet.  The encoder sees
-``(normalize(x) + 1) / 2``, the reference's quirk.
+on CUDA tensors), the SH basis through
+:func:`~nerfstyle_torch.ops.sh.sh_encode` (kernel K5d).  Rendering reads the
+field in two halves: :func:`field_density` (density table + density MLP)
+and :func:`field_color` (the style kind's color table + class, color1 and
+color2 heads; the base kind has no density-free color path and runs
+:func:`field_apply`); a train step's phase B reads it whole with
+:func:`field_apply`, for the style kind one encode of the concatenated
+``[T, 4]`` tables.  All three are differentiable in the params; the
+directions (``dirs``, [M, 3], read where the spec has a view-direction
+input) take no gradient.  The encoder sees ``(normalize(x) + 1) / 2``, the
+reference's quirk.
 
 :func:`train_state_from_numpy` and :func:`train_state_to_numpy` carry a
 trainer's params, optimizer state and EMA between the JAX package's numpy
@@ -25,7 +34,7 @@ trees and the port's tensors.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -35,39 +44,67 @@ from ..config import ConfigError
 from ..core.types import BBox
 from ..ops.hashgrid import HashGridSpec, hashgrid_encode, hashgrid_init, hashgrid_spec
 from ..ops.mlp import mlp_apply, mlp_init, trunc_exp
+from ..ops.sh import sh_encode
 from ..training.ema import EmaState
 from ..training.optim import OptState, opt_state_from_tree
 
 Params = Dict[str, Union[torch.Tensor, List[torch.Tensor]]]
 
+# Param keys of each field kind: its tables, then its MLPs.
 TABLE_KEYS = ("x_density_embedder", "x_color_embedder")
 MLP_KEYS = ("density_net", "color1_net", "color2_net", "class_net")
+BASE_TABLE_KEYS = ("x_embedder",)
+BASE_MLP_KEYS = ("density_net", "rgb_net")
+KINDS = ("style", "base")
 
 
 @dataclass(frozen=True)
 class FieldSpec:
-    """Static model architecture (from NetworkConfig)."""
+    """Static model architecture (from NetworkConfig), with JAX's defaults."""
 
     grid: HashGridSpec
     class_dim: int = 0
+    use_dir: bool = False
+    sh_degree: int = 4
     density_hidden_dims: int = 64
     density_hidden_layers: int = 1
+    density_out_dims: int = 16  # the base kind only
     rgb_hidden_dims: int = 64
     rgb_hidden_layers: int = 2
+    kind: str = "style"  # "style" (StyleTCNerf) | "base" (TCNerf)
     density_offset: float = 0.0
+
+    def __post_init__(self):
+        if self.kind not in KINDS:
+            raise ValueError(f"field kind {self.kind!r} is not one of {KINDS}")
 
     @property
     def out_channels(self) -> int:
-        return 3 + self.class_dim
+        return 3 + self.class_dim if self.kind == "style" else 3
+
+    @property
+    def needs_dirs(self) -> bool:
+        """True where the color head reads the view direction: the style
+        kind under ``use_dir``, the base kind always."""
+        return self.use_dir or self.kind == "base"
+
+    @property
+    def rgb_in_dims(self) -> int:
+        """Input width of the last color MLP (color2_net or rgb_net)."""
+        if self.kind == "base":
+            return self.density_out_dims - 1 + self.sh_degree**2
+        return 16 + (self.sh_degree**2 if self.use_dir else 0)
 
 
 def _check_kernel_shapes(device, *, density_hidden_dims: int, density_hidden_layers: int,
                          rgb_hidden_dims: int, rgb_hidden_layers: int, n_lvls: int,
-                         n_feats_per_lvl: int) -> None:
+                         n_feats_per_lvl: int, rgb_in_dims: int = 16) -> None:
     """On a CUDA device, raise ConfigError listing each network flag whose
     value the CUDA kernels do not take, with the range it may take: K5's
-    hidden width, hidden depths and input widths (csrc/mlp.cu), K1/K2's
-    table row widths (csrc/hashgrid.cu).  The CPU path takes any value."""
+    hidden width, hidden depths and input widths (csrc/mlp.cu; the color
+    head's input ``rgb_in_dims`` is padded up to 32 and may not exceed it),
+    K1/K2's table row widths (csrc/hashgrid.cu).  The CPU path takes any
+    value."""
     if torch.device(device).type != "cuda":
         return
     errors = []
@@ -87,6 +124,9 @@ def _check_kernel_shapes(device, *, density_hidden_dims: int, density_hidden_lay
         errors.append(f"--pos_enc.n_lvls {n_lvls} x --pos_enc.n_feats_per_lvl "
                       f"{n_feats_per_lvl} = {n_lvls * n_feats_per_lvl}: the CUDA MLP kernel "
                       f"takes encodings {' or '.join(map(str, kernels.MLP_IN_DIMS))} wide")
+    if rgb_in_dims > max(kernels.MLP_IN_DIMS):
+        errors.append(f"color head input {rgb_in_dims} wide (features plus SH basis): the CUDA "
+                      f"MLP kernel takes inputs up to {max(kernels.MLP_IN_DIMS)} wide")
     if errors:
         raise ConfigError("network config outside what the CUDA kernels take (the CPU path "
                           "takes it): " + "; ".join(errors))
@@ -111,7 +151,8 @@ def check_field_spec(spec: "FieldSpec", device) -> None:
         device, density_hidden_dims=spec.density_hidden_dims,
         density_hidden_layers=spec.density_hidden_layers,
         rgb_hidden_dims=spec.rgb_hidden_dims, rgb_hidden_layers=spec.rgb_hidden_layers,
-        n_lvls=spec.grid.num_levels, n_feats_per_lvl=spec.grid.level_dim)
+        n_lvls=spec.grid.num_levels, n_feats_per_lvl=spec.grid.level_dim,
+        rgb_in_dims=spec.rgb_in_dims)
 
 
 def make_grid_spec(
@@ -138,11 +179,9 @@ def make_grid_spec(
 
 
 def style_field_spec(grid: HashGridSpec, class_dim: int, use_dir: bool = False, **kw) -> FieldSpec:
-    """Spec of the ``style`` field kind; the view-direction (SH) color input
-    (``use_dir=True``) is not ported yet and raises."""
-    if use_dir:
-        raise NotImplementedError("the view-direction (SH) color input is not ported yet")
-    return FieldSpec(grid=grid, class_dim=class_dim, **kw)
+    """Spec of the ``style`` field kind (``use_dir``: color2 reads the view
+    direction's SH basis too)."""
+    return FieldSpec(grid=grid, class_dim=class_dim, use_dir=use_dir, kind="style", **kw)
 
 
 def field_init(spec: FieldSpec, generator: torch.Generator, device=None) -> Params:
@@ -150,28 +189,37 @@ def field_init(spec: FieldSpec, generator: torch.Generator, device=None) -> Para
     MLPs He-uniform), on ``device``."""
     enc = spec.grid.output_dim
     dh, dl = spec.density_hidden_dims, spec.density_hidden_layers
+    rh, rl = spec.rgb_hidden_dims, spec.rgb_hidden_layers
+    if spec.kind == "base":
+        return {
+            "x_embedder": hashgrid_init(spec.grid, generator, device),
+            "density_net": mlp_init(generator, enc, dh, dl, spec.density_out_dims, device),
+            "rgb_net": mlp_init(generator, spec.rgb_in_dims, rh, rl, 3, device),
+        }
     return {
         "x_density_embedder": hashgrid_init(spec.grid, generator, device),
         "x_color_embedder": hashgrid_init(spec.grid, generator, device),
         "density_net": mlp_init(generator, enc, dh, dl, 1, device),
         "color1_net": mlp_init(generator, enc, dh, dl, 16, device),
-        "color2_net": mlp_init(
-            generator, 16, spec.rgb_hidden_dims, spec.rgb_hidden_layers, 3, device
-        ),
+        "color2_net": mlp_init(generator, spec.rgb_in_dims, rh, rl, 3, device),
         "class_net": mlp_init(generator, enc, dh, dl, spec.class_dim, device),
     }
 
 
 def params_from_numpy(tree: Dict[str, object], device=None) -> Params:
-    """JAX param tree (dict of numpy arrays / lists of arrays) -> port params."""
+    """JAX param tree (dict of numpy arrays / lists of arrays) -> port
+    params; the kind is the one whose keys the tree holds (``x_embedder``:
+    base)."""
     def conv(v):
         return torch.tensor(np.asarray(v), dtype=torch.float32, device=device)
 
-    missing = set(TABLE_KEYS + MLP_KEYS) - set(tree)
+    base = "x_embedder" in tree
+    tables, mlps = (BASE_TABLE_KEYS, BASE_MLP_KEYS) if base else (TABLE_KEYS, MLP_KEYS)
+    missing = set(tables + mlps) - set(tree)
     if missing:
         raise KeyError(f"param tree lacks {sorted(missing)}")
-    params: Params = {k: conv(tree[k]) for k in TABLE_KEYS}
-    for k in MLP_KEYS:
+    params: Params = {k: conv(tree[k]) for k in tables}
+    for k in mlps:
         params[k] = [conv(w) for w in tree[k]]
     return params
 
@@ -242,6 +290,15 @@ def _encoder_input(bbox: BBox, pts: torch.Tensor) -> torch.Tensor:
     return (bbox.normalize(pts) + 1.0) / 2.0
 
 
+def _dir_basis(spec: FieldSpec, dirs: Optional[torch.Tensor], plain: bool) -> torch.Tensor:
+    """The SH basis of the directions [M, 3], as the field reads it:
+    ``sh_encode((dirs + 1) / 2)``."""
+    if dirs is None:
+        raise ValueError(f"the {spec.kind} field{' with use_dir' if spec.use_dir else ''} "
+                         "reads the view directions: pass dirs")
+    return sh_encode((dirs + 1.0) / 2.0, spec.sh_degree, plain=plain)
+
+
 def field_density(
     spec: FieldSpec,
     params: Params,
@@ -253,7 +310,8 @@ def field_density(
 ) -> torch.Tensor:
     """Density-only forward: [M, 3] world points -> [M] sigmas."""
     x = _encoder_input(bbox, pts)
-    h = hashgrid_encode(spec.grid, params["x_density_embedder"], x, plain=plain)
+    table = params["x_density_embedder" if spec.kind == "style" else "x_embedder"]
+    h = hashgrid_encode(spec.grid, table, x, plain=plain)
     out = mlp_apply(params["density_net"], h, compute_dtype=compute_dtype, plain=plain)
     return trunc_exp(out[:, 0] + spec.density_offset)
 
@@ -265,20 +323,31 @@ def field_color(
     pts: torch.Tensor,
     compute_dtype: torch.dtype = torch.float32,
     *,
+    dirs: Optional[torch.Tensor] = None,
     plain: bool = False,
 ) -> torch.Tensor:
-    """Color-branch-only forward: [M, 3] world points -> [M, 3 + class_dim]
-    channels (sigmoid rgb, then raw class logits)."""
+    """Color-branch-only forward: [M, 3] world points (and [M, 3] view
+    directions where the spec reads them) -> [M, out_channels] channels
+    (sigmoid rgb, then the style kind's raw class logits).  The base kind's
+    color head reads the density MLP's features: there it is
+    :func:`field_apply`'s channels, as in JAX."""
+    if spec.kind != "style":
+        rgbs, _ = field_apply(spec, params, bbox, pts, compute_dtype, dirs=dirs, plain=plain)
+        return rgbs
     x = _encoder_input(bbox, pts)
     h = hashgrid_encode(spec.grid, params["x_color_embedder"], x, plain=plain)
-    return _color_heads(params, h, compute_dtype, plain)
+    return _color_heads(spec, params, h, dirs, compute_dtype, plain)
 
 
-def _color_heads(params: Params, h_color: torch.Tensor, compute_dtype: torch.dtype,
+def _color_heads(spec: FieldSpec, params: Params, h_color: torch.Tensor,
+                 dirs: Optional[torch.Tensor], compute_dtype: torch.dtype,
                  plain: bool) -> torch.Tensor:
-    """The class, color1 and color2 heads (three K5 launches on CUDA)."""
+    """The class, color1 and color2 heads (three K5 launches on CUDA, and
+    K5d under ``use_dir``)."""
     classes = mlp_apply(params["class_net"], h_color, compute_dtype=compute_dtype, plain=plain)
     color1 = mlp_apply(params["color1_net"], h_color, compute_dtype=compute_dtype, plain=plain)
+    if spec.use_dir:
+        color1 = torch.cat([color1, _dir_basis(spec, dirs, plain)], dim=-1)
     rgb = mlp_apply(params["color2_net"], color1, output_activation="sigmoid",
                     compute_dtype=compute_dtype, plain=plain)
     return torch.cat([rgb, classes], dim=-1)
@@ -291,15 +360,27 @@ def field_apply(
     pts: torch.Tensor,
     compute_dtype: torch.dtype = torch.float32,
     *,
+    dirs: Optional[torch.Tensor] = None,
     plain: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full forward: [M, 3] world points -> (channels [M, 3 + class_dim],
-    sigmas [M]).  The density and color tables share their corners, so one
+    """Full forward: [M, 3] world points (and [M, 3] view directions where
+    the spec reads them) -> (channels [M, out_channels], sigmas [M]).
+
+    Style kind: the density and color tables share their corners, so one
     encode of the concatenated [T, 2C] table serves both (as in JAX); its
     table gradient splits back into the two tables through the concat.
     Where 2C is wider than K1's rows (C = 4) each table is encoded on its
-    own: the same features."""
+    own: the same features.  Base kind: one encode, the density MLP, and
+    ``rgb_net`` on its outputs 1.. and the directions' SH basis."""
     x = _encoder_input(bbox, pts)
+    if spec.kind == "base":
+        h = hashgrid_encode(spec.grid, params["x_embedder"], x, plain=plain)
+        out = mlp_apply(params["density_net"], h, compute_dtype=compute_dtype, plain=plain)
+        sigmas = trunc_exp(out[:, 0] + spec.density_offset)
+        rgb_in = torch.cat([out[:, 1:], _dir_basis(spec, dirs, plain)], dim=-1)
+        rgbs = mlp_apply(params["rgb_net"], rgb_in, output_activation="sigmoid",
+                         compute_dtype=compute_dtype, plain=plain)
+        return rgbs, sigmas
     c = spec.grid.level_dim
     if 2 * c in kernels.HASHGRID_WIDTHS:
         fused = torch.cat([params["x_density_embedder"], params["x_color_embedder"]], dim=1)
@@ -312,4 +393,4 @@ def field_apply(
         h_color = hashgrid_encode(spec.grid, params["x_color_embedder"], x, plain=plain)
     out = mlp_apply(params["density_net"], h_density, compute_dtype=compute_dtype, plain=plain)
     sigmas = trunc_exp(out[:, 0] + spec.density_offset)
-    return _color_heads(params, h_color, compute_dtype, plain), sigmas
+    return _color_heads(spec, params, h_color, dirs, compute_dtype, plain), sigmas

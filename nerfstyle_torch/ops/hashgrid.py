@@ -16,7 +16,15 @@ in turn.
 
 Every level takes the hash path: the dense index law of the JAX module
 applies only when ``(res+1)^3 * 512 <= table size``, and since ``table size
-<= ceil(H*s^l)^3 <= (res+1)^3`` that never holds.
+<= ceil(H*s^l)^3 <= (res+1)^3`` that never holds for a level of its own
+spec.  :func:`level_indices` is that law whole, with the style slot (a
+fourth prime on hashed levels, ``style * stride`` on dense ones, JAX's
+``_level_indices``); the encoder reads style 0, where the slot adds
+nothing, so :func:`_rows` leaves it out.
+
+:func:`grid_initialize` copies a reference table's style-0 rows into every
+style slot of a new table (JAX's ``grid_initialize``): kernel K9 on CUDA
+tensors, :func:`grid_initialize_plain` on CPU tensors.
 
 :func:`hashgrid_encode` is differentiable in the table (:class:`HashGridEncode`):
 its forward launches kernel K1 and its backward kernel K2, the table
@@ -37,6 +45,9 @@ import torch
 from .. import kernels, use_kernel
 
 PRIMES = (1, 2654435761, 805459861)
+# The style slot's prime and the style capacity of the dense law.
+STYLE_PRIME = 3674653429
+MAX_STYLES = 512
 _U32 = 0xFFFFFFFF
 
 
@@ -245,3 +256,134 @@ def hashgrid_encode(
     (or ``plain=True``, the reference a kernel check compares against)
     through the plain versions."""
     return HashGridEncode.apply(table, x, spec, plain)
+
+
+# ---------------------------------------------------------------------------
+# The style slot and grid_initialize
+# ---------------------------------------------------------------------------
+
+
+def dense_level(res: int, table_size: int) -> bool:
+    """True where the index law of a level of resolution ``res`` in a table
+    of ``table_size`` rows is dense (every axis and the style slot fit the
+    table), False where it hashes: the static decision of JAX's
+    ``_level_indices``."""
+    stride = 1
+    for _ in range(3):
+        if stride > table_size:
+            return False
+        stride *= res + 1
+    if stride <= table_size:
+        stride *= MAX_STYLES
+    return stride <= table_size
+
+
+def _yz_part(y: torch.Tensor, z: torch.Tensor, side: int, dense: bool) -> torch.Tensor:
+    """The y and z terms of a level's index law (i64, masked corners):
+    ``y * side + z * side^2`` on a dense level, the XOR of their
+    spatial-prime products on a hashed one."""
+    if dense:
+        return y * side + z * side * side
+    return ((y * PRIMES[1]) & _U32) ^ ((z * PRIMES[2]) & _U32)
+
+
+def _law_rows(x: torch.Tensor, yz: torch.Tensor, res: int, table_size: int, dense: bool,
+              style: int) -> torch.Tensor:
+    """Rows (without the level's offset) of corners with x coordinate ``x``
+    and y, z part ``yz`` (:func:`_yz_part`), broadcast, at one style."""
+    if dense:
+        h = (x + yz + style * (res + 1) ** 3) & _U32
+    else:
+        h = x ^ yz ^ ((style * STYLE_PRIME) & _U32)
+    return h % table_size
+
+
+def level_indices(pos: torch.Tensor, res: int, table_size: int, style: int = 0) -> torch.Tensor:
+    """Row index (without the level's offset) of integer corners ``pos``
+    [..., 3] at one level: JAX's ``_level_indices`` in uint32 arithmetic,
+    computed in int64 and masked.  Dense levels: ``x + y*(res+1) +
+    z*(res+1)^2 + style*(res+1)^3``; hashed levels: the spatial-prime XOR
+    with ``(style * 3674653429) & 0xFFFFFFFF``; then ``% table_size``."""
+    pg = pos.to(torch.int64) & _U32
+    dense = dense_level(res, table_size)
+    return _law_rows(pg[..., 0], _yz_part(pg[..., 1], pg[..., 2], res + 1, dense), res,
+                     table_size, dense, style)
+
+
+def _corner_ids(res: int, start: int, stop: int, device) -> torch.Tensor:
+    """Integer corners [n, 3] of ids [start, stop) of the (res+1)^3 lattice,
+    x slowest, as JAX's grid_initialize enumerates them."""
+    side = res + 1
+    ids = torch.arange(start, stop, dtype=torch.int64, device=device)
+    return torch.stack([ids // (side * side), (ids // side) % side, ids % side], dim=-1)
+
+
+def _set_rows(out_level: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor) -> None:
+    """``out_level[rows] = vals`` where ``rows`` may repeat, each row written
+    whole from its last occurrence: an indexed store of repeated rows
+    writes element by element and may mix two sources' channels in a row."""
+    n = rows.shape[0]
+    last = torch.full((out_level.shape[0],), -1, dtype=torch.int64, device=rows.device)
+    last.scatter_reduce_(0, rows, torch.arange(n, device=rows.device), reduce="amax")
+    hit = torch.nonzero(last >= 0).squeeze(1)
+    out_level[hit] = vals[last[hit]]
+
+
+def grid_initialize_plain(spec: HashGridSpec, ref_spec: HashGridSpec, ref_table: torch.Tensor,
+                          num_styles: int = 64, chunk: int = 1 << 24) -> torch.Tensor:
+    """Plain K9: for each level and each integer corner in [0, res]^3, the
+    reference table's style-0 row written at the row of every style slot
+    ``s < num_styles`` of a new zero table [spec.total_params, C].  The
+    corners go in x-planes of about ``chunk`` corners, each (y, z) column's
+    part of the index law formed once a level (:func:`_yz_part`).
+    Colliding writes leave one of their rows whole (the last in corner
+    order): which one is arbitrary in JAX and in K9."""
+    c, dev = ref_table.shape[1], ref_table.device
+    out = torch.zeros((spec.total_params, c), dtype=ref_table.dtype, device=dev)
+    for lvl in range(spec.num_levels):
+        res, side = spec.resolutions[lvl], spec.resolutions[lvl] + 1
+        ref_size, size = ref_spec.table_sizes[lvl], spec.table_sizes[lvl]
+        ref_dense, dense = dense_level(res, ref_size), dense_level(res, size)
+        y = torch.arange(side, dtype=torch.int64, device=dev)[:, None]
+        z = torch.arange(side, dtype=torch.int64, device=dev)[None, :]
+        ref_yz = _yz_part(y, z, side, ref_dense).reshape(-1)
+        yz = _yz_part(y, z, side, dense).reshape(-1)
+        out_level = out[spec.offsets[lvl]:spec.offsets[lvl] + size]
+        planes = max(1, chunk // side**2)
+        for x0 in range(0, side, planes):
+            x = torch.arange(x0, min(x0 + planes, side), dtype=torch.int64, device=dev)[:, None]
+            vals = ref_table[_law_rows(x, ref_yz, res, ref_size, ref_dense, 0).reshape(-1)
+                             + ref_spec.offsets[lvl]]
+            for s in range(num_styles):
+                _set_rows(out_level, _law_rows(x, yz, res, size, dense, s).reshape(-1), vals)
+    return out
+
+
+def grid_init_levels(spec: HashGridSpec, ref_spec: HashGridSpec, device) -> torch.Tensor:
+    """int32 [7, L]: each level's resolution, then the reference table's
+    size, row offset and dense flag, then the new table's: the level
+    constants K9 reads."""
+    rows = [spec.resolutions,
+            ref_spec.table_sizes[:spec.num_levels], ref_spec.offsets[:spec.num_levels],
+            [int(dense_level(r, t)) for r, t in zip(spec.resolutions, ref_spec.table_sizes)],
+            spec.table_sizes, spec.offsets[:-1],
+            [int(dense_level(r, t)) for r, t in zip(spec.resolutions, spec.table_sizes)]]
+    return torch.tensor(rows, dtype=torch.int32, device=device)
+
+
+def grid_initialize(spec: HashGridSpec, ref_spec: HashGridSpec, ref_table: torch.Tensor,
+                    num_styles: int = 64, *, plain: bool = False) -> torch.Tensor:
+    """Multi-style table init: a new [spec.total_params, C] table holding,
+    at the row of every style slot of every corner, the corner's style-0
+    row of ``ref_table`` (laid out by ``ref_spec``, with at least
+    ``spec.num_levels`` levels).  Kernel K9 on CUDA tensors, the plain
+    version on CPU tensors (or with ``plain=True``)."""
+    if not 1 <= num_styles <= MAX_STYLES:
+        raise ValueError(f"num_styles must be in 1..{MAX_STYLES}, got {num_styles}")
+    if ref_spec.num_levels < spec.num_levels or ref_table.shape[0] != ref_spec.total_params:
+        raise ValueError("ref_table must hold ref_spec's rows, for every level of spec")
+    if not use_kernel(ref_table, plain):
+        return grid_initialize_plain(spec, ref_spec, ref_table, num_styles)
+    return kernels.grid_initialize(ref_table.contiguous(),
+                                   grid_init_levels(spec, ref_spec, ref_table.device),
+                                   num_styles, spec.total_params)

@@ -22,6 +22,13 @@ its fp32 sums differs.  One deliberate difference from JAX, in both
 versions: the ReLU's gradient at exactly 0 is 0 (``jnp.maximum`` splits it,
 0.5 each way); a hidden pre-activation is exactly 0 only where the input row
 is, and such a row (a point outside the grid) has no table gradient.
+
+K5 is instantiated for inputs 16 or 32 wide (``kernels.MLP_IN_DIMS``).  On
+CUDA a narrower input (the view-dependent color heads': 16 + deg^2 or the
+base field's 15 + deg^2) is padded with zero columns to the next width and
+the first weight matrix with zero rows (:func:`pad_input`): the zero
+products add nothing, so it is the same function, and autograd slices the
+padding's gradient off.
 """
 
 from __future__ import annotations
@@ -84,6 +91,20 @@ def mlp_apply_plain(
     return h
 
 
+def pad_input(weights: Sequence[torch.Tensor], x: torch.Tensor):
+    """(weights, x) with x [M, in] padded by zero columns, and the first
+    weight matrix by zero rows, to the next input width K5 takes, where
+    ``in`` is narrower than the widest and not one of them; unchanged
+    otherwise (K5 then takes the width or refuses it)."""
+    in_dim = x.shape[1]
+    wider = [d for d in kernels.MLP_IN_DIMS if d > in_dim]
+    if in_dim in kernels.MLP_IN_DIMS or not wider:
+        return weights, x
+    pad = min(wider) - in_dim
+    return ([torch.nn.functional.pad(weights[0], (0, 0, 0, pad)), *weights[1:]],
+            torch.nn.functional.pad(x, (0, pad)))
+
+
 class MlpApply(torch.autograd.Function):
     """K5 forward and backward.  The backward always gives ``d x`` and gives
     ``d W`` only for the weights whose gradient is asked for (none in the
@@ -137,7 +158,8 @@ def mlp_apply(
     (:class:`EmptyMlp`), and one with more outputs than K5 takes runs K5
     once for each slice of at most ``kernels.MLP_MAX_OUT`` last-layer
     columns, the hidden layers computed again each time: the columns are
-    independent, so the output is the same."""
+    independent, so the output is the same.  An input narrower than K5
+    takes is padded (:func:`pad_input`)."""
     _check_activation(output_activation)
     if not use_kernel(x, plain):
         return mlp_apply_plain(weights, x, output_activation, compute_dtype)
@@ -147,6 +169,7 @@ def mlp_apply(
     out_dim = weights[-1].shape[1]
     if out_dim == 0:
         return EmptyMlp.apply(x, *weights)
+    weights, x = pad_input(weights, x)
     if out_dim <= kernels.MLP_MAX_OUT:
         return MlpApply.apply(x, sigmoid, bf16, *weights)
     *hidden, last = weights

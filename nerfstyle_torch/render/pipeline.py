@@ -12,7 +12,9 @@ reassociation.  The keep set is ``T >= t_thresh``, not ``w > eps``: a kept
 sample of zero density has zero weight but a nonzero density gradient.
 
 Every buffer is sized from the counts, so (unlike the JAX capacity ladders)
-nothing is truncated.
+nothing is truncated.  Where the field reads the view direction
+(``FieldSpec.needs_dirs``) the samples' ``dirs`` go with their points to
+the whole field; phase A's density reads none.
 """
 
 from __future__ import annotations
@@ -55,7 +57,8 @@ def eval_composite(
     ``weights_sum`` [N], ``depth`` [N] (differentiable in ``params``) and
     the host count ``num_sig`` of samples with entering T >= t_thresh."""
     if not two_phase:
-        ch, sigmas = field_apply(spec, params, bbox, samples.xyz, compute_dtype, plain=plain)
+        ch, sigmas = field_apply(spec, params, bbox, samples.xyz, compute_dtype,
+                                 dirs=samples.dirs, plain=plain)
         image, ws, depth, n_inc = composite_rays(sigmas * density_scale, ch, samples.tau,
                                                  samples.offsets, dt, t_thresh, plain=plain)
         return {"image": image, "weights_sum": ws, "depth": depth,
@@ -66,7 +69,9 @@ def eval_composite(
         _, _, _, n_inc = sample_weights(sig_a * density_scale, samples.tau, samples.offsets,
                                         dt, t_thresh, plain=plain)
         idx, offsets = kept_prefix(samples, n_inc)
-    ch, sigmas = field_apply(spec, params, bbox, samples.xyz[idx], compute_dtype, plain=plain)
+    dirs = samples.dirs[idx] if spec.needs_dirs else None
+    ch, sigmas = field_apply(spec, params, bbox, samples.xyz[idx], compute_dtype, dirs=dirs,
+                             plain=plain)
     image, ws, depth, _ = composite_rays(sigmas * density_scale, ch, samples.tau[idx], offsets,
                                          dt, t_thresh, plain=plain)
     return {"image": image, "weights_sum": ws, "depth": depth, "num_sig": idx.shape[0]}

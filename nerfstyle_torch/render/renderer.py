@@ -15,8 +15,10 @@ Inference, per chunk of rays:
      K4) gives each sample's weight and each ray's weights_sum and depth;
   3. phase B: the weight-significant samples (``w > sig_eps``, compacted
      with ``torch.nonzero``, which keeps ray-major order) run the color
-     branch (kernel K1 on the color table, class/color1/color2 MLPs), and
-     ``segment_sum`` (kernel K7) composites their channels per ray;
+     branch (kernel K1 on the color table, class/color1/color2 MLPs; with
+     their view directions where the field reads them, kernel K5d; the
+     base field's whole forward), and ``segment_sum`` (kernel K7)
+     composites their channels per ray;
   4. white background on rgb, depth normalized to [near, far].
 
 A train batch (:func:`render_rays`) marches the same way, then evaluates
@@ -117,10 +119,15 @@ def cascade_for_bound(bound: float) -> int:
     return 1 + max(0, math.ceil(math.log2(bound)))
 
 
-def _batched(fn: Callable[[torch.Tensor], torch.Tensor], pts: torch.Tensor, batch: int) -> torch.Tensor:
+def _batched(fn: Callable[..., torch.Tensor], pts: torch.Tensor, batch: int,
+             dirs: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """fn(pts) -- fn(pts, dirs) where ``dirs`` is given -- in batches of at
+    most ``batch`` rows."""
+    args = (pts,) if dirs is None else (pts, dirs)
     if pts.shape[0] <= batch:
-        return fn(pts)
-    return torch.cat([fn(pts[i:i + batch]) for i in range(0, pts.shape[0], batch)])
+        return fn(*args)
+    return torch.cat([fn(*(a[i:i + batch] for a in args))
+                      for i in range(0, pts.shape[0], batch)])
 
 
 def render_chunk(
@@ -167,8 +174,9 @@ def render_chunk(
     kept_before[1:] = torch.cumsum(keep, 0)
     sig_offsets = kept_before[sb.offsets]
     ch = _batched(
-        lambda p: field_color(field_spec, params, bbox, p, compute_dtype, plain=plain),
-        sb.xyz[idx], field_batch,
+        lambda p, d=None: field_color(field_spec, params, bbox, p, compute_dtype, dirs=d,
+                                      plain=plain),
+        sb.xyz[idx], field_batch, sb.dirs[idx] if field_spec.needs_dirs else None,
     )
     image = segment_sum(w[idx], ch, sig_offsets, plain=plain)
 
@@ -226,7 +234,9 @@ def render_rays(
 class Renderer:
     """Holds the occupancy grid and the render geometry on its device,
     renders frames chunk by chunk, and keeps the grid up to date during
-    training."""
+    training.  ``raymarch_channels`` is the field's ``out_channels``: 3 +
+    class_dim for the style kind, 3 for the base kind (an empty
+    ``classes`` map)."""
 
     def __init__(
         self,

@@ -100,8 +100,3 @@ def test_torch_encoder_input_quirk():
     pts = torch.tensor([[-1.0, 0.0, 1.0]])
     x = tf._encoder_input(BBox.from_radius(1.0), pts)
     assert x.tolist() == [[0.5, 0.75, 1.0]]
-
-
-def test_torch_view_dependent_color_not_ported():
-    with pytest.raises(NotImplementedError):
-        tf.style_field_spec(th.hashgrid_spec(**GRID), class_dim=3, use_dir=True)

@@ -7,6 +7,8 @@ card.  Imports no JAX, so on a machine with a GPU and no JAX it runs as
 GPU every test here skips: a CUDA kernel has no CPU mode.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1144,3 +1146,195 @@ def test_torch_style_step_pinned_against_plain(cuda_device, tmp_path):
     plain = chip_smoke.style_step_run(st, cache, True)
     pinned = chip_smoke.style_step_run(st, cache, True, pin=plain[2])
     assert all(float(pinned[0][k]) == float(v) for k, v in plain[0].items())
+
+
+# ---------------------------------------------------------------------------
+# K5d (SH encode), K9 (multi-style grid init), P0 (row gather), and the
+# view-dependent field families through the frame path
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("degree", [1, 2, 3, 4])
+def test_torch_sh_kernel_matches_plain(cuda_device, degree):
+    """K5d rounds every product and sum as the plain version does: equal
+    bits, on 70,001 unit directions (the axes and their negatives among
+    them); it takes no gradient and raises on directions that want one."""
+    from nerfstyle_torch.ops import sh as tsh
+
+    rng = np.random.default_rng(degree)
+    d = rng.normal(size=(70001, 3)).astype(np.float32)
+    d[:6] = np.concatenate([np.eye(3), -np.eye(3)]).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    d01 = ((torch.from_numpy(d) + 1.0) / 2.0).to(cuda_device)
+    kernels.reset_launch_counts()
+    got = tsh.sh_encode(d01, degree)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["sh_encode"] == 1
+    torch.testing.assert_close(got, tsh.sh_encode(d01, degree, plain=True), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="gradient"):
+        tsh.sh_encode(d01.clone().requires_grad_(True), degree)
+    assert tsh.sh_encode(d01[:0], degree).shape == (0, degree**2)
+
+
+@pytest.mark.parametrize("rows,width,aligned", [
+    (1024, 128, True), (777, 7, True), (1024, 128, False), (5, 1, True), (3, 1000, True)])
+def test_torch_take_rows_kernel_matches_plain(cuda_device, rows, width, aligned):
+    """P0 moves the bits: equal to ``table[idx]`` at P0's shape (256 int32
+    indices into [1024, 128]), with a row width that is no multiple of 4
+    and a table 4 bytes off 16-byte alignment (the scalar path), a
+    one-column table and rows wider than a warp's 16-byte pieces."""
+    from nerfstyle_torch.ops import gather as tg
+
+    rng = np.random.default_rng(rows + width)
+    buf = torch.from_numpy(rng.normal(size=rows * width + 1).astype(np.float32)).to(cuda_device)
+    table = (buf[:-1] if aligned else buf[1:]).view(rows, width)
+    idx = torch.from_numpy(rng.integers(0, rows, size=256)).to(cuda_device, torch.int32)
+    idx[:2] = torch.tensor([0, rows - 1])
+    kernels.reset_launch_counts()
+    got = tg.take_rows(table, idx)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["take_rows"] == 1
+    torch.testing.assert_close(got, tg.take_rows(table, idx, plain=True), rtol=0, atol=0)
+
+
+GRID_INIT_SPECS = {
+    "tiny": dict(num_levels=2, level_dim=2, base_resolution=4, per_level_scale=1.5,
+                 log2_hashmap_size=7),
+    "hashed": dict(num_levels=8, level_dim=2, base_resolution=16, per_level_scale=1.6,
+                   log2_hashmap_size=14),
+    "four_wide": dict(num_levels=3, level_dim=4, base_resolution=3, per_level_scale=2.0,
+                      log2_hashmap_size=9),
+    "one_wide": dict(num_levels=3, level_dim=1, base_resolution=5, per_level_scale=1.4,
+                     log2_hashmap_size=8),
+}
+
+
+def _grid_ref(spec, device, seed=0):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.uniform(-1, 1, size=(spec.total_params, spec.level_dim))
+                            .astype(np.float32)).to(device)
+
+
+@pytest.mark.parametrize("name", sorted(GRID_INIT_SPECS))
+def test_torch_grid_initialize_kernel_one_style_equals_plain(cuda_device, name):
+    """Check (a): one style and the reference's own spec: every write to a
+    row carries that row's value, so K9 equals the plain version bit for
+    bit: the reference on every reached row, 0 elsewhere."""
+    spec = th.hashgrid_spec(**GRID_INIT_SPECS[name])
+    ref = _grid_ref(spec, cuda_device)
+    kernels.reset_launch_counts()
+    got = th.grid_initialize(spec, spec, ref, num_styles=1)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["grid_initialize"] == 1
+    want = th.grid_initialize(spec, spec, ref, num_styles=1, plain=True)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    reached = want.ne(0).any(dim=1)
+    torch.testing.assert_close(got[reached], ref[reached], rtol=0, atol=0)
+
+
+def _grid_init_holds(out, spec, ref_spec, ref, num_styles):
+    """Check (b), chip_smoke.py's: returns the reached mask."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    reached, bad = chip_smoke.grid_init_holds(out, spec, ref_spec, ref, num_styles)
+    assert bad == 0, f"{bad} rows hold no (corner, style) pair's value or are reached by none"
+    return reached
+
+
+@pytest.mark.parametrize("name", sorted(GRID_INIT_SPECS))
+@pytest.mark.parametrize("num_styles", [3, 64])
+def test_torch_grid_initialize_kernel_many_styles(cuda_device, name, num_styles):
+    """Check (b), JAX's own: at several styles colliding stores leave an
+    arbitrary survivor, which must be the style-0 value of some (corner,
+    style) pair mapping to the row; the reached rows are the plain
+    version's."""
+    spec = th.hashgrid_spec(**GRID_INIT_SPECS[name])
+    ref = _grid_ref(spec, cuda_device, 1)
+    got = th.grid_initialize(spec, spec, ref, num_styles=num_styles)
+    torch.cuda.synchronize()
+    reached = _grid_init_holds(got, spec, spec, ref, num_styles)
+    want = th.grid_initialize(spec, spec, ref, num_styles=num_styles, plain=True)
+    torch.testing.assert_close(reached, want.ne(0).any(dim=1))
+
+
+def test_torch_grid_initialize_kernel_on_a_dense_reference(cuda_device):
+    """A reference whose coarse level is dense (its table holds 512 style
+    slots of every corner: the dense index law) into a hashed table, one
+    and three styles."""
+    kw = dict(num_levels=2, level_dim=2, base_resolution=2, per_level_scale=1.5)
+    spec = th.hashgrid_spec(log2_hashmap_size=6, **kw)
+    ref_spec = th.hashgrid_spec(log2_hashmap_size=16, **kw)
+    ref_spec = dataclasses.replace(ref_spec, table_sizes=(1 << 14, 1 << 14),
+                                   offsets=(0, 1 << 14, 1 << 15))
+    assert th.dense_level(spec.resolutions[0], ref_spec.table_sizes[0])
+    ref = _grid_ref(ref_spec, cuda_device, 2)
+    for num_styles in (1, 3):
+        got = th.grid_initialize(spec, ref_spec, ref, num_styles=num_styles)
+        torch.cuda.synchronize()
+        _grid_init_holds(got, spec, ref_spec, ref, num_styles)
+
+
+def _view_renderer(device, family):
+    """A Renderer on a field of ``family`` (style with use_dir, or base) at
+    a width the kernels take (8 levels x 2 features), seeded random
+    weights with widened tables, and a random occupancy grid restored
+    (K6c); plus rays of a 48x40 camera looking at the box."""
+    from nerfstyle_torch.core.cameras import generate_rays
+    from nerfstyle_torch.core.types import BBox, Intrinsics
+    from nerfstyle_torch.models import fields as tf
+    from nerfstyle_torch.render.renderer import Renderer, RenderSettings
+
+    grid = th.hashgrid_spec(num_levels=8, level_dim=2, base_resolution=16, per_level_scale=1.5,
+                            log2_hashmap_size=14)
+    spec = (tf.style_field_spec(grid, class_dim=3, use_dir=True, density_offset=1.0)
+            if family == "style_dir" else tf.FieldSpec(grid=grid, kind="base",
+                                                      density_offset=1.0))
+    params = tf.field_init(spec, torch.Generator().manual_seed(0), device)
+    rng = np.random.default_rng(0)
+    for k in ("x_density_embedder", "x_color_embedder", "x_embedder"):
+        if k in params:
+            params[k] = torch.from_numpy(rng.uniform(-1, 1, tuple(params[k].shape)).astype(
+                np.float32)).to(device)
+    settings = RenderSettings(grid_size=32, max_steps=256, min_near=0.05)
+    r = Renderer(spec, BBox.from_radius(1.0), settings,
+                 Intrinsics(h=40, w=48, fx=40.0, fy=40.0, cx=24.0, cy=20.0), 1.0,
+                 raymarch_channels=spec.out_channels, compute_dtype=torch.bfloat16, device=device)
+    bits = torch.from_numpy(rng.random(32**3) < 0.3)
+    r.restore_occupancy(to.PersistedOccupancy(bits.float()[None], bits, torch.tensor(0.3),
+                                              torch.tensor(0, dtype=torch.int32),
+                                              torch.tensor(0, dtype=torch.int32)))
+    pose = torch.eye(4)
+    pose[2, 3] = -2.5  # looking down +z at the box
+    rays = generate_rays(pose.to(device), r.intr)
+    return spec, params, r, rays
+
+
+@pytest.mark.parametrize("family", ["style_dir", "base"])
+def test_torch_view_frame_crop_against_plain(cuda_device, family):
+    """A frame of each view-dependent family through ``Renderer`` on the
+    card launches K5d (once a chunk, on phase B's significant samples) with
+    K1, K3s, K4, K5 and K7, and equals the plain path within the render
+    phase's tolerances (chip_smoke.py: 2e-3 on rgb, opacity and depth, 2e-2
+    on class logits: bf16 MLP activations rounding to the neighbouring
+    value where the sums' order differs)."""
+    spec, params, r, rays = _view_renderer(cuda_device, family)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        got = r.render_rays(params, rays.origins, rays.dirs)
+        torch.cuda.synchronize()
+        counts = dict(kernels.launch_counts)
+        want = r.render_rays(params, rays.origins, rays.dirs, plain=True)
+    for name in ("sh_encode", "hashgrid_encode", "march_skip_count", "march_skip_write",
+                 "composite_weights", "mlp_forward", "segment_sum"):
+        assert counts[name] > 0, name
+    assert counts["sh_encode"] == 1
+    assert got["num_sig"] > 0 and got["num_marched"] == want["num_marched"]
+    assert got["classes"].shape == (rays.origins.shape[0], spec.out_channels - 3)
+    for k, tol in (("rgb_map", 2e-3), ("trans_map", 2e-3), ("weights_sum", 2e-3),
+                   ("classes", 2e-2)):
+        err = float((got[k] - want[k]).abs().max()) if want[k].numel() else 0.0
+        assert err <= tol, k

@@ -94,14 +94,18 @@
    64, 64, 3]), seeded random weights, each through ``Renderer.render``
    (library API: the entry points build neither) on the 1008x756 frame,
    launch counters set to 0 before the occupancy restore and read after
-   the frame: K5d (sh_encode), K1, K3s, K4, K5, K7 and K6c must launch;
+   the frame: K5d's second entry (sh_assemble, the color head's input),
+   K1, K3s, K4, K5, K7 and K6c must launch, K5d's first entry not;
    finite maps, the opacity IoU with the spheres >= 0.8, a 4096-ray crop
    within the render phase's tolerances of the plain path; steady frames
-   of the default field and both families in turns.  No other run may
-   launch K5d.
+   of the default field and both families in turns, and one frame of each
+   under the profiler.  No other run may launch K5d.
 
-Before the main path: K5d at a frame chunk's kept stream (129,929 rows)
-and at a style cache's size (640,000), bit for bit against plain; K9
+Before the main path: K5d's first entry (sh_encode) at a frame chunk's
+kept stream (129,929 rows) and at a style cache's size (640,000), and its
+second (sh_assemble: features, SH basis and K5's zero padding in one
+tensor) at the kept stream for both view families, bit for bit against
+plain and against the chain of operators it replaces, timed beside it; K9
 (grid_initialize, on no path) at the default grid with one style (bit for
 bit against plain at full size: the reference on every reached row) and
 two styles, and at a small spec with three styles every reached row
@@ -144,9 +148,16 @@ without a CUDA device or when any phase fails.
 runs the train path alone (the train phase above) and then five late
 steps, each under the profiler, and prints what each step issued
 (operators, kernel launches, device events, synchronizations) and its
-device busy time as one JSON line.  A copy of this file in each of two
-checkouts compares their late steps by what they issue, which the host's
-noise does not move.
+device busy time as one JSON line.
+
+    python3 chip_smoke.py --view-frame
+
+renders the main path's frame through the default field and both
+view-dependent families (as the view phase builds them), two frames of
+each under the profiler, and prints what each frame issued as one JSON
+line.  A copy of this file in each of two checkouts compares their late
+steps or their frames by what they issue, which the host's noise does not
+move.
 """
 
 from __future__ import annotations
@@ -2517,9 +2528,9 @@ def style_kernel_phases(st, fails):
 
 
 def k5d_row(dirs: torch.Tensor, what: str, fails) -> dict:
-    """K5d at degree 4 on ``dirs`` [M, 3] unit directions (the field hands it
-    (dirs + 1) / 2) against its plain version, bit for bit (the same
-    rounding); both timed (the kernel from a CUDA graph)."""
+    """K5d's first entry (sh_encode) at degree 4 on ``dirs`` [M, 3] unit
+    directions (as (dirs + 1) / 2) against its plain version, bit for bit
+    (the same rounding); both timed (the kernel from a CUDA graph)."""
     from nerfstyle_torch.ops import sh
 
     d01 = ((dirs + 1.0) / 2.0).contiguous()
@@ -2534,10 +2545,60 @@ def k5d_row(dirs: torch.Tensor, what: str, fails) -> dict:
     # (the map to [-1, 1] 6, degree 2 3, degree 3 11, degree 4 25).
     b_ms, b_by = bound_ms(nbytes=m * (12 + 64), flops=m * 45)
     log(f"K5d sh_encode at {what}: {m} rows, degree 4; bit-equal to plain: {err == 0.0}; ms "
-        f"{ms:.4f} (graph), plain_ms {plain_ms:.3f}, bound_ms {b_ms:.4f} ({b_by}); library: "
-        f"none (no single PyTorch call)")
+        f"{ms:.5f} (graph), plain_ms {plain_ms:.3f}, bound_ms {b_ms:.5f} ({b_by}), "
+        f"{b_ms / ms:.2f} of the bound; library: none (no single PyTorch call)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None)
+
+
+def k5d_assemble_row(dirs: torch.Tensor, fails) -> dict:
+    """K5d's second entry (sh_assemble) on a view frame chunk's kept stream:
+    ``dirs`` [M, 3] raw unit directions and seeded features, degree 4, K5's
+    width 32, for the style field's color2 (color1's 16 columns) and the
+    base field's rgb_net (15 columns, the strided view ``out[:, 1:]`` of a
+    [M, 16] tensor); bit for bit against its plain version and against the
+    chain the fields ran before this entry (add, divide, sh_encode, cat,
+    and on the base field K5's zero-column pad), both timed from CUDA
+    graphs.  That chain is the row's library column: no single PyTorch call
+    computes the function.  The row is the style field's."""
+    import torch.nn.functional as F
+
+    from nerfstyle_torch.ops import sh
+
+    m = dirs.shape[0]
+    gen = torch.Generator().manual_seed(13)
+    wide = torch.randn((m, 16), generator=gen).to(DEVICE)
+    row = None
+    for what, feat in (("style color2, k = 16", wide), ("base rgb_net, k = 15 strided",
+                                                         wide[:, 1:])):
+        k = feat.shape[1]
+
+        def chain():
+            x = torch.cat([feat, sh.sh_encode((dirs + 1.0) / 2.0, 4)], dim=-1)
+            return F.pad(x, (0, 32 - x.shape[1])) if x.shape[1] < 32 else x
+
+        got = sh.sh_assemble(feat, dirs, 4, 32)
+        ref = sh.sh_assemble(feat, dirs, 4, 32, plain=True)
+        old = chain()
+        err = float((got - ref).abs().max())
+        if not (torch.equal(got, ref) and torch.equal(got, old)):
+            fails.append(f"K5d sh_assemble ({what}) differs from its plain version or from the "
+                         f"chain it replaces (max abs err {err})")
+        ms = graph_ms(lambda: sh.sh_assemble(feat, dirs, 4, 32))
+        plain_ms = graph_ms(lambda: sh.sh_assemble(feat, dirs, 4, 32, plain=True))
+        chain_ms = graph_ms(chain)
+        # Bytes: feat 4k, dirs 12 in, 128 out a row; operations: the basis's
+        # 45 and the fold's 6 a row.
+        b_ms, b_by = bound_ms(nbytes=m * (4 * k + 12 + 128), flops=m * 51)
+        log(f"K5d sh_assemble ({what}) at a view frame chunk's kept stream: {m} rows, degree "
+            f"4, width 32; bit-equal to plain and to the old chain: {err == 0.0}; ms {ms:.5f} "
+            f"(graph), plain_ms {plain_ms:.5f} (graph), the old chain (add, div, sh_encode, "
+            f"cat{', pad' if k < 16 else ''}) {chain_ms:.5f} ms (graph), bound_ms {b_ms:.5f} "
+            f"({b_by}), {b_ms / ms:.2f} of the bound")
+        if row is None:
+            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=chain_ms)
+    return row
 
 
 def l2_rate() -> tuple[float, float, float]:
@@ -2575,6 +2636,21 @@ def grid_init_holds(out, spec, ref_spec, ref, num_styles):
     return reached, bad
 
 
+def k9_sectors(grid, row_bytes: int) -> int:
+    """32-byte sectors K9's warps touch reading the corners of ``grid`` (or
+    writing one style of them): a warp's 32 lanes on an aligned block of
+    32 x of a column read 32 rows, row_bytes sectors, on a power-of-two
+    table; a column's last block of a < 32 lanes at most min(a, row_bytes).
+    (On a level of another size a block may straddle one sector more: a
+    count for the coarse levels' small share.)"""
+    total = 0
+    for res in grid.resolutions:
+        side = res + 1
+        full, rest = divmod(side, 32)
+        total += side * side * (full * row_bytes + min(rest, row_bytes))
+    return total
+
+
 def k9_rows(grid, table: torch.Tensor, fails) -> dict:
     """K9 (grid_initialize) at the default grid (``grid``, the render
     checkpoint's 16 levels; its color table the reference), one style
@@ -2585,9 +2661,10 @@ def k9_rows(grid, table: torch.Tensor, fails) -> dict:
     new table written once at the HBM rate, and every corner's row read
     and its num_styles rows written at the L2 rate ``l2_rate`` measures
     (the launch floor taken off)
-    (4C bytes an access: neighbouring x of a column land in one 32-byte
-    sector, so whole sectors need a quarter of the sector-an-access traffic
-    this kernel moves, which is logged beside)."""
+    (4C bytes an access: a warp's 32 neighbouring x of a column land in
+    whole 32-byte sectors).  Logged beside: the sector traffic of a sector
+    an access (the design before the warp a column) and an upper bound on
+    this kernel's (``k9_sectors``)."""
     from nerfstyle_torch.ops import hashgrid as th
 
     rate, copy_ms, floor_ms = l2_rate()
@@ -2626,8 +2703,10 @@ def k9_rows(grid, table: torch.Tensor, fails) -> dict:
             f"its reached rows (2 styles): {err == 0.0 and same_rows}; ms {ms:.1f} (first call "
             f"{first_s:.2f} s), plain_ms {plain_ms:.1f} (one call), bound_ms {b_ms:.1f} "
             f"({b_by}: table bytes at HBM {t_hbm:.4f} ms, corner rows at the L2 rate "
-            f"{rate / 1e12:.3f} TB/s measured here {t_l2:.1f} ms, a 32-byte sector an access "
-            f"{t_l2 * 32 / row_bytes:.1f} ms); library: none")
+            f"{rate / 1e12:.3f} TB/s measured here {t_l2:.1f} ms; sector traffic at that "
+            f"rate: a 32-byte sector an access {t_l2 * 32 / row_bytes:.1f} ms, this kernel's "
+            f"{k9_sectors(grid, row_bytes) * (1 + styles) * 32 / rate * 1e3:.1f} ms); "
+            f"{b_ms / ms:.2f} of the bound; library: none")
         rows[f"K9 {styles}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                     bound_by="bytes", bound_from=b_by, library_ms=None,
                                     l2_tb_s=rate / 1e12)
@@ -2679,12 +2758,13 @@ def p0_rows(fails) -> dict:
 
 
 def new_kernel_phases(renderer, params, rays_d, fails) -> dict:
-    """K5d at a frame chunk's kept stream and at a style cache's size, K9
-    and P0 (on no path), against their plain versions; returns their
-    kernel-table rows."""
+    """K5d's first entry at a frame chunk's kept stream and at a style
+    cache's size, its second at the kept stream, K9 and P0 (on no path),
+    against their plain versions; returns their kernel-table rows."""
     table = {"K5d": k5d_row(rays_d[:129929], "a frame chunk's kept stream (129,929 rows)",
                             fails),
-             "K5d style": k5d_row(rays_d[:640000], "a style cache's size (640,000 rows)", fails)}
+             "K5d style": k5d_row(rays_d[:640000], "a style cache's size (640,000 rows)", fails),
+             "K5d assemble": k5d_assemble_row(rays_d[:129929].contiguous(), fails)}
     table.update(k9_rows(renderer.field_spec.grid, params["x_color_embedder"], fails))
     table.update(p0_rows(fails))
     return table
@@ -2694,9 +2774,34 @@ def new_kernel_phases(renderer, params, rays_d, fails) -> dict:
 # direction input (the style field under use_dir, SH degree 4: color2 [32,
 # 64, 64, 3]) and the base field (density_out_dims 16, rgb_net [31 -> 32,
 # 64, 64, 3]); each field must launch these on its frame (K6c on the
-# restore).
-VIEW_COUNTERS = ("sh_encode", "hashgrid_encode", "march_skip_count", "march_skip_write",
+# restore; K5d's second entry builds the color head's input).
+VIEW_COUNTERS = ("sh_assemble", "hashgrid_encode", "march_skip_count", "march_skip_write",
                  "composite_weights", "mlp_forward", "segment_sum", "occupancy_skipdist")
+# K5d's counters: no run but a view frame launches either entry, and a view
+# frame only the second.
+K5D_COUNTERS = ("sh_encode", "sh_assemble")
+
+
+def view_families(renderer) -> dict:
+    """The view-dependent families at the render checkpoint's width, each a
+    Renderer (on the render renderer's bbox, settings and camera) and
+    seeded random params: name -> (renderer, params)."""
+    from nerfstyle_torch.models.fields import FieldSpec, field_init
+    from nerfstyle_torch.render.renderer import Renderer
+
+    spec = renderer.field_spec
+    specs = {
+        "view style": dataclasses.replace(spec, use_dir=True, sh_degree=4),
+        "view base": FieldSpec(grid=spec.grid, kind="base", density_out_dims=16,
+                               density_offset=spec.density_offset),
+    }
+    out = {}
+    for seed, (name, fspec) in enumerate(specs.items(), start=1):
+        params = field_init(fspec, torch.Generator().manual_seed(seed), DEVICE)
+        out[name] = (Renderer(fspec, renderer.bbox, renderer.settings, renderer.intr,
+                              renderer.bound, raymarch_channels=fspec.out_channels,
+                              compute_dtype=renderer.compute_dtype, device=DEVICE), params)
+    return out
 
 
 def view_phase(renderer, default_params, pose, rays, card: str, fails) -> dict:
@@ -2708,18 +2813,11 @@ def view_phase(renderer, default_params, pose, rays, card: str, fails) -> dict:
     the maps finite and of the family's channels, the opacity's IoU with
     the spheres >= 0.8, a 4096-ray crop within the render phase's
     tolerances of the plain path; then steady frames of the default field
-    (``renderer``, ``default_params``) and both families in turns.
-    Returns each family's launches."""
-    from nerfstyle_torch.models.fields import FieldSpec, field_init
+    (``renderer``, ``default_params``) and both families in turns, and one
+    frame of each under the profiler (what it issues).  Returns each
+    family's launches."""
     from nerfstyle_torch.ops.occupancy import occupancy_persistable
-    from nerfstyle_torch.render.renderer import Renderer
 
-    spec = renderer.field_spec
-    specs = {
-        "view style": dataclasses.replace(spec, use_dir=True, sh_degree=4),
-        "view base": FieldSpec(grid=spec.grid, kind="base", density_out_dims=16,
-                               density_offset=spec.density_offset),
-    }
     persisted = occupancy_persistable(renderer.occ_state)
     w, h = OUT_DIMS
     npix = w * h
@@ -2727,11 +2825,8 @@ def view_phase(renderer, default_params, pose, rays, card: str, fails) -> dict:
                          indexing="ij")
     crop = torch.from_numpy((ys * w + xs).reshape(-1)).to(DEVICE)
     runs, frames = {}, {"default": (renderer, default_params)}
-    for seed, (name, fspec) in enumerate(specs.items(), start=1):
-        params = field_init(fspec, torch.Generator().manual_seed(seed), DEVICE)
-        r = Renderer(fspec, renderer.bbox, renderer.settings, renderer.intr, renderer.bound,
-                     raymarch_channels=fspec.out_channels, compute_dtype=renderer.compute_dtype,
-                     device=DEVICE)
+    for name, (r, params) in view_families(renderer).items():
+        fspec = r.field_spec
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
@@ -2744,6 +2839,8 @@ def view_phase(renderer, default_params, pose, rays, card: str, fails) -> dict:
         for counter in VIEW_COUNTERS:
             if runs[name][counter] <= 0:
                 fails.append(f"{name} frame launched no {counter} kernel")
+        if runs[name]["sh_encode"]:
+            fails.append(f"{name} frame launched K5d's first entry: the field takes the second")
         shapes = {"rgb_map": (npix, 3), "trans_map": (npix,), "weights_sum": (npix,),
                   "classes": (npix, fspec.out_channels - 3)}
         for k, shp in shapes.items():
@@ -2782,6 +2879,8 @@ def view_phase(renderer, default_params, pose, rays, card: str, fails) -> dict:
             times[name].append((time.perf_counter() - t) * 1e3)
     log(f"steady frames ({card}) at {w}x{h}, in turns {order}: " + ", ".join(
         f"{k} min {min(v):.1f} ms {['%.1f' % t for t in v]}" for k, v in times.items()))
+    for name, (r, params) in frames.items():
+        profile_once(lambda: r.render(params, pose), f"{name} frame", card)
     return runs
 
 
@@ -3030,8 +3129,9 @@ def main() -> int:
                              f"with a row: {split} of {counts[name]}")
     # The default paths launch no K5d: their field reads no direction.
     for path, counts in runs.items():
-        if not path.startswith("view") and counts["sh_encode"]:
-            fails.append(f"the {path} run launched K5d {counts['sh_encode']} times")
+        k5d = sum(counts[c] for c in K5D_COUNTERS)
+        if not path.startswith("view") and k5d:
+            fails.append(f"the {path} run launched K5d {k5d} times")
     hg, cp = "nerfstyle_torch/csrc/hashgrid.cu", "nerfstyle_torch/csrc/composite.cu"
     encode_rows = {
         "frame A": "a frame chunk's marched samples (phase A: density, C=2)",
@@ -3091,12 +3191,16 @@ def main() -> int:
          "nerfstyle_tpu/ops/morton.py:27", ("morton3d",), ("import",)),
         ("K8b invert", "K8b morton3d_invert", "nerfstyle_torch/csrc/interop.cu",
          "nerfstyle_tpu/ops/morton.py:44", ("morton3d_invert",), ()),
-        ("K5d", "K5d sh_encode, a frame chunk's kept samples (the view frames' phase B)",
-         "nerfstyle_torch/csrc/sh.cu", "nerfstyle_tpu/ops/sh.py:19", ("sh_encode",),
-         ("view style", "view base")),
-        ("K5d style", "K5d sh_encode at a style cache's size, 640,000 rows (no path: the style "
-         "stage's view-direction input is not ported)", "nerfstyle_torch/csrc/sh.cu",
+        ("K5d", "K5d sh_encode (first entry) at a frame chunk's kept stream, 129,929 rows (on "
+         "no path: the fields take the second entry)", "nerfstyle_torch/csrc/sh.cu",
          "nerfstyle_tpu/ops/sh.py:19", ("sh_encode",), ()),
+        ("K5d style", "K5d sh_encode (first entry) at a style cache's size, 640,000 rows (no "
+         "path: the style stage's view-direction input is not ported)",
+         "nerfstyle_torch/csrc/sh.cu", "nerfstyle_tpu/ops/sh.py:19", ("sh_encode",), ()),
+        ("K5d assemble", "K5d sh_assemble (second entry): color2's input from color1 and the "
+         "SH basis, a view frame chunk's kept samples (the view frames' phase B)",
+         "nerfstyle_torch/csrc/sh.cu", "nerfstyle_tpu/ops/sh.py:19", ("sh_assemble",),
+         ("view style", "view base")),
         ("K9 1", "K9 grid_initialize, default grid, one style (on no path)", hg,
          "nerfstyle_tpu/ops/hashgrid.py:351", ("grid_initialize",), ()),
         ("K9 2", "K9 grid_initialize, default grid, two styles (on no path)", hg,
@@ -3177,5 +3281,48 @@ def late_step_main(steps: int = 5) -> int:
     return 0
 
 
+def view_frame_main(frames: int = 2) -> int:
+    """``--view-frame``: the render checkpoint's frame through the default
+    field and both view-dependent families (as ``view_phase`` builds them),
+    each warmed up and then ``frames`` frames under the profiler; one JSON
+    line of what each frame issued."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this check needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from nerfstyle_torch import kernels
+    from nerfstyle_torch.ops.occupancy import occupancy_persistable
+    from nerfstyle_torch.render import cli
+
+    card = card_line()
+    log(f"card: {card}")
+    kernels.build(verbose=True)
+    kernels.library()
+    WORK.mkdir(parents=True, exist_ok=True)
+    write_checkpoint(WORK / "smoke.ckpt")
+    renderer, params, test_set, _ = cli.load_renderer(WORK / "smoke.ckpt", DEVICE, OUT_DIMS,
+                                                      max_count=1)
+    pose = torch.from_numpy(np.asarray(test_set[0][1]))
+    families = {"default": (renderer, params), **view_families(renderer)}
+    persisted = occupancy_persistable(renderer.occ_state)
+    issued = {}
+    for name, (r, p) in families.items():
+        if r is not renderer:
+            r.restore_occupancy(persisted)
+        for _ in range(2):
+            r.render(p, pose)
+        issued[name] = [profile_once(lambda: r.render(p, pose), f"{name} frame {i}", card)
+                        for i in range(frames)]
+    if not all(all(v) for v in issued.values()):
+        print("FAIL: the profiler recorded nothing", file=sys.stderr)
+        return 1
+    print(card)
+    print(json.dumps({"frames": issued}))
+    return 0
+
+
+MODES = {"--late-step": late_step_main, "--view-frame": view_frame_main}
+
 if __name__ == "__main__":
-    sys.exit(late_step_main() if sys.argv[1:] == ["--late-step"] else main())
+    sys.exit(MODES[sys.argv[1]]() if sys.argv[1:] and sys.argv[1] in MODES else main())

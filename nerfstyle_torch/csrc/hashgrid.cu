@@ -475,54 +475,86 @@ NST_API int nst_hashgrid_backward(const void* x, const void* g, const void* leve
 // offset.  Stores of corners that collide on a row race, so its surviving
 // value is arbitrary, as in the reference kernel and in JAX's .at[].set.
 //
-// Bound on the H100: the corner traffic.  The default grid has
-// sum_l (res_l + 1)^3 = 1.385e10 corners, each a random row read and
-// num_styles random row stores (32-byte sectors, mostly in L2: a level's
-// table is 4 MiB), against a table of 52 MB read and written once.  A
-// thread takes one (y, z) column of a level and walks its x, so the 64-bit
-// corner count needs no 64-bit division: the column's hash part is formed
-// once and each x adds one XOR (dense: one add) and a remainder a style.
-// The columns of every level are one grid-stride range, one launch a call.
+// Bound on the H100: the corner traffic.  The render grid has
+// sum_l (res_l + 1)^3 = 1.026e11 corners, each a row read and num_styles
+// rows written (mostly in L2: a level's table is 4 MiB), against a table
+// of 52 MB read and written once.  A warp takes one (y, z) column of a
+// level, forms the column's part of the law once, and walks x in aligned
+// blocks of 32, one x a lane.  On a hashed level whose table is a power of
+// two (every full 2^19 table) the row is (x ^ part ^ style term) & (size -
+// 1): a mask, and 32 consecutive x aligned to 32 land on 32 consecutive
+// rows (in some order), so a warp's 32 row loads, and its 32 row stores of
+// each style (the style term XORs a constant in), fall in 32 x 4C
+// contiguous bytes: whole 32-byte sectors.  A dense level's rows, x + part
+// + style * (res + 1)^3, are contiguous too.  Levels whose table is not a
+// power of two (coarse levels, small tables) keep the 32-bit remainder.
+// Rows are loaded and stored whole (float2 at C = 2, float4 at C = 4), four
+// blocks of x a lane in flight.  The columns of every level are one
+// grid-stride range over the warps, one launch a call; lanes past the
+// column's end are masked.
 // ---------------------------------------------------------------------------
 
 namespace {
 
-__device__ __forceinline__ unsigned grid_row(unsigned x, unsigned column, unsigned side,
-                                             unsigned size, bool dense, unsigned style) {
-    const unsigned h = dense ? x + column + style * side * side * side
-                             : x ^ column ^ (style * 3674653429u);
-    return h % size;
-}
+constexpr int kInitUnroll = 4;  // blocks of 32 x a warp loads before it stores
+
+// Rows of one level's table: the index law's last step, % size, as a mask
+// on a power-of-two table.
+struct InitLaw {
+    unsigned size, mask;
+    int offset;
+    bool dense;
+    __device__ InitLaw(const int* levels, int num_levels, int base, int l)
+        : size(static_cast<unsigned>(__ldg(levels + base * num_levels + l))),
+          mask((size & (size - 1)) == 0 ? size - 1 : 0u),
+          offset(__ldg(levels + (base + 1) * num_levels + l)),
+          dense(__ldg(levels + (base + 2) * num_levels + l) != 0) {}
+    // h: the law before the remainder.
+    __device__ __forceinline__ long long row(unsigned h) const {
+        const unsigned r = mask ? h & mask : h % size;
+        return static_cast<long long>(static_cast<int>(r) + offset);
+    }
+};
 
 template <int C>
 __global__ void __launch_bounds__(nst::kThreads)
     grid_initialize_kernel(const float* __restrict__ ref, const int* __restrict__ levels,
                            int num_levels, int num_styles, float* __restrict__ out) {
-    const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-    long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+    const unsigned lane = threadIdx.x % 32;
+    const long long step = static_cast<long long>(gridDim.x) * (blockDim.x / 32);
+    long long first = static_cast<long long>(blockIdx.x) * (blockDim.x / 32) + threadIdx.x / 32;
     for (int l = 0; l < num_levels; ++l) {
         const unsigned side = static_cast<unsigned>(__ldg(levels + l)) + 1u;
-        const unsigned ref_size = static_cast<unsigned>(__ldg(levels + num_levels + l));
-        const int ref_off = __ldg(levels + 2 * num_levels + l);
-        const bool ref_dense = __ldg(levels + 3 * num_levels + l) != 0;
-        const unsigned size = static_cast<unsigned>(__ldg(levels + 4 * num_levels + l));
-        const int off = __ldg(levels + 5 * num_levels + l);
-        const bool dense = __ldg(levels + 6 * num_levels + l) != 0;
+        const InitLaw src(levels, num_levels, 1, l), dst(levels, num_levels, 4, l);
+        const unsigned cube = side * side * side;  // the dense law's style stride (mod 2^32)
         const long long columns = static_cast<long long>(side) * side;
         for (long long j = first; j < columns; j += step) {
             const unsigned column = static_cast<unsigned>(j);  // < side^2 < 2^32
             const unsigned y = column / side, z = column % side;
             const unsigned hashed = y * 2654435761u ^ z * 805459861u;
             const unsigned dense_part = y * side + z * side * side;
-            for (unsigned x = 0; x < side; ++x) {
-                float v[C];
-                const unsigned r = grid_row(x, ref_dense ? dense_part : hashed, side, ref_size,
-                                            ref_dense, 0u);
-                load_row<C>(ref + static_cast<long long>(static_cast<int>(r) + ref_off) * C, v);
-                for (int s = 0; s < num_styles; ++s) {
-                    const unsigned w = grid_row(x, dense ? dense_part : hashed, side, size, dense,
-                                                static_cast<unsigned>(s));
-                    store_row<C>(out + static_cast<long long>(static_cast<int>(w) + off) * C, v);
+            const unsigned src_part = src.dense ? dense_part : hashed;
+            const unsigned dst_part = dst.dense ? dense_part : hashed;
+            for (unsigned x0 = 0; x0 < side; x0 += 32 * kInitUnroll) {
+                float v[kInitUnroll][C];
+#pragma unroll
+                for (int u = 0; u < kInitUnroll; ++u) {
+                    const unsigned x = x0 + 32 * u + lane;
+                    if (x < side) {
+                        const unsigned h = src.dense ? x + src_part : x ^ src_part;
+                        load_row<C>(ref + src.row(h) * C, v[u]);
+                    }
+                }
+#pragma unroll
+                for (int u = 0; u < kInitUnroll; ++u) {
+                    const unsigned x = x0 + 32 * u + lane;
+                    if (x >= side) continue;
+                    unsigned term = 0;  // the style term, for s = 0, 1, ...
+                    for (int s = 0; s < num_styles; ++s) {
+                        const unsigned h = dst.dense ? x + dst_part + term : x ^ dst_part ^ term;
+                        store_row<C>(out + dst.row(h) * C, v[u]);
+                        term += dst.dense ? cube : 3674653429u;
+                    }
                 }
             }
         }

@@ -63,6 +63,7 @@ launch_counts: Dict[str, int] = {
     "morton3d_invert": 0,
     "empty_kernel": 0,
     "sh_encode": 0,
+    "sh_assemble": 0,
     "grid_initialize": 0,
     "take_rows": 0,
 }
@@ -103,6 +104,7 @@ _SIGNATURES = {
     "nst_morton3d_invert": (_P, _LL, _P, _P),
     "nst_empty_kernel": (_P,),
     "nst_sh_encode": (_P, _LL, _I, _P, _P),
+    "nst_sh_assemble": (_P, _LL, _I, _P, _LL, _I, _I, _P, _P),
     "nst_grid_initialize": (_P, _P, _I, _I, _I, _P, _P),
     "nst_take_rows": (_P, _P, _LL, _LL, _P, _P),
 }
@@ -781,8 +783,8 @@ def empty_kernel(device: torch.device) -> None:
 
 
 def sh_encode(dirs01: torch.Tensor, degree: int) -> torch.Tensor:
-    """K5d: the [M, degree**2] real SH basis of [M, 3] directions in [0, 1]
-    (see csrc/sh.cu)."""
+    """K5d's first entry: the [M, degree**2] real SH basis of [M, 3]
+    directions in [0, 1] (see csrc/sh.cu)."""
     _check("dirs01", dirs01, torch.float32, (None, 3))
     if not 1 <= degree <= 4:
         raise ValueError(f"K5d takes SH degrees 1..4, got {degree}")
@@ -793,6 +795,32 @@ def sh_encode(dirs01: torch.Tensor, degree: int) -> torch.Tensor:
         status = lib.nst_sh_encode(dirs01.data_ptr(), m, degree, out.data_ptr(),
                                    _stream(dirs01))
         _launched(lib, status, "sh_encode")
+    return out
+
+
+def sh_assemble(feat: torch.Tensor, dirs: torch.Tensor, degree: int, width: int) -> torch.Tensor:
+    """K5d's second entry: K5's [M, width] color input from ``feat`` [M, k]
+    (unit column stride, any row stride) and raw directions [M, 3]: feat,
+    the SH basis of (dirs + 1) / 2, then zeros (see csrc/sh.cu)."""
+    _check("dirs", dirs, torch.float32, (None, 3))
+    if not feat.is_cuda or feat.dtype != torch.float32 or feat.dim() != 2:
+        raise ValueError(f"feat: expected a 2-d CUDA float32 tensor, got {feat.dtype} "
+                         f"{tuple(feat.shape)} on {feat.device}")
+    m, k = feat.shape
+    if dirs.shape[0] != m:
+        raise ValueError(f"feat has {m} rows and dirs {dirs.shape[0]}")
+    if k > 1 and feat.stride(1) != 1:
+        raise ValueError("feat: expected a unit column stride")
+    if width not in MLP_IN_DIMS or not 1 <= degree <= 4 or k + degree * degree > width:
+        raise ValueError(f"K5d assembles inputs of width {MLP_IN_DIMS} at degrees 1..4 with "
+                         f"k + degree^2 <= width, got width {width}, degree {degree}, k {k}")
+    _same_device(feat, dirs)
+    out = torch.empty((m, width), dtype=torch.float32, device=dirs.device)
+    if m > 0:
+        lib = library()
+        status = lib.nst_sh_assemble(feat.data_ptr(), feat.stride(0), k, dirs.data_ptr(), m,
+                                     degree, width, out.data_ptr(), _stream(dirs))
+        _launched(lib, status, "sh_assemble")
     return out
 
 

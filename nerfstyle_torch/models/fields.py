@@ -14,16 +14,17 @@ MLPs are lists of [d_in, d_out] matrices.  :func:`params_from_numpy` and
 and the port's tensors.
 
 Every MLP goes through :func:`~nerfstyle_torch.ops.mlp.mlp_apply` (kernel K5
-on CUDA tensors), the SH basis through
-:func:`~nerfstyle_torch.ops.sh.sh_encode` (kernel K5d).  Rendering reads the
-field in two halves: :func:`field_density` (density table + density MLP)
-and :func:`field_color` (the style kind's color table + class, color1 and
-color2 heads; the base kind has no density-free color path and runs
-:func:`field_apply`); a train step's phase B reads it whole with
-:func:`field_apply`, for the style kind one encode of the concatenated
-``[T, 4]`` tables.  All three are differentiable in the params; the
-directions (``dirs``, [M, 3], read where the spec has a view-direction
-input) take no gradient.  The encoder sees ``(normalize(x) + 1) / 2``, the
+on CUDA tensors); the color head's input under a view direction (features,
+the direction's SH basis and K5's zero padding) through
+:func:`~nerfstyle_torch.ops.sh.sh_assemble` (kernel K5d, one launch).
+Rendering reads the field in two halves: :func:`field_density` (density
+table + density MLP) and :func:`field_color` (the style kind's color table
++ class, color1 and color2 heads; the base kind has no density-free color
+path and runs :func:`field_apply`); a train step's phase B reads it whole
+with :func:`field_apply`, for the style kind one encode of the
+concatenated ``[T, 4]`` tables.  All three are differentiable in the
+params; the directions (``dirs``, [M, 3], read where the spec has a
+view-direction input) take no gradient.  The encoder sees ``(normalize(x) + 1) / 2``, the
 reference's quirk.
 
 :func:`train_state_from_numpy` and :func:`train_state_to_numpy` carry a
@@ -43,8 +44,8 @@ from .. import kernels
 from ..config import ConfigError
 from ..core.types import BBox
 from ..ops.hashgrid import HashGridSpec, hashgrid_encode, hashgrid_init, hashgrid_spec
-from ..ops.mlp import mlp_apply, mlp_init, trunc_exp
-from ..ops.sh import sh_encode
+from ..ops.mlp import kernel_in_width, mlp_apply, mlp_init, pad_weights, trunc_exp
+from ..ops.sh import sh_assemble
 from ..training.ema import EmaState
 from ..training.optim import OptState, opt_state_from_tree
 
@@ -290,13 +291,21 @@ def _encoder_input(bbox: BBox, pts: torch.Tensor) -> torch.Tensor:
     return (bbox.normalize(pts) + 1.0) / 2.0
 
 
-def _dir_basis(spec: FieldSpec, dirs: Optional[torch.Tensor], plain: bool) -> torch.Tensor:
-    """The SH basis of the directions [M, 3], as the field reads it:
-    ``sh_encode((dirs + 1) / 2)``."""
+def _view_head(spec: FieldSpec, weights: List[torch.Tensor], feat: torch.Tensor,
+               dirs: Optional[torch.Tensor], compute_dtype: torch.dtype,
+               plain: bool) -> torch.Tensor:
+    """The last color MLP on ``feat`` [M, k] and the SH basis of the
+    directions [M, 3], as the field reads it (``sh_encode((dirs + 1) /
+    2)``): one input [M, width] padded with zeros to the width K5 takes
+    (:func:`~nerfstyle_torch.ops.sh.sh_assemble`), and the first weight
+    matrix with zero rows to match -> sigmoid rgb [M, 3]."""
     if dirs is None:
         raise ValueError(f"the {spec.kind} field{' with use_dir' if spec.use_dir else ''} "
                          "reads the view directions: pass dirs")
-    return sh_encode((dirs + 1.0) / 2.0, spec.sh_degree, plain=plain)
+    width = kernel_in_width(spec.rgb_in_dims)
+    x = sh_assemble(feat, dirs, spec.sh_degree, width, plain=plain)
+    return mlp_apply(pad_weights(weights, width), x, output_activation="sigmoid",
+                     compute_dtype=compute_dtype, plain=plain)
 
 
 def field_density(
@@ -347,9 +356,10 @@ def _color_heads(spec: FieldSpec, params: Params, h_color: torch.Tensor,
     classes = mlp_apply(params["class_net"], h_color, compute_dtype=compute_dtype, plain=plain)
     color1 = mlp_apply(params["color1_net"], h_color, compute_dtype=compute_dtype, plain=plain)
     if spec.use_dir:
-        color1 = torch.cat([color1, _dir_basis(spec, dirs, plain)], dim=-1)
-    rgb = mlp_apply(params["color2_net"], color1, output_activation="sigmoid",
-                    compute_dtype=compute_dtype, plain=plain)
+        rgb = _view_head(spec, params["color2_net"], color1, dirs, compute_dtype, plain)
+    else:
+        rgb = mlp_apply(params["color2_net"], color1, output_activation="sigmoid",
+                        compute_dtype=compute_dtype, plain=plain)
     return torch.cat([rgb, classes], dim=-1)
 
 
@@ -377,10 +387,8 @@ def field_apply(
         h = hashgrid_encode(spec.grid, params["x_embedder"], x, plain=plain)
         out = mlp_apply(params["density_net"], h, compute_dtype=compute_dtype, plain=plain)
         sigmas = trunc_exp(out[:, 0] + spec.density_offset)
-        rgb_in = torch.cat([out[:, 1:], _dir_basis(spec, dirs, plain)], dim=-1)
-        rgbs = mlp_apply(params["rgb_net"], rgb_in, output_activation="sigmoid",
-                         compute_dtype=compute_dtype, plain=plain)
-        return rgbs, sigmas
+        return _view_head(spec, params["rgb_net"], out[:, 1:], dirs, compute_dtype,
+                          plain), sigmas
     c = spec.grid.level_dim
     if 2 * c in kernels.HASHGRID_WIDTHS:
         fused = torch.cat([params["x_density_embedder"], params["x_color_embedder"]], dim=1)

@@ -24,11 +24,13 @@ versions: the ReLU's gradient at exactly 0 is 0 (``jnp.maximum`` splits it,
 is, and such a row (a point outside the grid) has no table gradient.
 
 K5 is instantiated for inputs 16 or 32 wide (``kernels.MLP_IN_DIMS``).  On
-CUDA a narrower input (the view-dependent color heads': 16 + deg^2 or the
-base field's 15 + deg^2) is padded with zero columns to the next width and
-the first weight matrix with zero rows (:func:`pad_input`): the zero
-products add nothing, so it is the same function, and autograd slices the
-padding's gradient off.
+CUDA a narrower input is padded with zero columns to the next width and the
+first weight matrix with zero rows (:func:`pad_input`): the zero products
+add nothing, so it is the same function, and autograd slices the padding's
+gradient off.  The view-dependent color heads' inputs (16 + deg^2 or the
+base field's 15 + deg^2 columns) come at that width already, their zero
+columns written by ``ops.sh.sh_assemble``, and the field pads only the
+weights (:func:`pad_weights`), on every device.
 """
 
 from __future__ import annotations
@@ -91,18 +93,31 @@ def mlp_apply_plain(
     return h
 
 
+def kernel_in_width(in_dim: int) -> int:
+    """The input width K5 takes for ``in_dim`` columns: the narrowest of
+    ``kernels.MLP_IN_DIMS`` that holds them, or ``in_dim`` above the
+    widest (K5 then refuses it)."""
+    return min((d for d in kernels.MLP_IN_DIMS if d >= in_dim), default=in_dim)
+
+
+def pad_weights(weights: Sequence[torch.Tensor], in_dim: int):
+    """``weights`` with the first matrix padded by zero rows to ``in_dim``
+    inputs (unchanged where it has as many)."""
+    pad = in_dim - weights[0].shape[0]
+    if pad == 0:
+        return weights
+    return [torch.nn.functional.pad(weights[0], (0, 0, 0, pad)), *weights[1:]]
+
+
 def pad_input(weights: Sequence[torch.Tensor], x: torch.Tensor):
     """(weights, x) with x [M, in] padded by zero columns, and the first
     weight matrix by zero rows, to the next input width K5 takes, where
     ``in`` is narrower than the widest and not one of them; unchanged
     otherwise (K5 then takes the width or refuses it)."""
-    in_dim = x.shape[1]
-    wider = [d for d in kernels.MLP_IN_DIMS if d > in_dim]
-    if in_dim in kernels.MLP_IN_DIMS or not wider:
+    pad = kernel_in_width(x.shape[1]) - x.shape[1]
+    if pad == 0:
         return weights, x
-    pad = min(wider) - in_dim
-    return ([torch.nn.functional.pad(weights[0], (0, 0, 0, pad)), *weights[1:]],
-            torch.nn.functional.pad(x, (0, pad)))
+    return pad_weights(weights, x.shape[1] + pad), torch.nn.functional.pad(x, (0, pad))
 
 
 class MlpApply(torch.autograd.Function):

@@ -6,11 +6,17 @@ directions given in [0, 1] (the field passes ``(dirs + 1) / 2``) and mapped
 back to [-1, 1] first: ``d01 * 2 - 1``, which is not the identity in fp32
 and is kept as JAX computes it.  Output [M, degree**2].
 
-:func:`sh_encode` launches kernel K5d (``csrc/sh.cu``) on CUDA tensors and
-runs :func:`sh_encode_plain` on CPU tensors or with ``plain=True``.  Both
+:func:`sh_assemble` builds a color MLP's whole input from features and raw
+view directions: the features, the basis of ``(dirs + 1) / 2`` as the
+fields read it, and zero columns up to the width K5 takes, as one tensor.
+
+:func:`sh_encode` and :func:`sh_assemble` launch kernel K5d's two entries
+(``csrc/sh.cu``) on CUDA tensors and run :func:`sh_encode_plain` and
+:func:`sh_assemble_plain` on CPU tensors or with ``plain=True``.  Both
 round every product and sum on its own, in the JAX order of operations, so
 the kernel gives the plain version's bits.  The directions take no
-gradient on any path: on CUDA a direction tensor that asks for one raises.
+gradient: on CUDA a direction tensor that asks for one raises (on the CPU
+``sh_assemble`` hands it none).
 """
 
 from __future__ import annotations
@@ -71,3 +77,50 @@ def sh_encode(dirs01: torch.Tensor, degree: int = 4, *, plain: bool = False) -> 
         raise ValueError("sh_encode: K5d takes no gradient of the directions, and these "
                          "require one")
     return kernels.sh_encode(dirs01.contiguous(), degree)
+
+
+def sh_assemble_plain(feat: torch.Tensor, dirs: torch.Tensor, degree: int,
+                      width: int) -> torch.Tensor:
+    """Plain K5d assemble: ``[feat, sh_encode_plain((dirs + 1) / 2), 0...]``
+    [M, width]."""
+    basis = sh_encode_plain((dirs + 1.0) / 2.0, degree)
+    pad = feat.new_zeros((feat.shape[0], width - feat.shape[1] - degree**2))
+    return torch.cat([feat, basis, pad], dim=-1)
+
+
+class ShAssemble(torch.autograd.Function):
+    """K5d assemble, forward on either path; the backward hands the input
+    gradient's first k columns to ``feat`` (no kernel) and none to the
+    directions."""
+
+    @staticmethod
+    def forward(ctx, feat, dirs, degree, width, plain):
+        ctx.k = feat.shape[1]
+        if not use_kernel(feat, plain):
+            return sh_assemble_plain(feat, dirs, degree, width)
+        return kernels.sh_assemble(feat, dirs.contiguous(), degree, width)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[:, :ctx.k], None, None, None, None
+
+
+def sh_assemble(feat: torch.Tensor, dirs: torch.Tensor, degree: int, width: int, *,
+                plain: bool = False) -> torch.Tensor:
+    """[M, k] features and [M, 3] view directions -> [M, width]: the
+    features, the SH basis of ``(dirs + 1) / 2`` and zero columns.
+
+    CUDA tensors go through K5d's second entry in one launch (``feat`` a
+    unit column stride and any row stride: a column slice of a wider
+    tensor), which raises on directions that require a gradient; CPU
+    tensors (or ``plain=True``) through :func:`sh_assemble_plain`.
+    Differentiable in ``feat`` only."""
+    _check_degree(degree)
+    k = feat.shape[1]
+    if width < k + degree**2:
+        raise ValueError(f"sh_assemble: width {width} holds fewer than the {k} features and "
+                         f"{degree**2} basis columns")
+    if use_kernel(feat, plain) and dirs.requires_grad:
+        raise ValueError("sh_assemble: K5d takes no gradient of the directions, and these "
+                         "require one")
+    return ShAssemble.apply(feat, dirs, degree, width, plain)

@@ -1176,6 +1176,42 @@ def test_torch_sh_kernel_matches_plain(cuda_device, degree):
     assert tsh.sh_encode(d01[:0], degree).shape == (0, degree**2)
 
 
+@pytest.mark.parametrize("m", [1, 31, 33, 129929])
+@pytest.mark.parametrize("k", [15, 16])
+@pytest.mark.parametrize("degree", [1, 2, 3, 4])
+def test_torch_sh_assemble_kernel_matches_plain(cuda_device, degree, k, m):
+    """K5d's second entry writes K5's whole color input, bit for bit the
+    plain ``cat([feat, sh_encode((dirs + 1) / 2), 0])``: k = 15 from the
+    strided view ``out[:, 1:]`` of a [M, 16] tensor (the base field's
+    features), k = 16 contiguous (the style field's color1), at one row,
+    a part tile, a tile and a row, and a view frame chunk's kept stream.
+    Its backward hands feat the first k gradient columns; directions that
+    want a gradient raise."""
+    from nerfstyle_torch.ops import sh as tsh
+
+    rng = np.random.default_rng(degree * 1000 + k + m)
+    d = rng.normal(size=(m, 3)).astype(np.float32)
+    d[:min(m, 6)] = np.concatenate([np.eye(3), -np.eye(3)]).astype(np.float32)[:m]
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    dirs = torch.from_numpy(d).to(cuda_device)
+    wide = torch.from_numpy(rng.normal(size=(m, 16)).astype(np.float32)).to(cuda_device)
+    feat = wide[:, 1:] if k == 15 else wide
+    width = 16 if k + degree**2 <= 16 else 32
+    kernels.reset_launch_counts()
+    got = tsh.sh_assemble(feat, dirs, degree, width)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["sh_assemble"] == 1
+    want = tsh.sh_assemble(feat, dirs, degree, width, plain=True)
+    assert got.shape == (m, width)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    fg = feat.detach().clone().requires_grad_(True)
+    g = torch.from_numpy(rng.normal(size=(m, width)).astype(np.float32)).to(cuda_device)
+    (tsh.sh_assemble(fg, dirs, degree, width) * g).sum().backward()
+    torch.testing.assert_close(fg.grad, g[:, :k], rtol=0, atol=0)
+    with pytest.raises(ValueError, match="gradient"):
+        tsh.sh_assemble(feat, dirs.clone().requires_grad_(True), degree, width)
+
+
 @pytest.mark.parametrize("rows,width,aligned", [
     (1024, 128, True), (777, 7, True), (1024, 128, False), (5, 1, True), (3, 1000, True)])
 def test_torch_take_rows_kernel_matches_plain(cuda_device, rows, width, aligned):
@@ -1278,6 +1314,41 @@ def test_torch_grid_initialize_kernel_on_a_dense_reference(cuda_device):
         _grid_init_holds(got, spec, ref_spec, ref, num_styles)
 
 
+def _mixed_init_spec():
+    """A spec whose levels K9 treats three ways: a dense level (its table
+    holds all 512 style slots of every corner), power-of-two hashed levels
+    (2^12 and 2^14 rows, sides 41 and 71), and a hashed level whose table
+    is not a power of two (res 20: ceil8(20^3) = 8000 rows < 21^3 corners);
+    no side is a multiple of 32."""
+    spec = th.hashgrid_spec(num_levels=4, level_dim=2, base_resolution=2, per_level_scale=2.0,
+                            log2_hashmap_size=14)
+    res, sizes = (2, 20, 40, 70), (512 * 27, 8000, 1 << 12, 1 << 14)
+    spec = dataclasses.replace(spec, resolutions=res, table_sizes=sizes,
+                               offsets=tuple(int(v) for v in np.cumsum((0,) + sizes)))
+    assert th.dense_level(res[0], sizes[0]) and not any(
+        th.dense_level(r, t) for r, t in zip(res[1:], sizes[1:]))
+    return spec
+
+
+def test_torch_grid_initialize_kernel_mixed_levels(cuda_device):
+    """Dense, power-of-two and other hashed levels in one launch: check (a)
+    at one style, bit for bit against plain; check (b) at three styles,
+    the reached rows plain's."""
+    spec = _mixed_init_spec()
+    ref = _grid_ref(spec, cuda_device, 5)
+    kernels.reset_launch_counts()
+    got = th.grid_initialize(spec, spec, ref, num_styles=1)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["grid_initialize"] == 1
+    torch.testing.assert_close(got, th.grid_initialize(spec, spec, ref, num_styles=1,
+                                                       plain=True), rtol=0, atol=0)
+    got = th.grid_initialize(spec, spec, ref, num_styles=3)
+    torch.cuda.synchronize()
+    reached = _grid_init_holds(got, spec, spec, ref, 3)
+    want = th.grid_initialize(spec, spec, ref, num_styles=3, plain=True)
+    torch.testing.assert_close(reached, want.ne(0).any(dim=1))
+
+
 def _view_renderer(device, family):
     """A Renderer on a field of ``family`` (style with use_dir, or base) at
     a width the kernels take (8 levels x 2 features), seeded random
@@ -1316,7 +1387,8 @@ def _view_renderer(device, family):
 @pytest.mark.parametrize("family", ["style_dir", "base"])
 def test_torch_view_frame_crop_against_plain(cuda_device, family):
     """A frame of each view-dependent family through ``Renderer`` on the
-    card launches K5d (once a chunk, on phase B's significant samples) with
+    card launches K5d's assemble entry (once a chunk, on phase B's
+    significant samples) with
     K1, K3s, K4, K5 and K7, and equals the plain path within the render
     phase's tolerances (chip_smoke.py: 2e-3 on rgb, opacity and depth, 2e-2
     on class logits: bf16 MLP activations rounding to the neighbouring
@@ -1328,10 +1400,10 @@ def test_torch_view_frame_crop_against_plain(cuda_device, family):
         torch.cuda.synchronize()
         counts = dict(kernels.launch_counts)
         want = r.render_rays(params, rays.origins, rays.dirs, plain=True)
-    for name in ("sh_encode", "hashgrid_encode", "march_skip_count", "march_skip_write",
+    for name in ("sh_assemble", "hashgrid_encode", "march_skip_count", "march_skip_write",
                  "composite_weights", "mlp_forward", "segment_sum"):
         assert counts[name] > 0, name
-    assert counts["sh_encode"] == 1
+    assert counts["sh_assemble"] == 1 and counts["sh_encode"] == 0
     assert got["num_sig"] > 0 and got["num_marched"] == want["num_marched"]
     assert got["classes"].shape == (rays.origins.shape[0], spec.out_channels - 3)
     for k, tol in (("rgb_map", 2e-3), ("trans_map", 2e-3), ("weights_sum", 2e-3),

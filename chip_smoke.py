@@ -59,7 +59,8 @@
    launches must give the same bits), timed; late steps with
    adaptive_march on and off in turns (the
    off turns' dense-march launches counted); one late step under the
-   profiler.
+   profiler; eight more through the trainer's own trace window
+   (``--profile_dir``), split step by step (``read_trace``).
 9. The style path: ``python -m nerfstyle_torch.train --ckpt <the train
    phase's checkpoint> --style-image <png> --style_seg_path <npz>
    --max_steps 512`` in-process, on a 504x378 synthetic scene (30 train
@@ -100,6 +101,25 @@
    within the render phase's tolerances of the plain path; steady frames
    of the default field and both families in turns, and one frame of each
    under the profiler.  No other run may launch K5d.
+
+12. The real-scene layouts (``real_scene_phase``, after the train path):
+   the synthetic room written as an LLFF layout (``write_llff_layout``: 32
+   train views of 504x378, the size of LLFF's images_8, with seg maps, and
+   8 test poses whose images the layout withholds; poses with the camera's
+   y and z negated, translations over the data config's scale 0.33) and as
+   one Replica trajectory (``write_replica_layout``: 48 views of 320x240).
+   LLFF: 300 steps through ``python -m nerfstyle_torch.train`` at the
+   default width (cfgs/renderer/llff.yaml: flip_camera 3), steps 284-291
+   traced (``--profile_dir``); the test split rendered through ``python -m
+   nerfstyle_torch.render`` from that and from a one-step checkpoint, whose
+   PSNR against the withheld views must be 5 dB lower; 20 style iterations
+   from the 300-step checkpoint (the style term's last-5 mean below its
+   first; K7b must launch).  Replica: 150 steps; the trainer's test PSNR
+   (every 8th frame) must rise 5 dB.  Each run's launches are counted on
+   its own.  The trace is read step by step (``read_trace``): wall time,
+   device busy time and kernels, the runtime's launch calls, syncs and
+   device-to-host copies, the rest; every train-path hand kernel must
+   appear in it by its ``__global__`` name.
 
 Before the main path: K5d's first entry (sh_encode) at a frame chunk's
 kept stream (129,929 rows) and at a style cache's size (640,000), and its
@@ -166,6 +186,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -220,6 +241,29 @@ STYLE_STEP_COUNTERS = ("hashgrid_encode", "hashgrid_backward", "mlp_forward", "m
 # picks of a window above 0 5-11; PERF.md §6).
 STYLE_FLIP_BOUND = {"preds": 50, "nearest": 60, "relu": 40, "pool": 60}
 K1_POINTS = 1 << 20
+# The real-scene layouts (real_scene_phase): the synthetic room written as
+# an LLFF layout at images_8's size (504x378; data config of
+# cfgs/dataset/llff_room.yaml: bound 2.0, scale 0.33; cfgs/renderer/llff.yaml:
+# flip_camera 3) and as one Replica trajectory at half of Semantic-NeRF's
+# 640x480.  The LLFF run traces steps 284-291 (the random occupancy update
+# of step 288 inside).
+LLFF_DIMS, LLFF_VIEWS, LLFF_TEST_VIEWS, LLFF_STEPS = (504, 378), 32, 8, 300
+LLFF_TRACE_START, LLFF_TRACE_STEPS, LLFF_STYLE_ITERS = 284, 8, 20
+REPLICA_DIMS, REPLICA_VIEWS, REPLICA_STEPS = (320, 240), 48, 150
+# The __global__ kernels of each train-path launch counter (csrc/*.cu).
+TRAIN_GLOBALS = {
+    "hashgrid_encode": ("hashgrid_encode_kernel",),
+    "hashgrid_backward": ("hashgrid_backward_kernel",),
+    "march_skip_count": ("march_kernel",), "march_skip_write": ("march_kernel",),
+    "composite_weights": ("composite_weights_kernel",),
+    "composite_backward": ("composite_backward_kernel",),
+    "segment_sum": ("segment_sum_kernel",),
+    "mlp_forward": ("mlp_forward_kernel", "mlp_forward_tc_kernel"),
+    "mlp_backward": ("mlp_backward_kernel", "mlp_backward_tc_kernel"),
+    "occupancy_scatter_max": ("scatter_max_kernel",),
+    "occupancy_merge": ("merge_threshold_kernel",),
+    "occupancy_skipdist": ("skipdist_kernel",),
+}
 # Grid sizes of K6c's general entry: above the one-launch kernel's 128 (the
 # timed row, a restore, a merge and a crop at it), one that is not a
 # multiple of 16 (timed too), and a small one.
@@ -1200,11 +1244,12 @@ def class_head_phase(renderer, params, fails) -> None:
         f"{counts['segment_sum_backward']}")
 
 
-def train_argv(steps: int, *extra: str, log_dir: str = "train"):
+def train_argv(steps: int, *extra: str, log_dir: str = "train", data_cfg: str = "data.yaml"):
     """Flags of ``python -m nerfstyle_torch.train`` at the default configs on
-    the synthetic scene (24 train views of 128x96, 6 test views)."""
+    the data config ``WORK / data_cfg`` (by default the synthetic scene: 24
+    train views of 128x96, 6 test views)."""
     return ["--device", DEVICE, "--log-dir", str(WORK / log_dir),
-            "--data-cfg", str(WORK / "data.yaml"), "--num_iterations", str(steps),
+            "--data-cfg", str(WORK / data_cfg), "--num_iterations", str(steps),
             "--intervals.print", "50", "--intervals.log", "0", "--intervals.test", "0",
             "--intervals.ckpt", str(steps), "--yes", *extra]
 
@@ -2034,6 +2079,303 @@ def import_phase(card: str, ckpt: Path, spec, frame, fails):
             f"{ms:.4f} (graph; {host_ms:.4f} launched one by one; empty kernel {floor_ms:.4f}), "
             f"plain_ms {plain_ms:.4f}, bound_ms {b_ms:.5f} ({b_by})")
     return launches, table
+
+
+# ---------------------------------------------------------------------------
+# The real-scene layouts: LLFF and Replica
+# ---------------------------------------------------------------------------
+
+
+def png_psnr(out_dir: Path, gt: np.ndarray) -> list:
+    """PSNR of each ``frame_<i>.png`` in ``out_dir`` against ``gt[i]``
+    ([N, H, W, 3] in [0, 1])."""
+    from nerfstyle_torch import utils
+
+    frames = sorted(out_dir.glob("frame_*.png"), key=lambda p: int(p.stem.split("_")[1]))
+    if len(frames) != len(gt):
+        raise RuntimeError(f"{len(frames)} frames in {out_dir} for {len(gt)} withheld views")
+    return [utils.compute_psnr(float(np.mean((np.moveaxis(utils.parse_rgb(f), 0, -1) - g) ** 2)))
+            for f, g in zip(frames, gt)]
+
+
+def _union_ms(intervals) -> float:
+    """The length of a union of (start, end) intervals in µs, in ms."""
+    total, end = 0.0, -math.inf
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
+def read_trace(path: Path, steps: int, fails, kernels_of=TRAIN_GLOBALS) -> dict:
+    """Split each traced step of a Chrome trace from the trainer's window
+    (``step <n>`` ranges, ``steps`` of them): its wall time, the device's
+    busy time (the union of the kernels, copies and fills its runtime calls
+    issued) and kernel count, and its host time in the runtime's launch
+    calls, synchronizations, device-to-host copies and other calls, and the
+    rest.  A kernel of every counter of ``kernels_of`` must appear among the
+    kernel events."""
+    if path is None or not path.is_file() or path.stat().st_size == 0:
+        fails.append(f"the trace window wrote no trace ({path})")
+        return {}
+    events = [e for e in json.loads(path.read_text()).get("traceEvents", []) if e.get("ph") == "X"]
+    ranges = sorted((e for e in events if e.get("cat") == "user_annotation"
+                     and e["name"].startswith("step ")), key=lambda e: e["ts"])
+    runtime = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")]
+    device = {}
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            device.setdefault(e.get("args", {}).get("correlation"), []).append(e)
+    kernel_names = {e["name"] for v in device.values() for e in v if e["cat"] == "kernel"}
+    if len(ranges) != steps:
+        fails.append(f"{path.name} holds {len(ranges)} step ranges, not {steps}")
+    out = {}
+    for st in ranges:
+        t0, t1 = st["ts"], st["ts"] + st["dur"]
+        # Calls made inside another call of the same thread (cuLaunchKernel under
+        # cudaLaunchKernel) belong to it.
+        calls, nested = [], {}
+        for e in sorted((e for e in runtime if t0 <= e["ts"] <= t1),
+                        key=lambda e: (e["tid"], e["ts"])):
+            top = calls[-1] if calls else None
+            if top is not None and top["tid"] == e["tid"] and e["ts"] + e["dur"] <= top["ts"] + top["dur"]:
+                nested.setdefault(id(top), []).append(e)
+            else:
+                calls.append(e)
+        split = {k: [0, 0.0] for k in ("launch", "sync", "d2h", "other")}
+        dev = []
+        for e in calls:
+            issued = [d for c in (e, *nested.get(id(e), ()))
+                      for d in device.get(c.get("args", {}).get("correlation"), [])]
+            dev += issued
+            if "Launch" in e["name"]:
+                kind = "launch"
+            elif "Synchronize" in e["name"]:
+                kind = "sync"
+            elif "Memcpy" in e["name"] and any("DtoH" in d["name"] for d in issued):
+                kind = "d2h"
+            else:
+                kind = "other"
+            split[kind][0] += 1
+            split[kind][1] += e["dur"] / 1e3
+        wall = st["dur"] / 1e3
+        row = {"wall_ms": wall,
+               "device_busy_ms": _union_ms((d["ts"], d["ts"] + d["dur"]) for d in dev),
+               "kernels": sum(d["cat"] == "kernel" for d in dev),
+               **{f"{k}_calls": v[0] for k, v in split.items()},
+               **{f"{k}_ms": v[1] for k, v in split.items()},
+               "rest_ms": wall - sum(v[1] for v in split.values())}
+        out[st["name"]] = row
+    for counter, names in kernels_of.items():
+        if not any(re.search(rf"(?<![A-Za-z0-9_]){n}(?![A-Za-z0-9_])", k)
+                   for n in names for k in kernel_names):
+            fails.append(f"{path.name} holds no kernel of {counter} ({' or '.join(names)})")
+    return out
+
+
+def trace_late_steps(trainer, card: str, fails, steps: int = 8) -> dict:
+    """``steps`` more steps of a trained ``trainer`` through its own trace
+    window (``Trainer.run`` with ``profile_dir``), split by read_trace."""
+    tc = trainer.train_cfg
+    tc.profile_dir, tc.profile_start, tc.profile_steps = WORK / "train_trace", trainer.iter_ctr, steps
+    tc.num_iterations = trainer.iter_ctr + steps + 1  # the last step, after the window, saves
+    trainer.run()
+    split = read_trace(trainer.trace_path, steps, fails,
+                       {k: v for k, v in TRAIN_GLOBALS.items() if k in STEP_COUNTERS})
+    log_trace(split, f"the synthetic train's late steps, {card}")
+    return split
+
+
+def log_trace(split: dict, label: str) -> None:
+    for name, r in split.items():
+        log(f"trace {name} ({label}): wall {r['wall_ms']:.3f} ms, device busy "
+            f"{r['device_busy_ms']:.3f} ms in {r['kernels']} kernels; launch calls "
+            f"{r['launch_calls']} in {r['launch_ms']:.3f} ms, syncs {r['sync_calls']} in "
+            f"{r['sync_ms']:.3f} ms, device-to-host copies {r['d2h_calls']} in "
+            f"{r['d2h_ms']:.3f} ms, other runtime calls {r['other_calls']} in "
+            f"{r['other_ms']:.3f} ms, the rest {r['rest_ms']:.3f} ms")
+    if split:
+        keys = ("wall_ms", "device_busy_ms", "kernels", "launch_calls", "launch_ms", "sync_calls",
+                "sync_ms", "d2h_calls", "d2h_ms", "other_calls", "other_ms", "rest_ms")
+        med = {k: float(np.median([r[k] for r in split.values()])) for k in keys}
+        log(f"trace median of {len(split)} steps ({label}): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in med.items()))
+
+
+def llff_layout():
+    """The synthetic room at LLFF_DIMS written as an LLFF layout (train views
+    with seg maps, test poses only) and its data config; returns the config
+    and the withheld test views [N, H, W, 3]."""
+    from nerfstyle_torch.data.synthetic import generate_scene, write_llff_layout
+
+    w, h = LLFF_DIMS
+    scene = WORK / f"llff_scene_{h}x{w}_v{LLFF_VIEWS}"
+    generate_scene(scene, num_train=LLFF_VIEWS, num_test=LLFF_TEST_VIEWS, h=h, w=w, room=True)
+    gt = write_llff_layout(scene, WORK / "llff", scale=0.33)
+    (WORK / "llff_data.yaml").write_text(
+        f"root_path: {WORK / 'llff'}\ntype: LLFF\nbound: 2.0\nscale: 0.33\n")
+    return "llff_data.yaml", gt
+
+
+def replica_layout() -> str:
+    """The synthetic room's REPLICA_VIEWS train views at REPLICA_DIMS as one
+    Replica trajectory, and its data config (focal_ratio the scene's fx / w)."""
+    from nerfstyle_torch.data.synthetic import generate_scene, write_replica_layout
+
+    w, h = REPLICA_DIMS
+    scene = WORK / f"replica_scene_{h}x{w}_v{REPLICA_VIEWS}"
+    generate_scene(scene, num_train=REPLICA_VIEWS, num_test=1, h=h, w=w, room=True)
+    ratio = write_replica_layout(scene, WORK / "replica", name="room", traj=0)
+    (WORK / "replica_data.yaml").write_text(
+        f"root_path: {WORK / 'replica'}\ntype: Replica\nbound: 2.0\nscale: 1.0\n"
+        f"replica_cfg:\n  name: room\n  focal_ratio: {ratio!r}\n  traj_ids: [0]\n")
+    return "replica_data.yaml"
+
+
+def real_scene_phase(card: str, fails) -> dict:
+    """The LLFF and Replica loaders through the entry points at the default
+    network.  LLFF: 300 steps through ``python -m nerfstyle_torch.train``
+    (flip_camera 3), a late window traced (``--profile_dir``), the test split
+    rendered through ``python -m nerfstyle_torch.render`` from the 300-step
+    and a one-step checkpoint (PSNR against the withheld views must rise
+    5 dB), and LLFF_STYLE_ITERS style iterations from the 300-step
+    checkpoint; Replica: REPLICA_STEPS steps, the trainer's test PSNR (every
+    8th frame) must rise 5 dB.  Each run's launches are counted on its own;
+    the trace is split step by step.  Returns the runs' launches."""
+    from nerfstyle_torch import train
+    from nerfstyle_torch.render import cli
+
+    runs = {}
+    t_phase = t0 = time.perf_counter()
+    data_cfg, gt = llff_layout()
+    log(f"LLFF layout: {LLFF_VIEWS} train views of {LLFF_DIMS[0]}x{LLFF_DIMS[1]} with seg maps, "
+        f"{LLFF_TEST_VIEWS} test poses in {time.perf_counter() - t0:.1f} s")
+    train.main(train_argv(1, log_dir="llff_run1", data_cfg=data_cfg))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer = train.main(train_argv(
+        LLFF_STEPS, "--profile_dir", str(WORK / "llff_trace"), "--profile_start",
+        str(LLFF_TRACE_START), "--profile_steps", str(LLFF_TRACE_STEPS), log_dir="llff_run",
+        data_cfg=data_cfg))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    runs["llff train"] = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if (trainer.settings.flip_camera, trainer.settings.min_near) != (3, 0.2):
+        fails.append(f"the LLFF run rendered with {trainer.settings}, not llff.yaml's")
+    for name in TRAIN_COUNTERS:
+        if runs["llff train"][name] <= 0:
+            fails.append(f"the LLFF train path launched no {name} kernel")
+    notfinite = int(trainer.opt_state.total_notfinite)
+    if notfinite or not all(bool(torch.isfinite(v)) for v in trainer.last_losses.values()):
+        fails.append(f"LLFF run: non-finite losses ({notfinite} steps skipped)")
+    rays, ms, cnt = trainer.train_cfg.num_rays_per_batch, trainer.iter_ms, trainer.iter_counts
+    traced = range(LLFF_TRACE_START, LLFF_TRACE_START + LLFF_TRACE_STEPS)
+    late = [i for i in range(LLFF_STEPS - 50, LLFF_STEPS) if i not in traced]
+    per_ray = {f"{what} {k}": float(np.mean([cnt[i][k] for i in part])) / rays
+               for what, part in (("early", range(1, 16)), ("late", late))
+               for k in ("num_points", "num_sig")}
+    late_ms = float(np.median([ms[i] for i in late]))
+    log(f"LLFF train ({card}): {LLFF_STEPS} steps of {rays} rays in {wall_s:.1f} s; step ms "
+        f"median early (1-15) {np.median(ms[1:16]):.2f}, late (last 50 but the traced "
+        f"{traced.start}-{traced.stop - 1}) {late_ms:.2f}, traced median "
+        f"{np.median([ms[i] for i in traced]):.2f}; {rays / late_ms * 1e3:.0f} train rays/s late; "
+        f"samples/ray {per_ray}; peak memory {peak_gib:.2f} GiB; launches {runs['llff train']}")
+    log_trace(read_trace(trainer.trace_path, LLFF_TRACE_STEPS, fails), f"LLFF, {card}")
+    ckpt = trainer.log_dir / f"iter_{LLFF_STEPS}.ckpt"
+    del trainer
+    torch.cuda.empty_cache()
+
+    # The test split (poses only) through the render entry point.
+    psnr, summaries = {}, {}
+    trained = f"{LLFF_STEPS} steps"
+    for label, path in (("one step", WORK / "llff_run1" / "iter_1.ckpt"), (trained, ckpt)):
+        reset_counts()
+        summaries[label] = cli.main([str(path), "--out-dims", *map(str, LLFF_DIMS), "--yes",
+                                     "--out-dir", str(WORK / f"llff_render_{label.split()[0]}"),
+                                     "--device", DEVICE])
+        runs["llff render"] = read_counts()
+        psnr[label] = png_psnr(summaries[label]["out_dir"], gt)
+    for name in RENDER_COUNTERS:
+        if runs["llff render"][name] <= 0:
+            fails.append(f"the LLFF render launched no {name} kernel")
+    summ = summaries[trained]
+    mean = {k: float(np.mean(v)) for k, v in psnr.items()}
+    log(f"LLFF render ({card}): {summ['frames']} test views at {LLFF_DIMS[0]}x{LLFF_DIMS[1]}, "
+        f"frame ms first {summ['frame_ms'][0]:.1f}, median of the rest "
+        f"{np.median(summ['frame_ms'][1:]):.1f} ({summ['fps']:.2f} FPS over all), "
+        f"{summ['num_marched'] / summ['frames'] / np.prod(LLFF_DIMS):.2f} samples/ray marched; "
+        f"PSNR against the withheld views: one step {mean['one step']:.3f} dB, {trained} "
+        f"{mean[trained]:.3f} dB ({['%.2f' % v for v in psnr[trained]]}); launches "
+        f"{runs['llff render']}")
+    if not mean[trained] >= mean["one step"] + 5.0:
+        fails.append(f"LLFF render PSNR rose from {mean['one step']:.3f} to "
+                     f"{mean[trained]:.3f} dB, less than 5 dB")
+
+    # The style stage on the LLFF checkpoint.
+    _, style_png, seg_npz = style_assets()
+    reset_counts()
+    t0 = time.perf_counter()
+    st = train.main(["--device", DEVICE, "--ckpt", str(ckpt), "--log-dir", str(WORK / "llff_style"),
+                     "--data-cfg", str(WORK / data_cfg), "--style-image", str(style_png),
+                     "--style_seg_path", str(seg_npz), "--max_steps", "512", "--num_iterations",
+                     str(LLFF_STYLE_ITERS), "--intervals.test", "0", "--intervals.print", "10",
+                     "--intervals.log", "0", "--intervals.ckpt", str(LLFF_STYLE_ITERS), "--yes"])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    runs["llff style"] = read_counts()
+    for name in STYLE_COUNTERS:
+        if runs["llff style"][name] <= 0:
+            fails.append(f"the LLFF style run launched no {name} kernel")
+    style = np.array([float(h["style"]) for h in st.loss_history])
+    total = np.array([float(h["total"]) for h in st.loss_history])
+    if len(style) != LLFF_STYLE_ITERS or not (np.isfinite(style).all() and np.isfinite(total).all()):
+        fails.append(f"LLFF style run: {len(style)} iterations, losses finite: "
+                     f"{np.isfinite(total).all()}")
+    elif not style[-5:].mean() < style[0]:
+        fails.append(f"LLFF style term did not fall: first {style[0]}, last 5 mean "
+                     f"{style[-5:].mean()}")
+    log(f"LLFF style ({card}): {LLFF_STYLE_ITERS} iterations at {LLFF_DIMS[0]}x{LLFF_DIMS[1]} in "
+        f"{wall_s:.2f} s through the entry point ({sum(st.iter_ms) / 1e3:.2f} s of iterations, "
+        f"{len(st.cache_stats)} cache builds, median iteration {np.median(st.iter_ms):.2f} ms); "
+        f"style term first {style[0]:.5f}, last-5 mean {style[-5:].mean():.5f}; launches "
+        f"{runs['llff style']}")
+    del st
+    torch.cuda.empty_cache()
+
+    # A Replica trajectory.
+    data_cfg = replica_layout()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer = train.main(train_argv(REPLICA_STEPS, "--test_before_train", log_dir="replica_run",
+                                    data_cfg=data_cfg))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    runs["replica train"] = read_counts()
+    for name in TRAIN_COUNTERS:  # fewer steps than update_thres: no scatter-max
+        if name != "occupancy_scatter_max" and runs["replica train"][name] <= 0:
+            fails.append(f"the Replica train path launched no {name} kernel")
+    notfinite = int(trainer.opt_state.total_notfinite)
+    if notfinite or not all(bool(torch.isfinite(v)) for v in trainer.last_losses.values()):
+        fails.append(f"Replica run: non-finite losses ({notfinite} steps skipped)")
+    untrained, final = trainer.test_history[0], trainer.test_networks()
+    ms = trainer.iter_ms
+    log(f"Replica train ({card}): {len(trainer.train_set)} train / {len(trainer.test_set)} test "
+        f"views of {REPLICA_DIMS[0]}x{REPLICA_DIMS[1]} (focal {trainer.train_set.intr.fx:.1f}), "
+        f"{REPLICA_STEPS} steps in {wall_s:.1f} s, step ms median early (1-15) "
+        f"{np.median(ms[1:16]):.2f}, late (last 50) {np.median(ms[-50:]):.2f}; test PSNR untrained "
+        f"{untrained['psnr']:.3f} dB, after {final['psnr']:.3f} dB; launches {runs['replica train']}")
+    if not final["psnr"] >= untrained["psnr"] + 5.0:
+        fails.append(f"Replica run: test PSNR rose from {untrained['psnr']:.3f} to "
+                     f"{final['psnr']:.3f} dB, less than 5 dB")
+    del trainer
+    torch.cuda.empty_cache()
+    log(f"real-scene phase ran {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
 
 
 # ---------------------------------------------------------------------------
@@ -3074,9 +3416,14 @@ def main() -> int:
         if runs["dense train"][name] <= 0:
             fails.append(f"the adaptive_march=False train steps launched no {name} kernel")
     profile_once(trainer.run_iter, "late train step", card)
+    trace_late_steps(trainer, card, fails)
     ckpt_train = trainer.log_dir / f"iter_{TRAIN_STEPS}.ckpt"
     del trainer
     torch.cuda.empty_cache()
+
+    # The LLFF and Replica layouts through train, render and style; the
+    # LLFF run's trace window split step by step.
+    runs.update(real_scene_phase(card, fails))
 
     # The style path from the train phase's checkpoint; then one step
     # against the plain versions, K5 and K7b at the style stream's shape, and
@@ -3105,7 +3452,8 @@ def main() -> int:
     # K1 and K2: a row a stream, with that stream's launches (see
     # ENCODE_STREAMS); every launch of theirs must fall in a stream with a
     # row.
-    for path in (*main_paths, "simplex"):
+    for path in (*main_paths, "simplex", "llff train", "llff render", "llff style",
+                 "replica train"):
         for name in ("hashgrid_encode", "hashgrid_backward"):
             split = {k.split(":")[1]: v for k, v in runs[path].items()
                      if k.startswith(name + ":")}

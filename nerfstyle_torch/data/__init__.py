@@ -1,8 +1,5 @@
-"""Dataset factory (counterpart of ``nerfstyle_tpu/data/__init__.py``).
-
-Only the procedural ``Synthetic`` scene is ported so far; the LLFF and
-Replica loaders are listed in ROADMAP.md.
-"""
+"""Dataset factory (counterpart of ``nerfstyle_tpu/data/__init__.py``):
+``cfg.type`` picks the loader, ``LLFF``, ``Replica`` or ``Synthetic``."""
 
 from __future__ import annotations
 
@@ -14,10 +11,16 @@ from ..core.types import DatasetSplit
 
 def get_dataset(cfg: DatasetConfig, split: DatasetSplit, max_count: Optional[int] = None):
     kind = cfg.type.lower()
+    if kind == "llff":
+        from .llff import LLFFDataset
+
+        return LLFFDataset(cfg, split, max_count)
+    if kind == "replica":
+        from .replica import ReplicaDataset
+
+        return ReplicaDataset(cfg, split, max_count)
     if kind == "synthetic":
         from .synthetic import SyntheticDataset
 
         return SyntheticDataset(cfg, split, max_count)
-    if kind in ("llff", "replica"):
-        raise NotImplementedError(f'the "{cfg.type}" loader is not ported yet')
     raise ValueError(f'Unknown dataset type "{cfg.type}"')

@@ -5,10 +5,14 @@
 A self-contained Lambertian sphere scene with per-sphere segmentation
 classes: K colored spheres inside the bound, rendered by direct ray tracing
 (host-side numpy, cached to disk), cameras on a circle looking at the origin.
+:func:`write_llff_layout` and :func:`write_replica_layout` write a cached
+scene in the file layouts of the LLFF and Replica loaders, which then load
+it with no download.
 """
 
 from __future__ import annotations
 
+import json
 from pathlib import Path
 from typing import Optional
 
@@ -216,6 +220,70 @@ def generate_scene(
     )
     np.savez_compressed(root / "train_images.npz", images=tr_images, segs=tr_segs)
     np.savez_compressed(root / "test_images.npz", images=te_images, segs=te_segs)
+
+
+# Camera y and z negated: LLFF poses are x-right, y-up, z-backward cameras,
+# which cfgs/renderer/llff.yaml's flip_camera 3 turns back.
+_LLFF_CAM_FLIP = np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)
+
+
+def write_llff_layout(scene: Path, root: Path, scale: float = 1.0) -> np.ndarray:
+    """Write the cached scene ``scene`` (:func:`generate_scene`) as an LLFF
+    layout under ``root`` (``data/llff.py``): the train views as
+    ``images_8/image<i>.png`` with ``seg/image<i>_seg.npz``, and
+    ``transforms_train.json`` and ``transforms_test.json``, the test split
+    as poses only.  Translations are divided by ``scale``, the data config's
+    ``scale`` to give back the scene's size, and each camera's y and z axes
+    are negated (LLFF's convention).  Returns the test views' images
+    [N, H, W, 3], which the layout withholds."""
+    from .. import utils
+
+    scene, root = Path(scene), Path(root)
+    meta = np.load(scene / "meta.npz")
+    train = np.load(scene / "train_images.npz")
+    intr = {"h": int(meta["h"]), "w": int(meta["w"]), "fl_x": float(meta["fx"]),
+            "fl_y": float(meta["fy"]), "cx": float(meta["cx"]), "cy": float(meta["cy"])}
+
+    def llff_pose(pose: np.ndarray) -> list:
+        out = pose @ _LLFF_CAM_FLIP
+        out[:3, 3] /= scale
+        return out.tolist()
+
+    (root / "images_8").mkdir(parents=True, exist_ok=True)
+    (root / "seg").mkdir(exist_ok=True)
+    frames = []
+    for i, (pose, img, seg) in enumerate(zip(meta["train_poses"], train["images"], train["segs"])):
+        fn = f"image{i:03d}"
+        utils.save_image(img, root / "images_8" / f"{fn}.png")
+        np.savez(root / "seg" / f"{fn}_seg.npz", seg_map=seg.astype(np.int64))
+        frames.append({"file_path": f"images_8/{fn}.png", "transform_matrix": llff_pose(pose)})
+    (root / "transforms_train.json").write_text(json.dumps({**intr, "frames": frames}))
+    test = [{"transform_matrix": llff_pose(p)} for p in meta["test_poses"]]
+    (root / "transforms_test.json").write_text(json.dumps({**intr, "frames": test}))
+    return np.load(scene / "test_images.npz")["images"]
+
+
+def write_replica_layout(scene: Path, root: Path, name: str = "synthetic",
+                         traj: int = 0) -> float:
+    """Write the train views of the cached scene ``scene`` as one Replica
+    trajectory (``data/replica.py``):
+    ``<root>/<name>/Sequence_<traj>/rgb/rgb_<i>.png``, ``traj_w_c.txt`` (the
+    poses as they are: RDF cameras in an RFU world, Replica's convention)
+    and ``<root>/seg/rgb_<i>_seg.npz``.  Returns the focal ratio
+    (fx / max(w, h)) for the data config's ``replica_cfg``."""
+    from .. import utils
+
+    scene, root = Path(scene), Path(root)
+    meta = np.load(scene / "meta.npz")
+    train = np.load(scene / "train_images.npz")
+    seq = root / name / f"Sequence_{traj}"
+    (seq / "rgb").mkdir(parents=True, exist_ok=True)
+    (root / "seg").mkdir(exist_ok=True)
+    for i, (img, seg) in enumerate(zip(train["images"], train["segs"])):
+        utils.save_image(img, seq / "rgb" / f"rgb_{i}.png")
+        np.savez(root / "seg" / f"rgb_{i}_seg.npz", seg_map=seg.astype(np.int64))
+    np.savetxt(seq / "traj_w_c.txt", meta["train_poses"].reshape(-1, 16))
+    return float(meta["fx"]) / max(int(meta["w"]), int(meta["h"]))
 
 
 class SyntheticDataset(BaseDataset):

@@ -34,7 +34,7 @@ import shutil
 import sys
 import time
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -151,10 +151,6 @@ class Trainer:
         tc = self.train_cfg
         if tc.adaptive_batch:
             raise NotImplementedError("adaptive_batch is a TPU workaround the port does not have")
-        if tc.profile_dir is not None:
-            raise NotImplementedError(
-                "--profile_dir (with --profile_start, --profile_steps): the profiler trace "
-                "window is not ported yet (ROADMAP.md section 1, item 2)")
         check_kernel_config(self.net_cfg, self.device)
 
         dev = self.device
@@ -229,6 +225,7 @@ class Trainer:
         self.iter_ms: List[float] = []  # host clock of each run_iter
         self.iter_counts: List[Dict[str, int]] = []  # num_points, num_sig of each step
         self.test_history: List[Dict[str, float]] = []
+        self.trace_path: Optional[Path] = None  # the profiler window's trace, once written
 
     # ---- set-up ----
 
@@ -364,10 +361,49 @@ class Trainer:
             self.save_ckpt()
 
     def run(self) -> None:
-        if self.train_cfg.test_before_train:
+        """Train to ``num_iterations``.  With ``profile_dir`` set, the
+        iterations from ``iter_ctr == profile_start`` on, ``profile_steps``
+        of them, run under ``torch.profiler`` (the host, and the card on
+        CUDA), each in a ``step <iter_ctr>`` range, and the window is written
+        to ``profile_dir`` as a Chrome trace (:attr:`trace_path`), also when
+        training ends inside it."""
+        tc = self.train_cfg
+        if tc.test_before_train:
             self.test_networks()
-        while self.iter_ctr < self.train_cfg.num_iterations:
-            self.run_iter()
+        prof, first = None, 0
+        try:
+            while self.iter_ctr < tc.num_iterations:
+                if tc.profile_dir is not None and prof is None and self.iter_ctr == tc.profile_start:
+                    prof, first = self._start_trace(), self.iter_ctr
+                if prof is None:
+                    self.run_iter()
+                    continue
+                with torch.profiler.record_function(f"step {self.iter_ctr}"):
+                    self.run_iter()
+                if self.iter_ctr >= tc.profile_start + tc.profile_steps:
+                    self._stop_trace(prof, first)
+                    prof = None
+        finally:
+            if prof is not None:
+                self._stop_trace(prof, first)
+
+    def _start_trace(self) -> torch.profiler.profile:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_trace(self, prof: torch.profiler.profile, first: int) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        pdir = Path(self.train_cfg.profile_dir)
+        pdir.mkdir(parents=True, exist_ok=True)
+        self.trace_path = pdir / f"trace_steps_{first}-{self.iter_ctr - 1}.json"
+        prof.export_chrome_trace(str(self.trace_path))
+        self.logger.info("Wrote profiler trace to %s", self.trace_path)
 
     def close(self) -> None:
         self.logger.info("Closed")

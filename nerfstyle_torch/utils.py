@@ -1,11 +1,12 @@
 """Host utilities of the port: logging, the overwrite prompt, PNG input and
-output, PSNR, the segmentation palette, the style collage and the
-checkpoint's version stamp.
+output, PSNR, the segmentation palette, the style collage, the datasets'
+train/test split and colour transfer, and the checkpoint's version stamp.
 
-Counterpart of ``nerfstyle_tpu/utils.py`` for what rendering and training
-need.  PNGs are read and written with ``zlib`` from the standard library, so
-the port needs no image package: :func:`parse_rgb` takes 8-bit
-non-interlaced PNGs (gray, RGB, RGBA) and ``.npy`` arrays.
+Counterpart of ``nerfstyle_tpu/utils.py`` for what rendering, training and
+the dataset loaders need.  PNGs are read and written with ``zlib`` from the
+standard library, so the port needs no image package: :func:`parse_rgb`
+takes 8-bit non-interlaced PNGs (gray, RGB, RGBA) and ``.npy`` arrays, and
+:func:`png_size` reads a PNG's size from its header.  JPEG is not decoded.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import subprocess
 import sys
 import zlib
 from pathlib import Path
-from typing import Optional, Tuple, Union
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -135,6 +136,17 @@ def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
     return out.astype(np.uint8)
 
 
+def png_size(path: Union[str, Path]) -> Tuple[int, int]:
+    """(width, height) of a PNG from its IHDR chunk, which the format puts
+    first, without decoding the image."""
+    with open(path, "rb") as f:
+        head = f.read(len(_PNG_SIGNATURE) + 16)
+    if not head.startswith(_PNG_SIGNATURE) or head[12:16] != b"IHDR":
+        raise ValueError(f"{path} is not a PNG file")
+    w, h = struct.unpack(">II", head[16:24])
+    return w, h
+
+
 def read_png(path: Union[str, Path]) -> np.ndarray:
     """An 8-bit non-interlaced PNG (gray, RGB or RGBA) -> [H, W, C] uint8."""
     blob = Path(path).read_bytes()
@@ -210,14 +222,61 @@ def parse_rgb(path: Union[str, Path], size: Optional[Union[int, Tuple[int, int]]
             arr = (np.clip(np.nan_to_num(arr.astype(np.float32)), 0.0, 1.0) * 255).astype(np.uint8)
         img = arr[..., None] if arr.ndim == 2 else arr
     else:
-        raise ValueError(f"{path}: style and content images are read as .png (8-bit) or .npy; "
-                         f"got {suffix!r}")
+        raise ValueError(f"{path}: images are read as .png (8-bit) or .npy (JPEG is not "
+                         f"decoded); got {suffix!r}")
     if size is not None:
         if isinstance(size, int):
             h, w = img.shape[:2]
             size = (size, int(size * h / w)) if w > h else (int(size * w / h), size)
         img = _resize_bicubic(img, tuple(size))
     return np.moveaxis(img.astype(np.float32) / 255.0, -1, 0)
+
+
+def match_colors_for_image_set(
+    image_set: np.ndarray, style_img: np.ndarray
+) -> Tuple[np.ndarray, np.ndarray]:
+    """SVD colour transfer of an image set onto a style image's colour
+    statistics, in float64 (as ``nerfstyle_tpu.utils``).
+
+    Args:
+        image_set: [N, H, W, 3] float in [0, 1].
+        style_img: [H, W, 3].
+
+    Returns:
+        (transferred [N, H, W, 3] float32, color_tf [4, 4]).
+    """
+    sh = image_set.shape
+    x = image_set.reshape(-1, 3).astype(np.float64)
+    s = style_img.reshape(-1, 3).astype(np.float64)
+
+    mu_c = x.mean(0, keepdims=True)
+    mu_s = s.mean(0, keepdims=True)
+
+    cov_c = (x - mu_c).T @ (x - mu_c) / x.shape[0]
+    cov_s = (s - mu_s).T @ (s - mu_s) / s.shape[0]
+
+    u_c, sig_c, _ = np.linalg.svd(cov_c)
+    u_s, sig_s, _ = np.linalg.svd(cov_s)
+
+    scl_c = np.diag(1.0 / np.sqrt(np.clip(sig_c, 1e-8, 1e8)))
+    scl_s = np.diag(np.sqrt(np.clip(sig_s, 1e-8, 1e8)))
+
+    tmp_mat = u_s @ scl_s @ u_s.T @ u_c @ scl_c @ u_c.T
+    tmp_vec = mu_s - mu_c @ tmp_mat.T
+
+    out = x @ tmp_mat.T + tmp_vec
+    out = np.clip(out, 0.0, 1.0).reshape(sh).astype(np.float32)
+
+    color_tf = np.eye(4)
+    color_tf[:3, :3] = tmp_mat
+    color_tf[:3, 3] = tmp_vec[0]
+    return out, color_tf
+
+
+def train_test_split(total: int, split_every: int, is_train: bool) -> List[int]:
+    """Frame ids of a split that holds out every ``split_every``-th frame
+    (from frame 0) for testing."""
+    return [i for i in range(total) if (i % split_every == 0) != is_train]
 
 
 def collage_h(img1: np.ndarray, img2: np.ndarray) -> np.ndarray:

@@ -85,12 +85,15 @@ def test_torch_train_rejects_leftover_flags_and_adaptive_batch(scene):
 
 
 def test_torch_train_rejects_profile_dir(scene, tmp_path):
-    """The profiler trace window is not ported: --profile_dir raises and
-    names the flag, instead of being accepted and ignored."""
+    """--profile_dir is not accepted and ignored: since the trace window is
+    ported, a one-step window writes its trace (the window's rules are
+    tests/test_torch_trace_window.py's)."""
     root, data_cfg = scene
-    with pytest.raises(NotImplementedError, match="--profile_dir"):
-        train.main(_argv(root, data_cfg, "--num_iterations", "1",
-                         "--profile_dir", str(tmp_path / "trace")))
+    trainer = train.main(_argv(root, data_cfg, "--num_iterations", "1", "--profile_dir",
+                               str(tmp_path / "trace"), "--profile_start", "0",
+                               "--profile_steps", "1"))
+    assert trainer.trace_path == tmp_path / "trace" / "trace_steps_0-0.json"
+    assert trainer.trace_path.stat().st_size > 0
 
 
 @pytest.mark.parametrize("group", ["TrainConfig", "NetworkConfig", "RendererConfig"])

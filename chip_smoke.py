@@ -82,7 +82,17 @@
    backward and K7b at the style stream's shape against their plain
    versions, timed, K5's cuBLAS chain (its library yardstick:
    mlp_library_chain, with K5's rounding points) held against the plain
-   version and timed, and one steady iteration under the profiler.
+   version and timed, and one steady iteration under the profiler.  Then
+   the two-pass scheme (``style_two_pass_phase``): ``--style_geom_cache``
+   from the same checkpoint on the same scene, TWO_PASS_ITERS iterations
+   (6 windows of 200 x 200) with their launches counted, each of its
+   kernels on its two-pass streams (count_two_pass_streams); losses
+   finite, the style term falling, only x_color_embedder moved; the median
+   iteration and its split beside the cached one, peak memory, one
+   iteration under the profiler; on one pose its loss against the eps-0
+   cached step's, pass 2's gradient against the cache's VJP and against
+   plain (two_pass_check), again with the view-direction field (K5d
+   assemble must launch); K1, K2, K4 and K4b on its streams.
 10. The simplex path: ``python -m nerfstyle_torch.train
    --pos_enc.simplex_from 10`` at the default width for 150 steps (its
    launches counted: K1s, K2s), the test PSNR must rise 5 dB, one step
@@ -235,6 +245,22 @@ STYLE_COUNTERS = ("hashgrid_encode", "hashgrid_backward", "march_skip_count",
                   "segment_sum", "segment_sum_backward", "occupancy_skipdist")
 STYLE_STEP_COUNTERS = ("hashgrid_encode", "hashgrid_backward", "mlp_forward", "mlp_backward",
                        "segment_sum", "segment_sum_backward")
+# The two-pass style scheme (style_two_pass_phase): one epoch (the 30
+# train views) of ``--style_geom_cache`` (the flag toggles its default true)
+# on the style path's scene and checkpoint, windows of the default
+# defer_patch_size 200 (3 x 2 at 504x378, the bottom row shifted).  Its
+# kernels, each on its two-pass streams (K1 and K4 in pass 1 and in pass
+# 2's windows, phases A and B; K2 and K4b in the windows' backward).
+TWO_PASS_ITERS = 30
+TWO_PASS_COUNTERS = ("hashgrid_encode", "hashgrid_backward", "march_skip_count",
+                     "march_skip_write", "composite_weights", "composite_backward",
+                     "mlp_forward", "mlp_backward", "segment_sum", "occupancy_skipdist")
+TWO_PASS_STREAMS = tuple(f"two-pass {p} {ab}" for p in ("frame", "window") for ab in "AB")
+TWO_PASS_STREAM_COUNTERS = (
+    *(f"hashgrid_encode:{t}" for t in TWO_PASS_STREAMS),
+    *(f"composite_weights:{t}" for t in TWO_PASS_STREAMS),
+    "hashgrid_backward:two-pass window B", "composite_backward:two-pass window B",
+)
 # Flips of a style step's discrete choices, kernels against plain, allowed
 # at most: about 4x the most of five poses measured on an H100 (class
 # argmax 0, nearest style feature 5-14, VGG16 ReLU masks 3-7, max-pool
@@ -432,6 +458,13 @@ def touched_rows(spec, x: torch.Tensor) -> int:
 # launch's stream is read off the call stack at the launch (K1: the field
 # function and the step that called it) or off its table width (K2: the
 # train step's fused table is 4 wide, the style step's color table 2).
+# The two-pass style scheme runs the train path's field and compositor
+# (eval_composite, field_apply) on a pass-1 frame chunk and on each pass-2
+# window: while StyleTrainer.render_frame or .window_grads runs
+# (count_two_pass_streams), a launch falls in "two-pass frame" or
+# "two-pass window", phase A or B as in the train step, ahead of every
+# other stream (K2 and K4b launch from autograd's device thread, off the
+# caller's stack).
 # ---------------------------------------------------------------------------
 
 # Stream -> the callers that mark it, looked for from the launch outwards.
@@ -446,6 +479,28 @@ ENCODE_STREAMS = (
 )
 BACKWARD_STREAMS = {4: "train B", 2: "style"}
 _stream_counts: dict = {}
+_two_pass_phase: list = []  # the two-pass phase running, if any (count_two_pass_streams)
+
+
+def count_two_pass_streams() -> None:
+    """Wrap StyleTrainer's two passes so that the K1, K2, K4 and K4b
+    launches inside them count under their two-pass streams."""
+    import functools
+
+    from nerfstyle_torch.training.style_trainer import StyleTrainer
+
+    def wrap(fn, phase):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            _two_pass_phase.append(phase)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                _two_pass_phase.pop()
+        return inner
+
+    StyleTrainer.render_frame = wrap(StyleTrainer.render_frame, "two-pass frame")
+    StyleTrainer.window_grads = wrap(StyleTrainer.window_grads, "two-pass window")
 
 
 def _tally(name: str, stream: str, before: int) -> None:
@@ -463,6 +518,8 @@ def _encode_stream() -> str:
     while f is not None and len(names) < 40:
         names.add(f.f_code.co_name)
         f = f.f_back
+    if _two_pass_phase:
+        return f"{_two_pass_phase[-1]} {'B' if 'field_apply' in names else 'A'}"
     for stream, callers in ENCODE_STREAMS:
         if any(c in names for c in callers):
             return stream
@@ -487,7 +544,9 @@ def count_hashgrid_streams() -> None:
         before = kernels.launch_counts["hashgrid_backward"]
         out = bwd(x, g, levels, num_rows)
         c = g.shape[1] // levels.shape[1]
-        _tally("hashgrid_backward", BACKWARD_STREAMS.get(c, "other"), before)
+        stream = (f"{_two_pass_phase[-1]} B" if _two_pass_phase
+                  else BACKWARD_STREAMS.get(c, "other"))
+        _tally("hashgrid_backward", stream, before)
         return out
 
     kernels.hashgrid_encode, kernels.hashgrid_backward = encode, backward
@@ -502,7 +561,9 @@ def count_hashgrid_streams() -> None:
 # n_inc) and its kept prefix (phase B, inside CompositeRays.forward).  K4b
 # (its backward) runs where that forward ran: the stream of a K4b launch is
 # the stream of the K4 launch that wrote its w.  A single-phase train step
-# (two_phase_train off) runs on no path; its launches would be "other".
+# (two_phase_train off) runs on no path; its launches would be "other".  The
+# two-pass style scheme's launches go to its own streams (see
+# count_two_pass_streams).
 # ---------------------------------------------------------------------------
 
 COMPOSITE_STREAMS = (
@@ -517,6 +578,8 @@ def _composite_stream() -> str:
     while f is not None and len(frames) < 40:
         frames.setdefault(f.f_code.co_qualname, f)
         f = f.f_back
+    if _two_pass_phase:
+        return f"{_two_pass_phase[-1]} {'B' if 'CompositeRays.forward' in frames else 'A'}"
     if "CompositeRays.forward" in frames:
         ev = frames.get("eval_composite")
         return "train B" if ev is not None and ev.f_locals.get("two_phase") else "other"
@@ -1343,10 +1406,18 @@ def step_vs_plain(trainer, fails):
 
 
 def late_batch(trainer) -> dict:
-    """A late train batch as the step builds it (``eval_composite``): its
-    rays, the marched stream (phase A) with its densities (density_scale
-    applied) and the kept prefix of each ray (phase B), with both streams'
-    encoder inputs in march order."""
+    """A late train batch as the step builds it (``eval_composite``): see
+    marched_batch."""
+    frame, idx = trainer.sample_batch()
+    o, d, _ = trainer.ray_batch(frame, idx)
+    return marched_batch(trainer, o, d)
+
+
+def marched_batch(trainer, o, d) -> dict:
+    """The rays (o, d) as ``render_rays`` hands them to ``eval_composite``:
+    the rays, the marched stream (phase A) with its densities
+    (density_scale applied) and the kept prefix of each ray (phase B), with
+    both streams' encoder inputs in march order."""
     from nerfstyle_torch.models.fields import _encoder_input, field_density
     from nerfstyle_torch.ops import compositing, marching
     from nerfstyle_torch.ops.aabb import near_far_from_aabb
@@ -1354,8 +1425,6 @@ def late_batch(trainer) -> dict:
 
     r, spec, s = trainer.renderer, trainer.field_spec, trainer.settings
     plan, bbox = r.plan, r.bbox
-    frame, idx = trainer.sample_batch()
-    o, d, _ = trainer.ray_batch(frame, idx)
     nears, fars = near_far_from_aabb(o, d, plan.aabb(o.device), plan.min_near)
     sb = marching.march_rays(plan, r.occ_field, o, d, nears, fars)
     with torch.no_grad():
@@ -1386,6 +1455,59 @@ def train_stream_rows(trainer, batch, fails, gen) -> dict:
     }
 
 
+def k4b_row(sigmas, ch, tau, offsets, dt: float, t_thresh: float, what: str, gen,
+            fails) -> dict:
+    """K4b, the compositor's backward, on a kept prefix (densities with
+    density_scale applied, channels) for random cotangents, against the
+    plain backward on float64 inputs.  Rays with an entering T within 1e-4
+    relative of t_thresh may include one sample more or less in fp32 and are
+    left out.  d ch = w * gI: 1e-5 of the largest (w's fp32 rounding); d
+    sigma = dt (T_{i+1} v - suffix) loses digits to the difference: 1e-4 of
+    the largest.  Timed from a CUDA graph of the kernel call alone (launch by
+    launch logged).  Returns the kernel-table entry."""
+    from nerfstyle_torch import kernels
+    from nerfstyle_torch.ops import compositing
+
+    n, k, dev = offsets.shape[0] - 1, sigmas.shape[0], sigmas.device
+    chc = ch.contiguous()
+    gi = torch.randn((n, chc.shape[1]), generator=gen, device=dev)
+    gw = torch.randn((n,), generator=gen, device=dev)
+    gd = torch.randn((n,), generator=gen, device=dev)
+    w, _, _, n_inc_b = kernels.composite_weights(sigmas, tau, offsets, dt, t_thresh)
+    d_s, d_c = kernels.composite_backward(sigmas, chc, tau, w, offsets, n_inc_b, gi, gw, gd, dt)
+    ref_s, ref_c = compositing.composite_backward_plain(
+        sigmas.double(), chc.double(), tau.double(), offsets, gi.double(), gw.double(),
+        gd.double(), dt, t_thresh)
+    _, trans64 = compositing.entering_transmittance_plain(sigmas.double(), offsets, dt)
+    near = (trans64 - t_thresh).abs() <= 1e-4 * t_thresh
+    edge = compositing.segment_totals_plain(near.double(), offsets) > 0
+    inner = ~edge[compositing.ray_ids(offsets)]
+    err_s = float((d_s.double() - ref_s)[inner].abs().max()) if bool(inner.any()) else 0.0
+    err_c = float((d_c.double() - ref_c)[inner].abs().max()) if bool(inner.any()) else 0.0
+    tol_s, tol_c = 1e-4 * float(ref_s.abs().max()), 1e-5 * float(ref_c.abs().max())
+    if not (err_s <= tol_s and err_c <= tol_c):
+        fails.append(f"K4b at {what}: errors d_sigma {err_s} (tol {tol_s}), d_ch {err_c} (tol "
+                     f"{tol_c})")
+    ms = graph_ms(lambda: kernels.composite_backward(sigmas, chc, tau, w, offsets, n_inc_b, gi,
+                                                     gw, gd, dt))
+    host_ms = cuda_ms(lambda: kernels.composite_backward(sigmas, chc, tau, w, offsets, n_inc_b,
+                                                         gi, gw, gd, dt), reps=20)
+    plain_ms = cuda_ms(lambda: compositing.composite_backward_plain(
+        sigmas, chc, tau, offsets, gi, gw, gd, dt, t_thresh), reps=5)
+    cc = chc.shape[1]
+    # Bytes: sigma, tau, w and ch of every sample, offsets, n_inc and the
+    # cotangents of every ray; d sigma and d ch written once.
+    b_ms, b_by = bound_ms(nbytes=k * 4 * (3 + cc) + (n + 1) * 8 + n * 4 * (3 + cc)
+                          + k * 4 * (1 + cc), flops=k * (4 * cc + 12))
+    log(f"K4b composite_backward at {what}: {k} kept samples x {cc} channels, "
+        f"{ray_stats(offsets, n_inc_b)}, {int(edge.sum())} edge rays left out; max_abs_err "
+        f"d_sigma {err_s:.3e} (tol {tol_s:.3e}), d_ch {err_c:.3e} (tol {tol_c:.3e}); ms "
+        f"{ms:.4f} (graph; {host_ms:.4f} launched one by one), plain_ms {plain_ms:.3f}, "
+        f"bound_ms {b_ms:.4f} ({b_by})")
+    return dict(max_abs_err=max(err_s, err_c), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
 def train_kernel_phases(trainer, fails):
     """K3 and K3s, K1, K2 and K4 on a late batch's streams, K4b and K6 at
     the train step's shapes (a batch of the trained state; the random
@@ -1393,7 +1515,7 @@ def train_kernel_phases(trainer, fails):
     the K1, K2, K4, K4b and K6 kernel-table entries."""
     from nerfstyle_torch import kernels
     from nerfstyle_torch.models.fields import _encoder_input, field_apply
-    from nerfstyle_torch.ops import compositing, hashgrid, marching, occupancy
+    from nerfstyle_torch.ops import hashgrid, marching, occupancy
 
     r, spec, s = trainer.renderer, trainer.field_spec, trainer.settings
     plan, bbox, dev = r.plan, r.bbox, trainer.device
@@ -1441,50 +1563,8 @@ def train_kernel_phases(trainer, fails):
     table["K4 train B"], _ = k4_row(sigmas, tau, offsets, plan.dt, s.t_thresh,
                                     "a late train batch's kept prefix (phase B)", fails)
 
-    # K4b: the compositor's backward on phase B's stream for random
-    # cotangents, against the plain backward on float64 inputs.  Rays with
-    # an entering T within 1e-4 relative of t_thresh may include one sample
-    # more or less in fp32 and are left out.  d ch = w * gI: 1e-5 of the
-    # largest (w's fp32 rounding); d sigma = dt (T_{i+1} v - suffix) loses
-    # digits to the difference: 1e-4 of the largest.
-    chc = ch.contiguous()
-    gi = torch.randn((n, chc.shape[1]), generator=gen, device=dev)
-    gw = torch.randn((n,), generator=gen, device=dev)
-    gd = torch.randn((n,), generator=gen, device=dev)
-    w, _, _, n_inc_b = kernels.composite_weights(sigmas, tau, offsets, plan.dt, s.t_thresh)
-    d_s, d_c = kernels.composite_backward(sigmas, chc, tau, w, offsets, n_inc_b, gi, gw, gd,
-                                          plan.dt)
-    ref_s, ref_c = compositing.composite_backward_plain(
-        sigmas.double(), chc.double(), tau.double(), offsets, gi.double(), gw.double(),
-        gd.double(), plan.dt, s.t_thresh)
-    _, trans64 = compositing.entering_transmittance_plain(sigmas.double(), offsets, plan.dt)
-    near = (trans64 - s.t_thresh).abs() <= 1e-4 * s.t_thresh
-    edge = compositing.segment_totals_plain(near.double(), offsets) > 0
-    inner = ~edge[compositing.ray_ids(offsets)]
-    err_s = float((d_s.double() - ref_s)[inner].abs().max()) if bool(inner.any()) else 0.0
-    err_c = float((d_c.double() - ref_c)[inner].abs().max()) if bool(inner.any()) else 0.0
-    tol_s, tol_c = 1e-4 * float(ref_s.abs().max()), 1e-5 * float(ref_c.abs().max())
-    if not (err_s <= tol_s and err_c <= tol_c):
-        fails.append(f"K4b errors d_sigma {err_s} (tol {tol_s}), d_ch {err_c} (tol {tol_c})")
-    # From a CUDA graph of the kernel call alone; launch by launch logged.
-    ms = graph_ms(lambda: kernels.composite_backward(sigmas, chc, tau, w, offsets, n_inc_b, gi,
-                                                     gw, gd, plan.dt))
-    host_ms = cuda_ms(lambda: kernels.composite_backward(sigmas, chc, tau, w, offsets, n_inc_b,
-                                                         gi, gw, gd, plan.dt), reps=20)
-    plain_ms = cuda_ms(lambda: compositing.composite_backward_plain(
-        sigmas, chc, tau, offsets, gi, gw, gd, plan.dt, s.t_thresh), reps=5)
-    cc = chc.shape[1]
-    # Bytes: sigma, tau, w and ch of every sample, offsets, n_inc and the
-    # cotangents of every ray; d sigma and d ch written once.
-    b_ms, b_by = bound_ms(nbytes=k * 4 * (3 + cc) + (n + 1) * 8 + n * 4 * (3 + cc)
-                          + k * 4 * (1 + cc), flops=k * (4 * cc + 12))
-    table["K4b train B"] = dict(max_abs_err=max(err_s, err_c), ms=ms, plain_ms=plain_ms,
-                                bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    log(f"K4b composite_backward at a late train batch's kept prefix (phase B): {k} kept samples "
-        f"x {cc} channels, {ray_stats(offsets, n_inc_b)}, {int(edge.sum())} edge rays left out; "
-        f"max_abs_err d_sigma {err_s:.3e} (tol {tol_s:.3e}), d_ch {err_c:.3e} (tol "
-        f"{tol_c:.3e}); ms {ms:.4f} (graph; {host_ms:.4f} launched one by one), plain_ms "
-        f"{plain_ms:.3f}, bound_ms {b_ms:.4f} ({b_by})")
+    table["K4b train B"] = k4b_row(sigmas, ch, tau, offsets, plan.dt, s.t_thresh,
+                                   "a late train batch's kept prefix (phase B)", gen, fails)
 
     # K5 at a train batch's shape, with weight gradients: the color1 head on
     # the kept samples' color features and the density head on their density
@@ -2865,6 +2945,225 @@ def style_kernel_phases(st, fails):
 
 
 # ---------------------------------------------------------------------------
+# The two-pass style scheme
+# ---------------------------------------------------------------------------
+
+
+def two_pass_check(st, pose: int, gen, what: str, fails) -> dict:
+    """On one pose with the trainer's params: (a) the two-pass loss (pass 1,
+    the pixel gradient) against the cached step's at style_geom_cache_eps 0
+    (the same samples: 1e-4 relative); (b) pass 2's colour-table gradient
+    for a fixed random cotangent, summed over the windows, against one VJP
+    through the eps-0 cache (5e-3 relative L2: float sums in other orders,
+    bf16 rounding steps, and no discrete choice to flip); (c) the same pass
+    2 with the kernels against every plain version (5e-3 relative L2; K2,
+    K4b and K5 on the window streams must launch).  The cache's view
+    directions ride along where the field reads them.  Returns the
+    numbers."""
+    from nerfstyle_torch import kernels
+
+    eps = st.train_cfg.style_geom_cache_eps
+    st.train_cfg.style_geom_cache_eps = 0.0
+    cache = st._build_geom_cache(pose)
+    st.train_cfg.style_geom_cache_eps = eps
+    losses_c, _ = st.loss_and_grads(cache)
+    rgb, cls = st.render_frame(st.params, pose)
+    losses_t, _ = st.pixel_grad(rgb, st.target(pose), st._preds(cls))
+    loss_err = abs(float(losses_t["total"]) - float(losses_c["total"])) / abs(
+        float(losses_c["total"]))
+    table = st.params["x_color_embedder"]
+    cot = torch.randn(rgb.shape, generator=gen, device=rgb.device)
+    kernels.reset_launch_counts()
+    g_win = st.window_grads(st.params, pose, cot)["x_color_embedder"]
+    torch.cuda.synchronize()
+    launched = {c: kernels.launch_counts[c] for c in ("hashgrid_backward", "composite_backward",
+                                                      "mlp_backward")}
+    rgb_c, _ = st.render_cache(st.params, cache)
+    (g_cache,) = torch.autograd.grad(rgb_c, table, cot)
+    g_plain = st.window_grads(st.params, pose, cot, plain=True)["x_color_embedder"]
+    out = {"loss": loss_err, "cache": rel_l2(g_win, g_cache), "plain": rel_l2(g_win, g_plain),
+           "launched": launched}
+    log(f"two-pass checks ({what}, pose {pose}): (a) loss against the eps-0 cached step "
+        f"{loss_err:.3e} relative (tol 1e-4; {float(losses_t['total']):.6f} vs "
+        f"{float(losses_c['total']):.6f}); (b) pass 2's gradient against one VJP through the "
+        f"eps-0 cache {out['cache']:.3e} relative L2 (tol 5e-3); (c) pass 2 with the kernels "
+        f"against plain {out['plain']:.3e} (tol 5e-3); window backward launches {launched}")
+    if not loss_err <= 1e-4:
+        fails.append(f"two-pass ({what}): loss {loss_err} off the eps-0 cached step's")
+    if not out["cache"] <= 5e-3:
+        fails.append(f"two-pass ({what}): pass 2's gradient {out['cache']} off the cache's VJP")
+    if not out["plain"] <= 5e-3:
+        fails.append(f"two-pass ({what}): pass 2's gradient {out['plain']} off its plain version")
+    if not all(launched.values()):
+        fails.append(f"two-pass ({what}): pass 2 launched no window backward kernel: {launched}")
+    return out
+
+
+def two_pass_stream_rows(st, pose: int, gen, fails) -> dict:
+    """K1 and K4 on the two-pass streams as the passes hand them over (a
+    pass-1 chunk of 2^16 rays, the middle of the pose's three, and pass 2's
+    top middle window of 200 x 200 rays; phase A: marched samples, density
+    table; phase B: the kept prefix, the fused [T, 4] tables), K2 and K4b
+    on the window's phase B, against their plain versions; returns their
+    table entries."""
+    from nerfstyle_torch.models.fields import field_apply
+    from nerfstyle_torch.render.renderer import CHUNK_RAYS
+
+    grid, params, spec, s = st.field_spec.grid, st.params, st.field_spec, st.settings
+    plan, bbox = st.renderer.plan, st.renderer.bbox
+    fused = torch.cat([params["x_density_embedder"], params["x_color_embedder"]], dim=1).detach()
+    rays = st.pose_rays(pose)
+    i = min(CHUNK_RAYS, max(len(rays) - CHUNK_RAYS, 0))
+    tiles = st.window_tiling()[0]
+    win = tiles[min(1, tiles.shape[0] - 1)]
+    streams = {
+        "frame": ("a pass-1 chunk", rays.origins[i:i + CHUNK_RAYS].contiguous(),
+                  rays.dirs[i:i + CHUNK_RAYS].contiguous()),
+        "window": ("a pass-2 window", rays.origins[win].contiguous(), rays.dirs[win].contiguous()),
+    }
+    table = {}
+    for name, (what, o, d) in streams.items():
+        b = marched_batch(st, o, d)
+        sb, keep = b["sb"], b["keep"]
+        with torch.no_grad():
+            ch, sig = field_apply(spec, params, bbox, sb.xyz[keep], st.compute_dtype)
+        sig = (sig * s.density_scale).contiguous()
+        tau = sb.tau[keep].contiguous()
+        table[f"K1 two-pass {name} A"] = k1_row(
+            grid, params["x_density_embedder"].detach(), b["x_a"],
+            f"{what}'s marched samples (phase A, density)", fails)
+        table[f"K1 two-pass {name} B"] = k1_row(grid, fused, b["x_b"],
+                                                f"{what}'s kept samples (phase B, fused [T, 4])",
+                                                fails)
+        table[f"K4 two-pass {name} A"], _ = k4_row(b["sig_a"], sb.tau, sb.offsets, plan.dt,
+                                                   s.t_thresh, f"{what}'s marched samples "
+                                                   "(phase A)", fails)
+        table[f"K4 two-pass {name} B"], _ = k4_row(sig, tau, b["offsets"], plan.dt, s.t_thresh,
+                                                   f"{what}'s kept prefix (phase B)", fails)
+        if name == "window":
+            table["K2 two-pass window B"] = k2_row(
+                grid, b["x_b"], fused.shape[1],
+                f"{what}'s kept samples (phase B, fused [T, 4]; the density half dropped)", gen,
+                fails)
+            table["K4b two-pass window B"] = k4b_row(sig, ch, tau, b["offsets"], plan.dt,
+                                                     s.t_thresh, f"{what}'s kept prefix "
+                                                     "(phase B)", gen, fails)
+    return table
+
+
+def style_two_pass_phase(card: str, ckpt: Path, cached_ms: float, fails):
+    """The two-pass style scheme through ``python -m nerfstyle_torch.train
+    ... --style_geom_cache`` (in-process) from the train phase's checkpoint,
+    on the style path's scene, TWO_PASS_ITERS iterations with their launch
+    counters set to 0 just before and read just after: its kernels must
+    launch, each on its two-pass streams, the losses must be finite, no Adam
+    step skipped, the mean style term of the last 10 iterations below the
+    first, and only x_color_embedder may move in the written checkpoint.
+    Logs the median iteration and its split beside the cached path's
+    (``cached_ms``), peak memory, launches an iteration by stream, and one
+    profiled iteration.  Then two_pass_check, again with the view-direction
+    field (the trainer's field_spec and color2 head replaced, as a library
+    user reaches it: K5d's assemble entry must launch in its cache and
+    pass 2, and one cached render within 2e-3 of plain), and the two-pass
+    streams' kernel rows.  Returns the run's launches and the rows."""
+    from nerfstyle_torch import kernels, train
+    from nerfstyle_torch.models.fields import field_init
+    from nerfstyle_torch.training import checkpoint as ckpt_lib
+
+    data_cfg, style_png, seg_npz = style_assets()
+    argv = ["--device", DEVICE, "--ckpt", str(ckpt), "--log-dir", str(WORK / "style_two_pass"),
+            "--data-cfg", str(data_cfg), "--style-image", str(style_png),
+            "--style_seg_path", str(seg_npz), "--max_steps", "512", "--test_before_train",
+            "--style_geom_cache", "--num_iterations", str(TWO_PASS_ITERS),
+            "--intervals.test", "0", "--intervals.print", "10", "--intervals.log", "0",
+            "--intervals.ckpt", str(TWO_PASS_ITERS), "--yes"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    st = train.main(argv)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if st.train_cfg.style_geom_cache or st._geom_cache:
+        fails.append("the two-pass run took the cached path")
+    for name in (*TWO_PASS_COUNTERS, *TWO_PASS_STREAM_COUNTERS):
+        if launches.get(name, 0) <= 0:
+            fails.append(f"two-pass style path launched no {name} kernel")
+    hist = {k: np.array([float(h[k]) for h in st.loss_history]) for k in ("content", "style",
+                                                                         "total")}
+    notfinite = int(st.opt_state.total_notfinite)
+    if notfinite or not all(np.isfinite(v).all() for v in hist.values()):
+        fails.append(f"two-pass style losses not finite ({notfinite} steps skipped)")
+    if len(st.loss_history) != TWO_PASS_ITERS:
+        fails.append(f"the two-pass run took {len(st.loss_history)} of {TWO_PASS_ITERS} "
+                     f"iterations")
+    first, last10 = float(hist["style"][0]), float(hist["style"][-10:].mean())
+    if not last10 < first:
+        fails.append(f"the two-pass style term did not fall: first {first}, last 10 mean "
+                     f"{last10}")
+    _, before = ckpt_lib.load_checkpoint(ckpt)
+    _, after = ckpt_lib.load_checkpoint(WORK / "style_two_pass" / f"iter_{TWO_PASS_ITERS}.ckpt")
+    p0 = ckpt_lib.restore_tree(st.params, before["params"])
+    p1 = ckpt_lib.restore_tree(st.params, after["params"])
+    moved = {k: not all(torch.equal(a, b) for a, b in zip(ckpt_lib.tree_flatten(p0[k]),
+                                                        ckpt_lib.tree_flatten(p1[k])))
+             for k in p0}
+    if moved != {k: k == "x_color_embedder" for k in p0}:
+        fails.append(f"two-pass style checkpoint leaves moved: {moved}")
+    split = {k: float(np.median([t[k] for t in st.two_pass_ms])) for k in st.TWO_PASS_PHASES}
+    per_iter = {k: v / TWO_PASS_ITERS for k, v in launches.items() if v}
+    n_win = st.window_tiling()[0].shape[0]
+    log(f"two-pass style run ({card}): {TWO_PASS_ITERS} iterations at {STYLE_DIMS[0]}x"
+        f"{STYLE_DIMS[1]}, {n_win} windows of {st.window_tiling()[0].shape[1]} rays "
+        f"(defer_patch_size {st.train_cfg.defer_patch_size}), in {sum(st.iter_ms) / 1e3:.2f} s "
+        f"({wall_s:.2f} s through the entry point, set-up included); median iteration "
+        f"{np.median(st.iter_ms):.2f} ms (first {st.iter_ms[0]:.2f} ms), split by phase "
+        f"(medians, each ended by a sync) {split}; the cached path's median steady iteration "
+        f"{cached_ms:.2f} ms (the style phase above, same checkpoint and scene): "
+        f"{np.median(st.iter_ms) / cached_ms:.2f}x; peak memory {peak_gib:.2f} GiB; style term "
+        f"first {first:.5f}, last-10 mean {last10:.5f}; matching "
+        f"{[int(m) for m in st.style_loss.matching]}; launches an iteration {per_iter}")
+    profile_once(st.run_iter, "two-pass style iteration", card)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(15)
+    pose = next(iter(st.train_set.iter_shuffled_indexed(seed=st.train_cfg.rng_seed)))[0]
+    checks = {"default": two_pass_check(st, pose, gen, "the style field", fails)}
+
+    # The view-direction field: the spec and the color2 head replaced.
+    spec0, head0 = st.field_spec, st.params["color2_net"]
+    spec = dataclasses.replace(spec0, use_dir=True, sh_degree=4)
+    st.field_spec = spec
+    st.params["color2_net"] = field_init(spec, torch.Generator().manual_seed(16),
+                                         DEVICE)["color2_net"]
+    st._geom_cache.clear()
+    reset_counts()
+    cache = st.geom_cache(pose)
+    with torch.no_grad():
+        rgb_k, _ = st.render_cache(st.params, cache)
+        rgb_p, _ = st.render_cache(st.params, cache, plain=True)
+    dir_err = float((rgb_k - rgb_p).abs().max())
+    assembled = kernels.launch_counts["sh_assemble"]
+    if "dirs" not in cache or not dir_err <= 2e-3:
+        fails.append(f"use_dir style cache: dirs cached {'dirs' in cache}, cached render against "
+                     f"plain max abs err {dir_err} (tol 2e-3)")
+    if assembled <= 0:
+        fails.append("the use_dir style cache launched no K5d assemble")
+    checks["use_dir"] = two_pass_check(st, pose, gen, "the style field with use_dir", fails)
+    log(f"use_dir style cache (pose {pose}): {cache['w'].shape[0]} significant samples, "
+        f"{st._cache_nbytes(cache) / 2**20:.1f} MiB with their directions; cached render with "
+        f"the kernels against plain max abs err {dir_err:.3e} (tol 2e-3); K5d assemble "
+        f"launched {assembled} times in the cache's build and render, "
+        f"{kernels.launch_counts['sh_assemble'] - assembled} more in the two checks")
+    del cache, rgb_k, rgb_p
+    st.field_spec, st.params["color2_net"] = spec0, head0
+    st._geom_cache.clear()
+    table = two_pass_stream_rows(st, pose, gen, fails)
+    return launches, table
+
+
+# ---------------------------------------------------------------------------
 # K5d, K9 and P0, and the view-dependent field families
 # ---------------------------------------------------------------------------
 
@@ -3429,11 +3728,20 @@ def main() -> int:
     # against the plain versions, K5 and K7b at the style stream's shape, and
     # one steady iteration under the profiler.
     st, runs["style"] = style_phase(card, ckpt_train, fails)
+    cached_ms = float(np.median(st.iter_ms[STYLE_VIEWS:]))
     style_step_vs_plain(st, fails)
     style_error_split(st)
     table.update(style_kernel_phases(st, fails))
     profile_once(st.run_iter, "steady style iteration", card)
     del st
+    torch.cuda.empty_cache()
+
+    # The two-pass style scheme from the same checkpoint, its checks
+    # against the cached path and the plain versions (also with the view
+    # direction), and its streams' kernel rows.
+    count_two_pass_streams()
+    runs["two-pass"], two_pass_table = style_two_pass_phase(card, ckpt_train, cached_ms, fails)
+    table.update(two_pass_table)
     torch.cuda.empty_cache()
 
     # The simplex configuration: a short run and a frame from its checkpoint.
@@ -3448,7 +3756,7 @@ def main() -> int:
     # their plain versions only.  K3 and K3s are two passes each (count and
     # write), K6c kernels.SKIPDIST_LAUNCHES a rebuild: their launches are all
     # of theirs.
-    main_paths = ("render", "train", "style")
+    main_paths = ("render", "train", "style", "two-pass")
     # K1 and K2: a row a stream, with that stream's launches (see
     # ENCODE_STREAMS); every launch of theirs must fall in a stream with a
     # row.
@@ -3467,6 +3775,10 @@ def main() -> int:
         "style": "a style pose's marched chunk (the cache build)",
         "train A": "a late train batch's marched samples (phase A: n_inc only)",
         "train B": "a late train batch's kept prefix (phase B)",
+        "two-pass frame A": "a two-pass pass-1 chunk's marched samples (phase A: n_inc only)",
+        "two-pass frame B": "a two-pass pass-1 chunk's kept prefix (phase B)",
+        "two-pass window A": "a two-pass pass-2 window's marched samples (phase A: n_inc only)",
+        "two-pass window B": "a two-pass pass-2 window's kept prefix (phase B)",
     }
     for path, counts in runs.items():
         for name in ("composite_weights", "composite_backward"):
@@ -3489,6 +3801,11 @@ def main() -> int:
         "style": "a style pose's cached samples (color, C=2)",
         "probe full": "a full occupancy sweep's probe chunk (density, C=2)",
         "probe random": "a random occupancy update's probe chunk (density, C=2)",
+        "two-pass frame A": "a two-pass pass-1 chunk's marched samples (phase A: density, C=2)",
+        "two-pass frame B": "a two-pass pass-1 chunk's kept samples (phase B: fused [T, 4])",
+        "two-pass window A": "a two-pass pass-2 window's marched samples (phase A: density, "
+                             "C=2)",
+        "two-pass window B": "a two-pass pass-2 window's kept samples (phase B: fused [T, 4])",
     }
     meta = [(f"K1 {k}", f"K1 hashgrid_encode, {v}", hg, "nerfstyle_tpu/ops/hashgrid.py:818",
              (f"hashgrid_encode:{k}",), main_paths) for k, v in encode_rows.items()]
@@ -3507,10 +3824,16 @@ def main() -> int:
         ("K3s", "K3s march_rays (two-stage)", "nerfstyle_torch/csrc/march.cu",
          "nerfstyle_tpu/ops/marching.py:191", ("march_skip_count", "march_skip_write"),
          main_paths),
+        ("K2 two-pass window B", f"K2 hashgrid_backward, {encode_rows['two-pass window B']}",
+         hg, "nerfstyle_tpu/ops/hashgrid.py:959", ("hashgrid_backward:two-pass window B",),
+         main_paths),
         *[(f"K4 {k}", f"K4 composite_weights, {v}", cp, "nerfstyle_tpu/ops/compositing.py:94",
            (f"composite_weights:{k}",), main_paths) for k, v in composite_rows.items()],
         ("K4b train B", f"K4b composite_backward, {composite_rows['train B']}", cp,
          "nerfstyle_tpu/ops/compositing.py:116", ("composite_backward:train B",), main_paths),
+        ("K4b two-pass window B", f"K4b composite_backward, {composite_rows['two-pass window B']}",
+         cp, "nerfstyle_tpu/ops/compositing.py:116", ("composite_backward:two-pass window B",),
+         main_paths),
         ("K5f", "K5 mlp_forward", "nerfstyle_torch/csrc/mlp.cu",
          "nerfstyle_tpu/ops/mlp.py:45", ("mlp_forward",), main_paths),
         ("K5b", "K5 mlp_backward", "nerfstyle_torch/csrc/mlp.cu",
@@ -3542,8 +3865,8 @@ def main() -> int:
         ("K5d", "K5d sh_encode (first entry) at a frame chunk's kept stream, 129,929 rows (on "
          "no path: the fields take the second entry)", "nerfstyle_torch/csrc/sh.cu",
          "nerfstyle_tpu/ops/sh.py:19", ("sh_encode",), ()),
-        ("K5d style", "K5d sh_encode (first entry) at a style cache's size, 640,000 rows (no "
-         "path: the style stage's view-direction input is not ported)",
+        ("K5d style", "K5d sh_encode (first entry) at a style cache's size, 640,000 rows (on "
+         "no path: the style stage's view-direction input takes the second entry)",
          "nerfstyle_torch/csrc/sh.cu", "nerfstyle_tpu/ops/sh.py:19", ("sh_encode",), ()),
         ("K5d assemble", "K5d sh_assemble (second entry): color2's input from color1 and the "
          "SH basis, a view frame chunk's kept samples (the view frames' phase B)",

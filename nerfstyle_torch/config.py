@@ -387,8 +387,9 @@ class TrainConfig(Config):
     photo_lambda: float = 0.0001
     style_geom_cache: bool = True
     """Style stage: cache each pose's frozen geometry (its weight-significant
-    samples) once and run every iteration over the cache.  False (the
-    reference's two-pass scheme) is not ported yet and raises."""
+    samples) once and run every iteration over the cache.  False: the
+    reference's two-pass scheme (a full-frame render without gradients, then
+    ``defer_patch_size`` windows re-rendered under autograd)."""
     style_step_window_slots: int = 524288
     """A TPU memory bound of the JAX style step (it windows the stream to cap
     its sort temporaries).  The port's table gradient uses atomics and has no

@@ -62,14 +62,15 @@
    profiler; eight more through the trainer's own trace window
    (``--profile_dir``), split step by step (``read_trace``).
 9. The style path: ``python -m nerfstyle_torch.train --ckpt <the train
-   phase's checkpoint> --style-image <png> --style_seg_path <npz>
+   phase's checkpoint> --style-image tests/data/style.jpg --style_seg_path <npz>
    --max_steps 512`` in-process, on a 504x378 synthetic scene (30 train
    views, 3 test views), 200 iterations (cfgs/training/style.yaml) with
    their launch counters set to 0 just before and read just after; each
    style kernel (K1-K5, K3s, K6c, K7, K7b) must have launched, every loss
    must be finite, the mean style term of the last 10 iterations must lie
    below the first's, and the written checkpoint must differ from the train
-   phase's only in x_color_embedder.  Prints the cache builds, the first
+   phase's only in x_color_embedder; its test pass writes video.gif, one
+   frame a test view.  Prints the cache builds, the first
    epoch (30 builds), the median steady iteration, the whole run, peak
    memory and each kernel's launches a step.  Then one style step with the
    kernels against the same step with every plain version, the gradient
@@ -111,6 +112,28 @@
    within the render phase's tolerances of the plain path; steady frames
    of the default field and both families in turns, and one frame of each
    under the profiler.  No other run may launch K5d.
+13. The incremental renderer (``incremental_phase``, after the view
+   phase): the main frame through ``RenderSettings(infer_two_phase=False)``
+   (library API, as in JAX: rounds of infer_round_size samples an alive
+   ray), launch counters set to 0 just before and read just after: K4i
+   (K4 with each ray's entering transmittance), P0 (the rounds' row
+   gathers), K1, K5, K7 and K3s must launch, K4 and K5d not; finite maps,
+   the frame against the two-phase frame at sig_eps 0 and a 4096-ray crop
+   against the plain path; rounds a chunk, the round loop's host reads and
+   the frame's synchronizing calls (torch.cuda's sync debug mode), samples
+   evaluated beside the two-phase frame's phase A and B, steady frames of
+   both schemes in turns; K4i, P0, K1 and K5's forward on a round of the
+   frame's first chunk against their plain versions, timed.
+14. Before the style path: VGG16's input gradient on a planted-tie frame
+   (exact-zero pre-activations, tied pool windows) on the card against the
+   CPU, layer by layer (``vgg_tie_check``), and the host time of the
+   port's decode of a 1008x756 4:2:0 JPEG (its SHA256 must be PIL's
+   decode's, ``jpeg_decode_ms``).  The style path reads its
+   style image from tests/data/style.jpg (a baseline JPEG written by PIL),
+   whose decode must equal tests/data/style_jpg_pil.npy (PIL's) bit for
+   bit, and writes video.gif of its test views (one frame a view).  After
+   it, steady style iterations with VGG16's ReLU as torch.relu and as the
+   port's (JAX's gradient at 0), in turns (``relu_ab_ms``).
 
 12. The real-scene layouts (``real_scene_phase``, after the train path):
    the synthetic room written as an LLFF layout (``write_llff_layout``: 32
@@ -139,8 +162,8 @@ plain and against the chain of operators it replaces, timed beside it; K9
 (grid_initialize, on no path) at the default grid with one style (bit for
 bit against plain at full size: the reference on every reached row) and
 two styles, and at a small spec with three styles every reached row
-holding a colliding corner's value; P0 (take_rows, on no path) at its own
-shape and at 2^20 indices, bit for bit, beside ``index_select``.  K9's
+holding a colliding corner's value; P0 (take_rows) at the TPU kernel's
+own shape and at 2^20 indices, bit for bit, beside ``index_select``.  K9's
 bound counts its corner traffic, a row (4C bytes) an access, at an L2 rate
 the script measures (``l2_rate``, the launch floor taken off).  The run's
 seconds are logged at the end.
@@ -267,6 +290,22 @@ TWO_PASS_STREAM_COUNTERS = (
 # picks of a window above 0 5-11; PERF.md §6).
 STYLE_FLIP_BOUND = {"preds": 50, "nearest": 60, "relu": 40, "pool": 60}
 K1_POINTS = 1 << 20
+# The incremental renderer (incremental_phase): the main frame through
+# RenderSettings(infer_two_phase=False), rounds of infer_round_size samples
+# an alive ray: P0 gathers a round's rows, K1 and K5 evaluate them, K4i
+# composites them with each ray's entering transmittance, K7 sums their
+# channels; the two-stage march before.
+INCREMENTAL_COUNTERS = ("composite_weights_entering", "take_rows", "hashgrid_encode",
+                        "mlp_forward", "segment_sum", "march_skip_count", "march_skip_write")
+# The style path's style image: a JPEG written by PIL and the array PIL
+# decodes from it (the chip machine has no PIL: the port's decoder must give
+# the same bits).
+STYLE_JPEG = ROOT / "tests" / "data" / "style.jpg"
+STYLE_JPEG_PIL = ROOT / "tests" / "data" / "style_jpg_pil.npy"
+# A 1008x756 4:2:0 JPEG of the synthetic room (PIL, quality 90) and the
+# SHA256 of PIL's decode of it: the port's decode time on the host.
+ROOM_JPEG = ROOT / "tests" / "data" / "room_1008x756.jpg"
+ROOM_JPEG_SHA256 = ROOT / "tests" / "data" / "room_1008x756_pil.sha256"
 # The real-scene layouts (real_scene_phase): the synthetic room written as
 # an LLFF layout at images_8's size (504x378; data config of
 # cfgs/dataset/llff_room.yaml: bound 2.0, scale 0.33; cfgs/renderer/llff.yaml:
@@ -520,6 +559,8 @@ def _encode_stream() -> str:
         f = f.f_back
     if _two_pass_phase:
         return f"{_two_pass_phase[-1]} {'B' if 'field_apply' in names else 'A'}"
+    if "render_chunk_incremental" in names:
+        return "incremental"
     for stream, callers in ENCODE_STREAMS:
         if any(c in names for c in callers):
             return stream
@@ -2396,7 +2437,7 @@ def real_scene_phase(card: str, fails) -> dict:
                      f"{mean[trained]:.3f} dB, less than 5 dB")
 
     # The style stage on the LLFF checkpoint.
-    _, style_png, seg_npz = style_assets()
+    _, style_png, seg_npz = style_assets(fails)
     reset_counts()
     t0 = time.perf_counter()
     st = train.main(["--device", DEVICE, "--ckpt", str(ckpt), "--log-dir", str(WORK / "llff_style"),
@@ -2463,10 +2504,37 @@ def real_scene_phase(card: str, fails) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def style_assets():
-    """The 504x378 synthetic scene with its data YAML, a 256x192 gradient
-    style PNG and its 4-quadrant segment map (as bench.py makes them)."""
+def jpeg_decode_ms(fails) -> list:
+    """Host time of the port's JPEG decode (``imageio.jpeg.read_jpeg``) of a
+    1008x756 4:2:0 frame, three decodes; the decode's SHA256 must be
+    PIL's.  Set-up work (style images, dataset frames), not the hot
+    path."""
+    import hashlib
+
+    from nerfstyle_torch.imageio.jpeg import read_jpeg
+
+    want = ROOM_JPEG_SHA256.read_text().split()[0]
+    times = []
+    for _ in range(3):
+        t = time.perf_counter()
+        img = read_jpeg(ROOM_JPEG)
+        times.append((time.perf_counter() - t) * 1e3)
+    got = hashlib.sha256(img.tobytes()).hexdigest()
+    if img.shape != (756, 1008, 3) or got != want:
+        fails.append(f"{ROOM_JPEG.name} decodes to shape {img.shape}, SHA256 {got}; PIL's is {want}")
+    log(f"JPEG decode on the host ({ROOM_JPEG.name}, {ROOM_JPEG.stat().st_size} bytes, 1008x756 "
+        f"4:2:0): {['%.1f' % t for t in times]} ms; SHA256 equal to PIL's decode: {got == want}")
+    return times
+
+
+def style_assets(fails):
+    """The 504x378 synthetic scene with its data YAML, the style image (a
+    256x192 gradient with stripes, a baseline 4:2:0 JPEG written by PIL:
+    the README's ``--style-image style.jpg`` route) and its 4-quadrant
+    segment map.  The port's decode of the JPEG must equal the array PIL
+    decoded from it, bit for bit."""
     from nerfstyle_torch import utils
+
     from nerfstyle_torch.data.synthetic import generate_scene
 
     w, h = STYLE_DIMS
@@ -2474,11 +2542,19 @@ def style_assets():
     generate_scene(scene, num_train=STYLE_VIEWS, num_test=STYLE_TEST_VIEWS, h=h, w=w)
     data_cfg = WORK / "style_data.yaml"
     data_cfg.write_text(f"root_path: {scene}\ntype: Synthetic\nbound: 2.0\nscale: 1.0\n")
-    yy, xx = np.meshgrid(np.linspace(0, 1, 192), np.linspace(0, 1, 256), indexing="ij")
-    style_png, seg_npz = WORK / "style.png", WORK / "style_seg.npz"
-    utils.save_image(np.stack([yy, xx, 1 - yy], axis=-1).astype(np.float32), style_png)
+    got = np.moveaxis(utils.parse_rgb(STYLE_JPEG), 0, -1)
+    want = np.load(STYLE_JPEG_PIL).astype(np.float32) / 255.0
+    if got.shape != want.shape or not np.array_equal(got, want):
+        fails.append(f"the style JPEG decodes to other values than PIL's: shape {got.shape} vs "
+                     f"{want.shape}, max abs err "
+                     f"{float(np.abs(got - want).max()) if got.shape == want.shape else 'n/a'}")
+    log(f"style image {STYLE_JPEG.relative_to(ROOT)} ({STYLE_JPEG.stat().st_size} bytes): the "
+        f"port's decode equals PIL's bit for bit: {np.array_equal(got, want)}")
+    yy, xx = np.meshgrid(np.linspace(0, 1, want.shape[0]), np.linspace(0, 1, want.shape[1]),
+                         indexing="ij")
+    seg_npz = WORK / "style_seg.npz"
     np.savez(seg_npz, seg_map=(yy > 0.5).astype(np.int64) * 2 + (xx > 0.5).astype(np.int64))
-    return data_cfg, style_png, seg_npz
+    return data_cfg, STYLE_JPEG, seg_npz
 
 
 def style_phase(card: str, ckpt: Path, fails):
@@ -2488,12 +2564,12 @@ def style_phase(card: str, ckpt: Path, fails):
     from nerfstyle_torch.training import checkpoint as ckpt_lib
 
     t0 = time.perf_counter()
-    data_cfg, style_png, seg_npz = style_assets()
+    data_cfg, style_img, seg_npz = style_assets(fails)
     log(f"style assets: {STYLE_DIMS[0]}x{STYLE_DIMS[1]} scene of {STYLE_VIEWS} + "
         f"{STYLE_TEST_VIEWS} views, style image and segment map in "
         f"{time.perf_counter() - t0:.1f} s")
     argv = ["--device", DEVICE, "--ckpt", str(ckpt), "--log-dir", str(WORK / "style"),
-            "--data-cfg", str(data_cfg), "--style-image", str(style_png),
+            "--data-cfg", str(data_cfg), "--style-image", str(style_img),
             "--style_seg_path", str(seg_npz), "--max_steps", "512", "--test_before_train",
             "--intervals.test", "0", "--intervals.print", "20", "--intervals.log", "0",
             "--intervals.ckpt", "200", "--yes"]
@@ -2533,6 +2609,15 @@ def style_phase(card: str, ckpt: Path, fails):
              for k in p0}
     if moved != {k: k == "x_color_embedder" for k in p0}:
         fails.append(f"style checkpoint leaves moved: {moved}")
+    # The trainer's test pass (the flags above toggle style.yaml's
+    # test_before_train off): the test views' collages as video.gif.
+    st.test_networks()
+    gif = WORK / "style" / "epoch_{:0{w}d}".format(st.iter_ctr, w=len(str(n_iter))) / "video.gif"
+    n_gif = gif_frames(gif) if gif.exists() else 0
+    if n_gif != STYLE_TEST_VIEWS:
+        fails.append(f"{gif} holds {n_gif} frames (exists: {gif.exists()}), want one a test "
+                     f"view ({STYLE_TEST_VIEWS})")
+    log(f"style video.gif: {n_gif} frames, {gif.stat().st_size if gif.exists() else 0} bytes")
 
     cs = st.cache_stats
     ms = st.iter_ms
@@ -2650,8 +2735,10 @@ class StepChoices:
         return t.gather(dim, idx[:, None]).squeeze(dim)
 
     def relu(self, x):
+        from nerfstyle_torch.models.vgg import _Relu
+
         mask = self._take("relu", lambda: x > 0)
-        return torch.relu(x) if self.pinned is None else torch.where(mask, x, 0.0)
+        return _Relu.apply(x) if self.pinned is None else torch.where(mask, x, 0.0)
 
     def max_pool2d(self, x, k, s):
         if self.pinned is None:
@@ -2741,7 +2828,7 @@ def style_step_run(st, cache, plain=False, route=(), pin=None, nudge=0.0):
         stack.enter_context(mock.patch.object(st, "_preds", lambda cls: choices.preds(st, cls)))
         stack.enter_context(mock.patch.object(style_loss, "torch",
                                               _Proxy(torch, amin=choices.amin)))
-        stack.enter_context(mock.patch.object(vgg, "torch", _Proxy(torch, relu=choices.relu)))
+        stack.enter_context(mock.patch.object(vgg, "relu", choices.relu))
         stack.enter_context(mock.patch.object(vgg, "F", _Proxy(
             torch.nn.functional, max_pool2d=choices.max_pool2d)))
         if nudge:
@@ -3070,9 +3157,9 @@ def style_two_pass_phase(card: str, ckpt: Path, cached_ms: float, fails):
     from nerfstyle_torch.models.fields import field_init
     from nerfstyle_torch.training import checkpoint as ckpt_lib
 
-    data_cfg, style_png, seg_npz = style_assets()
+    data_cfg, style_img, seg_npz = style_assets(fails)
     argv = ["--device", DEVICE, "--ckpt", str(ckpt), "--log-dir", str(WORK / "style_two_pass"),
-            "--data-cfg", str(data_cfg), "--style-image", str(style_png),
+            "--data-cfg", str(data_cfg), "--style-image", str(style_img),
             "--style_seg_path", str(seg_npz), "--max_steps", "512", "--test_before_train",
             "--style_geom_cache", "--num_iterations", str(TWO_PASS_ITERS),
             "--intervals.test", "0", "--intervals.print", "10", "--intervals.log", "0",
@@ -3603,6 +3690,416 @@ def frame_on_off(renderer, params, pose, out, card: str, fails):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The incremental renderer
+# ---------------------------------------------------------------------------
+
+
+def count_syncs(fn) -> int:
+    """The synchronizing CUDA calls fn() makes (torch.cuda's sync debug
+    mode warns at each)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def k4i_row(sig, tau, offsets, t0, dt: float, t_thresh: float, what: str, fails) -> dict:
+    """K4i on a round stream as the path hands it over (densities with
+    density_scale applied, each ray's entering transmittance t0) against
+    its plain version in float64; timed from a CUDA graph of the kernel
+    call alone (and launch by launch, logged).  Tolerances: K4's (k4_row):
+    atol 2e-6 on w and weights_sum, 2e-6 * max(tau) on depth, 1e-4 on a ray
+    with a sample within 1e-4 relative of t_thresh; t_out rtol 1e-5 (fp32
+    against float64 sums of the round's optical depth)."""
+    from nerfstyle_torch import kernels
+    from nerfstyle_torch.ops import compositing
+
+    n, m = offsets.shape[0] - 1, sig.shape[0]
+    got = compositing.sample_weights_entering(sig, tau, offsets, t0, dt, t_thresh)
+    want = compositing.sample_weights_entering(sig.double(), tau.double(), offsets, t0.double(),
+                                               dt, t_thresh, plain=True)
+    rid = compositing.ray_ids(offsets)
+    _, trans64 = compositing.entering_transmittance_plain(sig.double(), offsets, dt)
+    trans64 = t0.double()[rid] * trans64
+    near = ((trans64 - t_thresh).abs() <= 1e-4 * t_thresh).double()
+    edge = compositing.segment_totals_plain(near, offsets) > 0
+    on_edge = edge[rid]
+    tau_max = float(tau.max()) if m else 0.0
+    errs, tols = [], []
+    for mask_s, mask_r, tight in ((~on_edge, ~edge, 2e-6), (on_edge, edge, 1e-4)):
+        errs += [float((a.double() - b)[mk].abs().max()) if bool(mk.any()) else 0.0
+                 for a, b, mk in ((got[0], want[0], mask_s), (got[1], want[1], mask_r),
+                                  (got[2], want[2], mask_r))]
+        tols += [tight, tight, tight * tau_max]
+    big = want[3] > 1e-30
+    t_err = float(((got[3].double() - want[3]) / want[3].clamp(min=1e-30))[big].abs().max())
+    if not (all(e <= t for e, t in zip(errs, tols)) and t_err <= 1e-5):
+        fails.append(f"K4i at {what}: errors w/ws/depth (inner rays, then edge rays) {errs} vs "
+                     f"{tols}, t_out relative {t_err} vs 1e-5")
+    ms = graph_ms(lambda: kernels.composite_weights_entering(sig, tau, offsets, t0, dt, t_thresh))
+    host_ms = cuda_ms(lambda: kernels.composite_weights_entering(sig, tau, offsets, t0, dt,
+                                                                 t_thresh), reps=20)
+    plain_ms = cuda_ms(lambda: compositing.sample_weights_entering(sig, tau, offsets, t0, dt,
+                                                                   t_thresh, plain=True), reps=5)
+    # Bytes: offsets, t0, every sample's sigma (t_out sums the whole round),
+    # tau of the included samples, w of every sample, three per-ray outputs.
+    # About 8 operations a sample.
+    n_inc = int((trans64 >= t_thresh).sum())
+    b_ms, b_by = bound_ms(nbytes=(n + 1) * 8 + n * 4 + m * 4 + n_inc * 4 + m * 4 + n * 12,
+                          flops=m * 8)
+    log(f"K4i composite_weights_entering at {what}: {m} samples over {n} rays "
+        f"({ray_length_stats(offsets)}), entering T min {float(t0.min()):.3e}, {n_inc} samples "
+        f"included, {int(edge.sum())} edge rays; max_abs_err w/ws/depth inner, edge {errs} (tol "
+        f"{tols}), t_out relative {t_err:.2e}; ms {ms:.4f} (graph; {host_ms:.4f} launched one by "
+        f"one), plain_ms {plain_ms:.3f}, bound_ms {b_ms:.4f} ({b_by})")
+    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def p0_round_row(rows, pos, what: str, fails) -> dict:
+    """P0 on a round's gather as the path hands it over (the chunk's
+    [xyz, tau] rows, the round's int32 positions), bit-equal to
+    ``rows[pos]``; the kernel, the plain version and ``index_select`` (its
+    library yardstick) from CUDA graphs.  Bound: the positions, the rows
+    read once, the output written once."""
+    from nerfstyle_torch.ops import gather
+
+    got, ref = gather.take_rows(rows, pos), gather.take_rows(rows, pos, plain=True)
+    if not torch.equal(got, ref):
+        fails.append(f"P0 take_rows at {what} differs from rows[pos]")
+    ms = graph_ms(lambda: gather.take_rows(rows, pos))
+    plain_ms = graph_ms(lambda: gather.take_rows(rows, pos, plain=True))
+    lib_ms = graph_ms(lambda: torch.index_select(rows, 0, pos))
+    n, c = pos.shape[0], rows.shape[1]
+    b_ms, b_by = bound_ms(nbytes=n * 4 + 2 * n * c * 4, flops=0)
+    log(f"P0 take_rows at {what}: {n} positions into [{rows.shape[0]}, {c}] f32; bit-equal to "
+        f"rows[pos]: {torch.equal(got, ref)}; ms {ms:.4f} (graph), plain_ms {plain_ms:.4f}, "
+        f"index_select ms {lib_ms:.4f}, bound_ms {b_ms:.4f} ({b_by})")
+    return dict(max_abs_err=float((got - ref).abs().max()), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+
+def k5f_heads_row(heads, dtype, what: str, fails) -> dict:
+    """K5's forward on each head (weights, input, activation) against the
+    plain chain within k5_tolerance, and the heads' forwards timed
+    together: K5, the plain chain and K5's cuBLAS chain (its library
+    yardstick, held against plain first).  Bound: each head's input read
+    and output written once, the weights once; 2 d_in d_out operations a
+    row a layer at the bf16 tensor-core peak under AMP (fp32 otherwise)."""
+    from nerfstyle_torch.ops.mlp import mlp_apply, mlp_apply_plain
+
+    errs = []
+    with torch.no_grad():
+        for i, (w, x, act) in enumerate(heads):
+            got, want = mlp_apply(w, x, act, dtype), mlp_apply_plain(w, x, act, dtype)
+            err, tol = float((got - want).abs().max()), k5_tolerance(want, dtype)
+            errs.append(err)
+            if not err <= tol:
+                fails.append(f"K5 forward, head {i} at {what}: error {err} > {tol}")
+        lib_errs = [library_check(w, x, act, dtype, fails, f"head {i} at {what}")
+                    for i, (w, x, act) in enumerate(heads)]
+        ms = cuda_ms(lambda: [mlp_apply(w, x, act, dtype) for w, x, act in heads], reps=10)
+        plain_ms = cuda_ms(lambda: [mlp_apply_plain(w, x, act, dtype) for w, x, act in heads],
+                           reps=5)
+        with cublas_fp32_sums():
+            lib_ms = cuda_ms(lambda: [mlp_library_chain(w, x, act, dtype) for w, x, act in heads],
+                             reps=10)
+    n = heads[0][1].shape[0]
+    dims = [[w.shape[0] for w in ws] + [ws[-1].shape[1]] for ws, _, _ in heads]
+    macs = sum(sum(a * b for a, b in zip(d[:-1], d[1:])) for d in dims)
+    wbytes = sum(w.numel() * 4 for ws, _, _ in heads for w in ws)
+    peak = PEAK_BF16_PER_S if dtype == torch.bfloat16 else PEAK_FP32_PER_S
+    b_ms, b_by = bound_ms(n * 4 * sum(d[0] + d[-1] for d in dims) + wbytes, 2 * n * macs, peak)
+    log(f"K5 forward at {what} ({n} rows, {dtype}, layer widths {dims}): max abs err {errs}, "
+        f"cuBLAS chain against plain {lib_errs}; ms {ms:.3f}, plain_ms {plain_ms:.3f}, cuBLAS "
+        f"chain {lib_ms:.3f}, bound_ms {b_ms:.4f} ({b_by})")
+    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
+
+
+def incremental_phase(renderer, params, pose, rays, card: str, fails):
+    """The main frame through the incremental renderer
+    (``RenderSettings(infer_two_phase=False)``: rounds of infer_round_size
+    samples an alive ray), launch counters set to 0 just before and read
+    just after: K4i, P0, K1, K5, K7 and the two-stage march must launch, K4
+    and K5d not.  Checks: finite maps of the frame's shapes; the frame
+    against the two-phase frame at sig_eps 0, which colors every sample of
+    nonzero weight (the same weights: K4i's optical depth carried from
+    round to round as a product of transmittances, K4's as one sum, and the
+    channels summed a round at a time: atol 2e-4 on rgb, opacity and depth,
+    2e-3 on class logits, for a sample at the t_thresh cutoff that the two
+    round differently); a 4096-ray crop against the plain path on the card
+    (the main frame's tolerances: 2e-3, class logits 2e-2).  Logs rounds a
+    chunk, the loop's host reads and the frame's synchronizing calls
+    (counted by torch.cuda's sync debug mode) beside the two-phase frame's,
+    samples evaluated beside the two-phase frame's phase A and B, and
+    steady frames of both in turns (two-phase, incremental, incremental,
+    two-phase).  The frame at round size 4 (rays live into later rounds)
+    against the same two-phase frame.  Then K4i, P0, K1 and K5 on the
+    frame's largest round, and K4i on a later round of the round-size-4
+    frame (rays entering with T < 1).  Returns the frame's launches and the
+    kernel-table rows."""
+    from unittest import mock
+
+    from nerfstyle_torch.models.fields import _encoder_input
+    from nerfstyle_torch.render import renderer as rmod
+
+    base = renderer.settings
+    inc = dataclasses.replace(base, infer_two_phase=False)
+    eps0 = dataclasses.replace(base, sig_eps=0.0)
+
+    def frame(settings, o=None, d=None, plain=False):
+        renderer.settings = settings
+        try:
+            with torch.no_grad():
+                if o is None:
+                    return renderer.render(params, pose, plain=plain)
+                return renderer.render_rays(params, o, d, plain=plain)
+        finally:
+            renderer.settings = base
+
+    two, every = frame(base), frame(eps0)
+    torch.cuda.synchronize()
+    reset_counts()
+    out = frame(inc)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    for name in INCREMENTAL_COUNTERS:
+        if launches[name] <= 0:
+            fails.append(f"incremental frame launched no {name} kernel")
+    for name in ("composite_weights", *K5D_COUNTERS):
+        if launches[name]:
+            fails.append(f"incremental frame launched {name} {launches[name]} times")
+    w, h = OUT_DIMS
+    npix = w * h
+    shapes = {"rgb_map": (npix, 3), "trans_map": (npix,), "weights_sum": (npix,),
+              "classes": (npix, renderer.raymarch_channels - 3)}
+    for k, shp in shapes.items():
+        if tuple(out[k].shape) != shp or not bool(torch.isfinite(out[k]).all()):
+            fails.append(f"incremental frame {k}: shape {tuple(out[k].shape)} (want {shp}) or "
+                         "not finite")
+    tol = {"rgb_map": 2e-4, "trans_map": 2e-4, "weights_sum": 2e-4, "classes": 2e-3}
+    errs = {k: float((out[k] - every[k]).abs().max()) for k in tol}
+    if out["num_marched"] != every["num_marched"] or not all(errs[k] <= t
+                                                              for k, t in tol.items()):
+        fails.append(f"incremental frame against the two-phase frame at sig_eps 0: marched "
+                     f"{out['num_marched']} vs {every['num_marched']}, max abs err {errs} (tol "
+                     f"{tol})")
+    half = min(32, h // 4, w // 4)
+    ys, xs = np.meshgrid(np.arange(h // 2 - half, h // 2 + half),
+                         np.arange(w // 2 - half, w // 2 + half), indexing="ij")
+    crop = torch.from_numpy((ys * w + xs).reshape(-1)).to(DEVICE)
+    ref = frame(inc, rays.origins[crop], rays.dirs[crop], plain=True)
+    crop_tol = {"rgb_map": 2e-3, "trans_map": 2e-3, "weights_sum": 2e-3, "classes": 2e-2}
+    crop_err = {k: float((out[k][crop] - ref[k]).abs().max()) for k in crop_tol}
+    for k, t in crop_tol.items():
+        if not crop_err[k] <= t:
+            fails.append(f"incremental crop {k} error {crop_err[k]} > {t}")
+    syncs = {"two-phase": count_syncs(lambda: frame(base)),
+             "incremental": count_syncs(lambda: frame(inc))}
+    times = {"two-phase": [], "incremental": []}
+    for which in ("two-phase", "incremental", "incremental", "two-phase"):
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            frame(inc if which == "incremental" else base)
+            torch.cuda.synchronize()
+            times[which].append((time.perf_counter() - t) * 1e3)
+    chunks = -(-npix // rmod.CHUNK_RAYS)
+    log(f"incremental frame ({card}, round size {inc.infer_round_size}): {out['rounds']} rounds "
+        f"over {chunks} chunks ({out['rounds'] / chunks:.2f} a chunk, at most "
+        f"{-(-base.max_steps // inc.infer_round_size) + 1}), {out['rounds'] + chunks} host reads "
+        f"of the round loops; synchronizing calls a frame {syncs}; samples evaluated "
+        f"{out['num_points']} ({out['num_points'] / npix:.2f}/ray) of {out['num_marched']} "
+        f"marched, against the two-phase frame's phase A {two['num_marched']} and phase B "
+        f"{two['num_sig']} (sig_eps {base.sig_eps}); max abs err against the two-phase frame at "
+        f"sig_eps 0 {errs} (tol {tol}), against the default two-phase frame "
+        f"{float((out['rgb_map'] - two['rgb_map']).abs().max()):.3e} on rgb; 4096-ray crop "
+        f"against plain {crop_err} (tol {crop_tol}); steady frames two-phase/incremental/"
+        f"incremental/two-phase: two-phase min {min(times['two-phase']):.1f} ms "
+        f"{['%.1f' % t for t in times['two-phase']]}, incremental min "
+        f"{min(times['incremental']):.1f} ms {['%.1f' % t for t in times['incremental']]}; "
+        f"launches {launches}")
+
+    # The rounds as the path hands them over: the frame's largest round (P0's
+    # gather and K4i's composite of one round) for the rows; the frame at
+    # round size 4, where rays that hit a sphere (~7 samples to saturate)
+    # live into a second round, against the two-phase frame at sig_eps 0,
+    # and its first round whose rays enter with T < 1 for one more check of
+    # K4i.
+    best, pending, later = {"m": -1}, {}, {}
+
+    def p0_spy(table, idx, **kw):
+        pending["p0"] = (table, idx)
+        return real_p0(table, idx, **kw)
+
+    def k4i_spy(*args, **kw):
+        if args[0].shape[0] > best["m"]:
+            best.update(m=args[0].shape[0], k4i=args[:6], p0=pending["p0"])
+        if "k4i" not in later and float(args[3].min()) < 1.0:
+            later["k4i"] = args[:6]
+        return real_k4i(*args, **kw)
+
+    real_k4i, real_p0 = rmod.sample_weights_entering, rmod.take_rows
+    small = dataclasses.replace(inc, infer_round_size=4)
+    with mock.patch.object(rmod, "sample_weights_entering", k4i_spy), \
+            mock.patch.object(rmod, "take_rows", p0_spy):
+        frame(inc)
+        out4 = frame(small)
+    errs4 = {k: float((out4[k] - every[k]).abs().max()) for k in tol}
+    if not all(errs4[k] <= t for k, t in tol.items()):
+        fails.append(f"incremental frame at round size 4 against the two-phase frame at sig_eps "
+                     f"0: max abs err {errs4} (tol {tol})")
+    log(f"incremental frame at round size 4: {out4['rounds']} rounds over {chunks} chunks "
+        f"({out4['rounds'] / chunks:.2f} a chunk), samples evaluated {out4['num_points']}; max "
+        f"abs err against the two-phase frame at sig_eps 0 {errs4} (tol {tol})")
+    sig, tau, offsets, t0, dt, t_thresh = best["k4i"]
+    rows, pos = best["p0"]
+    what = f"an incremental frame's largest round ({sig.shape[0]} samples)"
+    table = {"K4i": k4i_row(sig, tau, offsets, t0, dt, t_thresh, what, fails),
+             "P0 incremental": p0_round_row(rows, pos, what, fails)}
+    if "k4i" in later:
+        lat = later["k4i"]
+        k4i_row(*lat, f"a later round at round size 4 ({lat[0].shape[0]} samples, rays "
+                      "entering with T < 1)", fails)
+    else:
+        fails.append("the incremental frame at round size 4 carried no ray into a second round")
+    spec, dtype = renderer.field_spec, renderer.compute_dtype
+    fused = torch.cat([params["x_density_embedder"], params["x_color_embedder"]], 1).detach()
+    x = _encoder_input(renderer.bbox, rows[pos.long(), :3]).contiguous()
+    table["K1 incremental"] = k1_row(spec.grid, fused, x, what + ", fused [T, 4]", fails)
+    with torch.no_grad():
+        from nerfstyle_torch.ops.hashgrid import hashgrid_encode
+        from nerfstyle_torch.ops.mlp import mlp_apply
+
+        c = spec.grid.level_dim
+        hh = hashgrid_encode(spec.grid, fused, x).reshape(-1, spec.grid.num_levels, 2 * c)
+        h_d = hh[..., :c].reshape(-1, spec.grid.output_dim).contiguous()
+        h_c = hh[..., c:].reshape(-1, spec.grid.output_dim).contiguous()
+        c1 = mlp_apply(params["color1_net"], h_c, None, dtype)
+    heads = [(params["density_net"], h_d, None), (params["class_net"], h_c, None),
+             (params["color1_net"], h_c, None), (params["color2_net"], c1, "sigmoid")]
+    table["K5f incremental"] = k5f_heads_row(heads, dtype, what, fails)
+    return launches, table
+
+
+# ---------------------------------------------------------------------------
+# VGG16 at ties, and the style image
+# ---------------------------------------------------------------------------
+
+
+def vgg_tie_check(fails) -> None:
+    """VGG16's input gradient on a planted-tie frame on the card against
+    the CPU, layer by layer (tests/test_torch_vgg_ties.py's frame at
+    128x96, the fallback filters: a white background, whose features tie
+    in every pool window; a band of the ImageNet mean, which normalizes to
+    exactly 0, so that the zero-bias filters give exactly-0
+    pre-activations; a patch of repeated 2x2 windows).  cuDNN's
+    convolutions and max-pool backward must keep what the CPU's keep (the
+    JAX package's rules: half the gradient at an exact 0, a pool tie to the
+    window's first element): atol 1e-4 of the largest entry (fp32 sums in
+    another order).  Logs each layer's error and the exact zeros of each
+    conv layer on both devices."""
+    from nerfstyle_torch.models import vgg
+
+    keys = [f"{op}{b + 1}_{i + 1}" for b, blk in enumerate(vgg.VGG16_LAYERS[:3])
+            for i in range(len(blk)) for op in ("conv", "relu")]
+    params = vgg._init_params(vgg._VGG16_BLOCKS[:3])
+    fx = {"cpu": vgg.VGG16FeatureExtractor(keys, params=params),
+          "cuda": vgg.VGG16FeatureExtractor(keys, device=DEVICE, params=params)}
+    h, w = 96, 128
+    rng = np.random.default_rng(0)
+    img = np.ones((3, h, w), np.float32)
+    img[:, :, :40] = np.asarray(vgg._IMAGENET_MEAN, np.float32)[:, None, None]
+    patch = rng.random((3, 24, 32)).astype(np.float32)
+    img[:, 32:80, 48:112] = np.repeat(np.repeat(patch, 2, axis=1), 2, axis=2)
+    report, zeros = {}, {}
+    for key in keys:
+        grads = {}
+        for dev, f in fx.items():
+            x = torch.from_numpy(img).to("cpu" if dev == "cpu" else DEVICE).requires_grad_(True)
+            feats = f(x)
+            if key.startswith("conv"):
+                zeros.setdefault(key, {})[dev] = int((feats[key] == 0).sum())
+            cot = torch.from_numpy(np.random.default_rng(1).normal(
+                size=tuple(feats[key].shape)).astype(np.float32)).to(x.device)
+            (g,) = torch.autograd.grad((feats[key] * cot).sum(), x)
+            grads[dev] = g.cpu()
+        report[key] = float((grads["cuda"] - grads["cpu"]).abs().max()
+                            / grads["cpu"].abs().max())
+    bad = {k: v for k, v in report.items() if not v <= 1e-4}
+    if bad:
+        fails.append(f"VGG16 input gradient on the planted-tie frame, card against CPU: {bad} "
+                     "past 1e-4 of the largest entry (the first departing layer first)")
+    log(f"VGG16 planted-tie frame ({w}x{h}), card against CPU, max abs err of the input "
+        f"gradient over its largest entry by layer: "
+        + ", ".join(f"{k} {v:.1e}" for k, v in report.items())
+        + "; exact zeros of the conv layers (cpu, cuda): "
+        + ", ".join(f"{k} {z['cpu']}/{z['cuda']}" for k, z in zeros.items()))
+
+
+def relu_ab_ms(st, card: str, reps: int = 5) -> dict:
+    """Steady style iterations with VGG16's ReLU as ``torch.relu`` (gradient
+    0 at an exact 0: the extractor before its tie repair) and as the port's
+    ``vgg.relu`` (JAX's 0.5 there), in turns (old, new, new, old, ``reps``
+    iterations each, host clock to a device sync): the repair's cost on
+    the device-bound iteration.  Returns the medians."""
+    from unittest import mock
+
+    from nerfstyle_torch.models import vgg
+
+    times = {"torch.relu": [], "vgg.relu": []}
+    for which in ("torch.relu", "vgg.relu", "vgg.relu", "torch.relu"):
+        with mock.patch.object(vgg, "relu", torch.relu if which == "torch.relu" else vgg.relu):
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                st.run_iter()
+                torch.cuda.synchronize()
+                times[which].append((time.perf_counter() - t) * 1e3)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    log(f"steady style iteration ({card}) by VGG16 ReLU, in turns old/new/new/old: "
+        f"torch.relu median {med['torch.relu']:.2f} ms "
+        f"{['%.2f' % t for t in times['torch.relu']]}, "
+        f"vgg.relu (0.5 at 0) median {med['vgg.relu']:.2f} ms "
+        f"{['%.2f' % t for t in times['vgg.relu']]}")
+    return med
+
+
+def gif_frames(path: Path) -> int:
+    """The image descriptors of a GIF file, walked block by block."""
+    blob = path.read_bytes()
+    if blob[:6] != b"GIF89a":
+        raise ValueError(f"{path} does not start with GIF89a")
+    pos = 13 + (3 << ((blob[10] & 7) + 1) if blob[10] & 0x80 else 0)
+    frames = 0
+
+    def skip_sub_blocks(at):
+        while blob[at]:
+            at += blob[at] + 1
+        return at + 1
+
+    while pos < len(blob) and blob[pos] != 0x3B:
+        if blob[pos] == 0x21:
+            pos = skip_sub_blocks(pos + 2)
+        elif blob[pos] == 0x2C:
+            frames += 1
+            flags = blob[pos + 9]
+            pos += 10 + (3 << ((flags & 7) + 1) if flags & 0x80 else 0)
+            pos = skip_sub_blocks(pos + 1)
+        else:
+            raise ValueError(f"{path}: unknown GIF block 0x{blob[pos]:02x} at {pos}")
+    return frames
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs an NVIDIA GPU",
@@ -3696,6 +4193,9 @@ def main() -> int:
     # The view configuration: both view-dependent families through the
     # Renderer on the same frame.
     runs.update(view_phase(renderer, params, pose, rays, card, fails))
+    # The incremental renderer (infer_two_phase False) on the same frame.
+    runs["incremental"], inc_table = incremental_phase(renderer, params, pose, rays, card, fails)
+    table.update(inc_table)
 
     # The import path, from the render checkpoint; its frame must equal the
     # main path's.
@@ -3727,12 +4227,15 @@ def main() -> int:
     # The style path from the train phase's checkpoint; then one step
     # against the plain versions, K5 and K7b at the style stream's shape, and
     # one steady iteration under the profiler.
+    vgg_tie_check(fails)
+    jpeg_decode_ms(fails)
     st, runs["style"] = style_phase(card, ckpt_train, fails)
     cached_ms = float(np.median(st.iter_ms[STYLE_VIEWS:]))
     style_step_vs_plain(st, fails)
     style_error_split(st)
     table.update(style_kernel_phases(st, fails))
     profile_once(st.run_iter, "steady style iteration", card)
+    relu_ab_ms(st, card)
     del st
     torch.cuda.empty_cache()
 
@@ -3756,7 +4259,7 @@ def main() -> int:
     # their plain versions only.  K3 and K3s are two passes each (count and
     # write), K6c kernels.SKIPDIST_LAUNCHES a rebuild: their launches are all
     # of theirs.
-    main_paths = ("render", "train", "style", "two-pass")
+    main_paths = ("render", "train", "style", "two-pass", "incremental")
     # K1 and K2: a row a stream, with that stream's launches (see
     # ENCODE_STREAMS); every launch of theirs must fall in a stream with a
     # row.
@@ -3876,9 +4379,24 @@ def main() -> int:
          "nerfstyle_tpu/ops/hashgrid.py:351", ("grid_initialize",), ()),
         ("K9 2", "K9 grid_initialize, default grid, two styles (on no path)", hg,
          "nerfstyle_tpu/ops/hashgrid.py:351", ("grid_initialize",), ()),
-        ("P0", "P0 take_rows, 256 int32 indices into [1024, 128] f32 (on no path)",
+        ("K4i", "K4i composite_weights_entering, an incremental frame chunk's round (each "
+         "ray entering with the transmittance of its earlier rounds)", cp,
+         "nerfstyle_tpu/render/renderer.py:364", ("composite_weights_entering",),
+         ("incremental",)),
+        ("P0 incremental", "P0 take_rows, an incremental round's gather of its samples' [xyz, "
+         "tau] rows (16 bytes a row)", "nerfstyle_torch/csrc/gather.cu",
+         "tools/exp_encoder_r4.py:120", ("take_rows",), ("incremental",)),
+        ("K1 incremental", "K1 hashgrid_encode, an incremental round's samples (fused [T, 4])",
+         hg, "nerfstyle_tpu/ops/hashgrid.py:818", ("hashgrid_encode:incremental",),
+         ("incremental",)),
+        ("K5f incremental", "K5 mlp_forward, an incremental round's samples (density, class, "
+         "color1 and color2 heads)", "nerfstyle_torch/csrc/mlp.cu", "nerfstyle_tpu/ops/mlp.py:45",
+         ("mlp_forward",), ("incremental",)),
+        ("P0", "P0 take_rows, 256 int32 indices into [1024, 128] f32 (the TPU kernel's own "
+         "shape, on no path)",
          "nerfstyle_torch/csrc/gather.cu", "tools/exp_encoder_r4.py:120", ("take_rows",), ()),
-        ("P0 2^20", "P0 take_rows, 2^20 int32 indices into [1024, 128] f32 (on no path)",
+        ("P0 2^20", "P0 take_rows, 2^20 int32 indices into [1024, 128] f32 (on no "
+         "path)",
          "nerfstyle_torch/csrc/gather.cu", "tools/exp_encoder_r4.py:120", ("take_rows",), ()),
     ]
     # Calls: a row's launches over the launches a call makes.  The rule-2

@@ -29,6 +29,19 @@
 // only reassociates the optical depth (~5 roundings deep in a chunk, one
 // more for the carry); results are the same bits on every launch.
 //
+// K4i, K4's entry for a round of the incremental renderer, replaces the
+// round composite of nerfstyle_tpu/render/renderer.py:
+// make_incremental_renderer (:364-373, the reference's inference
+// composite_rays, raymarching.cu:1005-1239): a ray's round of samples enters
+// with the transmittance t0 it kept from its earlier rounds, so
+//     T_i = t0 * exp(-sum_{j<i} sdt_j),  w_i = alpha_i * T_i while T_i >= t_thresh,
+// and the ray leaves with t_out = t0 * exp(-sum sdt) over all of the round's
+// samples (the death test reads it).  K4 cannot do this: its threshold test
+// has no entering T.  The same warp a ray and chunk scan as K4; the walk
+// does not stop at the cutoff, because t_out sums the round's whole optical
+// depth (a round is short: 32 samples, one chunk, at the default round
+// size).  No backward: inference only.
+//
 // K4 backward replaces JAX's autodiff of ops/compositing.py:composite_rays
 // (:116-148) with the reference's composite_rays_train_backward, given the
 // cotangents gI [N, C] of the image, gW [N] of weights_sum and gD [N] of
@@ -174,6 +187,45 @@ __global__ void __launch_bounds__(nst::kThreads)
         n_inc[r] = static_cast<int>(stop - begin);
         weights_sum[r] = ws;
         depth[r] = dep;
+    }
+}
+
+__global__ void __launch_bounds__(nst::kThreads) composite_weights_entering_kernel(
+    const float* __restrict__ sigmas, const float* __restrict__ tau,
+    const long long* __restrict__ offsets, const float* __restrict__ t0, int num_rays, float dt,
+    float t_thresh, float* __restrict__ w, float* __restrict__ weights_sum,
+    float* __restrict__ depth, float* __restrict__ t_out) {
+    const long long r = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+    const int lane = threadIdx.x & 31;
+    if (r >= num_rays) return;  // the whole warp
+    const long long begin = offsets[r];
+    const long long end = offsets[r + 1];
+    const float t_in = t0[r];
+    float carry = 0.f;  // optical depth in front of the chunk
+    float ws = 0.f;
+    float dep = 0.f;
+    bool cut = false;  // a sample in front fell below t_thresh
+    for (long long base = begin; base < end; base += 32) {
+        const long long i = base + lane;
+        const bool valid = i < end;
+        const float sdt = valid ? fminf(__fmul_rn(sigmas[i], dt), 100.f) : 0.f;
+        const float incl = warp_inclusive_scan(sdt, lane);
+        const float excl = __shfl_up_sync(kFullMask, incl, 1);
+        const float trans = __fmul_rn(t_in, expf(-__fadd_rn(carry, lane == 0 ? 0.f : excl)));
+        const unsigned out = __ballot_sync(kFullMask, valid && !(trans >= t_thresh));
+        const int first_out = cut ? 0 : (out ? __ffs(out) - 1 : 32);
+        const bool inc = valid && lane < first_out;
+        const float wi = inc ? __fmul_rn(__fsub_rn(1.f, expf(-sdt)), trans) : 0.f;
+        if (valid) w[i] = wi;
+        ws = __fadd_rn(ws, warp_sum(wi));
+        dep = __fadd_rn(dep, warp_sum(inc ? __fmul_rn(wi, tau[i]) : 0.f));
+        cut = cut || out != 0;
+        carry = __fadd_rn(carry, __shfl_sync(kFullMask, incl, 31));
+    }
+    if (lane == 0) {
+        weights_sum[r] = ws;
+        depth[r] = dep;
+        t_out[r] = __fmul_rn(t_in, expf(-carry));
     }
 }
 
@@ -448,6 +500,23 @@ NST_API int nst_composite_weights(const void* sigmas, const void* tau, const voi
         static_cast<const float*>(sigmas), static_cast<const float*>(tau),
         static_cast<const long long*>(offsets), num_rays, dt, t_thresh, static_cast<float*>(w),
         static_cast<float*>(weights_sum), static_cast<float*>(depth), static_cast<int*>(n_inc));
+    return nst::launch_status();
+}
+
+// sigmas, tau [M] f32; offsets [N+1] i64; t0 [N] f32 -> w [M], weights_sum [N],
+// depth [N], t_out [N] f32.
+NST_API int nst_composite_weights_entering(const void* sigmas, const void* tau,
+                                           const void* offsets, const void* t0, int num_rays,
+                                           float dt, float t_thresh, void* w, void* weights_sum,
+                                           void* depth, void* t_out, void* stream) {
+    if (num_rays <= 0) return 0;
+    const long long threads = static_cast<long long>(num_rays) * 32;  // a warp a ray
+    composite_weights_entering_kernel<<<nst::blocks_for(threads), nst::kThreads, 0,
+                                        static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(sigmas), static_cast<const float*>(tau),
+        static_cast<const long long*>(offsets), static_cast<const float*>(t0), num_rays, dt,
+        t_thresh, static_cast<float*>(w), static_cast<float*>(weights_sum),
+        static_cast<float*>(depth), static_cast<float*>(t_out));
     return nst::launch_status();
 }
 

@@ -47,6 +47,7 @@ launch_counts: Dict[str, int] = {
     "march_skip_count": 0,
     "march_skip_write": 0,
     "composite_weights": 0,
+    "composite_weights_entering": 0,
     "composite_backward": 0,
     "segment_sum": 0,
     "segment_sum_backward": 0,
@@ -86,6 +87,7 @@ _SIGNATURES = {
         _P, _P,
     ),
     "nst_composite_weights": (_P, _P, _P, _I, _F, _F, _P, _P, _P, _P, _P),
+    "nst_composite_weights_entering": (_P, _P, _P, _P, _I, _F, _F, _P, _P, _P, _P, _P),
     "nst_composite_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P),
     "nst_segment_sum": (_P, _P, _P, _I, _I, _P, _P),
     "nst_segment_sum_backward": (_P, _P, _P, _P, _I, _I, _P, _P, _P),
@@ -390,6 +392,40 @@ def composite_weights(
         )
         _launched(lib, status, "composite_weights")
     return w, ws, depth, n_inc
+
+
+def composite_weights_entering(
+    sigmas: torch.Tensor,
+    tau: torch.Tensor,
+    offsets: torch.Tensor,
+    t0: torch.Tensor,
+    dt: float,
+    t_thresh: float,
+):
+    """K4i: K4 for a round of the incremental renderer, each ray entering
+    with transmittance ``t0`` [N]: per-sample weights w [M], per-ray
+    weights_sum [N], depth [N] and the leaving transmittance t_out [N] (see
+    csrc/composite.cu)."""
+    m = sigmas.shape[0]
+    n = offsets.shape[0] - 1
+    _check("sigmas", sigmas, torch.float32, (m,))
+    _check("tau", tau, torch.float32, (m,))
+    _check("offsets", offsets, torch.int64, (n + 1,))
+    _check("t0", t0, torch.float32, (n,))
+    _same_device(sigmas, tau, offsets, t0)
+    w = torch.empty_like(sigmas)
+    ws = torch.empty((n,), dtype=torch.float32, device=sigmas.device)
+    depth = torch.empty((n,), dtype=torch.float32, device=sigmas.device)
+    t_out = torch.empty((n,), dtype=torch.float32, device=sigmas.device)
+    if n > 0:
+        lib = library()
+        status = lib.nst_composite_weights_entering(
+            sigmas.data_ptr(), tau.data_ptr(), offsets.data_ptr(), t0.data_ptr(), n, dt,
+            t_thresh, w.data_ptr(), ws.data_ptr(), depth.data_ptr(), t_out.data_ptr(),
+            _stream(sigmas),
+        )
+        _launched(lib, status, "composite_weights_entering")
+    return w, ws, depth, t_out
 
 
 def composite_backward(sigmas, ch, tau, w, offsets, n_inc, g_img, g_ws, g_depth, dt: float):

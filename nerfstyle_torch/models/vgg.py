@@ -6,8 +6,12 @@ same ImageNet normalization, fp32 throughout.  The convolutions and pools are
 ``torch.nn.functional.conv2d`` and ``max_pool2d`` (cuDNN on the card), as the
 JAX package leaves them to ``lax.conv_general_dilated``; cuDNN's TF32 mode is
 switched off (``torch.backends.cudnn.allow_tf32 = False``), because a TF32
-convolution is a different function.  The public interface speaks
-[N, C, H, W], like the JAX extractor's.
+convolution is a different function.  The ReLU is :class:`_Relu`, whose
+gradient at an exactly-zero pre-activation is 0.5, as that of the JAX
+package's ``jnp.maximum(x, 0.0)`` (``torch.relu``'s is 0).  A max-pool tie
+routes its gradient to the window's first element in row-major order, as
+XLA's select-and-scatter does, on the CPU and on the card alike.  The public
+interface speaks [N, C, H, W], like the JAX extractor's.
 
 Weights: torchvision is not used.  Pretrained weights load from a local file
 when present, searched in this order: the ``NERFSTYLE_VGG16_WEIGHTS``
@@ -138,6 +142,32 @@ def find_weights(kind: str) -> Optional[Path]:
     return hits[0] if hits else None
 
 
+_HALF = torch.tensor(0.5)
+
+
+class _Relu(torch.autograd.Function):
+    """max(x, 0) with ``jnp.maximum``'s gradient: 1 above 0, 0.5 at exactly
+    0 (the tie splits between the two arguments), 0 below.  With zero
+    biases (the fallback filters) a pre-activation is exactly 0 wherever the
+    receptive field is all zeros; ``torch.relu`` would drop its gradient."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return x.clamp_min(0.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        # A CPU scalar operand: no host-to-device copy (a sync) a call.
+        return g * torch.heaviside(x, _HALF.to(x.dtype))
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    """The extractor's ReLU (:class:`_Relu`)."""
+    return _Relu.apply(x)
+
+
 class VGG16FeatureExtractor:
     """Feature extractor with the reference's key grammar."""
 
@@ -203,7 +233,7 @@ class VGG16FeatureExtractor:
                 x = F.conv2d(x, w, bias, padding=1)
                 if (b, i, False) in self._needed:
                     taps[(b, i, False)] = x
-                x = torch.relu(x)
+                x = relu(x)
                 if (b, i, True) in self._needed:
                     taps[(b, i, True)] = x
             if b < self._max_block:

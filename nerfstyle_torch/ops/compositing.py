@@ -19,6 +19,11 @@ the sum in front of the segment, and segment sums — but accumulate in
 float64: on a frame-sized stream a flat fp32 cumsum reaches ~1e6 and loses
 the digits of a late ray's optical depth.
 
+:func:`sample_weights_entering` is K4 for a round of the incremental
+renderer (kernel K4i): each ray's samples enter with the transmittance
+``t0`` the ray kept from its earlier rounds, ``T_i = t0 * exp(-sum_{j<i}
+sdt_j)``, and the ray leaves with ``t_out = t0 * exp(-sum sdt)``.
+
 :func:`segment_sum_grad` is K7 made differentiable on its own
 (:class:`SegmentSum`), for a stream whose weights are fixed, as the style
 stage's cached weights are: its backward is kernel K7b, ``d ch = w *
@@ -119,6 +124,49 @@ def sample_weights(
         return sample_weights_plain(sigmas, tau, offsets, dt, t_thresh)
     return kernels.composite_weights(
         sigmas.contiguous(), tau.contiguous(), offsets.contiguous(), dt, t_thresh
+    )
+
+
+def sample_weights_entering_plain(
+    sigmas: torch.Tensor,
+    tau: torch.Tensor,
+    offsets: torch.Tensor,
+    t0: torch.Tensor,
+    dt: float,
+    t_thresh: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain K4i: (w [M], weights_sum [N], depth [N], t_out [N]), JAX's
+    round composite (``make_incremental_renderer``) with float64 sums."""
+    sdt, trans = entering_transmittance_plain(sigmas, offsets, dt)
+    trans = t0[ray_ids(offsets)] * trans
+    alpha = 1.0 - torch.exp(-sdt)
+    w = alpha * trans * (trans >= t_thresh).to(sigmas.dtype)
+    total = segment_totals_plain(sdt.to(torch.float64), offsets).to(sigmas.dtype)
+    return (w, segment_totals_plain(w, offsets), segment_totals_plain(w * tau, offsets),
+            t0 * torch.exp(-total))
+
+
+def sample_weights_entering(
+    sigmas: torch.Tensor,
+    tau: torch.Tensor,
+    offsets: torch.Tensor,
+    t0: torch.Tensor,
+    dt: float,
+    t_thresh: float,
+    *,
+    plain: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Weights ``w`` [M] of a round of samples (``sigmas`` already
+    density_scale-multiplied) whose rays enter with transmittance ``t0``
+    [N], with the per-ray ``weights_sum``, ``depth`` and leaving
+    transmittance ``t_out`` [N].  No gradient: inference only.
+
+    CUDA tensors go through kernel K4i; CPU tensors (or ``plain=True``)
+    through :func:`sample_weights_entering_plain`."""
+    if not use_kernel(sigmas, plain):
+        return sample_weights_entering_plain(sigmas, tau, offsets, t0, dt, t_thresh)
+    return kernels.composite_weights_entering(
+        sigmas.contiguous(), tau.contiguous(), offsets.contiguous(), t0.contiguous(), dt, t_thresh
     )
 
 

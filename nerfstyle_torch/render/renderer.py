@@ -21,6 +21,17 @@ Inference, per chunk of rays:
      composites their channels per ray;
   4. white background on rgb, depth normalized to [near, far].
 
+With ``RenderSettings.infer_two_phase`` False a chunk renders through the
+reference's incremental scheme instead (``render_test``; JAX's
+``make_incremental_renderer``), :func:`render_chunk_incremental`: the same
+march, then rounds in which every alive ray takes its next
+``infer_round_size`` samples (their rows gathered by kernel P0), the whole
+field runs on them (K1, K5, and K5d where it reads directions), kernel K4i
+composites them with the transmittance each ray carries from its earlier
+rounds, K7 sums their channels, and a ray dies once its transmittance
+falls below ``t_thresh`` or its samples run out.  A saturated ray's later
+samples are never evaluated.
+
 A train batch (:func:`render_rays`) marches the same way, then evaluates
 and composites through ``render/pipeline.py``, whose phase B keeps each
 ray's samples with entering T >= t_thresh.
@@ -44,9 +55,11 @@ import torch
 from .. import DeviceLike, resolve_device
 from ..core.cameras import generate_rays
 from ..core.types import BBox, Intrinsics
-from ..models.fields import FieldSpec, Params, check_field_spec, field_color, field_density
+from ..models.fields import (FieldSpec, Params, check_field_spec, field_apply, field_color,
+                             field_density)
 from ..ops.aabb import near_far_from_aabb
-from ..ops.compositing import sample_weights, segment_sum
+from ..ops.compositing import sample_weights, sample_weights_entering, segment_sum
+from ..ops.gather import take_rows
 from ..ops.marching import MarchPlan, OccField, march_rays
 from ..ops.occupancy import (
     OccupancyState,
@@ -61,6 +74,8 @@ from .pipeline import eval_composite
 
 MAP_KEYS = ("rgb_map", "trans_map", "classes", "weights_sum")
 COUNT_KEYS = ("num_marched", "num_sig", "num_cand")
+# The incremental chunk's counters: samples marched and evaluated, rounds.
+INCREMENTAL_COUNT_KEYS = ("num_marched", "num_points", "num_cand", "rounds")
 # Rays per chunk and samples per field batch: bounds on device memory only
 # (a frame chunk of 2^16 rays peaks at a few GiB at the default configs).
 CHUNK_RAYS = 1 << 16
@@ -92,6 +107,11 @@ class RenderSettings:
     # March with the skip distance (two-stage, kernel K3s); False sweeps the
     # dense lattice (kernel K3).  Both emit the same samples.
     adaptive_march: bool = True
+    # Inference scheme: two-phase (density on every marched sample, color on
+    # the weight-significant ones), or the reference's incremental rounds
+    # (render_chunk_incremental) of infer_round_size samples an alive ray.
+    infer_two_phase: bool = True
+    infer_round_size: int = 32
     # Only for the checkpoint's budget_bucket, by which the JAX package
     # sizes its buffers (the port sizes every buffer exactly).
     max_samples_per_ray: int = 256
@@ -189,6 +209,114 @@ def render_chunk(
         "num_marched": sb.num_kept,
         "num_sig": n_sig,
         "num_cand": sb.num_cand,
+    }
+
+
+def render_chunk_incremental(
+    field_spec: FieldSpec,
+    plan: MarchPlan,
+    params: Params,
+    occ: OccField,
+    bbox: BBox,
+    origins: torch.Tensor,
+    dirs: torch.Tensor,
+    *,
+    t_thresh: float,
+    density_scale: float,
+    compute_dtype: torch.dtype = torch.float32,
+    round_size: int = 32,
+    field_batch: int = FIELD_BATCH,
+    plain: bool = False,
+) -> Dict[str, object]:
+    """Incremental render of one chunk of N rays (the reference's inference
+    rounds; JAX's ``make_incremental_renderer`` without its TPU buckets).
+
+    One march, sized exactly; then rounds: every alive ray takes its next
+    ``round_size`` marched samples (one P0 gather of their [xyz, tau] rows,
+    and of their directions where the field reads them), the whole field
+    runs on them (``field_apply``: one encode of the style kind's two
+    tables), K4i gives their weights from the transmittance the ray entered
+    the round with, K7 sums their channels, and one ``index_add_`` a map
+    adds each alive ray's row to the chunk's.  A ray dies when its leaving
+    transmittance is below ``t_thresh`` or its samples are used up.  Each
+    round ends in one host read (how many rays live on and how many
+    samples they take next): a chunk of ``rounds`` rounds (at most
+    ceil(max_steps / round_size)) makes ``rounds`` + 1 reads.
+
+    Returns the maps of :func:`render_chunk` and the host counters
+    ``num_marched`` (samples marched), ``num_points`` (samples evaluated),
+    ``num_cand`` and ``rounds``."""
+    device = origins.device
+    n = origins.shape[0]
+    nears, fars = near_far_from_aabb(origins, dirs, plan.aabb(device), plan.min_near)
+    sb = march_rays(plan, occ, origins, dirs, nears, fars, plain=plain)
+    counts = sb.offsets[1:] - sb.offsets[:-1]
+    starts = sb.offsets[:-1]
+    # The stream's rows a round gathers: [xyz, tau] (16 bytes), and the
+    # directions where the field reads them (32 bytes).
+    cols = [sb.xyz, sb.tau[:, None]]
+    if field_spec.needs_dirs:
+        cols += [sb.dirs, torch.zeros_like(sb.tau)[:, None]]
+    rows = torch.cat(cols, dim=1)
+    channels = field_spec.out_channels
+    acc = torch.zeros((n, channels), dtype=torch.float32, device=device)
+    acc_ws = torch.zeros((n,), dtype=torch.float32, device=device)
+    acc_depth = torch.zeros((n,), dtype=torch.float32, device=device)
+    consumed = torch.zeros((n,), dtype=torch.int64, device=device)
+    trans = torch.ones((n,), dtype=torch.float32, device=device)
+    alive_mask = counts > 0
+    arange_n = torch.arange(n, device=device)
+
+    def next_round():
+        """(alive rays [A], their take [A], the round's sample count): one
+        host read."""
+        take = torch.where(alive_mask, torch.clamp(counts - consumed, max=round_size), 0)
+        n_alive, m = (int(v) for v in torch.stack([alive_mask.sum(), take.sum()]).tolist())
+        slot = torch.where(alive_mask, torch.cumsum(alive_mask, 0) - 1, n_alive)
+        alive = torch.empty((n_alive + 1,), dtype=torch.int64, device=device)
+        alive[slot] = arange_n
+        alive = alive[:n_alive]
+        return alive, take[alive], m
+
+    rounds, points = 0, 0
+    max_rounds = -(-plan.max_steps // round_size) + 1
+    alive, take, m = next_round()
+    while alive.numel() > 0:
+        rounds += 1
+        assert rounds <= max_rounds, "the incremental loop outran ceil(max_steps / round_size)"
+        offsets = torch.zeros((alive.numel() + 1,), dtype=torch.int64, device=device)
+        offsets[1:] = torch.cumsum(take, 0)
+        rid = torch.repeat_interleave(torch.arange(alive.numel(), device=device), take,
+                                      output_size=m)
+        pos = (starts[alive] + consumed[alive] - offsets[:-1])[rid] + torch.arange(m, device=device)
+        got = take_rows(rows, pos.to(torch.int32), plain=plain)
+        xyz, tau = got[:, :3].contiguous(), got[:, 3].contiguous()
+        pdirs = got[:, 4:7].contiguous() if field_spec.needs_dirs else None
+        outs = [field_apply(field_spec, params, bbox, xyz[i:i + field_batch], compute_dtype,
+                            dirs=None if pdirs is None else pdirs[i:i + field_batch], plain=plain)
+                for i in range(0, m, field_batch)]
+        ch, sigmas = outs[0] if len(outs) == 1 else (torch.cat(t) for t in zip(*outs))
+        w, ws, depth, t_out = sample_weights_entering(sigmas * density_scale, tau, offsets,
+                                                      trans[alive], plan.dt, t_thresh, plain=plain)
+        acc.index_add_(0, alive, segment_sum(w, ch, offsets, plain=plain))
+        acc_ws.index_add_(0, alive, ws)
+        acc_depth.index_add_(0, alive, depth)
+        used = consumed[alive] + take
+        consumed[alive] = used
+        trans[alive] = t_out
+        alive_mask[alive] = (t_out >= t_thresh) & (used < counts[alive])
+        points += m
+        alive, take, m = next_round()
+
+    return {
+        "rgb_map": acc[:, :3] + (1.0 - acc_ws)[:, None],
+        "trans_map": torch.clamp(acc_depth - nears, min=0.0) / torch.clamp(fars - nears, min=1e-10),
+        "classes": acc[:, 3:],
+        "weights_sum": acc_ws,
+        "num_marched": sb.num_kept,
+        "num_points": points,
+        "num_cand": sb.num_cand,
+        "rounds": rounds,
     }
 
 
@@ -360,20 +488,25 @@ class Renderer:
     def render_rays(
         self, params: Params, origins: torch.Tensor, dirs: torch.Tensor, plain: bool = False
     ) -> Dict[str, object]:
-        """Render N rays chunk by chunk; maps concatenate, counters add up."""
+        """Render N rays chunk by chunk, through :func:`render_chunk` or,
+        without ``infer_two_phase``, :func:`render_chunk_incremental`; maps
+        concatenate, counters add up."""
         s = self.settings
+        common = dict(t_thresh=s.t_thresh, density_scale=s.density_scale,
+                      compute_dtype=self.compute_dtype, plain=plain)
+        if s.infer_two_phase:
+            chunk_fn, keys = render_chunk, COUNT_KEYS
+            common["sig_eps"] = s.sig_eps if s.adaptive_march else 0.0
+        else:
+            chunk_fn, keys = render_chunk_incremental, INCREMENTAL_COUNT_KEYS
+            common["round_size"] = s.infer_round_size
         pieces = [
-            render_chunk(
-                self.field_spec, self.plan, params, self.occ_field, self.bbox,
-                origins[i:i + CHUNK_RAYS], dirs[i:i + CHUNK_RAYS],
-                t_thresh=s.t_thresh, density_scale=s.density_scale,
-                compute_dtype=self.compute_dtype,
-                sig_eps=s.sig_eps if s.adaptive_march else 0.0, plain=plain,
-            )
+            chunk_fn(self.field_spec, self.plan, params, self.occ_field, self.bbox,
+                     origins[i:i + CHUNK_RAYS], dirs[i:i + CHUNK_RAYS], **common)
             for i in range(0, origins.shape[0], CHUNK_RAYS)
         ]
         out: Dict[str, object] = {k: torch.cat([p[k] for p in pieces]) for k in MAP_KEYS}
-        for k in COUNT_KEYS:
+        for k in keys:
             out[k] = sum(p[k] for p in pieces)
         return out
 

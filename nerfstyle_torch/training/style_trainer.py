@@ -459,19 +459,23 @@ class StyleTrainer(Trainer):
     # ---- evaluation ----
 
     def test_networks(self) -> Dict[str, float]:
-        """Render the test views with the current params; each frame and its
-        collage with the style image are saved as PNGs."""
+        """Render the test views with the current params; each frame is
+        saved as a PNG, and the frames' collages with the style image as
+        ``video.gif`` (3.75 frames a second, looping), as the JAX package
+        does."""
         img_dir = self.log_dir / "epoch_{:0{w}d}".format(
             self.iter_ctr, w=len(str(self.train_cfg.num_iterations)))
         img_dir.mkdir(exist_ok=True)
         h, w = self.test_set.intr.h, self.test_set.intr.w
         style = self.style_image.cpu().numpy()
+        frames = []
         with torch.no_grad():
             for i in range(len(self.test_set)):
                 _, pose = self.test_set[i]
                 out = self.renderer.render(self.params, torch.from_numpy(np.asarray(pose)))
                 rgb = out["rgb_map"].cpu().numpy().T.reshape(3, h, w)
+                collage = utils.collage_h(rgb, style[:3])
+                frames.append((np.clip(np.moveaxis(collage, 0, -1), 0, 1) * 255).astype(np.uint8))
                 utils.save_image(rgb, img_dir / f"{self.test_set.fns[i]}.png")
-                utils.save_image(utils.collage_h(rgb, style[:3]),
-                                 img_dir / f"{self.test_set.fns[i]}_collage.png")
+        utils.save_gif(frames, img_dir / "video.gif", fps=3.75)
         return {}

@@ -3,25 +3,28 @@ output, PSNR, the segmentation palette, the style collage, the datasets'
 train/test split and colour transfer, and the checkpoint's version stamp.
 
 Counterpart of ``nerfstyle_tpu/utils.py`` for what rendering, training and
-the dataset loaders need.  PNGs are read and written with ``zlib`` from the
-standard library, so the port needs no image package: :func:`parse_rgb`
-takes 8-bit non-interlaced PNGs (gray, RGB, RGBA) and ``.npy`` arrays, and
-:func:`png_size` reads a PNG's size from its header.  JPEG is not decoded.
+the dataset loaders need.  Images are read and written by
+:mod:`nerfstyle_torch.imageio` (numpy and the standard library), so the port
+needs no image package: :func:`parse_rgb` takes 8-bit PNGs (gray, gray +
+alpha, RGB, RGBA; plain or Adam7-interlaced), baseline JPEGs and ``.npy``
+arrays, told apart by their content; :func:`png_size` reads a PNG's size
+from its header; :func:`save_gif` writes an animated GIF.
 """
 
 from __future__ import annotations
 
 import logging
 import math
-import struct
 import subprocess
 import sys
-import zlib
 from pathlib import Path
 from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+
+from .imageio import gif, jpeg, png
+from .imageio.png import png_size, read_png  # noqa: F401  (the module's API)
 
 _ANSI = {
     "DEBUG": "\x1b[38;21m",
@@ -66,11 +69,6 @@ def prompt_bool(msg: str, assume_yes: bool = False) -> bool:
     return result == "y"
 
 
-def _png_chunk(tag: bytes, data: bytes) -> bytes:
-    body = tag + data
-    return struct.pack(">I", len(data)) + body + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF)
-
-
 def save_image(arr: np.ndarray, path: Union[str, Path]) -> None:
     """Save a [C, H, W] or [H, W, C] float array in [0, 1] as an 8-bit PNG
     (values clipped, NaN -> 0)."""
@@ -79,98 +77,14 @@ def save_image(arr: np.ndarray, path: Union[str, Path]) -> None:
         arr = np.moveaxis(arr, 0, -1)
     if arr.ndim == 2:
         arr = arr[..., None]
-    img = (np.clip(np.nan_to_num(arr), 0.0, 1.0) * 255).astype(np.uint8)
-    h, w, c = img.shape
-    color_type = {1: 0, 3: 2, 4: 6}[c]
-    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
-    png = (
-        b"\x89PNG\r\n\x1a\n"
-        + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0))
-        + _png_chunk(b"IDAT", zlib.compress(raw, 6))
-        + _png_chunk(b"IEND", b"")
-    )
-    Path(path).write_bytes(png)
+    png.write_png((np.clip(np.nan_to_num(arr), 0.0, 1.0) * 255).astype(np.uint8), path)
 
 
-_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_PNG_CHANNELS = {0: 1, 2: 3, 6: 4}  # color type -> channels (gray, RGB, RGBA)
-
-
-def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
-    p = a + b - c
-    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
-    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
-
-
-def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
-    """Undo the five PNG row filters -> [h, w * bpp] uint8."""
-    stride = w * bpp
-    data = np.frombuffer(raw, dtype=np.uint8)
-    if data.size != h * (stride + 1):
-        raise ValueError(f"PNG data holds {data.size} bytes, expected {h * (stride + 1)}")
-    rows = data.reshape(h, stride + 1)
-    out = np.zeros((h, stride), dtype=np.int64)
-    prev = np.zeros(stride, dtype=np.int64)
-    for y in range(h):
-        ftype, line = int(rows[y, 0]), rows[y, 1:].astype(np.int64)
-        if ftype == 0:  # None
-            cur = line
-        elif ftype == 1:  # Sub: each byte adds the byte bpp to its left
-            cur = np.cumsum(line.reshape(w, bpp), axis=0).reshape(-1) % 256
-        elif ftype == 2:  # Up
-            cur = (line + prev) % 256
-        elif ftype in (3, 4):  # Average, Paeth: sequential along the row
-            cur = np.zeros(stride, dtype=np.int64)
-            left = np.zeros(bpp, dtype=np.int64)
-            up_left = np.zeros(bpp, dtype=np.int64)
-            for x in range(w):
-                sl = slice(x * bpp, (x + 1) * bpp)
-                up = prev[sl]
-                pred = (left + up) // 2 if ftype == 3 else _paeth(left, up, up_left)
-                cur[sl] = (line[sl] + pred) % 256
-                left, up_left = cur[sl], up
-        else:
-            raise ValueError(f"unknown PNG row filter {ftype}")
-        out[y] = cur
-        prev = cur
-    return out.astype(np.uint8)
-
-
-def png_size(path: Union[str, Path]) -> Tuple[int, int]:
-    """(width, height) of a PNG from its IHDR chunk, which the format puts
-    first, without decoding the image."""
-    with open(path, "rb") as f:
-        head = f.read(len(_PNG_SIGNATURE) + 16)
-    if not head.startswith(_PNG_SIGNATURE) or head[12:16] != b"IHDR":
-        raise ValueError(f"{path} is not a PNG file")
-    w, h = struct.unpack(">II", head[16:24])
-    return w, h
-
-
-def read_png(path: Union[str, Path]) -> np.ndarray:
-    """An 8-bit non-interlaced PNG (gray, RGB or RGBA) -> [H, W, C] uint8."""
-    blob = Path(path).read_bytes()
-    if not blob.startswith(_PNG_SIGNATURE):
-        raise ValueError(f"{path} is not a PNG file")
-    pos, header, idat = len(_PNG_SIGNATURE), None, []
-    while pos + 8 <= len(blob):
-        (length,) = struct.unpack(">I", blob[pos:pos + 4])
-        tag, data = blob[pos + 4:pos + 8], blob[pos + 8:pos + 8 + length]
-        pos += 12 + length
-        if tag == b"IHDR":
-            header = struct.unpack(">IIBBBBB", data)
-        elif tag == b"IDAT":
-            idat.append(data)
-        elif tag == b"IEND":
-            break
-    if header is None:
-        raise ValueError(f"{path}: PNG without an IHDR chunk")
-    w, h, depth, color_type, _, _, interlace = header
-    if depth != 8 or color_type not in _PNG_CHANNELS or interlace != 0:
-        raise ValueError(f"{path}: only 8-bit non-interlaced gray, RGB or RGBA PNGs are read "
-                         f"(bit depth {depth}, color type {color_type}, interlace {interlace})")
-    c = _PNG_CHANNELS[color_type]
-    return _unfilter(zlib.decompress(b"".join(idat)), h, w, c).reshape(h, w, c)
+def save_gif(frames: List[np.ndarray], path: Union[str, Path], fps: float = 3.75) -> None:
+    """Save [H, W, 3] uint8 frames as an animated GIF that loops, each frame
+    shown int(1000 / fps) ms (``nerfstyle_tpu.utils.save_gif``; see
+    :mod:`nerfstyle_torch.imageio.gif`)."""
+    gif.write_gif(frames, path, duration_ms=int(1000 / fps))
 
 
 def _resize_bicubic(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
@@ -209,21 +123,26 @@ def parse_rgb(path: Union[str, Path], size: Optional[Union[int, Tuple[int, int]]
     longer edge (int) or to (w, h), as ``nerfstyle_tpu.utils.parse_rgb``
     does with PIL.
 
-    Reads 8-bit non-interlaced PNGs (gray, RGB, RGBA) and ``.npy`` arrays of
+    Reads, by their content as PIL does: 8-bit PNGs (gray, gray + alpha,
+    RGB, RGBA; plain or Adam7-interlaced), baseline JPEGs (gray or colour,
+    [H, W, 1] or [H, W, 3], decoded to PIL's bits) and ``.npy`` arrays of
     [H, W] or [H, W, C] (uint8, or float in [0, 1], which is quantized to 8
     bits as a PNG would be)."""
     path = Path(path)
-    suffix = path.suffix.lower()
-    if suffix == ".png":
-        img = read_png(path)
-    elif suffix == ".npy":
+    with open(path, "rb") as f:
+        head = f.read(8)
+    if head.startswith(png.PNG_SIGNATURE):
+        img = png.read_png(path)
+    elif jpeg.is_jpeg(head):
+        img = jpeg.read_jpeg(path)
+    elif head.startswith(b"\x93NUMPY"):
         arr = np.load(path)
         if arr.dtype != np.uint8:
             arr = (np.clip(np.nan_to_num(arr.astype(np.float32)), 0.0, 1.0) * 255).astype(np.uint8)
         img = arr[..., None] if arr.ndim == 2 else arr
     else:
-        raise ValueError(f"{path}: images are read as .png (8-bit) or .npy (JPEG is not "
-                         f"decoded); got {suffix!r}")
+        raise ValueError(f"{path}: images are read as .png (8-bit), .jpg/.jpeg (baseline) "
+                         f"or .npy; its first bytes are {head!r}")
     if size is not None:
         if isinstance(size, int):
             h, w = img.shape[:2]

@@ -45,9 +45,10 @@ def _pose(i: int) -> np.ndarray:
 
 
 def write_llff(root: Path, files, channels: int = 3, seg: bool = True,
-               ext: str = ".png") -> Path:
+               ext: str = ".png", **jpeg_kw) -> Path:
     """An LLFF layout: ``files`` (paths under root, no suffix) as train
-    frames with seg maps (ids -1..2), three test poses."""
+    frames with seg maps (ids -1..2), three test poses; frames of another
+    suffix than .png are JPEGs written by PIL with ``jpeg_kw``."""
     frames = []
     for i, name in enumerate(files):
         rel = name + ext
@@ -55,7 +56,9 @@ def write_llff(root: Path, files, channels: int = 3, seg: bool = True,
             _frame(root / rel, i, channels)
         else:
             (root / rel).parent.mkdir(parents=True, exist_ok=True)
-            (root / rel).write_bytes(b"\xff\xd8\xff\xe0 not decoded")
+            rng = np.random.default_rng(i)
+            Image.fromarray(rng.integers(0, 256, size=(H, W, 3), dtype=np.uint8)).save(
+                root / rel, "JPEG", **jpeg_kw)
         frames.append({"file_path": rel, "transform_matrix": _pose(i).tolist()})
         if seg:
             rng = np.random.default_rng(50 + i)
@@ -182,11 +185,56 @@ def test_torch_colour_transfer_matches_jax():
     np.testing.assert_array_equal(got_tf, want_tf)
 
 
-def test_torch_llff_jpeg_frames_raise(tmp_path):
-    root = write_llff(tmp_path / "room", LLFF_FILES[:2], ext=".jpg")
+@pytest.mark.parametrize("sampling", ["4:2:0", "4:4:4"])
+def test_torch_llff_jpeg_frames_raise(tmp_path, sampling):
+    """JPEG frames: baseline ones load bit-equal to the JAX loader's (PIL's
+    decode); progressive ones, which only PIL decodes, raise naming the
+    format."""
+    root = write_llff(tmp_path / "room", LLFF_FILES[:3], ext=".jpg", quality=80,
+                      subsampling=sampling)
+    for split in ("TRAIN", "TEST"):
+        assert_same_dataset(*_load(*_cfgs(root, "LLFF"), split))
+    root = write_llff(tmp_path / "prog", LLFF_FILES[:2], ext=".jpg", progressive=True)
     _, tcfg = _cfgs(root, "LLFF")
-    with pytest.raises(ValueError, match="JPEG"):
+    with pytest.raises(ValueError, match="progressive JPEG"):
         get_dataset(tcfg, split=DatasetSplit.TRAIN)
+
+
+def _wikiart(root: Path) -> Path:
+    """A Wikiart train split of JPEGs (three colour, one gray, sizes that
+    are not square), as JAX's own test writes them."""
+    d = root / "train"
+    d.mkdir(parents=True)
+    rng = np.random.default_rng(0)
+    for i, (h, w) in enumerate([(40, 50), (33, 61), (64, 48)]):
+        Image.fromarray(rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)).save(
+            d / f"img{i}.jpg", quality=85)
+    Image.fromarray(rng.integers(0, 256, size=(30, 44), dtype=np.uint8), "L").save(
+        d / "img3.jpg")
+    (d / "notes.png").write_bytes(b"not listed")
+    return root
+
+
+@pytest.mark.parametrize("kw", [dict(crop_size=32), dict(crop_size=24, seed=3, max_images=3),
+                                dict(crop_size=16, fix_id=1)])
+def test_torch_wikiart_matches_jax(tmp_path, kw):
+    """WikiartDataset against JAX's class on the same JPEGs: the listing,
+    length and name equal; two passes of seeded crops (the same draws in
+    the same order: crop corners and sides equal), each within 1/255 (the
+    port's bicubic resize against PIL's; the decode is bit-equal)."""
+    from nerfstyle_torch.data.style import WikiartDataset
+    from nerfstyle_tpu.data.style import WikiartDataset as JWikiartDataset
+
+    root = _wikiart(tmp_path / "wikiart")
+    td = WikiartDataset(root, DatasetSplit.TRAIN, **kw)
+    jd = JWikiartDataset(root, JSplit.TRAIN, **kw)
+    assert [p.name for p in td.paths] == [p.name for p in jd.paths]
+    assert len(td) == len(jd) and str(td) == str(jd)
+    for i in list(range(len(td))) * 2:
+        got, want = td[i], jd[i]
+        assert got.shape == want.shape == (3, kw["crop_size"], kw["crop_size"])
+        assert got.dtype == np.float32
+        np.testing.assert_allclose(got, want, rtol=0, atol=1.0001 / 255)
 
 
 REPLICA = dict(name="office_0", focal_ratio=0.75, traj_ids=[1])

@@ -603,6 +603,50 @@ def test_torch_composite_kernels_on_crafted_layouts(cuda_device, name, channels)
     assert not bool(w[past].any())
 
 
+@pytest.mark.parametrize("entering", ["one", "mixed"])
+@pytest.mark.parametrize("name", LAYOUTS)
+def test_torch_k4i_kernel_on_crafted_layouts(cuda_device, name, entering):
+    """K4i (K4 with each ray's entering transmittance t0) on the crafted
+    layouts of tests/composite_layouts.py, t0 = 1 (K4's own weights: the
+    same scan, so the same bits as K4's w, weights_sum and depth) and t0
+    drawn in [1e-5, 1] (some rays enter below t_thresh and take no
+    weight), against the plain version on float64 inputs: w and
+    weights_sum atol 2e-6, depth 6e-6 (K4's tolerances), and 1e-4 on a ray
+    with a sample whose exact entering T lies within 1e-4 relative of
+    t_thresh (fp32 may decide its cutoff the other way, as for K4); t_out
+    rtol 1e-5; one launch a call, the same bits twice."""
+    sigmas, tau, _, offsets, _, _ = layout(name, 3)
+    s, t, o = (torch.from_numpy(a).to(cuda_device) for a in (sigmas, tau, offsets))
+    n = o.shape[0] - 1
+    if entering == "one":
+        t0 = torch.ones(n, device=cuda_device)
+    else:
+        rng = np.random.default_rng(7)
+        t0 = torch.from_numpy((10.0 ** rng.uniform(-5, 0, n)).astype(np.float32)).to(cuda_device)
+    kernels.reset_launch_counts()
+    got = [kernels.composite_weights_entering(s, t, o, t0, DT, T_THRESH) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["composite_weights_entering"] == 2
+    assert all(torch.equal(a, b) for a, b in zip(*got))
+    w, ws, depth, t_out = got[0]
+    if entering == "one":
+        w4, ws4, depth4, _ = kernels.composite_weights(s, t, o, DT, T_THRESH)
+        assert torch.equal(w, w4) and torch.equal(ws, ws4) and torch.equal(depth, depth4)
+    _, trans = tc.entering_transmittance_plain(s.double(), o, DT)
+    trans = t0.double()[tc.ray_ids(o)] * trans
+    near = ((trans - T_THRESH).abs() <= 1e-4 * T_THRESH).double()
+    edge = tc.segment_totals_plain(near, o) > 0
+    on_edge = edge[tc.ray_ids(o)]
+    want = tc.sample_weights_entering_plain(s.double(), t.double(), o, t0.double(), DT,
+                                            T_THRESH)
+    for got_r, want_r, mask, tight in ((w, want[0], on_edge, 2e-6), (ws, want[1], edge, 2e-6),
+                                       (depth, want[2], edge, 6e-6)):
+        torch.testing.assert_close(got_r.double()[~mask], want_r[~mask], rtol=0, atol=tight)
+        torch.testing.assert_close(got_r.double()[mask], want_r[mask], rtol=0,
+                                   atol=tight / 2e-6 * 1e-4)
+    torch.testing.assert_close(t_out.double(), want[3], rtol=1e-5, atol=1e-30)
+
+
 def test_torch_occupancy_kernels_match_plain(cuda_device):
     """K6: the scatter-max is exact (a max is order-free, atomicMax on the
     bits of floats >= 0 over a -1 fill); the merge is elementwise and exact;

@@ -42,8 +42,8 @@ def test_torch_parse_rgb_matches_jax(tmp_path, size):
 @pytest.mark.parametrize("mode", ["L", "RGB", "RGBA"])
 def test_torch_read_png_undoes_every_filter(tmp_path, mode):
     """PNGs written by PIL with its filter choice (Sub, Up, Average, Paeth
-    rows) read back to the same 8-bit values; .npy reads too; another
-    suffix raises naming both formats."""
+    rows) read back to the same 8-bit values; .npy reads too; a file that
+    is none of the formats raises naming them."""
     rng = np.random.default_rng(1)
     smooth = (np.concatenate([_gradient(33, 47), _gradient(33, 47)[..., :1] * 0.5], -1) * 255)
     for arr in (rng.integers(0, 256, (33, 47, 4)), smooth):
@@ -54,6 +54,7 @@ def test_torch_read_png_undoes_every_filter(tmp_path, mode):
     np.save(tmp_path / "a.npy", arr)
     np.testing.assert_array_equal(tu.parse_rgb(tmp_path / "a.npy"),
                                   np.moveaxis(arr, -1, 0).astype(np.float32) / 255)
+    (tmp_path / "a.jpg").write_bytes(b"GIF89a, not an image parse_rgb reads")
     with pytest.raises(ValueError, match=r"\.png.*\.npy"):
         tu.parse_rgb(tmp_path / "a.jpg")
 

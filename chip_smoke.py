@@ -126,14 +126,35 @@
    frame's first chunk against their plain versions, timed.
 14. Before the style path: VGG16's input gradient on a planted-tie frame
    (exact-zero pre-activations, tied pool windows) on the card against the
-   CPU, layer by layer (``vgg_tie_check``), and the host time of the
-   port's decode of a 1008x756 4:2:0 JPEG (its SHA256 must be PIL's
-   decode's, ``jpeg_decode_ms``).  The style path reads its
+   CPU, layer by layer (``vgg_tie_check``).  The style path reads its
    style image from tests/data/style.jpg (a baseline JPEG written by PIL),
    whose decode must equal tests/data/style_jpg_pil.npy (PIL's) bit for
    bit, and writes video.gif of its test views (one frame a view).  After
    it, steady style iterations with VGG16's ReLU as torch.relu and as the
    port's (JAX's gradient at 0), in turns (``relu_ab_ms``).
+
+15. The library API (``library_api_phase``, after the incremental
+   renderer; no entry point of either package calls it): K1 and K1s at
+   style slots 0, 1, 63 and 511 on the frame's phase-A stream (2^21
+   points), bit for bit against the plain encode at the same slot, rows at
+   63 and s = 63 against s = 0 in turns; on the late train batches'
+   phase-B streams (the default and the simplex run's,
+   ``train_stream_rows``) K1/K1s at slots 1, 63 and 511 bit for bit and
+   K2/K2s at 1 and 63 (rows at 63); a multi-style round trip (K9 to 64 slots on a small grid, K1 at 63
+   against the plain encode of that table); K2x, the position gradient of
+   ``hashgrid_encode(fast_vjp=False)``, on the frame chunk's kept stream
+   (129,929 points, C = 2) and with simplex levels, against autograd
+   through the plain encode within K2X_TOL of the largest |d x|; the room
+   frame's baseline and progressive JPEGs (SHA256 of PIL's decodes, host
+   ms) and a CMYK JPEG (PIL's array); the dense stratified oracle
+   (``ops/stratified.py``, STRATIFIED_SAMPLES a ray, the field through K1 +
+   K5, unoccupied cells and each ray's outside at density 0) on the
+   frame's central 64x64 crop and on the 64x64 window nearest half
+   opacity (a silhouette) against the two-phase frame within
+   STRATIFIED_BOUND; ``Renderer.render`` of that patch against the
+   frame's crop, and of a 4096-ray training batch (finite maps, each
+   target its ray's pixel); VGG19's fallback filters on the card against
+   the CPU, every ``convN_M`` key within 1e-5 of its largest entry.
 
 12. The real-scene layouts (``real_scene_phase``, after the train path):
    the synthetic room written as an LLFF layout (``write_llff_layout``: 32
@@ -306,6 +327,24 @@ STYLE_JPEG_PIL = ROOT / "tests" / "data" / "style_jpg_pil.npy"
 # SHA256 of PIL's decode of it: the port's decode time on the host.
 ROOM_JPEG = ROOT / "tests" / "data" / "room_1008x756.jpg"
 ROOM_JPEG_SHA256 = ROOT / "tests" / "data" / "room_1008x756_pil.sha256"
+# The same frame re-encoded by PIL as a progressive JPEG (quality 90, 4:2:0)
+# and PIL's decode's SHA256; a small CMYK JPEG (PIL, Adobe transform 0) and
+# PIL's array of it.
+ROOM_PROGRESSIVE = ROOT / "tests" / "data" / "room_1008x756_progressive.jpg"
+ROOM_PROGRESSIVE_SHA256 = ROOT / "tests" / "data" / "room_1008x756_progressive_pil.sha256"
+CMYK_JPEG = ROOT / "tests" / "data" / "cmyk_48x40.jpg"
+CMYK_JPEG_PIL = ROOT / "tests" / "data" / "cmyk_48x40_pil.npy"
+# library_api_phase: the style slots K1 and K1s are held at, and the dense
+# stratified crop's samples a ray and its bounds against the two-phase
+# frame's crop (written in PERF.md before the first run): the mean |rgb|
+# and |opacity| differences over the crop, and the share of pixels whose
+# rgb differs by more than 0.1.
+LIBRARY_STYLES = (0, 1, 63, 511)
+STRATIFIED_SAMPLES = 1024
+STRATIFIED_BOUND = {"rgb mean": 0.02, "opacity mean": 0.02, "rgb > 0.1 share": 0.05}
+# K2x against autograd through the plain encode (another order of sums):
+# every entry within this share of the largest |d x|.
+K2X_TOL = 1e-5
 # The real-scene layouts (real_scene_phase): the synthetic room written as
 # an LLFF layout at images_8's size (504x378; data config of
 # cfgs/dataset/llff_room.yaml: bound 2.0, scale 0.33; cfgs/renderer/llff.yaml:
@@ -470,15 +509,15 @@ def write_checkpoint(path: Path):
 # ---------------------------------------------------------------------------
 
 
-def touched_rows(spec, x: torch.Tensor) -> int:
-    """Distinct table rows the corners (or simplex vertices) of x read: K1's
-    least bytes."""
+def touched_rows(spec, x: torch.Tensor, style: int = 0) -> int:
+    """Distinct table rows the corners (or simplex vertices) of x read at a
+    style slot: K1's least bytes."""
     from nerfstyle_torch.ops.hashgrid import _corners
 
     mask = torch.zeros(spec.total_params, dtype=torch.bool, device=x.device)
     inside = x[((x >= 0) & (x <= 1)).all(dim=-1)]
     for i in range(0, inside.shape[0], 1 << 18):
-        corners, _ = _corners(spec, inside[i:i + (1 << 18)])
+        corners, _ = _corners(spec, inside[i:i + (1 << 18)], style)
         for _, _, rows, _ in corners:
             mask[rows.reshape(-1)] = True
     return int(mask.sum())
@@ -575,15 +614,15 @@ def count_hashgrid_streams() -> None:
 
     enc, bwd = kernels.hashgrid_encode, kernels.hashgrid_backward
 
-    def encode(x, table, levels):
+    def encode(x, table, levels, *style_term):
         before = kernels.launch_counts["hashgrid_encode"]
-        out = enc(x, table, levels)
+        out = enc(x, table, levels, *style_term)
         _tally("hashgrid_encode", _encode_stream(), before)
         return out
 
-    def backward(x, g, levels, num_rows):
+    def backward(x, g, levels, num_rows, *style_term):
         before = kernels.launch_counts["hashgrid_backward"]
-        out = bwd(x, g, levels, num_rows)
+        out = bwd(x, g, levels, num_rows, *style_term)
         c = g.shape[1] // levels.shape[1]
         stream = (f"{_two_pass_phase[-1]} B" if _two_pass_phase
                   else BACKWARD_STREAMS.get(c, "other"))
@@ -671,26 +710,28 @@ def read_counts() -> dict:
     return {**kernels.launch_counts, **_stream_counts}
 
 
-def k1_row(grid, table, x, what: str, fails) -> dict:
-    """K1 on the stream x (as the path hands it over) against its plain
-    version, bit for bit (the same rounding); both timed (the kernel from a
-    CUDA graph); its bound from the distinct rows read.  Returns the
-    kernel-table entry."""
+def k1_row(grid, table, x, what: str, fails, style: int = 0) -> dict:
+    """K1 on the stream x (as the path hands it over) at style slot
+    ``style`` against its plain version, bit for bit (the same rounding);
+    both timed (the kernel from a CUDA graph); its bound from the distinct
+    rows read.  Returns the kernel-table entry."""
     from nerfstyle_torch.ops import hashgrid
 
     kid = "K1s" if grid.simplex_start < grid.num_levels else "K1"
-    enc = hashgrid.hashgrid_encode(grid, table, x)
-    ref = hashgrid.hashgrid_encode(grid, table, x, plain=True)
+    if style:
+        kid, what = f"{kid} (style {style})", f"{what} at style {style}"
+    enc = hashgrid.hashgrid_encode(grid, table, x, style=style)
+    ref = hashgrid.hashgrid_encode(grid, table, x, style=style, plain=True)
     err = float((enc - ref).abs().max()) if x.shape[0] else 0.0
     if not torch.equal(enc, ref):
         fails.append(f"{kid} encode at {what} differs from its plain version (max abs err {err})")
     del enc, ref
     # From a CUDA graph: at a train batch's or a kept stream's size the
     # host's work a call outlasts the kernel.
-    ms = graph_ms(lambda: hashgrid.hashgrid_encode(grid, table, x))
-    plain_ms = cuda_ms(lambda: hashgrid.hashgrid_encode(grid, table, x, plain=True), reps=3,
-                       warmup=1)
-    n, c, rows = x.shape[0], table.shape[1], touched_rows(grid, x)
+    ms = graph_ms(lambda: hashgrid.hashgrid_encode(grid, table, x, style=style))
+    plain_ms = cuda_ms(lambda: hashgrid.hashgrid_encode(grid, table, x, style=style, plain=True),
+                       reps=3, warmup=1)
+    n, c, rows = x.shape[0], table.shape[1], touched_rows(grid, x, style)
     lc, nl = grid.simplex_start, grid.num_levels
     corners = 8 * lc + 4 * (nl - lc)
     # Bytes: points, the distinct rows read, the features written once.
@@ -704,7 +745,7 @@ def k1_row(grid, table, x, what: str, fails) -> dict:
                 library_ms=None)
 
 
-def k2_row(grid, x, c: int, what: str, gen, fails) -> dict:
+def k2_row(grid, x, c: int, what: str, gen, fails, style: int = 0) -> dict:
     """K2 on the stream x for a random cotangent, against the plain version's
     float64 sums: its fp32 atomics add in an order that varies from run to
     run, up to ~10^5 contributions a row on the coarse levels: each level's
@@ -721,10 +762,12 @@ def k2_row(grid, x, c: int, what: str, gen, fails) -> dict:
     n, nl, rows = x.shape[0], grid.num_levels, grid.total_params
     lc = grid.simplex_start
     kid = "K2s" if lc < nl else "K2"
-    lv = hashgrid.level_table(grid, x.device)
+    if style:
+        kid, what = f"{kid} (style {style})", f"{what} at style {style}"
+    lv, term = hashgrid.level_table(grid, x.device), hashgrid.style_term(style)
     cot = torch.randn((n, nl * c), generator=gen, device=x.device)
-    got = kernels.hashgrid_backward(x, cot, lv, rows)
-    ref = hashgrid.hashgrid_backward_plain(grid, x, cot.double(), rows)
+    got = kernels.hashgrid_backward(x, cot, lv, rows, term)
+    ref = hashgrid.hashgrid_backward_plain(grid, x, cot.double(), rows, style)
     diff = (got.double() - ref).abs()
     err = float(diff.max())
     spans = ([(grid.offsets[i], grid.offsets[i + 1]) for i in range(nl)] if kid == "K2s"
@@ -737,10 +780,10 @@ def k2_row(grid, x, c: int, what: str, gen, fails) -> dict:
             fails.append(f"{kid} table gradient at {what}: error {span_err} > {span_tol} on rows "
                          f"{a}-{b}")
     del got, ref, diff
-    ms = graph_ms(lambda: kernels.hashgrid_backward(x, cot, lv, rows))
-    plain_ms = cuda_ms(lambda: hashgrid.hashgrid_backward_plain(grid, x, cot, rows), reps=3,
-                       warmup=1)
-    corners, oob = hashgrid._corners(grid, x)
+    ms = graph_ms(lambda: kernels.hashgrid_backward(x, cot, lv, rows, term))
+    plain_ms = cuda_ms(lambda: hashgrid.hashgrid_backward_plain(grid, x, cot, rows, style),
+                       reps=3, warmup=1)
+    corners, oob = hashgrid._corners(grid, x, style)
     g3 = torch.where(oob[:, None, None], 0.0, cot.reshape(n, nl, c))
     flat_rows = torch.cat([r.reshape(-1) for _, _, r, _ in corners])
     vals = torch.cat([(w[..., None] * g3[:, a:b]).reshape(-1, c) for a, b, _, w in corners])
@@ -1480,19 +1523,35 @@ def marched_batch(trainer, o, d) -> dict:
 
 def train_stream_rows(trainer, batch, fails, gen) -> dict:
     """K1 on a late train batch's two streams (phase A: density table;
-    phase B: the fused [T, 4] tables) and K2 on phase B's; K1s and K2s when
-    the trainer's grid has simplex levels."""
+    phase B: the fused [T, 4] tables) and K2 on phase B's; on phase B's
+    also K1 at style slots 1, 63 and 511, bit for bit against the plain
+    encode, and K2 at 1 and 63 (library API: ``hashgrid_encode(style=s)``;
+    the row at 63); K1s and K2s when the trainer's grid has simplex
+    levels (the simplex run's streams)."""
+    from nerfstyle_torch import kernels
+    from nerfstyle_torch.ops import hashgrid
+
     grid, params = trainer.field_spec.grid, trainer.params
     simplex = grid.simplex_start < grid.num_levels
     k1, k2 = ("K1s", "K2s") if simplex else ("K1", "K2")
     fused = torch.cat([params["x_density_embedder"], params["x_color_embedder"]], dim=1).detach()
+    kept = "a late train batch's kept samples (phase B, fused [T, 4])"
+    lv = hashgrid.level_table(grid, fused.device)
+    for style in (1, 63, 511):
+        got = kernels.hashgrid_encode(batch["x_b"], fused, lv, hashgrid.style_term(style))
+        if not torch.equal(got, hashgrid.hashgrid_encode(grid, fused, batch["x_b"], style=style,
+                                                         plain=True)):
+            fails.append(f"{k1} at style {style} on {kept} differs from the plain encode")
+    log(f"{k1} at styles 1, 63, 511 on {kept} ({batch['x_b'].shape[0]} points) checked against "
+        "the plain encode, bit for bit")
+    k2_row(grid, batch["x_b"], fused.shape[1], kept, gen, fails, style=1)
     return {
         f"{k1} train A": k1_row(grid, params["x_density_embedder"].detach(), batch["x_a"],
                                 "a late train batch's marched samples (phase A, density)", fails),
-        f"{k1} train B": k1_row(grid, fused, batch["x_b"], "a late train batch's kept samples "
-                                "(phase B, fused [T, 4])", fails),
-        f"{k2} train B": k2_row(grid, batch["x_b"], fused.shape[1], "a late train batch's kept "
-                                "samples (phase B, fused [T, 4])", gen, fails),
+        f"{k1} train B": k1_row(grid, fused, batch["x_b"], kept, fails),
+        f"{k2} train B": k2_row(grid, batch["x_b"], fused.shape[1], kept, gen, fails),
+        f"{k2} train B s63": k2_row(grid, batch["x_b"], fused.shape[1], kept, gen, fails,
+                                    style=63),
     }
 
 
@@ -2504,26 +2563,35 @@ def real_scene_phase(card: str, fails) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def jpeg_decode_ms(fails) -> list:
-    """Host time of the port's JPEG decode (``imageio.jpeg.read_jpeg``) of a
-    1008x756 4:2:0 frame, three decodes; the decode's SHA256 must be
-    PIL's.  Set-up work (style images, dataset frames), not the hot
-    path."""
+def jpeg_decode_ms(fails) -> dict:
+    """Host time of the port's JPEG decode (``imageio.jpeg.read_jpeg``) of
+    the 1008x756 4:2:0 frame, baseline and progressive, three decodes each;
+    each decode's SHA256 must be PIL's.  Also the small CMYK JPEG, equal to
+    PIL's array.  Set-up work (style images, dataset frames), not the hot
+    path.  Returns the times by file."""
     import hashlib
 
     from nerfstyle_torch.imageio.jpeg import read_jpeg
 
-    want = ROOM_JPEG_SHA256.read_text().split()[0]
-    times = []
-    for _ in range(3):
-        t = time.perf_counter()
-        img = read_jpeg(ROOM_JPEG)
-        times.append((time.perf_counter() - t) * 1e3)
-    got = hashlib.sha256(img.tobytes()).hexdigest()
-    if img.shape != (756, 1008, 3) or got != want:
-        fails.append(f"{ROOM_JPEG.name} decodes to shape {img.shape}, SHA256 {got}; PIL's is {want}")
-    log(f"JPEG decode on the host ({ROOM_JPEG.name}, {ROOM_JPEG.stat().st_size} bytes, 1008x756 "
-        f"4:2:0): {['%.1f' % t for t in times]} ms; SHA256 equal to PIL's decode: {got == want}")
+    times = {}
+    for path, sha in ((ROOM_JPEG, ROOM_JPEG_SHA256), (ROOM_PROGRESSIVE, ROOM_PROGRESSIVE_SHA256)):
+        want = sha.read_text().split()[0]
+        times[path.name] = []
+        for _ in range(3):
+            t = time.perf_counter()
+            img = read_jpeg(path)
+            times[path.name].append((time.perf_counter() - t) * 1e3)
+        got = hashlib.sha256(img.tobytes()).hexdigest()
+        if img.shape != (756, 1008, 3) or got != want:
+            fails.append(f"{path.name} decodes to shape {img.shape}, SHA256 {got}; PIL's is {want}")
+        log(f"JPEG decode on the host ({path.name}, {path.stat().st_size} bytes, 1008x756 "
+            f"4:2:0): {['%.1f' % t for t in times[path.name]]} ms; SHA256 equal to PIL's "
+            f"decode: {got == want}")
+    cmyk, want = read_jpeg(CMYK_JPEG), np.load(CMYK_JPEG_PIL)
+    if cmyk.shape != want.shape or not np.array_equal(cmyk, want):
+        fails.append(f"{CMYK_JPEG.name} decodes to other values than PIL's array")
+    log(f"CMYK JPEG {CMYK_JPEG.name}: shape {cmyk.shape}, equal to PIL's array: "
+        f"{cmyk.shape == want.shape and np.array_equal(cmyk, want)}")
     return times
 
 
@@ -2786,14 +2854,14 @@ def _style_families(spec):
         return dx, [next(dws) if n else None for n in need_dw]
 
     return {
-        "K1": {"hashgrid_encode": lambda x, table, levels:
+        "K1": {"hashgrid_encode": lambda x, table, levels, style_term=0:
                hashgrid.hashgrid_encode_plain(spec, table, x)},
         "K5 forward": {"mlp_forward": lambda x, weights, sigmoid, bf16:
                        mlp_apply_plain(weights, x, act(sigmoid), dtype(bf16))},
         "K5 backward": {"mlp_backward": mlp_backward},
         "K7/K7b": {"segment_sum": compositing.segment_sum_plain,
                    "segment_sum_backward": compositing.segment_sum_backward_plain},
-        "K2": {"hashgrid_backward": lambda x, g, levels, num_rows:
+        "K2": {"hashgrid_backward": lambda x, g, levels, num_rows, style_term=0:
                hashgrid.hashgrid_backward_plain(spec, x, g, num_rows)},
     }
 
@@ -3992,6 +4060,266 @@ def incremental_phase(renderer, params, pose, rays, card: str, fails):
 
 
 # ---------------------------------------------------------------------------
+# The library API: hashgrid_encode's style slot and position gradient, the
+# stratified oracle, Renderer.render's patch and ray batch, VGG19, JPEGs
+# ---------------------------------------------------------------------------
+
+
+def frame_streams(renderer, params, rays_o, rays_d):
+    """The middle 2^16-ray chunk of the frame as render_chunk hands it to
+    K1: phase A's first FIELD_BATCH marched samples and phase B's kept
+    ones, as encoder inputs."""
+    from nerfstyle_torch.models.fields import _encoder_input, field_density
+    from nerfstyle_torch.ops import compositing, marching
+    from nerfstyle_torch.ops.aabb import near_far_from_aabb
+    from nerfstyle_torch.render.renderer import CHUNK_RAYS, FIELD_BATCH
+
+    plan, bbox, s = renderer.plan, renderer.bbox, renderer.settings
+    mid = rays_o.shape[0] // 2
+    o = rays_o[mid - CHUNK_RAYS // 2: mid + CHUNK_RAYS // 2].contiguous()
+    d = rays_d[mid - CHUNK_RAYS // 2: mid + CHUNK_RAYS // 2].contiguous()
+    nears, fars = near_far_from_aabb(o, d, plan.aabb(o.device), plan.min_near)
+    sb = marching.march_rays(plan, renderer.occ_field, o, d, nears, fars)
+    with torch.no_grad():
+        sig = field_density(renderer.field_spec, params, bbox, sb.xyz,
+                            renderer.compute_dtype) * s.density_scale
+        w, *_ = compositing.sample_weights(sig, sb.tau, sb.offsets, plan.dt, s.t_thresh)
+    return (_encoder_input(bbox, sb.xyz[:FIELD_BATCH]).contiguous(),
+            _encoder_input(bbox, sb.xyz[w > s.sig_eps]).contiguous())
+
+
+def k2x_row(grid, table, x, what: str, gen, fails) -> dict:
+    """K2x (``hashgrid_encode(fast_vjp=False)``'s position gradient) on the
+    stream x for a random cotangent, against autograd through the plain
+    encode: every entry within K2X_TOL of the largest |d x| (the sums run
+    in another order); points outside [0, 1]^3 exactly 0.  Timed from a
+    CUDA graph; the plain version launch by launch.  Bound by bytes: the
+    points, the cotangent, the distinct rows read and d x written once.
+    Returns the kernel-table entry."""
+    from nerfstyle_torch import kernels
+    from nerfstyle_torch.ops import hashgrid
+
+    n, nl, c = x.shape[0], grid.num_levels, table.shape[1]
+    kid = "K2x (simplex levels)" if grid.simplex_start < nl else "K2x"
+    lv = hashgrid.level_table(grid, x.device)
+    g = torch.randn((n, nl * c), generator=gen, device=x.device)
+    got = kernels.hashgrid_position_grad(x, g, table, lv)
+    ref = hashgrid.hashgrid_position_grad_plain(grid, table, x, g)
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    outside = ~((x >= 0) & (x <= 1)).all(dim=-1)
+    if not (err <= K2X_TOL * scale and not bool(got[outside].any())):
+        fails.append(f"{kid} at {what}: max abs err {err} > {K2X_TOL} x {scale}, or a point "
+                     "outside [0, 1]^3 with a gradient")
+    del got, ref
+    ms = graph_ms(lambda: kernels.hashgrid_position_grad(x, g, table, lv))
+    plain_ms = cuda_ms(lambda: hashgrid.hashgrid_position_grad_plain(grid, table, x, g), reps=3,
+                       warmup=1)
+    rows = touched_rows(grid, x)
+    lc = grid.simplex_start
+    corners = 8 * lc + 4 * (nl - lc)
+    # Operations: per corner or vertex the C-wide dot (2C) and its weight
+    # derivatives (~9).
+    b_ms, b_by = bound_ms(nbytes=n * 12 + n * nl * c * 4 + rows * c * 4 + n * 12,
+                          flops=n * corners * (2 * c + 9))
+    log(f"{kid} hashgrid_position_grad at {what}: {n} points x {nl} levels (C={c}), {rows} "
+        f"distinct rows read; max_abs_err {err:.3e} of largest |d x| {scale:.3e} (tol "
+        f"{K2X_TOL} of it); ms {ms:.4f}, plain_ms {plain_ms:.3f}, bound_ms {b_ms:.4f} ({b_by}), "
+        f"library none")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def stratified_crop_check(renderer, params, rays, crop, frame, fails) -> dict:
+    """The dense stratified oracle (ops/stratified.py) on the frame's crop:
+    STRATIFIED_SAMPLES jittered samples a ray over the crop's widest
+    near_far_from_aabb interval, the field through K1 + K5, density 0
+    outside each ray's own interval and in unoccupied cells (what the
+    marcher skips), composited by integrate_points over the white
+    background; against the two-phase frame's crop within
+    STRATIFIED_BOUND."""
+    from nerfstyle_torch.core.types import RayBundle
+    from nerfstyle_torch.models.fields import field_color, field_density
+    from nerfstyle_torch.ops.aabb import near_far_from_aabb
+    from nerfstyle_torch.ops.marching import cell_index_and_size
+    from nerfstyle_torch.ops.stratified import integrate_points, sample_points
+
+    plan, s, spec = renderer.plan, renderer.settings, renderer.field_spec
+    o, d = rays.origins[crop].contiguous(), rays.dirs[crop].contiguous()
+    nears, fars = near_far_from_aabb(o, d, plan.aabb(o.device), plan.min_near)
+    hit = fars > nears
+    near, far = float(nears[hit].min()), float(fars[hit].max())
+    gen = torch.Generator(device=o.device).manual_seed(9)
+    rgb, acc = [], []
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for i in range(0, o.shape[0], 1024):
+            rb = RayBundle(o[i:i + 1024], d[i:i + 1024])
+            pts, dists = sample_points(rb, near, far, STRATIFIED_SAMPLES, gen)
+            k = pts.shape[1]
+            flat = pts.reshape(-1, 3)
+            z = ((pts - rb.origins[:, None]) * rb.dirs[:, None]).sum(-1)  # unit dirs
+            inside = (z >= nears[i:i + 1024, None]) & (z < fars[i:i + 1024, None])
+            idx, *_ = cell_index_and_size(flat.clamp(-plan.bound, plan.bound), bound=plan.bound,
+                                          cascade=plan.cascade, grid_size=plan.grid_size,
+                                          mip_dt_level=plan.mip_dt_level)
+            occupied = renderer.occ_state.bitfield[idx].reshape(-1, k)
+            sig = field_density(spec, params, renderer.bbox, flat, renderer.compute_dtype)
+            sig = (sig * s.density_scale).reshape(-1, k) * (inside & occupied)
+            ch = field_color(spec, params, renderer.bbox, flat, renderer.compute_dtype)
+            zeros = torch.zeros((rb.origins.shape[0], 1), device=o.device)
+            r, a, _ = integrate_points(dists, ch[:, :3].reshape(-1, k, 3), sig,
+                                       torch.zeros((zeros.shape[0], 3), device=o.device), zeros,
+                                       torch.ones_like(zeros))
+            rgb.append(r + (1.0 - a))
+            acc.append(a[:, 0])
+    torch.cuda.synchronize()
+    dense_s = time.perf_counter() - t0
+    rgb, acc = torch.cat(rgb), torch.cat(acc)
+    drgb = (rgb - frame["rgb_map"][crop]).abs()
+    dacc = (acc - frame["weights_sum"][crop]).abs()
+    got = {"rgb mean": float(drgb.mean()), "opacity mean": float(dacc.mean()),
+           "rgb > 0.1 share": float((drgb.amax(-1) > 0.1).double().mean())}
+    bad = {k: v for k, v in got.items() if not v <= STRATIFIED_BOUND[k]}
+    if bad:
+        fails.append(f"the dense stratified crop departs from the two-phase frame's: {bad} "
+                     f"(bounds {STRATIFIED_BOUND})")
+    log(f"dense stratified crop ({o.shape[0]} rays x {STRATIFIED_SAMPLES} samples over "
+        f"[{near:.3f}, {far:.3f}], the field through K1 + K5, {dense_s:.2f} s) against the "
+        f"two-phase frame's crop: {got} (bounds {STRATIFIED_BOUND}); max |rgb| "
+        f"{float(drgb.max()):.4f}, max |opacity| {float(dacc.max()):.4f}; mean opacity dense "
+        f"{float(acc.mean()):.4f}, frame {float(frame['weights_sum'][crop].mean()):.4f}")
+    return got
+
+
+def library_api_phase(renderer, params, pose, rays, frame, card: str, fails) -> dict:
+    """The library API on the card (no entry point calls it, in either
+    package): K1/K1s at style slots LIBRARY_STYLES on the frame's phase-A
+    stream, bit for bit against the plain encode at the same slot (rows at
+    63; s = 63 and s = 0 timed in turns); a multi-style round trip (K9 to
+    64 slots on a small grid, then K1 at 63 against the plain encode of
+    that table); K2x on the frame's kept stream (C = 2) and on a simplex
+    spec; the progressive and CMYK JPEGs; the dense stratified crop against
+    the two-phase frame's (a central and a silhouette crop);
+    ``Renderer.render`` of a patch against the frame's crop and of a
+    training ray batch; VGG19's fallback filters on
+    the card against the CPU.  Returns the kernel-table entries."""
+    from nerfstyle_torch import kernels
+    from nerfstyle_torch.core.types import Box2D
+    from nerfstyle_torch.models import vgg
+    from nerfstyle_torch.ops import hashgrid
+
+    t_phase = time.perf_counter()
+    table = {}
+    spec = renderer.field_spec
+    grid_s = dataclasses.replace(spec.grid, simplex_from=SIMPLEX_FROM)
+    dens, color = params["x_density_embedder"], params["x_color_embedder"]
+    x_a, x_b = frame_streams(renderer, params, rays.origins, rays.dirs)
+
+    # K1 and K1s at every style slot; the rows at 63; 63 and 0 in turns.
+    for grid, kid in ((spec.grid, "K1"), (grid_s, "K1s")):
+        lv = hashgrid.level_table(grid, x_a.device)
+        for style in LIBRARY_STYLES:
+            got = kernels.hashgrid_encode(x_a, dens, lv, hashgrid.style_term(style))
+            want = hashgrid.hashgrid_encode(grid, dens, x_a, style=style, plain=True)
+            if not torch.equal(got, want):
+                fails.append(f"{kid} at style {style} on the frame's phase-A stream differs from "
+                             f"the plain encode (max abs err {float((got - want).abs().max())})")
+        del got, want
+        table[f"{kid} frame A s63"] = k1_row(grid, dens, x_a, "a frame chunk's marched samples "
+                                             "(phase A, density)", fails, style=63)
+        turns = [graph_ms(lambda s=st: hashgrid.hashgrid_encode(grid, dens, x_a, style=s))
+                 for st in (0, 63, 63, 0)]
+        log(f"{kid} on the frame's phase-A stream ({x_a.shape[0]} points), bit-equal to plain at "
+            f"styles {LIBRARY_STYLES}; ms in turns s=0, 63, 63, 0: "
+            f"{['%.4f' % t for t in turns]} ({card})")
+
+    # The multi-style round trip.
+    small = hashgrid.hashgrid_spec(num_levels=6, level_dim=2, base_resolution=8,
+                                   per_level_scale=1.5, log2_hashmap_size=14)
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    ref = torch.rand((small.total_params, 2), generator=gen, device=DEVICE) * 2 - 1
+    multi = hashgrid.grid_initialize(small, small, ref, 64)
+    pts = torch.rand((1 << 16, 3), generator=gen, device=DEVICE)
+    got = hashgrid.hashgrid_encode(small, multi, pts, style=63)
+    want = hashgrid.hashgrid_encode(small, multi, pts, style=63, plain=True)
+    same_as_ref = float((got == hashgrid.hashgrid_encode(small, ref, pts)).all(-1).double().mean())
+    if not torch.equal(got, want):
+        fails.append("K1 at style 63 of a K9-initialized 64-slot table differs from the plain "
+                     "encode of that table")
+    log(f"multi-style round trip: K9 to 64 slots ({small.total_params} rows), K1 at style 63 "
+        f"bit-equal to plain: {torch.equal(got, want)}; points whose features equal the "
+        f"reference's at style 0: {same_as_ref:.4f} (the rest read a row a colliding corner "
+        f"wrote)")
+
+    # K2x on the kept stream, trilinear and simplex levels.
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    table["K2x frame B"] = k2x_row(spec.grid, color, x_b, "a frame chunk's kept samples "
+                                   "(phase B, color, C=2)", gen, fails)
+    table["K2x simplex"] = k2x_row(grid_s, color, x_b, "a frame chunk's kept samples with "
+                                   f"simplex levels from {SIMPLEX_FROM}", gen, fails)
+    del x_a, x_b
+
+    jpeg_decode_ms(fails)
+
+    # The dense stratified oracle on the frame's central 64 x 64 pixels (a
+    # sphere's inside) and on the 64 x 64 window (of a 32-pixel stride)
+    # whose mean opacity is nearest 0.5 (a silhouette); Renderer.render's
+    # patch on the central one.
+    w, h = OUT_DIMS
+    opacity = torch.nn.functional.avg_pool2d(frame["weights_sum"].reshape(1, h, w), 64, 32)
+    wy, wx = divmod(int((opacity[0] - 0.5).abs().argmin()), opacity.shape[2])
+    crops = {}
+    for name, (y0, x0) in (("central", (h // 2 - 32, w // 2 - 32)),
+                           ("silhouette", (32 * wy, 32 * wx))):
+        ys, xs = np.meshgrid(np.arange(y0, y0 + 64), np.arange(x0, x0 + 64), indexing="ij")
+        crops[name] = torch.from_numpy((ys * w + xs).reshape(-1)).to(DEVICE)
+        log(f"the {name} crop: pixels x {x0}-{x0 + 63}, y {y0}-{y0 + 63}")
+        stratified_crop_check(renderer, params, rays, crops[name], frame, fails)
+    crop = crops["central"]
+    patch = renderer.render(params, pose, patch=Box2D(x=w // 2 - 32, y=h // 2 - 32, w=64, h=64))
+    tol = {"rgb_map": 2e-3, "trans_map": 2e-3, "weights_sum": 2e-3, "classes": 2e-2}
+    errs = {k: float((patch[k] - frame[k][crop]).abs().max()) for k in tol}
+    equal = all(torch.equal(patch[k], frame[k][crop]) for k in tol)
+    if not all(errs[k] <= v for k, v in tol.items()):
+        fails.append(f"Renderer.render of the central patch departs from the frame's crop: {errs}")
+    log(f"Renderer.render(patch=Box2D 64x64) against the frame's crop: bit-equal {equal}, max "
+        f"abs err {errs} (tol, the crop check's: {tol})")
+    ygrid, xgrid = torch.meshgrid(torch.arange(h, device=DEVICE), torch.arange(w, device=DEVICE),
+                                  indexing="ij")
+    img = torch.stack([ygrid, xgrid, ygrid * w + xgrid]).float()
+    batch = renderer.render(params, pose, img, num_rays=4096, training=True,
+                            generator=torch.Generator(device=DEVICE).manual_seed(13))
+    tgt = batch["target"]
+    ok = (all(bool(torch.isfinite(batch[k]).all()) for k in tol)
+          and tgt.shape == (4096, 3) and torch.equal(tgt[:, 0] * w + tgt[:, 1], tgt[:, 2])
+          and torch.unique(tgt[:, 2]).numel() == 4096)
+    if not ok:
+        fails.append("Renderer.render(training=True, num_rays=4096): maps not finite, or a "
+                     "target that is not its ray's pixel, or a repeated pixel")
+    log(f"Renderer.render(training=True, num_rays=4096): finite maps and distinct targets that "
+        f"match their pixels: {ok}; {batch['num_points']} samples marched, mean opacity "
+        f"{float(batch['weights_sum'].mean()):.4f}")
+
+    # VGG19's fallback filters, every convN_M key, card against the CPU.
+    keys = [f"conv{b + 1}_{i + 1}" for b, blk in enumerate(vgg.VGG19_LAYERS)
+            for i in range(len(blk))]
+    params19 = vgg._init_params(vgg._VGG19_BLOCKS)
+    img = torch.rand((1, 3, 64, 64), generator=torch.Generator().manual_seed(14))
+    on_cpu = vgg.VGG19FeatureExtractor(keys, params=params19)(img)
+    on_card = vgg.VGG19FeatureExtractor(keys, device=DEVICE, params=params19)(img.to(DEVICE))
+    report = {k: float((on_card[k].cpu() - on_cpu[k]).abs().max() / on_cpu[k].abs().max())
+              for k in keys}
+    bad = {k: v for k, v in report.items() if not v <= 1e-5}
+    if bad:
+        fails.append(f"VGG19 on the card departs from the CPU past 1e-5 of the largest entry: {bad}")
+    log(f"VGG19 (fallback filters) at 64x64, card against CPU, max abs err over the largest "
+        f"entry: worst {max(report.values()):.2e} ({max(report, key=report.get)}), every key "
+        f"within 1e-5: {not bad}")
+    log(f"library_api_phase ran {time.perf_counter() - t_phase:.1f} s")
+    return table
+
+
+# ---------------------------------------------------------------------------
 # VGG16 at ties, and the style image
 # ---------------------------------------------------------------------------
 
@@ -4124,7 +4452,8 @@ def main() -> int:
     spec = write_checkpoint(ckpt)
     renderer, params, test_set, _ = cli.load_renderer(ckpt, DEVICE, OUT_DIMS, max_count=1)
     pose = torch.from_numpy(np.asarray(test_set[0][1]))
-    rays = generate_rays(pose.to(DEVICE), renderer.intr, renderer.settings.flip_camera)
+    rays, _ = generate_rays(pose.to(DEVICE), renderer.intr,
+                            camera_flip=renderer.settings.flip_camera)
 
     count_hashgrid_streams()
     count_composite_streams()
@@ -4196,6 +4525,9 @@ def main() -> int:
     # The incremental renderer (infer_two_phase False) on the same frame.
     runs["incremental"], inc_table = incremental_phase(renderer, params, pose, rays, card, fails)
     table.update(inc_table)
+    # The library API on the same frame: style slots, K2x, the stratified
+    # oracle, Renderer.render's patch and ray batch, VGG19, the JPEGs.
+    table.update(library_api_phase(renderer, params, pose, rays, out, card, fails))
 
     # The import path, from the render checkpoint; its frame must equal the
     # main path's.
@@ -4228,7 +4560,6 @@ def main() -> int:
     # against the plain versions, K5 and K7b at the style stream's shape, and
     # one steady iteration under the profiler.
     vgg_tie_check(fails)
-    jpeg_decode_ms(fails)
     st, runs["style"] = style_phase(card, ckpt_train, fails)
     cached_ms = float(np.median(st.iter_ms[STYLE_VIEWS:]))
     style_step_vs_plain(st, fails)
@@ -4375,6 +4706,23 @@ def main() -> int:
          "SH basis, a view frame chunk's kept samples (the view frames' phase B)",
          "nerfstyle_torch/csrc/sh.cu", "nerfstyle_tpu/ops/sh.py:19", ("sh_assemble",),
          ("view style", "view base")),
+        ("K1 frame A s63", f"K1 hashgrid_encode at style 63, {encode_rows['frame A']} (on no "
+         "path: the style slot is library API)", hg, "nerfstyle_tpu/ops/hashgrid.py:818",
+         ("hashgrid_encode",), ()),
+        ("K1s frame A s63", f"K1s hashgrid_encode (simplex levels) at style 63, "
+         f"{encode_rows['frame A']} (on no path)", hg, "nerfstyle_tpu/ops/hashgrid.py:483",
+         ("hashgrid_encode",), ()),
+        ("K2 train B s63", f"K2 hashgrid_backward at style 63, {encode_rows['train B']} (on no "
+         "path)", hg, "nerfstyle_tpu/ops/hashgrid.py:959", ("hashgrid_backward",), ()),
+        ("K2s train B s63", f"K2s hashgrid_backward (simplex levels) at style 63, "
+         f"{encode_rows['train B']} (on no path)", hg, "nerfstyle_tpu/ops/hashgrid.py:979",
+         ("hashgrid_backward",), ()),
+        ("K2x frame B", "K2x hashgrid_position_grad (hashgrid_encode(fast_vjp=False)'s d x), a "
+         "frame chunk's kept samples (color, C=2; on no path: library API)", hg,
+         "nerfstyle_tpu/ops/hashgrid.py:840", ("hashgrid_position_grad",), ()),
+        ("K2x simplex", "K2x hashgrid_position_grad with simplex levels, a frame chunk's kept "
+         "samples (color, C=2; on no path)", hg, "nerfstyle_tpu/ops/hashgrid.py:840",
+         ("hashgrid_position_grad",), ()),
         ("K9 1", "K9 grid_initialize, default grid, one style (on no path)", hg,
          "nerfstyle_tpu/ops/hashgrid.py:351", ("grid_initialize",), ()),
         ("K9 2", "K9 grid_initialize, default grid, two styles (on no path)", hg,

@@ -1,5 +1,6 @@
-// K1: multiresolution hash-grid encode, forward, and K2: its table gradient.
-// (K9, the multi-style table init over the same index law, is at the end.)
+// K1: multiresolution hash-grid encode, forward, K2: its table gradient, and
+// K2x: its position gradient.  (K9, the multi-style table init over the same
+// index law, is at the end.)
 //
 // K1 replaces the JAX encoder nerfstyle_tpu/ops/hashgrid.py:hashgrid_encode ->
 // _encode_fast -> _encode_flat, on trilinear levels (_flat_block_tri) and on
@@ -18,8 +19,15 @@
 // sorted fractions s1 >= s2 >= s3 (s2 = fx + fy + fz - s1 - s3), vertex v
 // includes axis d iff rank_d < v, is hashed as the trilinear corner with
 // the same integer coordinates, and weighs 1 - s1, s1 - s2, s2 - s3, s3.
-// Rows of points outside [0, 1]^3 are zero.  The arithmetic follows the JAX
-// order step for step and rounds every product and sum on its own
+// Rows of points outside [0, 1]^3 are zero.  A style slot s != 0 (JAX's
+// hashgrid_encode(style=s), _level_indices) XORs the warp-uniform term
+// (s * 3674653429) mod 2^32 into every hash: the kernels take the term and
+// are instantiated with and without it, so style 0 runs the instructions it
+// ran before.  (The dense branch of JAX's index law, s * (res + 1)^3 added,
+// needs (res + 1)^3 * 512 <= the level's table size, which no level of a
+// spec that hashgrid_spec builds meets: every level hashes.)  The
+// arithmetic follows the JAX order step for step and rounds every product
+// and sum on its own
 // (__fmul_rn / __fadd_rn: no FMA contraction), summing the corners in slot
 // order, so the kernel gives the plain PyTorch version's bits.
 //
@@ -143,14 +151,15 @@ __device__ __forceinline__ int row_of(unsigned h, const Level& lv) {
 
 // Calls visit(row, w) for each corner (trilinear, 8) or vertex (simplex, 4)
 // of the level, in the JAX slot order, with the JAX weights.
+// h0 seeds every hash: 0, or the style term.
 template <bool kPow2, typename Visit>
 __device__ __forceinline__ void for_each_corner(const unsigned pg[3], const float frac[3],
-                                                const Level& lv, Visit visit) {
+                                                const Level& lv, unsigned h0, Visit visit) {
     if (!lv.simplex) {
 #pragma unroll
         for (int s = 0; s < 8; ++s) {
             float w = 1.f;
-            unsigned int h = 0u;
+            unsigned int h = h0;
 #pragma unroll
             for (int d = 0; d < 3; ++d) {
                 const unsigned int bit = (s >> d) & 1u;
@@ -169,7 +178,7 @@ __device__ __forceinline__ void for_each_corner(const unsigned pg[3], const floa
     const float wv[4] = {__fsub_rn(1.f, s1), __fsub_rn(s1, s2), __fsub_rn(s2, s3), s3};
 #pragma unroll
     for (int v = 0; v < 4; ++v) {
-        unsigned int h = 0u;
+        unsigned int h = h0;
 #pragma unroll
         for (int d = 0; d < 3; ++d) h ^= (pg[d] + (rank[d] < v ? 1u : 0u)) * prime(d);
         visit(row_of<kPow2>(h, lv), wv[v]);
@@ -240,11 +249,12 @@ __device__ __forceinline__ void tile_point(const float* x, const Tile& t, float 
     for (int d = 0; d < 3; ++d) p[d] = x[3 * b + d];
 }
 
-template <int C>
+template <int C, bool kStyled>
 __global__ void __launch_bounds__(kThreads)
 hashgrid_encode_kernel(const float* __restrict__ x, const float* __restrict__ table,
                        const int* __restrict__ levels, float* __restrict__ out,
-                       long long num_points, int num_levels) {
+                       long long num_points, int num_levels, unsigned style_term) {
+    const unsigned h0 = kStyled ? style_term : 0u;
     const Tile t = enter_tile(levels, num_levels, num_points);
     const int stride = tile_stride(num_levels, C);
     float p[3];
@@ -259,7 +269,7 @@ hashgrid_encode_kernel(const float* __restrict__ x, const float* __restrict__ ta
 #pragma unroll
         for (int c = 0; c < C; ++c) acc[c] = 0.f;
         on_level(lv, [&](auto pow2) {
-            for_each_corner<decltype(pow2)::value>(pg, frac, lv, [&](int row, float w) {
+            for_each_corner<decltype(pow2)::value>(pg, frac, lv, h0, [&](int row, float w) {
                 float v[C];
                 load_row<C>(table + static_cast<long long>(row) * C, v);
 #pragma unroll
@@ -356,21 +366,28 @@ __device__ __forceinline__ void warp_add(float* __restrict__ grad, int row, floa
     }
 }
 
+// The tile's cotangent rows, n * L * C contiguous floats, into its block of
+// shared memory (read one a thread: g need not be aligned beyond a float).
 template <int C>
-__global__ void __launch_bounds__(kThreads)
-hashgrid_backward_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                         const int* __restrict__ levels, float* __restrict__ grad,
-                         long long num_points, int num_levels) {
-    const Tile t = enter_tile(levels, num_levels, num_points);
+__device__ __forceinline__ void load_cotangent(const float* g, const Tile& t, int num_levels) {
     const int stride = tile_stride(num_levels, C);
-    // The tile's cotangent rows are n * L * C contiguous floats (read one a
-    // thread: g need not be aligned beyond a float).
     const float* gt = g + t.first * num_levels * C;
     const int width = num_levels * C;
     for (int j = threadIdx.x; j < t.n * width; j += kThreads) {
         const int q = j / width;
         t.rows[q * stride + (j - q * width)] = gt[j];
     }
+}
+
+template <int C, bool kStyled>
+__global__ void __launch_bounds__(kThreads)
+hashgrid_backward_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                         const int* __restrict__ levels, float* __restrict__ grad,
+                         long long num_points, int num_levels, unsigned style_term) {
+    const unsigned h0 = kStyled ? style_term : 0u;
+    const Tile t = enter_tile(levels, num_levels, num_points);
+    const int stride = tile_stride(num_levels, C);
+    load_cotangent<C>(g, t, num_levels);
     float p[3];
     tile_point(x, t, p);
     const bool live = t.lane < t.n && !outside(p);
@@ -386,7 +403,7 @@ hashgrid_backward_kernel(const float* __restrict__ x, const float* __restrict__ 
         float frac[3];
         cell_of(p, lv.res, pg, frac);
         on_level(lv, [&](auto pow2) {
-            for_each_corner<decltype(pow2)::value>(pg, frac, lv, [&](int row, float w) {
+            for_each_corner<decltype(pow2)::value>(pg, frac, lv, h0, [&](int row, float w) {
                 float v[C];
 #pragma unroll
                 for (int c = 0; c < C; ++c) v[c] = __fmul_rn(w, gv[c]);
@@ -396,11 +413,134 @@ hashgrid_backward_kernel(const float* __restrict__ x, const float* __restrict__ 
     }
 }
 
+// K2x: the position gradient, d x[b, d] = sum over levels l of res_l *
+// dL/dfrac[b, l, d] (d frac / d x = res_l: floor and the clamp pass none),
+// with t_s = sum_c g[b, l*C + c] * table[row_s, c] the cotangent's dot with
+// corner s's row and dL/dfrac_d = sum_s t_s * d w_s / d frac_d.  Replaces the
+// JAX autodiff of hashgrid_encode(fast_vjp=False) through
+// corner_indices_weights and _encode_from_indices.  Trilinear: d w_s /
+// d frac_d = (bit_d(s) ? 1 : -1) * the product of the other two factors.
+// Simplex: w = (1 - s1, s1 - s2, s2 - s3, s3) with s2 = fx + fy + fz - s1 -
+// s3, s1 = max(fx, max(fy, fz)), s3 = min(fx, min(fy, fz)), differentiated
+// as JAX does: jnp.maximum / jnp.minimum give half the gradient to each
+// side of a tie, so a three-way tie splits 1/2, 1/4, 1/4 in that nesting
+// (torch.maximum splits alike).  Points outside [0, 1]^3 get 0.
+//
+// K1's mapping: a CTA a tile of 32 points, a warp a level (warp w the
+// levels w, w + 8, ...), the tile's cotangent in shared memory; each lane
+// sums its levels' partials in registers in level order, and the CTA adds
+// the 8 warps' partials in warp order: the result does not depend on the
+// launch.  It reads the corner rows K1 reads (the load unit merges the
+// lanes that share a row).  Sums run in another order than the plain
+// version's autograd, so they agree to rounding.
+template <int C, bool kStyled>
+__global__ void __launch_bounds__(kThreads)
+hashgrid_position_grad_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                              const float* __restrict__ table, const int* __restrict__ levels,
+                              float* __restrict__ dx, long long num_points, int num_levels,
+                              unsigned style_term) {
+    __shared__ float part[kWarps][32][3];
+    const unsigned h0 = kStyled ? style_term : 0u;
+    const Tile t = enter_tile(levels, num_levels, num_points);
+    const int stride = tile_stride(num_levels, C);
+    load_cotangent<C>(g, t, num_levels);
+    float p[3];
+    tile_point(x, t, p);
+    const bool live = t.lane < t.n && !outside(p);
+    __syncthreads();
+    float acc[3] = {0.f, 0.f, 0.f};
+    for (int l = t.warp; l < num_levels; l += kWarps) {
+        const Level lv = t.level(l, num_levels);
+        float gv[C];
+#pragma unroll
+        for (int c = 0; c < C; ++c) gv[c] = live ? t.rows[t.lane * stride + l * C + c] : 0.f;
+        unsigned pg[3];
+        float frac[3];
+        cell_of(p, lv.res, pg, frac);
+        float dfrac[3] = {0.f, 0.f, 0.f};
+        on_level(lv, [&](auto pow2) {
+            constexpr bool kPow2 = decltype(pow2)::value;
+            // The cotangent's dot with the row of a corner.
+            auto dot = [&](unsigned h) {
+                float v[C];
+                load_row<C>(table + static_cast<long long>(row_of<kPow2>(h, lv)) * C, v);
+                float t_s = 0.f;
+#pragma unroll
+                for (int c = 0; c < C; ++c) t_s = fmaf(gv[c], v[c], t_s);
+                return t_s;
+            };
+            if (!lv.simplex) {
+                float f[2][3];  // f[bit][d]: the factor of axis d for that bit
+#pragma unroll
+                for (int d = 0; d < 3; ++d) f[0][d] = 1.f - frac[d], f[1][d] = frac[d];
+#pragma unroll
+                for (int s = 0; s < 8; ++s) {
+                    unsigned h = h0;
+#pragma unroll
+                    for (int d = 0; d < 3; ++d) h ^= (pg[d] + ((s >> d) & 1u)) * prime(d);
+                    const float t_s = dot(h);
+                    const int b0 = s & 1, b1 = (s >> 1) & 1, b2 = (s >> 2) & 1;
+                    const float w0 = f[b1][1] * f[b2][2], w1 = f[b0][0] * f[b2][2],
+                                w2 = f[b0][0] * f[b1][1];
+                    dfrac[0] += b0 ? t_s * w0 : -t_s * w0;
+                    dfrac[1] += b1 ? t_s * w1 : -t_s * w1;
+                    dfrac[2] += b2 ? t_s * w2 : -t_s * w2;
+                }
+                return;
+            }
+            const float fx = frac[0], fy = frac[1], fz = frac[2];
+            const int rank[3] = {(fy > fx) + (fz > fx), (fx >= fy) + (fz > fy),
+                                 (fx >= fz) + (fy >= fz)};
+            float tv[4];
+#pragma unroll
+            for (int v = 0; v < 4; ++v) {
+                unsigned h = h0;
+#pragma unroll
+                for (int d = 0; d < 3; ++d) h ^= (pg[d] + (rank[d] < v ? 1u : 0u)) * prime(d);
+                tv[v] = dot(h);
+            }
+            // dL/ds1, dL/ds2, dL/ds3 of w = (1 - s1, s1 - s2, s2 - s3, s3);
+            // s2's own term reaches every axis, s1's and s3's less s2's
+            // through the max and the min.
+            const float d2 = tv[2] - tv[1];
+            const float d1 = (tv[1] - tv[0]) - d2, d3 = (tv[3] - tv[2]) - d2;
+            // max(fx, m), m = max(fy, fz): a tie halves (JAX's _balanced_eq).
+            const float m = fmaxf(fy, fz), s1 = fmaxf(fx, m);
+            const float gx1 = fx == s1 ? (m == s1 ? 0.5f : 1.f) : 0.f;
+            const float gm1 = m == s1 ? (fx == s1 ? 0.5f : 1.f) : 0.f;
+            const float gy1 = fy == m ? (fz == m ? 0.5f : 1.f) : 0.f;
+            const float gz1 = fz == m ? (fy == m ? 0.5f : 1.f) : 0.f;
+            const float n = fminf(fy, fz), s3 = fminf(fx, n);
+            const float gx3 = fx == s3 ? (n == s3 ? 0.5f : 1.f) : 0.f;
+            const float gn3 = n == s3 ? (fx == s3 ? 0.5f : 1.f) : 0.f;
+            const float gy3 = fy == n ? (fz == n ? 0.5f : 1.f) : 0.f;
+            const float gz3 = fz == n ? (fy == n ? 0.5f : 1.f) : 0.f;
+            dfrac[0] = d2 + d1 * gx1 + d3 * gx3;
+            dfrac[1] = d2 + d1 * (gm1 * gy1) + d3 * (gn3 * gy3);
+            dfrac[2] = d2 + d1 * (gm1 * gz1) + d3 * (gn3 * gz3);
+        });
+        const float res = static_cast<float>(lv.res);
+#pragma unroll
+        for (int d = 0; d < 3; ++d) acc[d] += res * dfrac[d];
+    }
+#pragma unroll
+    for (int d = 0; d < 3; ++d) part[t.warp][t.lane][d] = live ? acc[d] : 0.f;
+    __syncthreads();
+    // The tile's n rows of d x are 3n contiguous floats.
+    for (int j = threadIdx.x; j < 3 * t.n; j += kThreads) {
+        const int q = j / 3, d = j - 3 * q;
+        float sum = 0.f;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) sum += part[w][q][d];
+        dx[3 * t.first + j] = sum;
+    }
+}
+
 // The launch: a CTA a tile of 32 points, the level table and the tile in
 // dynamic shared memory.
-template <typename Kernel>
-int launch_tiles(Kernel kernel, const float* x, const float* in, const int* levels, float* out,
-                 long long num_points, int num_levels, int c, cudaStream_t stream) {
+template <typename Kernel, typename... Args>
+int launch_tiles(Kernel kernel, long long num_points, int num_levels, int c, cudaStream_t stream,
+                 Args... args) {
     const size_t smem = smem_bytes(num_levels, c);
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
@@ -408,56 +548,91 @@ int launch_tiles(Kernel kernel, const float* x, const float* in, const int* leve
         if (e != cudaSuccess) return static_cast<int>(e);
     }
     const long long tiles = (num_points + 31) / 32;
-    kernel<<<static_cast<unsigned>(tiles), kThreads, smem, stream>>>(x, in, levels, out,
-                                                                     num_points, num_levels);
+    kernel<<<static_cast<unsigned>(tiles), kThreads, smem, stream>>>(args...);
     return nst::launch_status();
+}
+
+// Launches kernel(C, styled) for a row width C in {1, 2, 4} (pick returns
+// the instantiation): the style term selects the styled one, so style 0
+// runs the unstyled one.  cudaErrorInvalidValue for another C.
+template <typename Pick, typename... Args>
+int launch_width(Pick pick, int channels, unsigned style_term, long long num_points,
+                 int num_levels, cudaStream_t stream, Args... args) {
+    if (channels != 1 && channels != 2 && channels != 4) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return launch_tiles(pick(channels, style_term != 0u), num_points, num_levels, channels, stream,
+                        args..., num_points, num_levels, style_term);
+}
+
+template <int C>
+auto encode_kernel(bool styled) {
+    return styled ? hashgrid_encode_kernel<C, true> : hashgrid_encode_kernel<C, false>;
+}
+template <int C>
+auto backward_kernel(bool styled) {
+    return styled ? hashgrid_backward_kernel<C, true> : hashgrid_backward_kernel<C, false>;
+}
+template <int C>
+auto position_grad_kernel(bool styled) {
+    return styled ? hashgrid_position_grad_kernel<C, true>
+                  : hashgrid_position_grad_kernel<C, false>;
 }
 
 }  // namespace
 
-// x [B, 3] f32, table [T, C] f32, levels int32 [4, L], out [B, L*C] f32.
-// Returns cudaErrorInvalidValue for an unsupported row width C.
+// x [B, 3] f32, table [T, C] f32, levels int32 [4, L], out [B, L*C] f32;
+// style_term = (style * 3674653429) mod 2^32 (0: style 0).  Returns
+// cudaErrorInvalidValue for an unsupported row width C.
 NST_API int nst_hashgrid_encode(const void* x, const void* table, const void* levels, void* out,
                                 long long num_points, int num_levels, int channels,
-                                void* stream) {
+                                unsigned style_term, void* stream) {
     if (num_points <= 0) return 0;
-    const float* xf = static_cast<const float*>(x);
-    const float* tf = static_cast<const float*>(table);
-    const int* lv = static_cast<const int*>(levels);
-    float* of = static_cast<float*>(out);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (channels) {
-        case 1: return launch_tiles(hashgrid_encode_kernel<1>, xf, tf, lv, of, num_points,
-                                    num_levels, 1, s);
-        case 2: return launch_tiles(hashgrid_encode_kernel<2>, xf, tf, lv, of, num_points,
-                                    num_levels, 2, s);
-        case 4: return launch_tiles(hashgrid_encode_kernel<4>, xf, tf, lv, of, num_points,
-                                    num_levels, 4, s);
-        default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+    auto pick = [](int c, bool styled) {
+        return c == 1 ? encode_kernel<1>(styled)
+                      : (c == 2 ? encode_kernel<2>(styled) : encode_kernel<4>(styled));
+    };
+    return launch_width(pick, channels, style_term, num_points, num_levels,
+                        static_cast<cudaStream_t>(stream), static_cast<const float*>(x),
+                        static_cast<const float*>(table), static_cast<const int*>(levels),
+                        static_cast<float*>(out));
 }
 
 // x [B, 3] f32, g [B, L*C] f32, levels int32 [4, L], grad [T, C] f32 (zeroed
-// by the caller; contributions are added).  cudaErrorInvalidValue for an
-// unsupported row width C.
+// by the caller; contributions are added); style_term as above.
+// cudaErrorInvalidValue for an unsupported row width C.
 NST_API int nst_hashgrid_backward(const void* x, const void* g, const void* levels, void* grad,
                                   long long num_points, int num_levels, int channels,
-                                  void* stream) {
+                                  unsigned style_term, void* stream) {
     if (num_points <= 0) return 0;
-    const float* xf = static_cast<const float*>(x);
-    const float* gf = static_cast<const float*>(g);
-    const int* lv = static_cast<const int*>(levels);
-    float* df = static_cast<float*>(grad);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (channels) {
-        case 1: return launch_tiles(hashgrid_backward_kernel<1>, xf, gf, lv, df, num_points,
-                                    num_levels, 1, s);
-        case 2: return launch_tiles(hashgrid_backward_kernel<2>, xf, gf, lv, df, num_points,
-                                    num_levels, 2, s);
-        case 4: return launch_tiles(hashgrid_backward_kernel<4>, xf, gf, lv, df, num_points,
-                                    num_levels, 4, s);
-        default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+    auto pick = [](int c, bool styled) {
+        return c == 1 ? backward_kernel<1>(styled)
+                      : (c == 2 ? backward_kernel<2>(styled) : backward_kernel<4>(styled));
+    };
+    return launch_width(pick, channels, style_term, num_points, num_levels,
+                        static_cast<cudaStream_t>(stream), static_cast<const float*>(x),
+                        static_cast<const float*>(g), static_cast<const int*>(levels),
+                        static_cast<float*>(grad));
+}
+
+// K2x.  x [B, 3] f32, g [B, L*C] f32, table [T, C] f32, levels int32 [4, L],
+// dx [B, 3] f32 (every row written); style_term as above.
+// cudaErrorInvalidValue for an unsupported row width C.
+NST_API int nst_hashgrid_position_grad(const void* x, const void* g, const void* table,
+                                       const void* levels, void* dx, long long num_points,
+                                       int num_levels, int channels, unsigned style_term,
+                                       void* stream) {
+    if (num_points <= 0) return 0;
+    auto pick = [](int c, bool styled) {
+        return c == 1 ? position_grad_kernel<1>(styled)
+                      : (c == 2 ? position_grad_kernel<2>(styled)
+                                : position_grad_kernel<4>(styled));
+    };
+    return launch_width(
+        pick, channels, style_term, num_points, num_levels, static_cast<cudaStream_t>(stream),
+        static_cast<const float*>(x), static_cast<const float*>(g),
+        static_cast<const float*>(table), static_cast<const int*>(levels),
+        static_cast<float*>(dx));
 }
 
 // ---------------------------------------------------------------------------

@@ -6,7 +6,7 @@
     <root>/transforms_test.json    the test poses (no frames are read)
     <root>/<seg_name>/<fn>_seg.npz segment maps (key ``seg_map``), optional
 
-Frames are 8-bit PNG (``images_8/*.png``), baseline JPEG or ``.npy``
+Frames are 8-bit PNG (``images_8/*.png``), Huffman JPEG or ``.npy``
 (``utils.parse_rgb``); the test split has
 poses only (``has_gt`` False).  The poses are used as written: their camera
 flip is ``cfgs/renderer/llff.yaml``'s ``flip_camera``.

@@ -2,6 +2,6 @@
 writes the images the JAX package handles through PIL, without PIL.
 
 ``png``: 8-bit PNG (gray, gray + alpha, RGB, RGBA; plain or Adam7
-interlaced).  ``jpeg``: baseline sequential JPEG, decoded as libjpeg does
-under PIL's defaults.  ``gif``: an animated GIF89a writer.
+interlaced).  ``jpeg``: sequential and progressive Huffman JPEG (gray, colour,
+CMYK), decoded as libjpeg does under PIL's defaults.  ``gif``: an animated GIF89a writer.
 """

@@ -1,23 +1,35 @@
-"""Baseline JPEG decoder (numpy and the standard library only).
+"""JPEG decoder (numpy and the standard library only).
 
 Reads what the JAX package reads through PIL for the repository's images:
-sequential Huffman-coded JPEGs of 8-bit samples (SOF0 and SOF1), gray (one
-component) or YCbCr (three; RGB when an Adobe marker or the component ids
-say so), each component's sampling factors 1 or 2 on each axis (4:4:4,
-4:2:2, 4:2:0, 4:4:0), restart intervals, interleaved or one scan a
+Huffman-coded JPEGs of 8-bit samples, sequential (SOF0 and SOF1) or
+progressive (SOF2), gray (one component), YCbCr (three; RGB when an Adobe
+marker or the component ids say so) or CMYK (four, Adobe transform 0 or no
+Adobe marker), each component's sampling factors 1 or 2 on each axis
+(4:4:4, 4:2:2, 4:2:0, 4:4:0), restart intervals, interleaved or one scan a
 component, any image size.  It decodes as libjpeg does under PIL's
 defaults, so that the result is PIL's to the bit:
 
+* a progressive file's four kinds of scan (``jdphuff.c``: DC first, DC
+  refinement, AC first with end-of-band runs, AC refinement with its
+  correction bits) fill the same coefficient store as a sequential file's
+  scans; spectral selection, successive approximation and AC scans over a
+  component's whole block grid included.  libjpeg's block smoothing
+  (``jdcoefct.c``) applies only while some coefficient's successive
+  approximation is incomplete, so a file whose scans leave any
+  coefficient incomplete raises ``ValueError``;
 * the accurate integer inverse DCT (``JDCT_ISLOW``, ``jidctint.c``) and the
   post-IDCT range limit of ``jdmaster.c``;
 * fancy (triangle) upsampling of downsampled components (``jdsample.c``:
   h2v1, h1v2, h2v2, with the edge samples replicated, and plain
   replication for a component no wider than 2 samples);
-* the fixed-point YCbCr -> RGB tables of ``jdcolor.c``.
+* the fixed-point YCbCr -> RGB tables of ``jdcolor.c``;
+* CMYK samples as stored, then inverted as PIL inverts every 4-component
+  JPEG (it assumes the Adobe convention of inverted storage): PIL's
+  ``[H, W, 4]`` array.
 
 EXIF orientation is not applied (nor is it by ``PIL.Image.open``).
-Progressive, arithmetic-coded, lossless and hierarchical JPEGs, 12-bit
-samples and CMYK/YCCK images raise ``ValueError`` naming the format.
+Arithmetic-coded, lossless and hierarchical JPEGs, 12-bit samples and YCCK
+images (Adobe transform 2) raise ``ValueError`` naming the format.
 
 The Huffman decode reads 16 bits at a time through a 65,536-entry lookup
 table a code table (symbol and code length in one entry), and each
@@ -42,7 +54,7 @@ ZIGZAG = np.array([
 _ZZ = ZIGZAG.tolist()
 
 _UNSUPPORTED = {
-    0xC2: "progressive JPEG", 0xC3: "lossless JPEG", 0xC5: "hierarchical JPEG",
+    0xC3: "lossless JPEG", 0xC5: "hierarchical JPEG",
     0xC6: "hierarchical progressive JPEG", 0xC7: "hierarchical lossless JPEG",
     0xC9: "arithmetic-coded JPEG", 0xCA: "arithmetic-coded progressive JPEG",
     0xCB: "arithmetic-coded lossless JPEG", 0xCD: "arithmetic-coded hierarchical JPEG",
@@ -61,7 +73,8 @@ def is_jpeg(head: bytes) -> bool:
 
 
 def read_jpeg(path: Union[str, Path]) -> np.ndarray:
-    """A JPEG file -> [H, W, C] uint8 (C = 1 for gray, 3 for RGB)."""
+    """A JPEG file -> [H, W, C] uint8 (C = 1 for gray, 3 for RGB, 4 for
+    CMYK as PIL reads it)."""
     return decode_jpeg(Path(path).read_bytes(), str(path))
 
 
@@ -152,6 +165,169 @@ def _decode_segment(data: bytes, units: List[Tuple[_Component, int, int, int, in
                     break
             if pos > limit:
                 raise ValueError(f"{src}: corrupt JPEG data (scan ends early)")
+
+
+def _dc_first(data: bytes, units, mcus: int, mcu_origin: int, mcus_per_row: int, dc_tables,
+              al: int, src: str) -> None:
+    """A progressive DC first scan's segment (``jdphuff.c``
+    decode_mcu_DC_first): each block's DC difference as in a sequential
+    scan, its running sum stored shifted left by ``al``."""
+    win = _windows(data)
+    limit = 8 * len(data) + 64
+    pos = 0
+    for unit in units:
+        unit[0].pred = 0
+    for m in range(mcu_origin, mcu_origin + mcus):
+        my, mx = divmod(m, mcus_per_row)
+        for comp, bx, by, mh, mv in units:
+            dct = dc_tables[comp.td]
+            e = dct[(win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
+            if not e & 31:
+                raise ValueError(f"{src}: corrupt JPEG data (bad Huffman code)")
+            pos += e & 31
+            s = e >> 5
+            if s:
+                v = (win[pos >> 3] >> (32 - (pos & 7) - s)) & ((1 << s) - 1)
+                pos += s
+                if v < (1 << (s - 1)):
+                    v += 1 - (1 << s)
+                comp.pred += v
+            comp.coef[((my * mv + by) * comp.bw + mx * mh + bx) * 64] = comp.pred << al
+        if pos > limit:
+            raise ValueError(f"{src}: corrupt JPEG data (scan ends early)")
+
+
+def _dc_refine(data: bytes, units, mcus: int, mcu_origin: int, mcus_per_row: int,
+               al: int, src: str) -> None:
+    """A progressive DC refinement scan's segment (decode_mcu_DC_refine):
+    one raw bit a block, OR-ed in at bit ``al``."""
+    win = _windows(data)
+    limit = 8 * len(data) + 64
+    pos = 0
+    p1 = 1 << al
+    for m in range(mcu_origin, mcu_origin + mcus):
+        my, mx = divmod(m, mcus_per_row)
+        for comp, bx, by, mh, mv in units:
+            if (win[pos >> 3] >> (31 - (pos & 7))) & 1:
+                comp.coef[((my * mv + by) * comp.bw + mx * mh + bx) * 64] |= p1
+            pos += 1
+        if pos > limit:
+            raise ValueError(f"{src}: corrupt JPEG data (scan ends early)")
+
+
+def _ac_first(data: bytes, comp: _Component, blocks: int, block_origin: int, per_row: int,
+              act: List[int], ss: int, se: int, al: int, src: str) -> None:
+    """A progressive AC first scan's segment (decode_mcu_AC_first) over one
+    component's blocks: coefficients ``ss..se`` shifted left by ``al``,
+    end-of-band runs spanning blocks."""
+    win = _windows(data)
+    limit = 8 * len(data) + 64
+    pos = 0
+    coef = comp.coef
+    eobrun = 0
+    for b in range(block_origin, block_origin + blocks):
+        if eobrun:
+            eobrun -= 1
+            continue
+        by, bx = divmod(b, per_row)
+        base = (by * comp.bw + bx) * 64
+        k = ss
+        while k <= se:
+            e = act[(win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
+            if not e & 31:
+                raise ValueError(f"{src}: corrupt JPEG data (bad Huffman code)")
+            pos += e & 31
+            rs = e >> 5
+            r, s = rs >> 4, rs & 15
+            if s:
+                k += r
+                v = (win[pos >> 3] >> (32 - (pos & 7) - s)) & ((1 << s) - 1)
+                pos += s
+                if v < (1 << (s - 1)):
+                    v += 1 - (1 << s)
+                if k > 63:
+                    raise ValueError(f"{src}: corrupt JPEG data (coefficient past 63)")
+                coef[base + _ZZ[k]] = v << al
+                k += 1
+            elif r == 15:
+                k += 16
+            else:  # an end-of-band run of 2^r + r more bits' worth of blocks
+                eobrun = 1 << r
+                if r:
+                    eobrun += (win[pos >> 3] >> (32 - (pos & 7) - r)) & ((1 << r) - 1)
+                    pos += r
+                eobrun -= 1
+                break
+        if pos > limit:
+            raise ValueError(f"{src}: corrupt JPEG data (scan ends early)")
+
+
+def _ac_refine(data: bytes, comp: _Component, blocks: int, block_origin: int, per_row: int,
+               act: List[int], ss: int, se: int, al: int, src: str) -> None:
+    """A progressive AC refinement scan's segment (decode_mcu_AC_refine)
+    over one component's blocks: newly nonzero coefficients of +-2^al, and
+    a correction bit for every coefficient already nonzero that the scan
+    passes over (within the band up to an end-of-band run's end)."""
+    win = _windows(data)
+    limit = 8 * len(data) + 64
+    pos = 0
+    coef = comp.coef
+    p1, m1 = 1 << al, -1 << al
+    eobrun = 0
+    zz = _ZZ
+    for b in range(block_origin, block_origin + blocks):
+        by, bx = divmod(b, per_row)
+        base = (by * comp.bw + bx) * 64
+        k = ss
+        if not eobrun:
+            while k <= se:
+                e = act[(win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
+                if not e & 31:
+                    raise ValueError(f"{src}: corrupt JPEG data (bad Huffman code)")
+                pos += e & 31
+                rs = e >> 5
+                r, s = rs >> 4, rs & 15
+                if s:  # a new coefficient of magnitude 1 at this bit, its sign a bit
+                    s = p1 if (win[pos >> 3] >> (31 - (pos & 7))) & 1 else m1
+                    pos += 1
+                elif r != 15:
+                    eobrun = 1 << r
+                    if r:
+                        eobrun += (win[pos >> 3] >> (32 - (pos & 7) - r)) & ((1 << r) - 1)
+                        pos += r
+                    break
+                # Pass over nonzero coefficients (a correction bit each) and
+                # r zero ones; stop at the zero that takes s (or the 16th: ZRL).
+                while k <= se:
+                    i = base + zz[k]
+                    c = coef[i]
+                    if c:
+                        if (win[pos >> 3] >> (31 - (pos & 7))) & 1 and not c & p1:
+                            coef[i] = c + (p1 if c >= 0 else m1)
+                        pos += 1
+                    else:
+                        r -= 1
+                        if r < 0:
+                            break
+                    k += 1
+                if s:
+                    if k > 63:
+                        raise ValueError(f"{src}: corrupt JPEG data (coefficient past 63)")
+                    coef[base + zz[k]] = s
+                k += 1
+        if eobrun:
+            # The band's rest in an end-of-band run: correction bits only.
+            while k <= se:
+                i = base + zz[k]
+                c = coef[i]
+                if c:
+                    if (win[pos >> 3] >> (31 - (pos & 7))) & 1 and not c & p1:
+                        coef[i] = c + (p1 if c >= 0 else m1)
+                    pos += 1
+                k += 1
+            eobrun -= 1
+        if pos > limit:
+            raise ValueError(f"{src}: corrupt JPEG data (scan ends early)")
 
 
 # jidctint.c's constants: FIX(x) = round(x * 2^13).
@@ -284,7 +460,8 @@ def decode_jpeg(blob: bytes, src: str = "<bytes>") -> np.ndarray:
     restart = 0
     adobe_transform = None
     pos = 2
-    frame_seen = False
+    frame_seen = progressive = False
+    coef_bits: Dict[int, List[int]] = {}
     while True:
         pos = blob.find(b"\xff", pos)
         if pos < 0 or pos + 1 >= len(blob):
@@ -299,8 +476,8 @@ def decode_jpeg(blob: bytes, src: str = "<bytes>") -> np.ndarray:
         seg = blob[pos + 4:pos + 2 + length]
         pos += 2 + length
         if marker in _UNSUPPORTED:
-            raise ValueError(f"{src}: {_UNSUPPORTED[marker]} is not decoded (baseline "
-                             "sequential Huffman JPEG only)")
+            raise ValueError(f"{src}: {_UNSUPPORTED[marker]} is not decoded (Huffman-coded "
+                             "sequential and progressive JPEG only)")
         if marker == 0xEE and seg[:5] == b"Adobe" and len(seg) >= 12:
             adobe_transform = seg[11]
         elif marker == 0xDB:  # DQT
@@ -324,14 +501,17 @@ def decode_jpeg(blob: bytes, src: str = "<bytes>") -> np.ndarray:
                 i += 17 + n
         elif marker == 0xDD:  # DRI
             restart = int.from_bytes(seg[:2], "big")
-        elif marker in (0xC0, 0xC1):  # SOF0 / SOF1: sequential Huffman
+        elif marker in (0xC0, 0xC1, 0xC2):  # SOF0 / SOF1 sequential, SOF2 progressive
+            if frame_seen:
+                raise ValueError(f"{src}: JPEG with a second frame header")
+            progressive = marker == 0xC2
             precision = seg[0]
             if precision != 8:
                 raise ValueError(f"{src}: {precision}-bit JPEG is not decoded (8-bit only)")
             height, width = int.from_bytes(seg[1:3], "big"), int.from_bytes(seg[3:5], "big")
             nf = seg[5]
-            if nf not in (1, 3):
-                raise ValueError(f"{src}: a {nf}-component (CMYK/YCCK) JPEG is not decoded")
+            if nf not in (1, 3, 4):
+                raise ValueError(f"{src}: a {nf}-component JPEG is not decoded")
             comps = [_Component(seg[6 + 3 * k], seg[7 + 3 * k] >> 4, seg[7 + 3 * k] & 15,
                                 seg[8 + 3 * k]) for k in range(nf)]
             if height == 0 or any(c.h not in (1, 2) or c.v not in (1, 2) for c in comps):
@@ -343,6 +523,9 @@ def decode_jpeg(blob: bytes, src: str = "<bytes>") -> np.ndarray:
                 c.bw, c.bh = mcux * c.h, mcuy * c.v
                 c.dw, c.dh = -(-width * c.h // hmax), -(-height * c.v // vmax)
                 c.coef = [0] * (c.bw * c.bh * 64)
+            # Each coefficient's successive-approximation bit still to come
+            # (libjpeg's coef_bits): -1 before its first scan, 0 once whole.
+            coef_bits = {c.cid: [-1] * 64 for c in comps}
             frame_seen = True
         elif marker == 0xDA:  # SOS, then the entropy-coded data
             if not frame_seen:
@@ -354,9 +537,13 @@ def decode_jpeg(blob: bytes, src: str = "<bytes>") -> np.ndarray:
                 c = by_id[seg[1 + 2 * k]]
                 c.td, c.ta = seg[2 + 2 * k] >> 4, seg[2 + 2 * k] & 15
                 scomps.append(c)
+            ss, se = seg[1 + 2 * ns], seg[2 + 2 * ns]
+            ah, al = seg[3 + 2 * ns] >> 4, seg[3 + 2 * ns] & 15
             end = _SCAN_END.search(blob, pos)
             data = blob[pos:end.start() if end else len(blob)]
             pos = end.start() if end else len(blob)
+            if progressive:
+                _check_progressive_scan(scomps, coef_bits, ss, se, ah, al, src)
             if ns == 1:  # non-interleaved: a block an MCU over the component's own extent
                 c = scomps[0]
                 per_row, rows = -(-c.dw // 8), -(-c.dh // 8)
@@ -368,19 +555,37 @@ def decode_jpeg(blob: bytes, src: str = "<bytes>") -> np.ndarray:
                          for bx in range(c.h)]
             total = per_row * rows
             interval = restart or total
-            segments = _RST.split(data)
             done = 0
-            for piece in segments:
+            for piece in _RST.split(data):
                 if done >= total:
                     break
                 n = min(interval, total - done)
-                _decode_segment(piece.replace(b"\xff\x00", b"\xff"), units, n, done, per_row,
-                                dc_tables, ac_tables, src)
+                piece = piece.replace(b"\xff\x00", b"\xff")
+                if not progressive:
+                    _decode_segment(piece, units, n, done, per_row, dc_tables, ac_tables, src)
+                elif ss == 0:
+                    if ah:
+                        _dc_refine(piece, units, n, done, per_row, al, src)
+                    else:
+                        _dc_first(piece, units, n, done, per_row, dc_tables, al, src)
+                else:
+                    ac = _ac_refine if ah else _ac_first
+                    ac(piece, scomps[0], n, done, per_row, ac_tables[scomps[0].ta], ss, se, al,
+                       src)
                 done += n
             if done < total:
                 raise ValueError(f"{src}: corrupt JPEG data (a scan ends early)")
     if not frame_seen:
         raise ValueError(f"{src}: JPEG without a frame header")
+    if progressive:
+        for c in comps:
+            if any(coef_bits[c.cid]):
+                raise ValueError(
+                    f"{src}: progressive JPEG whose scans leave component {c.cid}'s "
+                    "successive approximation incomplete is not decoded (libjpeg would "
+                    "block-smooth it)")
+    if len(comps) == 4 and adobe_transform == 2:
+        raise ValueError(f"{src}: YCCK JPEG (Adobe transform 2) is not decoded")
 
     hmax, vmax = max(c.h for c in comps), max(c.v for c in comps)
     planes = []
@@ -391,7 +596,32 @@ def decode_jpeg(blob: bytes, src: str = "<bytes>") -> np.ndarray:
         planes.append(plane[:height, :width])
     if len(comps) == 1:
         return planes[0][..., None]
+    if len(comps) == 4:  # CMYK as stored, inverted as PIL reads it
+        return 255 - np.stack(planes, -1)
     rgb_ids = [c.cid for c in comps] == [ord("R"), ord("G"), ord("B")]
     if adobe_transform == 0 or (adobe_transform is None and rgb_ids):
         return np.stack(planes, -1)
     return ycc_to_rgb(*planes)
+
+
+def _check_progressive_scan(scomps: List[_Component], coef_bits: Dict[int, List[int]], ss: int,
+                            se: int, ah: int, al: int, src: str) -> None:
+    """A progressive scan's header against the JPEG rules libjpeg enforces
+    (``jdphuff.c`` start_pass_phuff_decoder), and its coefficients' bits
+    brought up to date: a DC scan takes no AC coefficient, an AC scan one
+    component, and a refinement follows its coefficient's last scan."""
+    if ss == 0 and se != 0 or ss > se or se > 63 or (ss > 0 and len(scomps) != 1):
+        raise ValueError(f"{src}: corrupt progressive JPEG (scan of coefficients {ss}-{se} "
+                         f"over {len(scomps)} components)")
+    if ah and ah - 1 != al:
+        raise ValueError(f"{src}: corrupt progressive JPEG (successive approximation "
+                         f"{ah} -> {al})")
+    for c in scomps:
+        bits = coef_bits[c.cid]
+        if ss > 0 and bits[0] < 0:
+            raise ValueError(f"{src}: corrupt progressive JPEG (AC scan before the DC scan)")
+        for k in range(ss, se + 1):
+            if bits[k] != (ah if ah else -1):
+                raise ValueError(f"{src}: corrupt progressive JPEG (coefficient {k} of "
+                                 f"component {c.cid} refined out of order)")
+            bits[k] = al

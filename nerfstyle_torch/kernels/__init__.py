@@ -42,6 +42,7 @@ NVCC_FLAGS = (
 launch_counts: Dict[str, int] = {
     "hashgrid_encode": 0,
     "hashgrid_backward": 0,
+    "hashgrid_position_grad": 0,
     "march_count": 0,
     "march_write": 0,
     "march_skip_count": 0,
@@ -75,10 +76,12 @@ _lib: Optional[ctypes.CDLL] = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_U = ctypes.c_uint
 _F = ctypes.c_float
 _SIGNATURES = {
-    "nst_hashgrid_encode": (_P, _P, _P, _P, _LL, _I, _I, _P),
-    "nst_hashgrid_backward": (_P, _P, _P, _P, _LL, _I, _I, _P),
+    "nst_hashgrid_encode": (_P, _P, _P, _P, _LL, _I, _I, _U, _P),
+    "nst_hashgrid_backward": (_P, _P, _P, _P, _LL, _I, _I, _U, _P),
+    "nst_hashgrid_position_grad": (_P, _P, _P, _P, _P, _LL, _I, _I, _U, _P),
     "nst_march_count": (
         _P, _P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P,
     ),
@@ -223,11 +226,14 @@ def _stream(t: torch.Tensor) -> int:
 HASHGRID_WIDTHS = (1, 2, 4)
 
 
-def hashgrid_encode(x: torch.Tensor, table: torch.Tensor, levels: torch.Tensor) -> torch.Tensor:
+def hashgrid_encode(x: torch.Tensor, table: torch.Tensor, levels: torch.Tensor,
+                    style_term: int = 0) -> torch.Tensor:
     """K1: [B, 3] points in [0, 1] -> [B, L*C] features (see csrc/hashgrid.cu).
 
     ``levels`` is the int32 [4, L] table of level resolutions, table sizes,
-    row offsets and simplex flags (``ops.hashgrid.level_table``)."""
+    row offsets and simplex flags (``ops.hashgrid.level_table``);
+    ``style_term`` the style slot's hash term, ``(s * 3674653429) mod 2^32``
+    (``ops.hashgrid.style_term``)."""
     b = x.shape[0]
     _check("x", x, torch.float32, (None, 3))
     _check("table", table, torch.float32, (None, None))
@@ -242,36 +248,65 @@ def hashgrid_encode(x: torch.Tensor, table: torch.Tensor, levels: torch.Tensor) 
     lib = library()
     status = lib.nst_hashgrid_encode(
         x.data_ptr(), table.data_ptr(), levels.data_ptr(), out.data_ptr(),
-        b, num_levels, c, _stream(x),
+        b, num_levels, c, style_term, _stream(x),
     )
     _launched(lib, status, "hashgrid_encode")
     return out
 
 
-def hashgrid_backward(
-    x: torch.Tensor, g: torch.Tensor, levels: torch.Tensor, num_rows: int
-) -> torch.Tensor:
-    """K2: the [num_rows, C] table gradient of K1 for the output cotangent
-    ``g`` [B, L*C] at points ``x`` [B, 3] (see csrc/hashgrid.cu)."""
-    b = x.shape[0]
+def _hashgrid_cotangent(x: torch.Tensor, g: torch.Tensor, levels: torch.Tensor) -> int:
+    """Check K2's and K2x's points, cotangent and level table; return C."""
     _check("x", x, torch.float32, (None, 3))
     _check("levels", levels, torch.int32, (4, None))
     num_levels = levels.shape[1]
-    _check("g", g, torch.float32, (b, None))
+    _check("g", g, torch.float32, (x.shape[0], None))
     _same_device(x, g, levels)
     c = g.shape[1] // num_levels
     if c not in HASHGRID_WIDTHS or g.shape[1] != num_levels * c:
         raise ValueError(f"cotangent of width {g.shape[1]} is not L*C for C in {HASHGRID_WIDTHS}")
+    return c
+
+
+def hashgrid_backward(
+    x: torch.Tensor, g: torch.Tensor, levels: torch.Tensor, num_rows: int, style_term: int = 0
+) -> torch.Tensor:
+    """K2: the [num_rows, C] table gradient of K1 for the output cotangent
+    ``g`` [B, L*C] at points ``x`` [B, 3] (see csrc/hashgrid.cu)."""
+    b = x.shape[0]
+    c = _hashgrid_cotangent(x, g, levels)
     grad = torch.zeros((num_rows, c), dtype=torch.float32, device=x.device)
     if b == 0:
         return grad
     lib = library()
     status = lib.nst_hashgrid_backward(
-        x.data_ptr(), g.data_ptr(), levels.data_ptr(), grad.data_ptr(), b, num_levels, c,
-        _stream(x),
+        x.data_ptr(), g.data_ptr(), levels.data_ptr(), grad.data_ptr(), b, levels.shape[1], c,
+        style_term, _stream(x),
     )
     _launched(lib, status, "hashgrid_backward")
     return grad
+
+
+def hashgrid_position_grad(
+    x: torch.Tensor, g: torch.Tensor, table: torch.Tensor, levels: torch.Tensor,
+    style_term: int = 0,
+) -> torch.Tensor:
+    """K2x: the [B, 3] position gradient of K1 for the output cotangent
+    ``g`` [B, L*C] at points ``x`` [B, 3] in ``table`` [T, C] (see
+    csrc/hashgrid.cu); rows of points outside [0, 1]^3 are 0."""
+    b = x.shape[0]
+    c = _hashgrid_cotangent(x, g, levels)
+    _check("table", table, torch.float32, (None, c))
+    _same_device(x, table)
+    dx = torch.empty((b, 3), dtype=torch.float32, device=x.device)
+    if b == 0:
+        return dx
+    lib = library()
+    status = lib.nst_hashgrid_position_grad(
+        x.data_ptr(), g.data_ptr(), table.data_ptr(), levels.data_ptr(), dx.data_ptr(), b,
+        levels.shape[1], c, style_term, _stream(x),
+    )
+    _launched(lib, status, "hashgrid_position_grad")
+    return dx
 
 
 def _march_args(origins, dirs, nears, fars, bitfield, skip, dt, bound, t_lattice, cascade,

@@ -1,4 +1,7 @@
-"""VGG16 feature extractor (counterpart of ``nerfstyle_tpu/models/vgg.py``).
+"""VGG feature extractors (counterpart of ``nerfstyle_tpu/models/vgg.py``):
+:class:`VGG16FeatureExtractor`, which the style stage runs, and
+:class:`VGG19FeatureExtractor` (library API, as in JAX), both on
+:class:`VGGFeatureExtractor`.
 
 The same node-key grammar as the reference's torchvision extractor
 (``conv3_1`` / ``relu3``; a block-level key concatenates all its layers), the
@@ -14,10 +17,11 @@ XLA's select-and-scatter does, on the CPU and on the card alike.  The public
 interface speaks [N, C, H, W], like the JAX extractor's.
 
 Weights: torchvision is not used.  Pretrained weights load from a local file
-when present, searched in this order: the ``NERFSTYLE_VGG16_WEIGHTS``
-environment variable, ``~/.cache/nerfstyle/vgg16.npz`` or
-``.pth``, then the torch hub checkpoint cache (``$TORCH_HOME`` or
-``~/.cache/torch``, ``hub/checkpoints/vgg16-*.pth``, read with
+when present, searched in this order (``<kind>`` is ``vgg16`` or
+``vgg19``): the ``NERFSTYLE_<KIND>_WEIGHTS`` environment variable,
+``~/.cache/nerfstyle/<kind>.npz`` or ``.pth``, then the torch hub checkpoint
+cache (``$TORCH_HOME`` or ``~/.cache/torch``, ``hub/checkpoints/<kind>-*.pth``,
+read with
 ``torch.load(weights_only=True)``).  Every file is checked against the
 port's copy of the weight manifest (``vgg_manifest.json``: keys, shapes,
 dtypes, and SHA256 where stamped).  Without weights the extractor falls back
@@ -44,10 +48,13 @@ from .. import utils
 
 logger = utils.create_logger(__name__)
 
-# Channel plan per block (torchvision VGG16 'features').
+# Channel plan per block (torchvision VGG16 and VGG19 'features').
 _VGG16_BLOCKS = [[64, 64], [128, 128], [256, 256, 256], [512, 512, 512], [512, 512, 512]]
+_VGG19_BLOCKS = [[64, 64], [128, 128], [256, 256, 256, 256], [512, 512, 512, 512],
+                 [512, 512, 512, 512]]
 # torchvision 'features.N' indices of each conv layer.
 VGG16_LAYERS = [[0, 2], [5, 7], [10, 12, 14], [17, 19, 21], [24, 26, 28]]
+VGG19_LAYERS = [[0, 2], [5, 7], [10, 12, 14, 16], [19, 21, 23, 25], [28, 30, 32, 34]]
 
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)
 _IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -129,7 +136,7 @@ def load_torch_weights(path: Union[str, Path], layers, kind: Optional[str] = Non
 
 
 def find_weights(kind: str) -> Optional[Path]:
-    """Locate pretrained weights for ``kind`` ("vgg16"), or None."""
+    """Locate pretrained weights for ``kind`` ("vgg16" or "vgg19"), or None."""
     env = os.environ.get(f"NERFSTYLE_{kind.upper()}_WEIGHTS")
     if env and Path(env).exists():
         return Path(env)
@@ -168,8 +175,12 @@ def relu(x: torch.Tensor) -> torch.Tensor:
     return _Relu.apply(x)
 
 
-class VGG16FeatureExtractor:
-    """Feature extractor with the reference's key grammar."""
+class VGGFeatureExtractor:
+    """Feature extractor with the reference's key grammar: ``conv<b>_<l>``
+    or ``relu<b>_<l>`` for a layer, ``conv<b>`` or ``relu<b>`` for a whole
+    block (its layers concatenated on channels).  A subclass names the
+    network: ``kind``, its channel plan ``blocks`` and its torchvision
+    ``layers``."""
 
     kind = "vgg16"
     blocks = _VGG16_BLOCKS
@@ -248,3 +259,14 @@ class VGG16FeatureExtractor:
         return {kname: torch.cat([taps[t] for t in tap_list], dim=1)
                 for kname, tap_list in self.keys}
 
+
+class VGG16FeatureExtractor(VGGFeatureExtractor):
+    kind = "vgg16"
+    blocks = _VGG16_BLOCKS
+    layers = VGG16_LAYERS
+
+
+class VGG19FeatureExtractor(VGGFeatureExtractor):
+    kind = "vgg19"
+    blocks = _VGG19_BLOCKS
+    layers = VGG19_LAYERS

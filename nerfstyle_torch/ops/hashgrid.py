@@ -15,12 +15,14 @@ with the same integer coordinates, and weighs (1 - s1, s1 - s2, s2 - s3, s3)
 in turn.
 
 Every level takes the hash path: the dense index law of the JAX module
-applies only when ``(res+1)^3 * 512 <= table size``, and since ``table size
-<= ceil(H*s^l)^3 <= (res+1)^3`` that never holds for a level of its own
-spec.  :func:`level_indices` is that law whole, with the style slot (a
-fourth prime on hashed levels, ``style * stride`` on dense ones, JAX's
-``_level_indices``); the encoder reads style 0, where the slot adds
-nothing, so :func:`_rows` leaves it out.
+applies only when ``(res+1)^3 * 512 <= table size``, and a table of
+``hashgrid_spec`` holds at most ``ceil(ceil(H*s^l)^3 / 8) * 8`` rows, below
+``(res+1)^3 * 512`` for the floor-law ``res`` of its level (at least
+``ceil - 1``, and ``ceil^3 <= 8 (ceil - 1)^3`` for ``ceil >= 2``).
+:func:`level_indices` is that law whole, with the style slot (a fourth
+prime on hashed levels, ``style * stride`` on dense ones, JAX's
+``_level_indices``); the encoder's :func:`_rows` is its hashed branch, the
+style slot's term :func:`style_term` XOR-ed in.
 
 :func:`grid_initialize` copies a reference table's style-0 rows into every
 style slot of a new table (JAX's ``grid_initialize``): kernel K9 on CUDA
@@ -30,7 +32,13 @@ tensors, :func:`grid_initialize_plain` on CPU tensors.
 its forward launches kernel K1 and its backward kernel K2, the table
 gradient (``csrc/hashgrid.cu``), on CUDA tensors; on CPU tensors they run
 :func:`hashgrid_encode_plain` and :func:`hashgrid_backward_plain`.  The
-gradient of the input positions is zero, as in the JAX fast VJP.
+gradient of the input positions is zero, as in the JAX fast VJP
+(``fast_vjp=True``, the default); with ``fast_vjp=False`` the backward
+also returns it, as JAX's autodiff does: kernel K2x on CUDA tensors,
+autograd through :func:`hashgrid_encode_plain` on CPU tensors (``floor``
+and the clamp pass no gradient, so d frac / d x = res; on simplex levels
+``torch.maximum``/``torch.minimum`` halve a tie's gradient as
+``jnp.maximum``/``jnp.minimum`` do, in the same nesting).
 """
 
 from __future__ import annotations
@@ -151,23 +159,32 @@ def _cells(spec: HashGridSpec, x: torch.Tensor, lv0: int, lv1: int):
     return pg.to(torch.int64), pos - pg
 
 
-def _rows(spec: HashGridSpec, coords, lv0: int, lv1: int) -> torch.Tensor:
+def style_term(style: int) -> int:
+    """The style slot's hash term on hashed levels, ``(style * 3674653429)
+    & 0xFFFFFFFF``, for any integer style (JAX's ``_level_indices``
+    computes it in Python alike and checks no range)."""
+    return (int(style) * STYLE_PRIME) & _U32
+
+
+def _rows(spec: HashGridSpec, coords, lv0: int, lv1: int, style: int = 0) -> torch.Tensor:
     """Table rows [B, L'] i64 of integer corners [B, L', 3] at levels [lv0,
-    lv1): the uint32 XOR hash (in int64, masked), % size + offset."""
+    lv1): the uint32 XOR hash with the style term (in int64, masked), %
+    size + offset.  Every level of a ``hashgrid_spec`` hashes (see the
+    module docstring), so the dense branch of the law never applies."""
     dev = coords.device
     sizes = torch.tensor(spec.table_sizes[lv0:lv1], dtype=torch.int64, device=dev)
     offs = torch.tensor(spec.offsets[lv0:lv1], dtype=torch.int64, device=dev)
-    h = torch.zeros(coords.shape[:2], dtype=torch.int64, device=dev)
+    h = torch.full(coords.shape[:2], style_term(style), dtype=torch.int64, device=dev)
     for d in range(3):
         h = h ^ ((coords[..., d] * PRIMES[d]) & _U32)
     return h % sizes + offs
 
 
-def _corners(spec: HashGridSpec, x: torch.Tensor):
+def _corners(spec: HashGridSpec, x: torch.Tensor, style: int = 0):
     """Every (point, level)'s corners (trilinear levels, 8) or simplex
-    vertices (4), in the JAX order of operations: [(lv0, lv1, rows [B, L']
-    i64, weights [B, L'] f32)], one entry a corner slot of the levels [lv0,
-    lv1), and the out-of-range mask [B]."""
+    vertices (4) at a style slot, in the JAX order of operations: [(lv0,
+    lv1, rows [B, L'] i64, weights [B, L'] f32)], one entry a corner slot of
+    the levels [lv0, lv1), and the out-of-range mask [B]."""
     lc, nl = spec.simplex_start, spec.num_levels
     oob = ((x < 0.0) | (x > 1.0)).any(dim=-1)
     corners = []
@@ -178,8 +195,8 @@ def _corners(spec: HashGridSpec, x: torch.Tensor):
             bits = [(s >> d) & 1 for d in range(3)]
             for d in range(3):
                 w = w * (frac[..., d] if bits[d] else 1.0 - frac[..., d])
-            corners.append((0, lc, _rows(spec, pg + torch.tensor(bits, device=x.device), 0, lc),
-                            w))
+            corners.append((0, lc, _rows(spec, pg + torch.tensor(bits, device=x.device), 0, lc,
+                                         style), w))
     if lc < nl:
         pg, frac = _cells(spec, x, lc, nl)
         fx, fy, fz = frac.unbind(-1)
@@ -190,15 +207,17 @@ def _corners(spec: HashGridSpec, x: torch.Tensor):
         s3 = torch.minimum(fx, torch.minimum(fy, fz))
         s2 = fx + fy + fz - s1 - s3
         for v, w in enumerate((1.0 - s1, s1 - s2, s2 - s3, s3)):
-            corners.append((lc, nl, _rows(spec, pg + (rank < v).long(), lc, nl), w))
+            corners.append((lc, nl, _rows(spec, pg + (rank < v).long(), lc, nl, style), w))
     return corners, oob
 
 
-def hashgrid_encode_plain(spec: HashGridSpec, table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch encode, in the JAX order of operations:
-    [B, 3] in [0, 1] -> [B, L*C]."""
+def hashgrid_encode_plain(spec: HashGridSpec, table: torch.Tensor, x: torch.Tensor,
+                          style: int = 0) -> torch.Tensor:
+    """Plain PyTorch encode at a style slot, in the JAX order of operations:
+    [B, 3] in [0, 1] -> [B, L*C].  Differentiable in ``table`` and ``x``
+    (autograd: the plain version of K2 and of K2x)."""
     b, c = x.shape[0], table.shape[1]
-    corners, oob = _corners(spec, x)
+    corners, oob = _corners(spec, x, style)
     out = torch.zeros((b, spec.num_levels, c), dtype=torch.float32, device=x.device)
     for lv0, lv1, rows, w in corners:
         out[:, lv0:lv1] = out[:, lv0:lv1] + table[rows] * w[..., None]
@@ -207,14 +226,14 @@ def hashgrid_encode_plain(spec: HashGridSpec, table: torch.Tensor, x: torch.Tens
 
 
 def hashgrid_backward_plain(
-    spec: HashGridSpec, x: torch.Tensor, g: torch.Tensor, num_rows: int
+    spec: HashGridSpec, x: torch.Tensor, g: torch.Tensor, num_rows: int, style: int = 0
 ) -> torch.Tensor:
     """Plain table gradient: ``index_add_`` of every corner's (or simplex
     vertex's) ``w * g`` into a zero [num_rows, C] table (in g's dtype);
     out-of-range points add nothing."""
     b = x.shape[0]
     c = g.shape[1] // spec.num_levels
-    corners, oob = _corners(spec, x)
+    corners, oob = _corners(spec, x, style)
     g3 = torch.where(oob[:, None, None], 0.0, g.reshape(b, spec.num_levels, c))
     grad = torch.zeros((num_rows, c), dtype=g.dtype, device=x.device)
     for lv0, lv1, rows, w in corners:
@@ -222,40 +241,72 @@ def hashgrid_backward_plain(
     return grad
 
 
+def hashgrid_position_grad_plain(spec: HashGridSpec, table: torch.Tensor, x: torch.Tensor,
+                                 g: torch.Tensor, style: int = 0) -> torch.Tensor:
+    """Plain K2x: d x [B, 3] of ``<g, encode(x)>``, by autograd through
+    :func:`hashgrid_encode_plain`."""
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_(True)
+        out = hashgrid_encode_plain(spec, table.detach(), xg, style)
+        (dx,) = torch.autograd.grad(out, xg, g)
+    return dx
+
+
 class HashGridEncode(torch.autograd.Function):
     """Encode, differentiable in the table: forward K1, backward K2 (or
-    their plain versions).  No gradient reaches the points."""
+    their plain versions); with ``fast_vjp`` False (CUDA tensors only:
+    :func:`hashgrid_encode` takes the plain version's autograd otherwise)
+    the backward also gives the points' gradient (K2x), else zero for them
+    (JAX's fast VJP)."""
 
     @staticmethod
-    def forward(ctx, table, x, spec, plain):
+    def forward(ctx, table, x, spec, style, fast_vjp, plain):
         ctx.spec, ctx.plain, ctx.num_rows = spec, plain, table.shape[0]
-        ctx.save_for_backward(x)
+        ctx.style, ctx.fast_vjp = style, fast_vjp
+        if fast_vjp:
+            ctx.save_for_backward(x)
+        else:  # K2x reads the table's rows
+            ctx.save_for_backward(x, table)
         if not use_kernel(x, plain):
-            return hashgrid_encode_plain(spec, table, x)
+            return hashgrid_encode_plain(spec, table, x, style)
         return kernels.hashgrid_encode(x.contiguous(), table.contiguous(),
-                                       level_table(spec, x.device))
+                                       level_table(spec, x.device), style_term(style))
 
     @staticmethod
     def backward(ctx, g):
-        (x,) = ctx.saved_tensors
-        spec = ctx.spec
-        if not use_kernel(x, ctx.plain):
-            grad = hashgrid_backward_plain(spec, x, g, ctx.num_rows)
-        else:
-            grad = kernels.hashgrid_backward(x.contiguous(), g.contiguous(),
-                                             level_table(spec, x.device), ctx.num_rows)
-        return grad, None, None, None
+        x = ctx.saved_tensors[0]
+        spec, style = ctx.spec, ctx.style
+        kernel = use_kernel(x, ctx.plain)
+        grad = dx = None
+        if ctx.needs_input_grad[0]:
+            if not kernel:
+                grad = hashgrid_backward_plain(spec, x, g, ctx.num_rows, style)
+            else:
+                grad = kernels.hashgrid_backward(x.contiguous(), g.contiguous(),
+                                                 level_table(spec, x.device), ctx.num_rows,
+                                                 style_term(style))
+        if ctx.needs_input_grad[1] and not ctx.fast_vjp:  # else zero (None)
+            dx = kernels.hashgrid_position_grad(
+                x.contiguous(), g.contiguous(), ctx.saved_tensors[1].contiguous(),
+                level_table(spec, x.device), style_term(style))
+        return grad, dx, None, None, None, None
 
 
 def hashgrid_encode(
-    spec: HashGridSpec, table: torch.Tensor, x: torch.Tensor, *, plain: bool = False
+    spec: HashGridSpec, table: torch.Tensor, x: torch.Tensor, *, style: int = 0,
+    fast_vjp: bool = True, plain: bool = False,
 ) -> torch.Tensor:
-    """Encode [B, 3] points in [0, 1] through all levels -> [B, L*C].
+    """Encode [B, 3] points in [0, 1] through all levels at style slot
+    ``style`` -> [B, L*C].
 
-    CUDA tensors go through kernels K1 (and K2 in the backward); CPU tensors
-    (or ``plain=True``, the reference a kernel check compares against)
-    through the plain versions."""
-    return HashGridEncode.apply(table, x, spec, plain)
+    CUDA tensors go through kernel K1 (and K2 in the backward; K2x too with
+    ``fast_vjp=False``); CPU tensors (or ``plain=True``, the reference a
+    kernel check compares against) through the plain versions.  With
+    ``fast_vjp`` (the default) the points get a zero gradient, as in JAX's
+    fast VJP; without it their gradient, as JAX's autodiff gives it."""
+    if not fast_vjp and not use_kernel(x, plain):
+        return hashgrid_encode_plain(spec, table, x, style)
+    return HashGridEncode.apply(table, x, spec, style, fast_vjp, plain)
 
 
 # ---------------------------------------------------------------------------

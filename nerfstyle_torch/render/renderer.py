@@ -54,7 +54,7 @@ import torch
 
 from .. import DeviceLike, resolve_device
 from ..core.cameras import generate_rays
-from ..core.types import BBox, Intrinsics
+from ..core.types import BBox, Box2D, Intrinsics
 from ..models.fields import (FieldSpec, Params, check_field_spec, field_apply, field_color,
                              field_density)
 from ..ops.aabb import near_far_from_aabb
@@ -486,12 +486,15 @@ class Renderer:
         }
 
     def render_rays(
-        self, params: Params, origins: torch.Tensor, dirs: torch.Tensor, plain: bool = False
+        self, params: Params, origins: torch.Tensor, dirs: torch.Tensor, plain: bool = False,
+        chunk: Optional[int] = None,
     ) -> Dict[str, object]:
-        """Render N rays chunk by chunk, through :func:`render_chunk` or,
-        without ``infer_two_phase``, :func:`render_chunk_incremental`; maps
+        """Render N rays chunk by chunk (``chunk`` rays, CHUNK_RAYS by
+        default), through :func:`render_chunk` or, without
+        ``infer_two_phase``, :func:`render_chunk_incremental`; maps
         concatenate, counters add up."""
         s = self.settings
+        chunk = chunk or CHUNK_RAYS
         common = dict(t_thresh=s.t_thresh, density_scale=s.density_scale,
                       compute_dtype=self.compute_dtype, plain=plain)
         if s.infer_two_phase:
@@ -502,19 +505,60 @@ class Renderer:
             common["round_size"] = s.infer_round_size
         pieces = [
             chunk_fn(self.field_spec, self.plan, params, self.occ_field, self.bbox,
-                     origins[i:i + CHUNK_RAYS], dirs[i:i + CHUNK_RAYS], **common)
-            for i in range(0, origins.shape[0], CHUNK_RAYS)
+                     origins[i:i + chunk], dirs[i:i + chunk], **common)
+            for i in range(0, origins.shape[0], chunk)
         ]
         out: Dict[str, object] = {k: torch.cat([p[k] for p in pieces]) for k in MAP_KEYS}
         for k in keys:
             out[k] = sum(p[k] for p in pieces)
         return out
 
-    def render(self, params: Params, pose: torch.Tensor, plain: bool = False) -> Dict[str, object]:
-        """Render every pixel of ``self.intr`` from a [4, 4] camera-to-world
-        pose (row-major maps, see :meth:`render_rays`)."""
-        rays = generate_rays(pose.to(self.device, torch.float32), self.intr, self.settings.flip_camera)
-        return self.render_rays(params, rays.origins, rays.dirs, plain=plain)
+    def render_ray_batch(self, params: Params, origins: torch.Tensor, dirs: torch.Tensor,
+                         plain: bool = False) -> Dict[str, object]:
+        """A ray batch through the train path (:func:`render_rays`, two
+        phases), as a train step renders it."""
+        s = self.settings
+        return render_rays(self.field_spec, self.plan, params, self.occ_field, self.bbox,
+                           origins, dirs, t_thresh=s.t_thresh, density_scale=s.density_scale,
+                           compute_dtype=self.compute_dtype, plain=plain)
+
+    def render(
+        self,
+        params: Params,
+        pose: torch.Tensor,
+        image: Optional[torch.Tensor] = None,
+        patch: Optional[Box2D] = None,
+        num_rays: Optional[int] = None,
+        training: bool = False,
+        generator: Optional[torch.Generator] = None,
+        chunk: Optional[int] = None,
+        plain: bool = False,
+    ) -> Dict[str, object]:
+        """Render from a [4, 4] camera-to-world pose (JAX's
+        ``Renderer.render``): the pixels of ``self.intr``, of a ``patch`` of
+        it, or ``num_rays`` of them drawn without replacement
+        (``generator``); row-major maps (see :meth:`render_rays`) and
+        ``target``, each ray's pixel of ``image`` ([C, H, W]; None without
+        it).  ``training`` renders through the train path
+        (:meth:`render_ray_batch`; a frame or patch in chunks of ``chunk``
+        rays), else through the inference path in chunks."""
+        rays, target = generate_rays(pose.to(self.device, torch.float32), self.intr,
+                                     None if image is None else image.to(self.device),
+                                     patch=patch, num_rays=num_rays,
+                                     camera_flip=self.settings.flip_camera, generator=generator)
+        if not training:
+            out = self.render_rays(params, rays.origins, rays.dirs, plain=plain, chunk=chunk)
+        elif num_rays is not None:
+            out = self.render_ray_batch(params, rays.origins, rays.dirs, plain=plain)
+        else:
+            step = chunk or CHUNK_RAYS
+            pieces = [self.render_ray_batch(params, rays.origins[i:i + step],
+                                            rays.dirs[i:i + step], plain=plain)
+                      for i in range(0, len(rays), step)]
+            out = {k: torch.cat([p[k] for p in pieces]) for k in MAP_KEYS}
+            for k in ("num_points", "num_sig"):
+                out[k] = sum(p[k] for p in pieces)
+        return {"target": target, **out}
 
     def load_state_dict_static(self, sd: Dict[str, object]) -> None:
         """Check the checkpoint's renderer fields against this renderer and

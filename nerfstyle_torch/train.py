@@ -6,7 +6,7 @@
 
 Stage 2, stylization of a stage-1 checkpoint (only the color hash table is
 optimized; ``cfgs/training/style.yaml`` is applied; the style image is an
-8-bit PNG, a baseline JPEG or a ``.npy`` array)::
+8-bit PNG, a sequential or progressive JPEG or a ``.npy`` array)::
 
     python -m nerfstyle_torch.train --ckpt <recon.ckpt> --log-dir logs/style \\
         --style-image style.jpg --style_seg_path style_seg.npz --max_steps 512

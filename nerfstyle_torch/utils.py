@@ -6,7 +6,7 @@ Counterpart of ``nerfstyle_tpu/utils.py`` for what rendering, training and
 the dataset loaders need.  Images are read and written by
 :mod:`nerfstyle_torch.imageio` (numpy and the standard library), so the port
 needs no image package: :func:`parse_rgb` takes 8-bit PNGs (gray, gray +
-alpha, RGB, RGBA; plain or Adam7-interlaced), baseline JPEGs and ``.npy``
+alpha, RGB, RGBA; plain or Adam7-interlaced), Huffman JPEGs and ``.npy``
 arrays, told apart by their content; :func:`png_size` reads a PNG's size
 from its header; :func:`save_gif` writes an animated GIF.
 """
@@ -124,8 +124,9 @@ def parse_rgb(path: Union[str, Path], size: Optional[Union[int, Tuple[int, int]]
     does with PIL.
 
     Reads, by their content as PIL does: 8-bit PNGs (gray, gray + alpha,
-    RGB, RGBA; plain or Adam7-interlaced), baseline JPEGs (gray or colour,
-    [H, W, 1] or [H, W, 3], decoded to PIL's bits) and ``.npy`` arrays of
+    RGB, RGBA; plain or Adam7-interlaced), sequential and progressive
+    Huffman JPEGs (gray, colour or CMYK: [H, W, 1], [H, W, 3] or PIL's
+    [H, W, 4], decoded to PIL's bits) and ``.npy`` arrays of
     [H, W] or [H, W, C] (uint8, or float in [0, 1], which is quantized to 8
     bits as a PNG would be)."""
     path = Path(path)
@@ -141,7 +142,7 @@ def parse_rgb(path: Union[str, Path], size: Optional[Union[int, Tuple[int, int]]
             arr = (np.clip(np.nan_to_num(arr.astype(np.float32)), 0.0, 1.0) * 255).astype(np.uint8)
         img = arr[..., None] if arr.ndim == 2 else arr
     else:
-        raise ValueError(f"{path}: images are read as .png (8-bit), .jpg/.jpeg (baseline) "
+        raise ValueError(f"{path}: images are read as .png (8-bit), .jpg/.jpeg (Huffman) "
                          f"or .npy; its first bytes are {head!r}")
     if size is not None:
         if isinstance(size, int):
@@ -218,6 +219,11 @@ def collage_h(img1: np.ndarray, img2: np.ndarray) -> np.ndarray:
 
 def compute_psnr(mse: float) -> float:
     return -10.0 * math.log(mse) / math.log(10.0) if mse > 0 else float("inf")
+
+
+def density2alpha(densities: torch.Tensor, dists: torch.Tensor) -> torch.Tensor:
+    """``1 - exp(-relu(sigma) * dist)``, as ``nerfstyle_tpu.utils.density2alpha``."""
+    return 1.0 - torch.exp(-torch.clamp(densities, min=0.0) * dists)
 
 
 def tab10_colormap(n: int) -> np.ndarray:

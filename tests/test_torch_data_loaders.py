@@ -187,16 +187,21 @@ def test_torch_colour_transfer_matches_jax():
 
 @pytest.mark.parametrize("sampling", ["4:2:0", "4:4:4"])
 def test_torch_llff_jpeg_frames_raise(tmp_path, sampling):
-    """JPEG frames: baseline ones load bit-equal to the JAX loader's (PIL's
-    decode); progressive ones, which only PIL decodes, raise naming the
+    """JPEG frames: baseline and progressive ones load bit-equal to the JAX
+    loader's (PIL's decode); an arithmetic-coded one (a progressive frame's
+    SOF2 marker patched to SOF10: no Pillow writes them) raises naming the
     format."""
     root = write_llff(tmp_path / "room", LLFF_FILES[:3], ext=".jpg", quality=80,
                       subsampling=sampling)
     for split in ("TRAIN", "TEST"):
         assert_same_dataset(*_load(*_cfgs(root, "LLFF"), split))
-    root = write_llff(tmp_path / "prog", LLFF_FILES[:2], ext=".jpg", progressive=True)
+    root = write_llff(tmp_path / "prog", LLFF_FILES[:2], ext=".jpg", progressive=True,
+                      subsampling=sampling)
+    assert_same_dataset(*_load(*_cfgs(root, "LLFF"), "TRAIN"))
+    frame = root / (LLFF_FILES[1] + ".jpg")
+    frame.write_bytes(frame.read_bytes().replace(b"\xff\xc2", b"\xff\xca", 1))
     _, tcfg = _cfgs(root, "LLFF")
-    with pytest.raises(ValueError, match="progressive JPEG"):
+    with pytest.raises(ValueError, match="arithmetic-coded progressive JPEG"):
         get_dataset(tcfg, split=DatasetSplit.TRAIN)
 
 

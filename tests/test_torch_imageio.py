@@ -158,13 +158,24 @@ def test_torch_png_gray_alpha_matches_pil(tmp_path):
 
 
 def test_torch_unsupported_images_raise(tmp_path):
-    """A progressive JPEG, a 16-bit gray PNG and a palette PNG (which PIL
-    reads, as progressive colour, I;16 values and palette indices) raise
-    ``ValueError`` naming the format."""
-    prog = tmp_path / "p.jpg"
-    _pil_jpeg(prog, 37, 29, "4:2:0", 75, progressive=True)
-    with pytest.raises(ValueError, match="progressive JPEG"):
-        tu.parse_rgb(prog)
+    """An arithmetic-coded JPEG (a baseline file's SOF0 patched to SOF9), a
+    YCCK JPEG (a CMYK file's Adobe transform patched to 2), a 16-bit gray
+    PNG and a palette PNG (which PIL reads as I;16 values and palette
+    indices) raise ``ValueError`` naming the format."""
+    base = tmp_path / "p.jpg"
+    _pil_jpeg(base, 37, 29, "4:2:0", 75)
+    arith = tmp_path / "arith.jpg"
+    arith.write_bytes(base.read_bytes().replace(b"\xff\xc0", b"\xff\xc9", 1))
+    with pytest.raises(ValueError, match="arithmetic-coded JPEG"):
+        tu.parse_rgb(arith)
+    buf = io.BytesIO()
+    Image.fromarray(_picture(20, 12, 4), "CMYK").save(buf, "JPEG", quality=90)
+    blob = bytearray(buf.getvalue())
+    at = blob.index(b"Adobe") - 4  # the APP14 marker, then its length
+    assert blob[at + 4 + 11] == 0  # transform 0: CMYK as stored
+    blob[at + 4 + 11] = 2
+    with pytest.raises(ValueError, match="YCCK JPEG"):
+        jpeg.decode_jpeg(bytes(blob))
     sixteen = tmp_path / "s.png"
     Image.fromarray(_picture(20, 10, 1)[..., 0].astype(np.uint16) * 257).save(sixteen)
     with pytest.raises(ValueError, match="bit depth 16"):

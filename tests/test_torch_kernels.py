@@ -385,6 +385,99 @@ def test_torch_hashgrid_kernels_with_many_levels(cuda_device, channels):
                                want, rtol=1e-5, atol=1e-6 * float(want.abs().max()))
 
 
+STYLES = (0, 1, 63, 511)
+
+
+@pytest.mark.parametrize("simplex_from", [-1, 2])
+@pytest.mark.parametrize("channels", [1, 2, 4])
+@pytest.mark.parametrize("style", STYLES)
+def test_torch_styled_hashgrid_kernels_match_plain(cuda_device, style, channels, simplex_from):
+    """K1/K1s and K2/K2s at style slot s (511 = MAX_STYLES - 1): K1 equals
+    the plain encode at s bit for bit, K2 the plain version's float64 sums
+    at s within rtol 1e-5 and 1e-6 of the largest row, on a ray-ordered
+    stream with random points (some outside [0, 1]^3) after it; s = 0 runs
+    the unstyled instantiation and equals the call without a style."""
+    rng = np.random.default_rng(style + 7 * channels)
+    spec = th.hashgrid_spec(**TINY, simplex_from=simplex_from)
+    pts = np.concatenate([_ordered_stream(rng, "rays"),
+                          rng.uniform(-0.1, 1.1, size=(997, 3)).astype(np.float32)])
+    x = torch.from_numpy(pts).to(cuda_device)
+    table = torch.from_numpy(rng.uniform(-1, 1, size=(spec.total_params, channels))
+                             .astype(np.float32)).to(cuda_device)
+    g = torch.from_numpy(rng.normal(size=(x.shape[0], spec.num_levels * channels))
+                         .astype(np.float32)).to(cuda_device)
+    lv, term = th.level_table(spec, cuda_device), th.style_term(style)
+    got = kernels.hashgrid_encode(x, table, lv, term)
+    want = th.hashgrid_encode(spec, table, x, style=style, plain=True)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    if style:
+        assert not torch.equal(want, th.hashgrid_encode(spec, table, x, plain=True))
+    else:
+        torch.testing.assert_close(kernels.hashgrid_encode(x, table, lv), got, rtol=0, atol=0)
+    grad = kernels.hashgrid_backward(x, g, lv, spec.total_params, term)
+    want_g = th.hashgrid_backward_plain(spec, x, g.double(), spec.total_params, style)
+    torch.testing.assert_close(grad.double(), want_g, rtol=1e-5,
+                               atol=1e-6 * float(want_g.abs().max()))
+
+
+def _position_points(rng) -> np.ndarray:
+    """A ray-ordered stream, random points (some outside [0, 1]^3), points
+    on cell faces (x = k / 64, and 1.0) and planted ties of the fractions
+    at resolution 64 (two and three equal), as the CPU test plants them."""
+    k = rng.integers(0, 64, size=(96, 3)) / 64.0
+    k[::4, 0] = 1.0
+    f = rng.integers(1, 4, size=(96, 1)) / 4.0
+    three = (rng.integers(0, 63, size=(96, 3)) + f) / 64.0
+    two = (rng.integers(0, 63, size=(96, 3)) + f[:, [0, 0, 0]] * np.array([1, 1, 0.5])) / 64.0
+    return np.concatenate([_ordered_stream(rng, "rays"), rng.uniform(-0.1, 1.1, size=(997, 3)),
+                           k, three, two]).astype(np.float32)
+
+
+# Grids for K2x: TINY-like at power-of-two resolutions (8 .. 64, so the
+# planted fractions are exact), with and without simplex levels, and 48
+# levels (the cotangent tile past 48 KB of shared memory).
+POSITION_GRIDS = {
+    "trilinear": dict(num_levels=4, level_dim=2, base_resolution=8, per_level_scale=2.0,
+                      log2_hashmap_size=10),
+    "simplex": dict(num_levels=4, level_dim=2, base_resolution=8, per_level_scale=2.0,
+                    log2_hashmap_size=10, simplex_from=2),
+    "48 levels": dict(num_levels=48, level_dim=2, base_resolution=4, per_level_scale=1.1,
+                      log2_hashmap_size=10, simplex_from=40),
+}
+
+
+@pytest.mark.parametrize("style", [0, 63])
+@pytest.mark.parametrize("channels", [1, 2, 4])
+@pytest.mark.parametrize("grid", list(POSITION_GRIDS))
+def test_torch_position_grad_kernel_matches_plain(cuda_device, grid, channels, style):
+    """K2x, the position gradient of ``hashgrid_encode(fast_vjp=False)``,
+    against its plain version (autograd through the plain encode), which
+    sums in another order: every entry within 1e-5 of the largest |d x|.
+    Points outside [0, 1]^3 get exactly 0.  Through autograd the backward
+    launches K2 and K2x once each; with ``fast_vjp`` it launches no K2x."""
+    rng = np.random.default_rng(channels + 10 * style)
+    spec = th.hashgrid_spec(**POSITION_GRIDS[grid])
+    x = torch.from_numpy(_position_points(rng)).to(cuda_device)
+    table = torch.from_numpy(rng.uniform(-1, 1, size=(spec.total_params, channels))
+                             .astype(np.float32)).to(cuda_device).requires_grad_(True)
+    g = torch.from_numpy(rng.normal(size=(x.shape[0], spec.num_levels * channels))
+                         .astype(np.float32)).to(cuda_device)
+    pts = x.clone().requires_grad_(True)
+    kernels.reset_launch_counts()
+    th.hashgrid_encode(spec, table, pts, style=style, fast_vjp=False).backward(g)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["hashgrid_position_grad"] == 1
+    assert kernels.launch_counts["hashgrid_backward"] == 1
+    want = th.hashgrid_position_grad_plain(spec, table.detach(), x, g, style)
+    inside = ((x >= 0) & (x <= 1)).all(dim=-1)
+    assert not bool(pts.grad[~inside].any()) and bool(pts.grad[inside].any())
+    torch.testing.assert_close(pts.grad, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+    kernels.reset_launch_counts()
+    pts.grad = None
+    th.hashgrid_encode(spec, table, pts, style=style).backward(g)
+    assert kernels.launch_counts["hashgrid_position_grad"] == 0 and pts.grad is None
+
+
 def test_torch_interop_kernels_match_plain(cuda_device):
     """K8a (pack, unpack) and K8b (Morton code, inverse) equal their plain
     versions bit for bit, and a grid's round trip through the reference
@@ -1424,7 +1517,7 @@ def _view_renderer(device, family):
                                               torch.tensor(0, dtype=torch.int32)))
     pose = torch.eye(4)
     pose[2, 3] = -2.5  # looking down +z at the box
-    rays = generate_rays(pose.to(device), r.intr)
+    rays, _ = generate_rays(pose.to(device), r.intr)
     return spec, params, r, rays
 
 

@@ -122,8 +122,13 @@
    against the plain path; rounds a chunk, the round loop's host reads and
    the frame's synchronizing calls (torch.cuda's sync debug mode), samples
    evaluated beside the two-phase frame's phase A and B, steady frames of
-   both schemes in turns; K4i, P0, K1 and K5's forward on a round of the
-   frame's first chunk against their plain versions, timed.
+   both schemes in turns; K4i, P0, K1 and K5's forward on the frame's
+   largest round against their plain versions, timed (P0 also on the
+   view-dependent fields' 32-byte rows, K4i also on a later round at round
+   size 4); K4i and P0 also cold (``cold_ms``: a 128 MiB write before
+   each launch, so that the round's bytes come from HBM; their share of
+   the bound is taken from it), beside an empty kernel's warm and cold
+   times.  K8b's rows (import phase) are timed cold too.
 14. Before the style path: VGG16's input gradient on a planted-tie frame
    (exact-zero pre-activations, tied pool windows) on the card against the
    CPU, layer by layer (``vgg_tie_check``).  The style path reads its
@@ -232,6 +237,16 @@ each under the profiler, and prints what each frame issued as one JSON
 line.  A copy of this file in each of two checkouts compares their late
 steps or their frames by what they issue, which the host's noise does not
 move.
+
+    python3 chip_smoke.py --round-kernels
+
+times the incremental frame's round kernels alone, as the incremental
+phase does (P0 on the largest round's 16- and 32-byte rows, K4i on the
+largest round and on a round-size-4 round, warm and cold, beside the
+launch floor; P0 also at its own shape and at 2^20 indices) and prints
+them as one JSON line; a copy of this file in a
+parent's checkout times the parent's kernels on the same card (run
+parent, change, change, parent in one call).
 """
 
 from __future__ import annotations
@@ -374,6 +389,8 @@ TRAIN_GLOBALS = {
 GENERAL_GRIDS = (256, 100, 24)
 # Rows of the timed K5 backward with every weight gradient (a train batch).
 K5_DW_ROWS = 1 << 20
+# Written before each cold launch (cold_ms): 2.5x the H100's 50 MB L2.
+COLD_FLUSH_BYTES = 128 * 2**20
 DENSITY_OFFSET = 6.0
 DEVICE = "cuda"
 
@@ -431,6 +448,56 @@ def graph_ms(fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cold_ms(fn, reps: int = 20) -> float:
+    """Mean device time of fn() launched with a cold L2: before each launch
+    a buffer of COLD_FLUSH_BYTES (2.5x the H100's 50 MB L2) is written, so
+    fn's inputs come from HBM and the L2 it finds holds dirty lines to
+    write back; CUDA events bracket fn() alone.  A spin kernel holds the
+    stream while the host enqueues every launch, so that no event waits on
+    the host (the spin is doubled and the reps run again if it ended
+    first).  Kernels whose working set fits in L2 read warm from a CUDA
+    graph's replays (graph_ms); their share of an HBM bound is taken from
+    this time."""
+    flush = torch.empty((COLD_FLUSH_BYTES // 4,), device=DEVICE)
+    fn()
+    torch.cuda.synchronize()
+    spin = 1 << 24
+    for _ in range(6):
+        pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                 for _ in range(reps)]
+        torch.cuda._sleep(spin)
+        for i, (start, end) in enumerate(pairs):
+            flush.fill_(float(i))
+            start.record()
+            fn()
+            end.record()
+        held = not torch.cuda.current_stream().query()
+        torch.cuda.synchronize()
+        if held:
+            return sum(a.elapsed_time(b) for a, b in pairs) / reps
+        spin *= 2
+    raise RuntimeError("cold_ms: the host did not enqueue the launches within the spin")
+
+
+def launch_floor() -> dict:
+    """An empty kernel (one warp) from a CUDA graph and cold (cold_ms: the
+    events' own floor), beside the rows of kernels of a few µs."""
+    from nerfstyle_torch import kernels
+
+    dev = torch.device(DEVICE)
+    return {"empty_kernel_ms": graph_ms(lambda: kernels.empty_kernel(dev)),
+            "empty_kernel_cold_ms": cold_ms(lambda: kernels.empty_kernel(dev))}
+
+
+def cold_share(what: str, b_ms: float, c_ms: float, fails) -> float:
+    """The bound's share of the cold time; above 1 the cold time is not a
+    time the card could take, and the check fails."""
+    share = b_ms / c_ms
+    if not share <= 1.0:
+        fails.append(f"{what}: bound {b_ms:.5f} ms is {share:.0%} of the cold time {c_ms:.5f}")
+    return share
 
 
 def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_FP32_PER_S):
@@ -2253,11 +2320,19 @@ def import_phase(card: str, ckpt: Path, spec, frame, fails):
         b_ms, b_by = bound_ms(nbytes=nbytes, flops=flops)
         table[kid] = dict(max_abs_err=0.0 if exact else float("inf"), ms=ms, plain_ms=plain_ms,
                           bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        cold = ""
         if kid.startswith("K8a"):
             table[kid]["empty_kernel_ms"] = floor_ms
+        else:
+            # K8b's 33.5 MB stay in L2 across a graph's replays: its share
+            # of the HBM bound is taken from the cold time.
+            c_ms = cold_ms(fn)
+            share = cold_share(kid, b_ms, c_ms, fails)
+            table[kid].update(cold_ms=c_ms, cold_share=share)
+            cold = f"; cold {c_ms:.4f}, the bound {share:.0%} of it"
         log(f"{kid}: {n if 'K8a' in kid else h**3} cells; equal to plain: {exact}; ms "
-            f"{ms:.4f} (graph; {host_ms:.4f} launched one by one; empty kernel {floor_ms:.4f}), "
-            f"plain_ms {plain_ms:.4f}, bound_ms {b_ms:.5f} ({b_by})")
+            f"{ms:.4f} (graph; {host_ms:.4f} launched one by one; empty kernel {floor_ms:.4f}"
+            f"{cold}), plain_ms {plain_ms:.4f}, bound_ms {b_ms:.5f} ({b_by})")
     return launches, table
 
 
@@ -3817,27 +3892,30 @@ def k4i_row(sig, tau, offsets, t0, dt: float, t_thresh: float, what: str, fails)
                                                                  t_thresh), reps=20)
     plain_ms = cuda_ms(lambda: compositing.sample_weights_entering(sig, tau, offsets, t0, dt,
                                                                    t_thresh, plain=True), reps=5)
+    c_ms = cold_ms(lambda: kernels.composite_weights_entering(sig, tau, offsets, t0, dt, t_thresh))
     # Bytes: offsets, t0, every sample's sigma (t_out sums the whole round),
     # tau of the included samples, w of every sample, three per-ray outputs.
     # About 8 operations a sample.
     n_inc = int((trans64 >= t_thresh).sum())
     b_ms, b_by = bound_ms(nbytes=(n + 1) * 8 + n * 4 + m * 4 + n_inc * 4 + m * 4 + n * 12,
                           flops=m * 8)
+    share = cold_share(f"K4i at {what}", b_ms, c_ms, fails)
     log(f"K4i composite_weights_entering at {what}: {m} samples over {n} rays "
         f"({ray_length_stats(offsets)}), entering T min {float(t0.min()):.3e}, {n_inc} samples "
         f"included, {int(edge.sum())} edge rays; max_abs_err w/ws/depth inner, edge {errs} (tol "
         f"{tols}), t_out relative {t_err:.2e}; ms {ms:.4f} (graph; {host_ms:.4f} launched one by "
-        f"one), plain_ms {plain_ms:.3f}, bound_ms {b_ms:.4f} ({b_by})")
+        f"one; cold {c_ms:.4f}, the bound {share:.0%} of it), plain_ms {plain_ms:.3f}, bound_ms "
+        f"{b_ms:.4f} ({b_by})")
     return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+                library_ms=None, cold_ms=c_ms, cold_share=share)
 
 
 def p0_round_row(rows, pos, what: str, fails) -> dict:
-    """P0 on a round's gather as the path hands it over (the chunk's
-    [xyz, tau] rows, the round's int32 positions), bit-equal to
-    ``rows[pos]``; the kernel, the plain version and ``index_select`` (its
-    library yardstick) from CUDA graphs.  Bound: the positions, the rows
-    read once, the output written once."""
+    """P0 on a round's gather as the path hands it over (the chunk's rows,
+    the round's int32 positions), bit-equal to ``rows[pos]``; the kernel,
+    the plain version and ``index_select`` (its library yardstick) from
+    CUDA graphs, and the kernel cold (cold_ms).  Bound: the positions, the
+    rows read once, the output written once."""
     from nerfstyle_torch.ops import gather
 
     got, ref = gather.take_rows(rows, pos), gather.take_rows(rows, pos, plain=True)
@@ -3846,13 +3924,85 @@ def p0_round_row(rows, pos, what: str, fails) -> dict:
     ms = graph_ms(lambda: gather.take_rows(rows, pos))
     plain_ms = graph_ms(lambda: gather.take_rows(rows, pos, plain=True))
     lib_ms = graph_ms(lambda: torch.index_select(rows, 0, pos))
+    c_ms = cold_ms(lambda: gather.take_rows(rows, pos))
     n, c = pos.shape[0], rows.shape[1]
     b_ms, b_by = bound_ms(nbytes=n * 4 + 2 * n * c * 4, flops=0)
+    share = cold_share(f"P0 at {what}", b_ms, c_ms, fails)
     log(f"P0 take_rows at {what}: {n} positions into [{rows.shape[0]}, {c}] f32; bit-equal to "
-        f"rows[pos]: {torch.equal(got, ref)}; ms {ms:.4f} (graph), plain_ms {plain_ms:.4f}, "
-        f"index_select ms {lib_ms:.4f}, bound_ms {b_ms:.4f} ({b_by})")
+        f"rows[pos]: {torch.equal(got, ref)}; ms {ms:.4f} (graph; cold {c_ms:.4f}, the bound "
+        f"{share:.0%} of it), plain_ms {plain_ms:.4f}, index_select ms {lib_ms:.4f}, bound_ms "
+        f"{b_ms:.4f} ({b_by})")
     return dict(max_abs_err=float((got - ref).abs().max()), ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, cold_ms=c_ms, cold_share=share)
+
+
+def capture_rounds(renderer, params, pose, inc):
+    """The frame through the incremental renderer at settings ``inc``, then
+    at round size 4, with the renderer's round calls watched.  Returns the
+    round-size-4 frame; the largest round's K4i arguments, its P0 arguments
+    (the chunk's [xyz, tau] rows, the round's positions) and its chunk's
+    march stream; and the K4i arguments of the first round-size-4 round
+    whose rays enter with T < 1 (None if no ray lived into a second
+    round)."""
+    from unittest import mock
+
+    from nerfstyle_torch.render import renderer as rmod
+
+    best, pending, later = {"m": -1}, {}, {}
+
+    def march_spy(*args, **kw):
+        pending["sb"] = real_march(*args, **kw)
+        return pending["sb"]
+
+    def p0_spy(table, idx, **kw):
+        pending["p0"] = (table, idx)
+        return real_p0(table, idx, **kw)
+
+    def k4i_spy(*args, **kw):
+        if args[0].shape[0] > best["m"]:
+            best.update(m=args[0].shape[0], k4i=args[:6], p0=pending["p0"], sb=pending["sb"])
+        if "k4i" not in later and float(args[3].min()) < 1.0:
+            later["k4i"] = args[:6]
+        return real_k4i(*args, **kw)
+
+    real_k4i, real_p0, real_march = rmod.sample_weights_entering, rmod.take_rows, rmod.march_rays
+    base = renderer.settings
+    try:
+        with mock.patch.object(rmod, "sample_weights_entering", k4i_spy), \
+                mock.patch.object(rmod, "take_rows", p0_spy), \
+                mock.patch.object(rmod, "march_rays", march_spy), torch.no_grad():
+            renderer.settings = inc
+            renderer.render(params, pose)
+            renderer.settings = dataclasses.replace(inc, infer_round_size=4)
+            out4 = renderer.render(params, pose)
+    finally:
+        renderer.settings = base
+    return out4, best, later.get("k4i")
+
+
+def round_rows(best, later, fails) -> dict:
+    """K4i and P0 on the largest round of an incremental frame (P0 on its
+    16-byte [xyz, tau] rows, and on the same positions into the 32-byte
+    [xyz, tau, dirs, 0] rows that the view-dependent fields gather, built
+    from the chunk's march stream as render/renderer.py builds them), and
+    K4i on a later round at round size 4; warm and cold."""
+    sig, tau, offsets, t0, dt, t_thresh = best["k4i"]
+    rows, pos = best["p0"]
+    sb = best["sb"]
+    wide = torch.cat([sb.xyz, sb.tau[:, None], sb.dirs, torch.zeros_like(sb.tau)[:, None]], 1)
+    if not torch.equal(wide[:, :4], rows):
+        fails.append("the captured march stream does not hold the largest round's rows")
+    what = f"an incremental frame's largest round ({sig.shape[0]} samples)"
+    table = {"K4i": k4i_row(sig, tau, offsets, t0, dt, t_thresh, what, fails),
+             "P0 incremental": p0_round_row(rows, pos, what, fails),
+             "P0 incremental 32 B": p0_round_row(wide, pos, what + ", 32-byte view-field rows",
+                                                 fails)}
+    if later is None:
+        fails.append("the incremental frame at round size 4 carried no ray into a second round")
+    else:
+        table["K4i later"] = k4i_row(*later, f"a later round at round size 4 ({later[0].shape[0]} "
+                                             "samples, rays entering with T < 1)", fails)
+    return table
 
 
 def k5f_heads_row(heads, dtype, what: str, fails) -> dict:
@@ -3915,8 +4065,6 @@ def incremental_phase(renderer, params, pose, rays, card: str, fails):
     frame's largest round, and K4i on a later round of the round-size-4
     frame (rays entering with T < 1).  Returns the frame's launches and the
     kernel-table rows."""
-    from unittest import mock
-
     from nerfstyle_torch.models.fields import _encoder_input
     from nerfstyle_torch.render import renderer as rmod
 
@@ -4003,25 +4151,7 @@ def incremental_phase(renderer, params, pose, rays, card: str, fails):
     # live into a second round, against the two-phase frame at sig_eps 0,
     # and its first round whose rays enter with T < 1 for one more check of
     # K4i.
-    best, pending, later = {"m": -1}, {}, {}
-
-    def p0_spy(table, idx, **kw):
-        pending["p0"] = (table, idx)
-        return real_p0(table, idx, **kw)
-
-    def k4i_spy(*args, **kw):
-        if args[0].shape[0] > best["m"]:
-            best.update(m=args[0].shape[0], k4i=args[:6], p0=pending["p0"])
-        if "k4i" not in later and float(args[3].min()) < 1.0:
-            later["k4i"] = args[:6]
-        return real_k4i(*args, **kw)
-
-    real_k4i, real_p0 = rmod.sample_weights_entering, rmod.take_rows
-    small = dataclasses.replace(inc, infer_round_size=4)
-    with mock.patch.object(rmod, "sample_weights_entering", k4i_spy), \
-            mock.patch.object(rmod, "take_rows", p0_spy):
-        frame(inc)
-        out4 = frame(small)
+    out4, best, later = capture_rounds(renderer, params, pose, inc)
     errs4 = {k: float((out4[k] - every[k]).abs().max()) for k in tol}
     if not all(errs4[k] <= t for k, t in tol.items()):
         fails.append(f"incremental frame at round size 4 against the two-phase frame at sig_eps "
@@ -4029,17 +4159,13 @@ def incremental_phase(renderer, params, pose, rays, card: str, fails):
     log(f"incremental frame at round size 4: {out4['rounds']} rounds over {chunks} chunks "
         f"({out4['rounds'] / chunks:.2f} a chunk), samples evaluated {out4['num_points']}; max "
         f"abs err against the two-phase frame at sig_eps 0 {errs4} (tol {tol})")
-    sig, tau, offsets, t0, dt, t_thresh = best["k4i"]
+    floor = launch_floor()
+    log(f"empty kernel (one warp) beside the round rows: {floor}")
+    table = round_rows(best, later, fails)
+    for kid in ("K4i", "P0 incremental"):
+        table[kid].update(floor)
     rows, pos = best["p0"]
-    what = f"an incremental frame's largest round ({sig.shape[0]} samples)"
-    table = {"K4i": k4i_row(sig, tau, offsets, t0, dt, t_thresh, what, fails),
-             "P0 incremental": p0_round_row(rows, pos, what, fails)}
-    if "k4i" in later:
-        lat = later["k4i"]
-        k4i_row(*lat, f"a later round at round size 4 ({lat[0].shape[0]} samples, rays "
-                      "entering with T < 1)", fails)
-    else:
-        fails.append("the incremental frame at round size 4 carried no ray into a second round")
+    what = f"an incremental frame's largest round ({pos.shape[0]} samples)"
     spec, dtype = renderer.field_spec, renderer.compute_dtype
     fused = torch.cat([params["x_density_embedder"], params["x_color_embedder"]], 1).detach()
     x = _encoder_input(renderer.bbox, rows[pos.long(), :3]).contiguous()
@@ -4731,9 +4857,16 @@ def main() -> int:
          "ray entering with the transmittance of its earlier rounds)", cp,
          "nerfstyle_tpu/render/renderer.py:364", ("composite_weights_entering",),
          ("incremental",)),
+        ("K4i later", "K4i composite_weights_entering, a later round of the incremental frame "
+         "at round size 4 (rays entering with T < 1; on no path: the default round size is 32)",
+         cp, "nerfstyle_tpu/render/renderer.py:364", ("composite_weights_entering",), ()),
         ("P0 incremental", "P0 take_rows, an incremental round's gather of its samples' [xyz, "
          "tau] rows (16 bytes a row)", "nerfstyle_torch/csrc/gather.cu",
          "tools/exp_encoder_r4.py:120", ("take_rows",), ("incremental",)),
+        ("P0 incremental 32 B", "P0 take_rows, the same positions into the view-dependent "
+         "fields' [xyz, tau, dirs, 0] rows (32 bytes a row; on no path: those fields are library "
+         "API)", "nerfstyle_torch/csrc/gather.cu", "tools/exp_encoder_r4.py:120", ("take_rows",),
+         ()),
         ("K1 incremental", "K1 hashgrid_encode, an incremental round's samples (fused [T, 4])",
          hg, "nerfstyle_tpu/ops/hashgrid.py:818", ("hashgrid_encode:incremental",),
          ("incremental",)),
@@ -4760,6 +4893,9 @@ def main() -> int:
     off_default = {"K6c general"}
     rows, loss = [], {}
     for kid, name, source, replaces, counters, paths in meta:
+        if kid not in table:
+            fails.append(f"{name}: no kernel-table row (its phase did not measure it)")
+            continue
         launches = sum(runs[p].get(c, 0) for p in paths for c in counters)
         if paths and launches <= 0 and kid not in off_default:
             fails.append(f"{name} launched no time on {paths}")
@@ -4859,7 +4995,48 @@ def view_frame_main(frames: int = 2) -> int:
     return 0
 
 
-MODES = {"--late-step": late_step_main, "--view-frame": view_frame_main}
+def round_kernels_main() -> int:
+    """``--round-kernels``: the incremental frame's round kernels alone, as
+    incremental_phase times them (P0 on the largest round's 16- and 32-byte
+    rows, K4i on the largest round and on a later round at round size 4,
+    each warm from a CUDA graph and cold), and P0 at its own shape and at
+    2^20 indices (p0_rows), beside the launch floor; one JSON line.  Copied
+    into a parent's ``git archive`` it times the parent's kernels on the
+    same card: run parent, change, change, parent in one call."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this check needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from nerfstyle_torch import kernels
+    from nerfstyle_torch.render import cli
+
+    card = card_line()
+    log(f"card: {card}")
+    kernels.build(verbose=True)
+    kernels.library()
+    WORK.mkdir(parents=True, exist_ok=True)
+    write_checkpoint(WORK / "smoke.ckpt")
+    renderer, params, test_set, _ = cli.load_renderer(WORK / "smoke.ckpt", DEVICE, OUT_DIMS,
+                                                      max_count=1)
+    pose = torch.from_numpy(np.asarray(test_set[0][1]))
+    inc = dataclasses.replace(renderer.settings, infer_two_phase=False)
+    _, best, later = capture_rounds(renderer, params, pose, inc)
+    fails = []
+    rows = round_rows(best, later, fails)
+    rows.update(p0_rows(fails))
+    rows["launch floor"] = launch_floor()
+    if fails:
+        for f in fails:
+            print(f"FAIL: {f}", file=sys.stderr)
+        return 1
+    print(card)
+    print(json.dumps({"round_kernels": rows}))
+    return 0
+
+
+MODES = {"--late-step": late_step_main, "--view-frame": view_frame_main,
+         "--round-kernels": round_kernels_main}
 
 if __name__ == "__main__":
     sys.exit(MODES[sys.argv[1]]() if sys.argv[1:] and sys.argv[1] in MODES else main())

@@ -37,10 +37,30 @@
 //     T_i = t0 * exp(-sum_{j<i} sdt_j),  w_i = alpha_i * T_i while T_i >= t_thresh,
 // and the ray leaves with t_out = t0 * exp(-sum sdt) over all of the round's
 // samples (the death test reads it).  K4 cannot do this: its threshold test
-// has no entering T.  The same warp a ray and chunk scan as K4; the walk
-// does not stop at the cutoff, because t_out sums the round's whole optical
-// depth (a round is short: 32 samples, one chunk, at the default round
-// size).  No backward: inference only.
+// has no entering T.  K4's chunk scan, lane a sample, and K4's sum trees, so
+// at t0 = 1 it gives K4's bits; the walk does not stop at the cutoff,
+// because t_out sums the round's whole optical depth.  A round is short (32
+// samples a ray, one chunk, at the default round size).  The grid is about
+// one wave of resident warps, each walking a contiguous block of rays: lane
+// i loads ray r0 + i's offsets and t0 (one coalesced load each, handed out
+// by shuffle, 32-bit offsets from the group's first sample), the next
+// chunk's sigma and tau are loaded before the current chunk's scan (a
+// two-deep register pipeline), each scan level is one shuffle and one add
+// predicated on the shuffle's own in-range bit (warp_inclusive_scan_p),
+// weights_sum's and depth's warp sums share their shuffles (warp_sum_pair:
+// each keeps its own tree), a sample's inclusion is a mask test instead of
+// a branch, and lane i keeps ray r0 + i's results for one coalesced store.
+// Rays longer than 32 walk chunk by chunk as in K4; a ray with no samples
+// writes zeros and t_out = t0.  No backward: inference only.
+//
+// Bound on the H100: bytes, 0.0017 ms at the 1008x756 frame's largest
+// round; K4i takes ~0.006 ms there, as the warp-a-ray kernel it replaced
+// did (PERF.md, the K4i row).  Not load latency: neither this pipeline
+// nor a warp a ray, two or four rays a warp in lockstep, or a thread a ray
+// with the trees unrolled in registers ran faster; with the chunk's
+// shuffles taken out (wrong sums) it did.  The warp shuffles (17 a ray),
+// the two exact expf a sample and the launch floor (an empty kernel takes
+// ~0.0017 ms) hold it.
 //
 // K4 backward replaces JAX's autodiff of ops/compositing.py:composite_rays
 // (:116-148) with the reference's composite_rays_train_backward, given the
@@ -97,6 +117,8 @@
 // train batch (4096 rays, ~0.2 MB moved) K4 and K4b take a few microseconds
 // against a bound of a fraction of one: a launch and the longest ray's
 // chain of chunks (~7), each a dependent load, scan and exp, hold them.
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
@@ -190,42 +212,148 @@ __global__ void __launch_bounds__(nst::kThreads)
     }
 }
 
-__global__ void __launch_bounds__(nst::kThreads) composite_weights_entering_kernel(
-    const float* __restrict__ sigmas, const float* __restrict__ tau,
-    const long long* __restrict__ offsets, const float* __restrict__ t0, int num_rays, float dt,
-    float t_thresh, float* __restrict__ w, float* __restrict__ weights_sum,
-    float* __restrict__ depth, float* __restrict__ t_out) {
-    const long long r = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-    const int lane = threadIdx.x & 31;
-    if (r >= num_rays) return;  // the whole warp
-    const long long begin = offsets[r];
-    const long long end = offsets[r + 1];
-    const float t_in = t0[r];
-    float carry = 0.f;  // optical depth in front of the chunk
-    float ws = 0.f;
-    float dep = 0.f;
-    bool cut = false;  // a sample in front fell below t_thresh
-    for (long long base = begin; base < end; base += 32) {
-        const long long i = base + lane;
-        const bool valid = i < end;
-        const float sdt = valid ? fminf(__fmul_rn(sigmas[i], dt), 100.f) : 0.f;
-        const float incl = warp_inclusive_scan(sdt, lane);
-        const float excl = __shfl_up_sync(kFullMask, incl, 1);
-        const float trans = __fmul_rn(t_in, expf(-__fadd_rn(carry, lane == 0 ? 0.f : excl)));
-        const unsigned out = __ballot_sync(kFullMask, valid && !(trans >= t_thresh));
-        const int first_out = cut ? 0 : (out ? __ffs(out) - 1 : 32);
-        const bool inc = valid && lane < first_out;
-        const float wi = inc ? __fmul_rn(__fsub_rn(1.f, expf(-sdt)), trans) : 0.f;
-        if (valid) w[i] = wi;
-        ws = __fadd_rn(ws, warp_sum(wi));
-        dep = __fadd_rn(dep, warp_sum(inc ? __fmul_rn(wi, tau[i]) : 0.f));
-        cut = cut || out != 0;
-        carry = __fadd_rn(carry, __shfl_sync(kFullMask, incl, 31));
+// warp_inclusive_scan's bits in two instructions a level: the shuffle's own
+// predicate says whether the source lane exists, and the add is predicated
+// on it.
+__device__ __forceinline__ float warp_inclusive_scan_p(float x) {
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+        asm("{\n\t.reg .f32 y;\n\t.reg .pred p;\n\t"
+            "shfl.sync.up.b32 y|p, %0, %1, 0, 0xffffffff;\n\t"
+            "@p add.rn.f32 %0, y, %0;\n\t}"
+            : "+f"(x)
+            : "r"(off));
     }
-    if (lane == 0) {
-        weights_sum[r] = ws;
-        depth[r] = dep;
-        t_out[r] = __fmul_rn(t_in, expf(-carry));
+    return x;
+}
+
+// x of the lane below; 0 on lane 0.
+__device__ __forceinline__ float shfl_up1_or_zero(float x) {
+    float y;
+    asm("{\n\t.reg .pred p;\n\t"
+        "shfl.sync.up.b32 %0|p, %1, 1, 0, 0xffffffff;\n\t"
+        "@!p mov.f32 %0, 0f00000000;\n\t}"
+        : "=f"(y)
+        : "f"(x));
+    return y;
+}
+
+// Lanes 0-15 get the warp's sum of a and lanes 16-31 its sum of b, each
+// with the bits warp_sum gives it: the butterfly's first step trades halves
+// (a lane sends its partner the value the partner keeps, and each adds its
+// own first, as warp_sum does), the other four steps run on one value, so
+// the two sums share five shuffles.
+__device__ __forceinline__ float warp_sum_pair(float a, float b, int lane) {
+    const bool lo = lane < 16;
+    float x = __fadd_rn(lo ? a : b, __shfl_xor_sync(kFullMask, lo ? b : a, 16));
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) x = __fadd_rn(x, __shfl_xor_sync(kFullMask, x, off));
+    return x;
+}
+
+constexpr int kEnterThreads = 256;
+
+__global__ void __launch_bounds__(kEnterThreads) composite_weights_entering_kernel(
+    const float* __restrict__ sigmas, const float* __restrict__ tau,
+    const long long* __restrict__ offsets, const float* __restrict__ t0, int num_rays,
+    int rays_per_warp, float dt, float t_thresh, float* __restrict__ w,
+    float* __restrict__ weights_sum, float* __restrict__ depth, float* __restrict__ t_out) {
+    const int lane = threadIdx.x & 31;
+    unsigned lanes_le;  // this lane and those below it
+    asm("mov.u32 %0, %%lanemask_le;" : "=r"(lanes_le));
+    const long long warp =
+        (static_cast<long long>(blockIdx.x) * kEnterThreads + threadIdx.x) >> 5;
+    const long long first = warp * rays_per_warp;
+    const long long last = min(first + rays_per_warp, static_cast<long long>(num_rays));
+    for (long long g = first; g < last; g += 32) {  // groups of up to 32 rays
+        const int nr = static_cast<int>(min(32LL, last - g));
+        // Lane i holds ray g + i's span (32-bit, from the group's first
+        // sample) and entering T, each one coalesced load, and collects
+        // the ray's results for one coalesced store.
+        const long long b0 = offsets[g];
+        int rb = 0, len = 0;
+        float rt = 0.f;
+        if (lane < nr) {
+            const long long b = offsets[g + lane];
+            rb = static_cast<int>(b - b0);
+            len = static_cast<int>(offsets[g + lane + 1] - b);
+            rt = t0[g + lane];
+        }
+        const float* __restrict__ gs = sigmas + b0;
+        const float* __restrict__ gt = tau + b0;
+        float* __restrict__ gw = w + b0;
+        float o_ws = 0.f, o_dep = 0.f, o_carry = 0.f;
+        // The walk over the group's chunks: chunk c (samples c .. c + 31 of
+        // the ray) of ray j, whose sigma and tau were loaded one chunk
+        // ahead.  A ray with no samples takes one chunk with no valid lane.
+        int j = 0, c = 0;
+        int base = __shfl_sync(kFullMask, rb, 0), n = __shfl_sync(kFullMask, len, 0);
+        float t_in = __shfl_sync(kFullMask, rt, 0);
+        float sig = 0.f, ta = 0.f;
+        if (lane < n) {
+            sig = gs[base + lane];
+            ta = gt[base + lane];
+        }
+        float carry = 0.f;  // optical depth in front of the chunk
+        float acc = 0.f;    // weights_sum on lanes 0-15, depth on lanes 16-31
+        bool cut = false;   // a sample in front fell below t_thresh
+        while (true) {
+            int nj = j, nc = c + 32, nbase = base, nn = n;
+            if (nc >= n) {  // the ray's last chunk: the next ray's first
+                nj = j + 1;
+                nc = 0;
+                nbase = __shfl_sync(kFullMask, rb, nj & 31);
+                nn = __shfl_sync(kFullMask, len, nj & 31);
+                if (nj == nr) nn = 0;
+            }
+            float nsig = 0.f, nta = 0.f;
+            if (lane < nn - nc) {
+                nsig = gs[nbase + nc + lane];
+                nta = gt[nbase + nc + lane];
+            }
+            // K4's chunk step with the entering T; a lane past the ray's
+            // end holds sigma 0, so its sdt is 0 as in K4.
+            const bool valid = lane < n - c;
+            const float sdt = fminf(__fmul_rn(sig, dt), 100.f);
+            const float incl = warp_inclusive_scan_p(sdt);
+            const float trans =
+                __fmul_rn(t_in, expf(-__fadd_rn(carry, shfl_up1_or_zero(incl))));
+            const unsigned out = __ballot_sync(kFullMask, valid && !(trans >= t_thresh));
+            // Included: no sample at or in front of this one fell below
+            // t_thresh (K4's lane < first_out).
+            const bool inc = valid && ((cut ? kFullMask : out) & lanes_le) == 0;
+            const float alpha_t = __fmul_rn(__fsub_rn(1.f, expf(-sdt)), trans);
+            const float wi = inc ? alpha_t : 0.f;
+            if (valid) gw[base + c + lane] = wi;
+            acc = __fadd_rn(acc, warp_sum_pair(wi, inc ? __fmul_rn(wi, ta) : 0.f, lane));
+            cut = cut || out != 0;
+            carry = __fadd_rn(carry, __shfl_sync(kFullMask, incl, 31));
+            if (nj != j) {  // the ray is done
+                const float ws = __shfl_sync(kFullMask, acc, 0);
+                const float dep = __shfl_sync(kFullMask, acc, 16);
+                if (lane == j) {
+                    o_ws = ws;
+                    o_dep = dep;
+                    o_carry = carry;
+                }
+                if (nj == nr) break;
+                t_in = __shfl_sync(kFullMask, rt, nj);
+                carry = 0.f;
+                acc = 0.f;
+                cut = false;
+            }
+            j = nj;
+            c = nc;
+            base = nbase;
+            n = nn;
+            sig = nsig;
+            ta = nta;
+        }
+        if (lane < nr) {
+            weights_sum[g + lane] = o_ws;
+            depth[g + lane] = o_dep;
+            t_out[g + lane] = __fmul_rn(rt, expf(-o_carry));
+        }
     }
 }
 
@@ -510,12 +638,24 @@ NST_API int nst_composite_weights_entering(const void* sigmas, const void* tau,
                                            float dt, float t_thresh, void* w, void* weights_sum,
                                            void* depth, void* t_out, void* stream) {
     if (num_rays <= 0) return 0;
-    const long long threads = static_cast<long long>(num_rays) * 32;  // a warp a ray
-    composite_weights_entering_kernel<<<nst::blocks_for(threads), nst::kThreads, 0,
-                                        static_cast<cudaStream_t>(stream)>>>(
+    // About one wave of resident warps, each walking a contiguous block of
+    // rays.
+    static long long resident_warps = 0;
+    if (resident_warps == 0) {
+        int dev = 0, sms = 0, per_sm = 0;
+        cudaGetDevice(&dev);
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, composite_weights_entering_kernel,
+                                                      kEnterThreads, 0);
+        resident_warps = std::max(1LL, static_cast<long long>(sms) * per_sm * kEnterThreads / 32);
+    }
+    const int rays_per_warp = static_cast<int>((num_rays + resident_warps - 1) / resident_warps);
+    const long long warps = (num_rays + rays_per_warp - 1) / rays_per_warp;
+    composite_weights_entering_kernel<<<nst::blocks_for(warps * 32, kEnterThreads),
+                                        kEnterThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(sigmas), static_cast<const float*>(tau),
-        static_cast<const long long*>(offsets), static_cast<const float*>(t0), num_rays, dt,
-        t_thresh, static_cast<float*>(w), static_cast<float*>(weights_sum),
+        static_cast<const long long*>(offsets), static_cast<const float*>(t0), num_rays,
+        rays_per_warp, dt, t_thresh, static_cast<float*>(w), static_cast<float*>(weights_sum),
         static_cast<float*>(depth), static_cast<float*>(t_out));
     return nst::launch_status();
 }

@@ -921,7 +921,7 @@ def grid_initialize(ref_table: torch.Tensor, levels: torch.Tensor, num_styles: i
 
 def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """P0: ``table[idx]`` for a [T, C] float32 table and [N] int32 indices
-    in [0, T), a warp a row (see csrc/gather.cu)."""
+    in [0, T), a thread a 16-byte piece of the output (see csrc/gather.cu)."""
     _check("table", table, torch.float32, (None, None))
     _check("idx", idx, torch.int32, (None,))
     _same_device(table, idx)

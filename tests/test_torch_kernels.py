@@ -740,6 +740,66 @@ def test_torch_k4i_kernel_on_crafted_layouts(cuda_device, name, entering):
     torch.testing.assert_close(t_out.double(), want[3], rtol=1e-5, atol=1e-30)
 
 
+def _round_stream(rng, num_rays: int, round_size: int):
+    """A round as the incremental renderer hands it to K4i: each ray takes
+    0 .. round_size samples (a sixth take none), densities from clear to
+    saturating within a few samples, and entering transmittances from 1
+    down to below T_THRESH."""
+    counts = rng.integers(0, round_size + 1, size=num_rays)
+    counts[rng.random(num_rays) < 1 / 6] = 0
+    offsets = np.zeros(num_rays + 1, dtype=np.int64)
+    offsets[1:] = np.cumsum(counts)
+    m = int(offsets[-1])
+    scale = 10.0 ** rng.uniform(-2, 3, size=num_rays)
+    sigmas = (rng.exponential(size=m) * np.repeat(scale, counts)).astype(np.float32)
+    tau = np.cumsum(rng.uniform(0.0, 2 * DT, size=m)).astype(np.float32) % 4.0
+    t0 = (10.0 ** rng.uniform(-6, 0, size=num_rays)).astype(np.float32)
+    t0[rng.random(num_rays) < 0.3] = 1.0
+    return sigmas, tau, offsets, t0
+
+
+@pytest.mark.parametrize("round_size", [4, 32, 64])
+def test_torch_k4i_kernel_on_many_rays(cuda_device, round_size):
+    """K4i over 2^16 + 77 rays, so that a warp walks several rays and the
+    last warp fewer, at round sizes 4, 32 and 64 (a ray of two chunks),
+    with rays of no samples and rays entering below t_thresh: the plain
+    version's float64 values within test_torch_k4i_kernel_on_crafted_layouts'
+    tolerances (a ray whose exact entering T lies within 1e-4 relative of
+    t_thresh at 1e-4), t_out rtol 1e-5, a ray of no samples t_out = t0 and
+    zero sums, one launch a call and the same bits twice; at t0 = 1, K4's
+    bits on w, weights_sum and depth."""
+    rng = np.random.default_rng(round_size)
+    sigmas, tau, offsets, t0 = _round_stream(rng, (1 << 16) + 77, round_size)
+    s, t, o, e = (torch.from_numpy(a).to(cuda_device) for a in (sigmas, tau, offsets, t0))
+    kernels.reset_launch_counts()
+    got = [kernels.composite_weights_entering(s, t, o, e, DT, T_THRESH) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["composite_weights_entering"] == 2
+    assert all(torch.equal(a, b) for a, b in zip(*got))
+    w, ws, depth, t_out = got[0]
+    empty = o[1:] == o[:-1]
+    assert bool(empty.any()) and bool((e < T_THRESH).any())
+    assert torch.equal(t_out[empty], e[empty]) and not bool(ws[empty].any())
+    assert not bool(depth[empty].any())
+    _, trans = tc.entering_transmittance_plain(s.double(), o, DT)
+    rid = tc.ray_ids(o)
+    trans = e.double()[rid] * trans
+    near = ((trans - T_THRESH).abs() <= 1e-4 * T_THRESH).double()
+    edge = tc.segment_totals_plain(near, o) > 0
+    on_edge = edge[rid]
+    want = tc.sample_weights_entering_plain(s.double(), t.double(), o, e.double(), DT, T_THRESH)
+    for got_r, want_r, mask, tight in ((w, want[0], on_edge, 2e-6), (ws, want[1], edge, 2e-6),
+                                       (depth, want[2], edge, 6e-6)):
+        torch.testing.assert_close(got_r.double()[~mask], want_r[~mask], rtol=0, atol=tight)
+        torch.testing.assert_close(got_r.double()[mask], want_r[mask], rtol=0,
+                                   atol=tight / 2e-6 * 1e-4)
+    torch.testing.assert_close(t_out.double(), want[3], rtol=1e-5, atol=1e-30)
+    w1, ws1, depth1, _ = kernels.composite_weights_entering(s, t, o, torch.ones_like(e), DT,
+                                                            T_THRESH)
+    w4, ws4, depth4, _ = kernels.composite_weights(s, t, o, DT, T_THRESH)
+    assert torch.equal(w1, w4) and torch.equal(ws1, ws4) and torch.equal(depth1, depth4)
+
+
 def test_torch_occupancy_kernels_match_plain(cuda_device):
     """K6: the scatter-max is exact (a max is order-free, atomicMax on the
     bits of floats >= 0 over a -1 fill); the merge is elementwise and exact;
@@ -1368,6 +1428,36 @@ def test_torch_take_rows_kernel_matches_plain(cuda_device, rows, width, aligned)
     torch.cuda.synchronize()
     assert kernels.launch_counts["take_rows"] == 1
     torch.testing.assert_close(got, tg.take_rows(table, idx, plain=True), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("positions", ["runs", "random"])
+@pytest.mark.parametrize("width", [4, 8])
+def test_torch_take_rows_kernel_on_round_rows(cuda_device, width, positions):
+    """P0 at the incremental renderer's rows ([xyz, tau], 16 bytes, and the
+    view fields' [xyz, tau, dirs, 0], 32 bytes): 2^19 + 3 positions into a
+    table of 2^21 rows, in ascending runs of 1 to 32 rows (a round's rays)
+    and at random, bit-equal to ``table[idx]``, one launch a call."""
+    from nerfstyle_torch.ops import gather as tg
+
+    rng = np.random.default_rng(width + len(positions))
+    rows, n = 1 << 21, (1 << 19) + 3
+    table = torch.from_numpy(rng.normal(size=(rows, width)).astype(np.float32)).to(cuda_device)
+    if positions == "runs":
+        lengths = rng.integers(1, 33, size=n)
+        lengths = lengths[:int(np.searchsorted(np.cumsum(lengths), n)) + 1]
+        lengths[-1] -= int(lengths.sum()) - n
+        starts = np.sort(rng.integers(0, rows - 32, size=lengths.shape[0]))
+        pos = np.repeat(starts, lengths) + (np.arange(n) - np.repeat(np.cumsum(lengths) - lengths,
+                                                                      lengths))
+    else:
+        pos = rng.integers(0, rows, size=n)
+    idx = torch.from_numpy(pos).to(cuda_device, torch.int32)
+    kernels.reset_launch_counts()
+    got = tg.take_rows(table, idx)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["take_rows"] == 1
+    assert got.shape == (n, width)
+    assert torch.equal(got, tg.take_rows(table, idx, plain=True))
 
 
 GRID_INIT_SPECS = {

@@ -204,16 +204,14 @@ timed from CUDA graphs of the kernel call alone
 run.  K6, K6c, K7b and K8 are timed from CUDA graphs too, K8a beside an
 empty kernel's time (the launch floor).  Each row has ``calls`` beside
 ``launches``: the calls of a row's wrapper (K3 and K3s launch two kernels
-a call, K6c kernels.SKIPDIST_LAUNCHES, K6c general
-kernels.SKIPDIST_GENERAL_LAUNCHES), and the rule-2 queue, calls x (ms -
-bound_ms), is logged.
+a call, K6c kernels.SKIPDIST_LAUNCHES), and the rule-2 queue, calls x (ms
+- bound_ms), is logged.
 
-Grid sizes and class heads off the defaults: K6c's general entry (grid
-sizes that are not multiples of 16, or above 128) against the plain
-version at 2 x 256^3, 2 x 100^3 and 1 x 24^3, an occupancy restore and
-merge at grid 256 through ops/occupancy.py (the general entry, no plain
-version), and a 4096-ray crop rendered at grid 256 against the plain path
-(skipdist_general_phase); class heads of width 0 (field_apply and
+Grid sizes and class heads off the defaults: K6c against the plain
+version at 2 x 256^3, 2 x 100^3, 2 x 512^3 and 1 x 24^3, warm and cold,
+an occupancy restore and merge at grid 256 through ops/occupancy.py (K6c,
+no plain version), and a 4096-ray crop rendered at grid 256 against the
+plain path (skipdist_sizes_phase); class heads of width 0 (field_apply and
 field_color forward and backward) and 70 (the head through K5 in 64-column
 slices, K7 and K7b at 73 channels) against their plain versions
 (class_head_phase).
@@ -247,6 +245,15 @@ launch floor; P0 also at its own shape and at 2^20 indices) and prints
 them as one JSON line; a copy of this file in a
 parent's checkout times the parent's kernels on the same card (run
 parent, change, change, parent in one call).
+
+    python3 chip_smoke.py --k6c-k2x
+
+times K6c (2 x 256^3, 2 x 100^3, 2 x 512^3 and 2 x 128^3) and K2x (a frame
+chunk's kept stream, trilinear and simplex levels, beside K1 on it) alone,
+warm and cold, each held against its plain version, with K6c at fixed
+tile sides, and the SASS instructions of K2x, K1, K2 and K6c, as one
+JSON line (k6c_k2x_rows); a copy in another checkout that has this mode
+times that tree's kernels in turns as above.
 """
 
 from __future__ import annotations
@@ -256,6 +263,7 @@ import dataclasses
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -383,10 +391,10 @@ TRAIN_GLOBALS = {
     "occupancy_merge": ("merge_threshold_kernel",),
     "occupancy_skipdist": ("skipdist_kernel",),
 }
-# Grid sizes of K6c's general entry: above the one-launch kernel's 128 (the
-# timed row, a restore, a merge and a crop at it), one that is not a
-# multiple of 16 (timed too), and a small one.
-GENERAL_GRIDS = (256, 100, 24)
+# Grid sizes of K6c off the default 128: 256 (the timed row, a restore, a
+# merge and a crop at it), one that is not a multiple of 16, 512 (z-lines
+# in chunks of words), and a small one (one tile a cascade).
+SKIPDIST_GRIDS = (256, 100, 512, 24)
 # Rows of the timed K5 backward with every weight gradient (a train batch).
 K5_DW_ROWS = 1 << 20
 # Written before each cold launch (cold_ms): 2.5x the H100's 50 MB L2.
@@ -1097,6 +1105,7 @@ def kernel_phases(renderer, params, rays_o, rays_d):
             fails.append(f"K6c skip distance differs from plain or between two launches "
                          f"({label} grid)")
         ms = graph_ms(lambda: kernels.occupancy_skipdist(bits, h, occupancy.SKIP_DMAX))
+        c_ms = cold_ms(lambda: kernels.occupancy_skipdist(bits, h, occupancy.SKIP_DMAX))
         host_ms = cuda_ms(lambda: kernels.occupancy_skipdist(bits, h, occupancy.SKIP_DMAX),
                           reps=20)
         plain_ms = cuda_ms(lambda: occupancy.skipdist_from_bitfield(bits, h, plain=True), reps=3)
@@ -1106,8 +1115,10 @@ def kernel_phases(renderer, params, rays_o, rays_d):
         log(f"K6c skipdist ({label} grid, {int(bits.sum())} occupied of {bits.numel()}): equal "
             f"to plain: {torch.equal(got, ref)}, two launches equal: {torch.equal(got, again)}; "
             f"distance histogram {torch.bincount(got.long(), minlength=16).tolist()}; ms "
-            f"{ms:.4f} (graph; {host_ms:.4f} launched one by one; {kernels.SKIPDIST_LAUNCHES} "
-            f"launches a call), plain_ms {plain_ms:.3f}, bound_ms {b_ms:.4f} ({b_by})")
+            f"{ms:.4f} (graph; cold {c_ms:.4f}; {host_ms:.4f} launched one by one; "
+            f"{kernels.SKIPDIST_LAUNCHES} launches a call; tile "
+            f"{kernels.skipdist_plan(h, bits.numel() // h**3, occupancy.SKIP_DMAX)}), "
+            f"plain_ms {plain_ms:.3f}, bound_ms {b_ms:.4f} ({b_by})")
         if label == "checkpoint":
             table["K6c"] = dict(max_abs_err=float((got.int() - ref.int()).abs().max()), ms=ms,
                                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
@@ -1224,18 +1235,17 @@ def kernel_phases(renderer, params, rays_o, rays_d):
 # ---------------------------------------------------------------------------
 
 
-def skipdist_general_phase(renderer, params, rays_o, rays_d, fails) -> dict:
-    """K6c's general entry (three axis passes: grid sizes that are not
-    multiples of 16, or above 128), reached through
+def skipdist_sizes_phase(renderer, params, rays_o, rays_d, fails) -> dict:
+    """K6c at grid sizes off the default (128), reached through
     ``ops.occupancy.skipdist_from_bitfield``: equal to the plain version bit
-    for bit and between two calls, at 2 x 256^3 (the scene's spheres and a
-    sparse random grid), 2 x 100^3 and 1 x 24^3, each timed from a CUDA
-    graph of the call alone; an occupancy restore and merge at grid 256
-    launch it and neither the one-launch K6c nor the plain version; and a
-    4096-ray crop (the frame's central 64x64 pixels) rendered at grid 256,
-    where K3s forms its window reach from a finer cell, equal to the plain
-    path within the main crop's tolerances.  Returns the table entry
-    (2 x 256^3, the spheres)."""
+    for bit and between two calls, one launch a call, at 2 x 256^3 (the
+    scene's spheres and a sparse random grid), 2 x 100^3, 2 x 512^3 and 1 x
+    24^3, each timed from a CUDA graph of the call alone and cold; an
+    occupancy restore and merge at grid 256 launch it and not the plain
+    version; and a 4096-ray crop (the frame's central 64x64 pixels)
+    rendered at grid 256, where K3s forms its window reach from a finer
+    cell, equal to the plain path within the main crop's tolerances.
+    Returns the table entry (2 x 256^3, the spheres)."""
     from nerfstyle_torch import kernels
     from nerfstyle_torch.data.synthetic import _SPHERES
     from nerfstyle_torch.ops import occupancy
@@ -1243,7 +1253,7 @@ def skipdist_general_phase(renderer, params, rays_o, rays_d, fails) -> dict:
 
     dev = torch.device(DEVICE)
     cascade, bound = renderer.cascade, renderer.bound
-    big, odd, small = GENERAL_GRIDS
+    big, odd, huge, small = SKIPDIST_GRIDS
     spheres = torch.from_numpy(sphere_bitfield(cascade, big, bound, _SPHERES)).to(dev)
 
     def sparse(h: int, cas: int, density: float) -> torch.Tensor:
@@ -1253,6 +1263,7 @@ def skipdist_general_phase(renderer, params, rays_o, rays_d, fails) -> dict:
     cases = {f"{cascade} x {big}^3, the spheres": (spheres, big),
              f"2 x {big}^3, random 0.02%": (sparse(big, 2, 2e-4), big),
              f"2 x {odd}^3, random 0.02%": (sparse(odd, 2, 2e-4), odd),
+             f"2 x {huge}^3, random 0.02%": (sparse(huge, 2, 2e-4), huge),
              f"1 x {small}^3, random 0.1%": (sparse(small, 1, 1e-3), small)}
     entry = None
     for label, (bits, h) in cases.items():
@@ -1262,31 +1273,31 @@ def skipdist_general_phase(renderer, params, rays_o, rays_d, fails) -> dict:
         torch.cuda.synchronize()
         counts = read_counts()
         ref = occupancy.skipdist_from_bitfield(bits, h, plain=True)
-        routed = (counts["occupancy_skipdist_general"] == 2 * kernels.SKIPDIST_GENERAL_LAUNCHES
-                  and counts["occupancy_skipdist"] == 0)
-        if not (torch.equal(got, ref) and torch.equal(got, again) and routed):
-            fails.append(f"K6c general ({label}): equal to plain {torch.equal(got, ref)}, two "
-                         f"calls equal {torch.equal(got, again)}, launches "
-                         f"{counts['occupancy_skipdist_general']} general and "
-                         f"{counts['occupancy_skipdist']} one-launch for two calls")
-        ms = graph_ms(lambda: kernels.occupancy_skipdist_general(bits, h, occupancy.SKIP_DMAX))
-        host_ms = cuda_ms(lambda: kernels.occupancy_skipdist_general(bits, h,
-                                                                     occupancy.SKIP_DMAX), reps=5)
+        if not (torch.equal(got, ref) and torch.equal(got, again)
+                and counts["occupancy_skipdist"] == 2 * kernels.SKIPDIST_LAUNCHES):
+            fails.append(f"K6c ({label}): equal to plain {torch.equal(got, ref)}, two calls "
+                         f"equal {torch.equal(got, again)}, {counts['occupancy_skipdist']} "
+                         "launches for two calls")
+        ms = graph_ms(lambda: kernels.occupancy_skipdist(bits, h, occupancy.SKIP_DMAX))
+        c_ms = cold_ms(lambda: kernels.occupancy_skipdist(bits, h, occupancy.SKIP_DMAX))
         plain_ms = cuda_ms(lambda: occupancy.skipdist_plain(bits, h), reps=3)
-        # Bytes: the bitfield in, the distances out (as the one-launch row).
+        # Bytes: the bitfield in, the distances out (as the grid-128 row).
         b_ms, b_by = bound_ms(nbytes=2 * bits.numel(), flops=6 * bits.numel())
-        log(f"K6c general skipdist ({label}, {int(bits.sum())} occupied): equal to plain: "
+        log(f"K6c skipdist ({label}, {int(bits.sum())} occupied): equal to plain: "
             f"{torch.equal(got, ref)}, two calls equal: {torch.equal(got, again)}; distance "
             f"histogram {torch.bincount(got.long(), minlength=16).tolist()}; ms {ms:.4f} (graph; "
-            f"{host_ms:.4f} launched one by one; {kernels.SKIPDIST_GENERAL_LAUNCHES} launches a "
-            f"call), plain_ms {plain_ms:.3f}, bound_ms {b_ms:.4f} ({b_by})")
+            f"cold {c_ms:.4f}; {kernels.SKIPDIST_LAUNCHES} launch a call; tile "
+            f"{kernels.skipdist_plan(h, bits.numel() // h**3, occupancy.SKIP_DMAX)}), "
+            f"plain_ms {plain_ms:.3f}, bound_ms {b_ms:.4f} ({b_by})")
         if entry is None:
             entry = dict(max_abs_err=float((got.int() - ref.int()).abs().max()), ms=ms,
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
         del got, again, ref
+    del cases
+    torch.cuda.empty_cache()
 
-    # A restore and a merge at grid 256 through ops/occupancy.py: the
-    # general entry, never the plain version.
+    # A restore and a merge at grid 256 through ops/occupancy.py: K6c,
+    # never the plain version.
     persisted = occupancy.PersistedOccupancy(
         spheres.float().reshape(cascade, -1).cpu(), spheres.cpu(),
         torch.tensor(float(spheres.float().mean())), torch.tensor(0, dtype=torch.int32),
@@ -1311,15 +1322,13 @@ def skipdist_general_phase(renderer, params, rays_o, rays_d, fails) -> dict:
         occupancy.skipdist_plain = skipdist_plain
     exact = all(torch.equal(st.skipdist, skipdist_plain(st.bitfield, big))
                 for st in (state, merged))
-    if plain_calls or counts["occupancy_skipdist"] or not exact or (
-            counts["occupancy_skipdist_general"] != 2 * kernels.SKIPDIST_GENERAL_LAUNCHES):
-        fails.append(f"the grid-{big} restore and merge: plain calls {len(plain_calls)}, launches "
-                     f"{counts['occupancy_skipdist_general']} general and "
-                     f"{counts['occupancy_skipdist']} one-launch, equal to plain {exact}")
+    if plain_calls or not exact or (
+            counts["occupancy_skipdist"] != 2 * kernels.SKIPDIST_LAUNCHES):
+        fails.append(f"the grid-{big} restore and merge: plain calls {len(plain_calls)}, K6c "
+                     f"launches {counts['occupancy_skipdist']}, equal to plain {exact}")
     del state, merged
 
-    # A crop rendered at the large grid: K3s over the general entry's
-    # distances.
+    # A crop rendered at the large grid: K3s over K6c's distances.
     r_big = Renderer(renderer.field_spec, renderer.bbox,
                      dataclasses.replace(renderer.settings, grid_size=big), renderer.intr, bound,
                      raymarch_channels=renderer.raymarch_channels,
@@ -1338,13 +1347,13 @@ def skipdist_general_phase(renderer, params, rays_o, rays_d, fails) -> dict:
     tol = {"rgb_map": 2e-3, "trans_map": 2e-3, "weights_sum": 2e-3, "classes": 2e-2}
     err = {k: float((got[k] - ref[k]).abs().max()) for k in tol}
     if not (all(err[k] <= tol[k] for k in tol) and got["num_marched"] == ref["num_marched"]
-            and counts["march_skip_count"] > 0 and counts["occupancy_skipdist_general"] > 0):
+            and counts["march_skip_count"] > 0 and counts["occupancy_skipdist"] > 0):
         fails.append(f"the grid-{big} crop: max abs err {err} (tol {tol}), samples "
                      f"{got['num_marched']} vs {ref['num_marched']}, launches {counts}")
-    log(f"grid {big}: restore + merge launched the general entry "
-        f"({counts['occupancy_skipdist_general']} launches at the crop's restore), no plain "
-        f"version; a 4096-ray crop: samples {got['num_marched']} (plain {ref['num_marched']}), "
-        f"candidate windows {got['num_cand']}, max abs err against plain {err} (tol {tol})")
+    log(f"grid {big}: restore + merge launched K6c, no plain version; a 4096-ray crop "
+        f"({counts['occupancy_skipdist']} K6c launches at its restore): samples "
+        f"{got['num_marched']} (plain {ref['num_marched']}), candidate windows "
+        f"{got['num_cand']}, max abs err against plain {err} (tol {tol})")
     del r_big
     torch.cuda.empty_cache()
     return entry
@@ -4219,15 +4228,15 @@ def k2x_row(grid, table, x, what: str, gen, fails) -> dict:
     stream x for a random cotangent, against autograd through the plain
     encode: every entry within K2X_TOL of the largest |d x| (the sums run
     in another order); points outside [0, 1]^3 exactly 0.  Timed from a
-    CUDA graph; the plain version launch by launch.  Bound by bytes: the
-    points, the cotangent, the distinct rows read and d x written once.
-    Returns the kernel-table entry."""
+    CUDA graph and cold; the plain version launch by launch.  Bound by
+    bytes: the points, the cotangent, the distinct rows read and d x written
+    once.  Returns the kernel-table entry."""
     from nerfstyle_torch import kernels
     from nerfstyle_torch.ops import hashgrid
 
     n, nl, c = x.shape[0], grid.num_levels, table.shape[1]
     kid = "K2x (simplex levels)" if grid.simplex_start < nl else "K2x"
-    lv = hashgrid.level_table(grid, x.device)
+    lv = hashgrid.position_grad_table(grid, x.device)
     g = torch.randn((n, nl * c), generator=gen, device=x.device)
     got = kernels.hashgrid_position_grad(x, g, table, lv)
     ref = hashgrid.hashgrid_position_grad_plain(grid, table, x, g)
@@ -4238,6 +4247,7 @@ def k2x_row(grid, table, x, what: str, gen, fails) -> dict:
                      "outside [0, 1]^3 with a gradient")
     del got, ref
     ms = graph_ms(lambda: kernels.hashgrid_position_grad(x, g, table, lv))
+    c_ms = cold_ms(lambda: kernels.hashgrid_position_grad(x, g, table, lv))
     plain_ms = cuda_ms(lambda: hashgrid.hashgrid_position_grad_plain(grid, table, x, g), reps=3,
                        warmup=1)
     rows = touched_rows(grid, x)
@@ -4249,8 +4259,8 @@ def k2x_row(grid, table, x, what: str, gen, fails) -> dict:
                           flops=n * corners * (2 * c + 9))
     log(f"{kid} hashgrid_position_grad at {what}: {n} points x {nl} levels (C={c}), {rows} "
         f"distinct rows read; max_abs_err {err:.3e} of largest |d x| {scale:.3e} (tol "
-        f"{K2X_TOL} of it); ms {ms:.4f}, plain_ms {plain_ms:.3f}, bound_ms {b_ms:.4f} ({b_by}), "
-        f"library none")
+        f"{K2X_TOL} of it); ms {ms:.4f} (graph; cold {c_ms:.4f}), plain_ms {plain_ms:.3f}, "
+        f"bound_ms {b_ms:.4f} ({b_by}), library none")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None)
 
@@ -4585,7 +4595,7 @@ def main() -> int:
     count_composite_streams()
     table, fails = kernel_phases(renderer, params, rays.origins, rays.dirs)
     # Grid sizes and class heads off the defaults.
-    table["K6c general"] = skipdist_general_phase(renderer, params, rays.origins, rays.dirs, fails)
+    table["K6c 256"] = skipdist_sizes_phase(renderer, params, rays.origins, rays.dirs, fails)
     class_head_phase(renderer, params, fails)
     # K5d, K9 and P0 against their plain versions.
     table.update(new_kernel_phases(renderer, params, rays.dirs, fails))
@@ -4807,9 +4817,9 @@ def main() -> int:
          "nerfstyle_tpu/ops/occupancy.py:157", ("occupancy_merge",), main_paths),
         ("K6c", "K6c occupancy_skipdist", "nerfstyle_torch/csrc/occupancy.cu",
          "nerfstyle_tpu/ops/occupancy.py:99", ("occupancy_skipdist",), main_paths),
-        ("K6c general", "K6c occupancy_skipdist_general (grid sizes off the one-launch tiles)",
-         "nerfstyle_torch/csrc/occupancy.cu", "nerfstyle_tpu/ops/occupancy.py:99",
-         ("occupancy_skipdist_general",), main_paths),
+        ("K6c 256", "K6c occupancy_skipdist, 2 x 256^3 (--grid_size 256; on no path at the "
+         "default grid, 128)", "nerfstyle_torch/csrc/occupancy.cu",
+         "nerfstyle_tpu/ops/occupancy.py:99", ("occupancy_skipdist",), ()),
         ("K7", "K7 segment_sum", "nerfstyle_torch/csrc/composite.cu",
          "nerfstyle_tpu/render/renderer.py:648", ("segment_sum",), main_paths),
         ("K7b", "K7b segment_sum_backward", "nerfstyle_torch/csrc/composite.cu",
@@ -4884,20 +4894,15 @@ def main() -> int:
     # queue ranks the rows by calls x (ms - bound), where ms times a call.
     # A call of a row with several counters (K3, K3s: count and write, the
     # write skipped when nothing is kept) is a launch of its first; K6c
-    # launches kernels.SKIPDIST_LAUNCHES a call, K6c general
-    # kernels.SKIPDIST_GENERAL_LAUNCHES.
-    per_call = {"K6c": kernels.SKIPDIST_LAUNCHES,
-                "K6c general": kernels.SKIPDIST_GENERAL_LAUNCHES}
-    # K6c general serves grid sizes the main paths' default (128) does not
-    # use: its launches there are 0; skipdist_general_phase runs it.
-    off_default = {"K6c general"}
+    # launches kernels.SKIPDIST_LAUNCHES a call.
+    per_call = {"K6c": kernels.SKIPDIST_LAUNCHES}
     rows, loss = [], {}
     for kid, name, source, replaces, counters, paths in meta:
         if kid not in table:
             fails.append(f"{name}: no kernel-table row (its phase did not measure it)")
             continue
         launches = sum(runs[p].get(c, 0) for p in paths for c in counters)
-        if paths and launches <= 0 and kid not in off_default:
+        if paths and launches <= 0:
             fails.append(f"{name} launched no time on {paths}")
         calls, rem = divmod(sum(runs[p].get(counters[0], 0) for p in paths),
                             per_call.get(kid, 1))
@@ -5035,8 +5040,161 @@ def round_kernels_main() -> int:
     return 0
 
 
+def sass_counts(lib: Path, path: Path,
+                names=("position_grad", "hashgrid_encode_kernel", "hashgrid_backward_kernel",
+                       "skipdist"),
+                keep=("position_grad_kernelILi2ELb0E", "encode_kernelILi2ELb0",
+                      "skipdist_kernel")) -> dict:
+    """SASS instructions of each kernel of the library whose mangled name
+    holds one of ``names`` (``cuobjdump -sass``), or {} without cuobjdump;
+    the SASS of the kernels whose name holds one of ``keep`` (K2x and K1 at
+    C = 2, K6c) is written to ``path``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        out = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                             timeout=300).stdout
+    except (OSError, subprocess.TimeoutExpired):
+        return {}
+    counts, fn, kept, blocks = {}, None, False, []
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if any(n in m.group(1) for n in names) else None
+            kept = any(k in m.group(1) for k in keep)
+            if fn:
+                counts[fn] = 0
+        elif fn and re.match(r"\s*/\*[0-9a-f]{4}\*/\s+\S", line):
+            counts[fn] += 1
+        if kept:
+            blocks.append(line)
+    path.write_text("\n".join(blocks))
+    return counts
+
+
+def k6c_k2x_rows(renderer, params, rays, card: str, fails) -> dict:
+    """K6c and K2x alone, each warm from a CUDA graph and cold (cold_ms) and
+    held against its plain version: K6c at 2 x 256^3 (the scene's spheres,
+    and random 0.02%), 2 x 100^3 and 2 x 512^3 (random 0.02%) and 2 x 128^3
+    (the spheres, random 0.02%), at the host's tile side and at fixed ones;
+    K2x on a frame chunk's kept stream (C = 2; trilinear and simplex levels)
+    beside K1 on the same stream."""
+    from nerfstyle_torch import kernels
+    from nerfstyle_torch.data.synthetic import _SPHERES
+    from nerfstyle_torch.ops import hashgrid, occupancy
+
+    dev = torch.device(DEVICE)
+    dmax = occupancy.SKIP_DMAX
+    rows = {}
+
+    def sparse(h: int) -> torch.Tensor:
+        gen = torch.Generator().manual_seed(h)
+        return (torch.rand(2 * h**3, generator=gen) < 2e-4).to(dev)
+
+    def spheres(h: int) -> torch.Tensor:
+        return torch.from_numpy(sphere_bitfield(renderer.cascade, h, renderer.bound,
+                                                _SPHERES)).to(dev)
+
+    def timed(fn, ref, what: str) -> dict:
+        got, again = fn(), fn()
+        torch.cuda.synchronize()
+        if not (torch.equal(got, ref) and torch.equal(got, again)):
+            fails.append(f"{what}: equal to plain {torch.equal(got, ref)}, two calls equal "
+                         f"{torch.equal(got, again)}")
+        del got, again
+        return {"ms": graph_ms(fn, reps=10), "cold_ms": cold_ms(fn, reps=10)}
+
+    cases = {"2 x 256^3 spheres": (256, spheres), "2 x 256^3 random": (256, sparse),
+             "2 x 100^3 random": (100, sparse), "2 x 512^3 random": (512, sparse),
+             "2 x 128^3 spheres": (128, spheres), "2 x 128^3 random": (128, sparse)}
+    for label, (h, make) in cases.items():
+        bits = make(h)
+        ref = occupancy.skipdist_plain(bits, h)
+        row = {"occupied": int(bits.sum()), "plan": kernels.skipdist_plan(h, 2, dmax)}
+        entries = {"K6c": lambda: kernels.occupancy_skipdist(bits, h, dmax)}
+        for tile in (8, 10, 12, 14, 16, 20, 24, 28, 32):
+            if tile < h and kernels.skipdist_plan(h, 2, dmax, tile=tile)["tile"]:
+                entries[f"K6c tile {tile}"] = (
+                    lambda t=tile: kernels.occupancy_skipdist(bits, h, dmax, tile=t))
+        for name, fn in entries.items():
+            row[name] = timed(fn, ref, f"K6c {name} at {label}")
+        rows[f"K6c {label}"] = row
+        log(f"K6c {label}: {row} ({card})")
+        del bits, ref
+        torch.cuda.empty_cache()
+
+    x_b = frame_streams(renderer, params, rays.origins, rays.dirs)[1]
+    table = params["x_color_embedder"]
+    grid = renderer.field_spec.grid
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    for kid, spec in (("K2x", grid), ("K2x simplex", dataclasses.replace(
+            grid, simplex_from=SIMPLEX_FROM))):
+        lv = hashgrid.position_grad_table(spec, dev)
+        g = torch.randn((x_b.shape[0], spec.num_levels * table.shape[1]), generator=gen,
+                        device=dev)
+        ref = hashgrid.hashgrid_position_grad_plain(spec, table, x_b, g)
+        scale = float(ref.abs().max())
+        row = {"points": x_b.shape[0]}
+        k1_lv = hashgrid.level_table(spec, dev)
+        fns = {"K1": lambda: kernels.hashgrid_encode(x_b, table, k1_lv),
+               "K2x": lambda: kernels.hashgrid_position_grad(x_b, g, table, lv)}
+        err = float((fns["K2x"]() - ref).abs().max())
+        if not err <= K2X_TOL * scale:
+            fails.append(f"{kid}: max abs err {err} > {K2X_TOL} x {scale}")
+        row["K2x"] = {"max_abs_err": err}
+        # Three turns over K1 and K2x, 100 calls a graph: the median of the
+        # three is the row's ms.
+        turns = {name: [] for name in fns}
+        for _ in range(3):
+            for name, fn in fns.items():
+                turns[name].append(graph_ms(fn, reps=100))
+        for name, fn in fns.items():
+            row.setdefault(name, {}).update(ms=sorted(turns[name])[1], turns=turns[name],
+                                            cold_ms=cold_ms(fn))
+        rows[kid] = row
+        log(f"{kid} on a frame chunk's kept stream: {row} ({card})")
+    return rows
+
+
+def k6c_k2x_main() -> int:
+    """``--k6c-k2x``: K6c and K2x alone (k6c_k2x_rows) and the SASS
+    instructions of K2x, K1, K2 and K6c's kernels (sass_counts; their SASS
+    in build/smoke/kernels.sass), as one JSON line.  A copy in another
+    checkout times that tree's kernels on the same card: run parent,
+    change, change, parent in one call."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this check needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from nerfstyle_torch import kernels
+    from nerfstyle_torch.core.cameras import generate_rays
+    from nerfstyle_torch.render import cli
+
+    card = card_line()
+    log(f"card: {card}")
+    lib = kernels.build(verbose=True)
+    kernels.library()
+    WORK.mkdir(parents=True, exist_ok=True)
+    write_checkpoint(WORK / "smoke.ckpt")
+    renderer, params, test_set, _ = cli.load_renderer(WORK / "smoke.ckpt", DEVICE, OUT_DIMS,
+                                                      max_count=1)
+    pose = torch.from_numpy(np.asarray(test_set[0][1]))
+    rays, _ = generate_rays(pose.to(DEVICE), renderer.intr,
+                            camera_flip=renderer.settings.flip_camera)
+    fails = []
+    rows = k6c_k2x_rows(renderer, params, rays, card, fails)
+    rows["sass"] = sass_counts(lib, WORK / "kernels.sass")
+    if fails:
+        for f in fails:
+            print(f"FAIL: {f}", file=sys.stderr)
+        return 1
+    print(card)
+    print(json.dumps({"k6c_k2x": rows}))
+    return 0
+
+
 MODES = {"--late-step": late_step_main, "--view-frame": view_frame_main,
-         "--round-kernels": round_kernels_main}
+         "--round-kernels": round_kernels_main, "--k6c-k2x": k6c_k2x_main}
 
 if __name__ == "__main__":
     sys.exit(MODES[sys.argv[1]]() if sys.argv[1:] and sys.argv[1] in MODES else main())

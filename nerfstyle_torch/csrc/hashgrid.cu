@@ -417,122 +417,226 @@ hashgrid_backward_kernel(const float* __restrict__ x, const float* __restrict__ 
 // dL/dfrac[b, l, d] (d frac / d x = res_l: floor and the clamp pass none),
 // with t_s = sum_c g[b, l*C + c] * table[row_s, c] the cotangent's dot with
 // corner s's row and dL/dfrac_d = sum_s t_s * d w_s / d frac_d.  Replaces the
-// JAX autodiff of hashgrid_encode(fast_vjp=False) through
-// corner_indices_weights and _encode_from_indices.  Trilinear: d w_s /
-// d frac_d = (bit_d(s) ? 1 : -1) * the product of the other two factors.
+// JAX autodiff of nerfstyle_tpu/ops/hashgrid.py:hashgrid_encode(fast_vjp=False) (:840)
+// through corner_indices_weights (:225) and _encode_from_indices (:342).
 // Simplex: w = (1 - s1, s1 - s2, s2 - s3, s3) with s2 = fx + fy + fz - s1 -
 // s3, s1 = max(fx, max(fy, fz)), s3 = min(fx, min(fy, fz)), differentiated
 // as JAX does: jnp.maximum / jnp.minimum give half the gradient to each
 // side of a tie, so a three-way tie splits 1/2, 1/4, 1/4 in that nesting
 // (torch.maximum splits alike).  Points outside [0, 1]^3 get 0.
 //
-// K1's mapping: a CTA a tile of 32 points, a warp a level (warp w the
-// levels w, w + 8, ...), the tile's cotangent in shared memory; each lane
-// sums its levels' partials in registers in level order, and the CTA adds
-// the 8 warps' partials in warp order: the result does not depend on the
-// launch.  It reads the corner rows K1 reads (the load unit merges the
-// lanes that share a row).  Sums run in another order than the plain
-// version's autograd, so they agree to rounding.
+// Bound on the H100: bytes (the points, the cotangent, the distinct corner
+// rows and d x, ~7.5 us on a frame chunk's kept stream of 129,929 points),
+// the bytes K1 moves.  What holds it, as K1, is the instructions a (point,
+// level) issues and the latency of its corner-row gathers, so:
+//  - the row index: a level whose table size is not a power of two takes
+//    hash % size as Lemire's direct remainder, ((M * hash) mod 2^64 * size)
+//    >> 64 with M = ceil(2^64 / size) from the host (K2x's own rows 4 and 5
+//    of the level table, ops.hashgrid.position_grad_table): four integer
+//    multiplies a corner instead of a ~20-instruction division, exact for
+//    every 32-bit hash and size;
+//  - the hashes: per axis (pg_d + 1) * prime_d = pg_d * prime_d + prime_d,
+//    so three multiplies a level, and a corner's hash is two XORs (one
+//    LOP3); a simplex vertex selects its three terms;
+//  - the trilinear gradient factored: dL/dfrac_x = sum over the y and z
+//    bits of w_y * w_z * (t[1, y, z] - t[0, y, z]), nested as w_z0 * (w_y0 *
+//    . + w_y1 * .) + w_z1 * (...): 10 operations an axis instead of a
+//    two-factor weight and a signed add a corner;
+//  - every corner row of a level, and the lane's cotangent row, is loaded
+//    before the first dot, and a lane takes two points (kPts = 2), so a
+//    thread keeps 16 corner gathers in flight;
+//  - at most 64 registers a thread, so 32 warps an SM stay resident.
+// The mapping keeps K1's row sharing: a CTA takes 32 * kPts consecutive
+// points (lane i the points i and i + 32, so each load instruction serves
+// 32 consecutive points and the lanes that share a cell share a row load)
+// and kW = 4 warps, warp w the levels w, w + kW, ...; each lane sums its
+// levels' partials in registers in level order, and the CTA adds the
+// warps' partials in warp order: the result does not depend on the
+// launch.  Sums run in another order than the plain version's autograd,
+// so they agree to rounding.  Two points a lane and 4 warps (8 CTAs an SM)
+// beat one point a lane with 8 or 16 warps and two points with 8 warps (2
+// warps take the same time); on the H100 the integer remainder (%) took
+// the same time as the magic one.
+
+// hash % size + offset: a mask on a power-of-two table, else Lemire's
+// remainder with m = ceil(2^64 / size).
+template <bool kPow2>
+__device__ __forceinline__ int position_row(unsigned h, unsigned size, unsigned long long m,
+                                            int offset) {
+    if constexpr (kPow2) {
+        return static_cast<int>(h & (size - 1u)) + offset;
+    } else {
+        const unsigned long long low = m * h;  // mod 2^64
+        const unsigned long long hi = static_cast<unsigned long long>(
+                                          static_cast<unsigned>(low >> 32)) * size +
+                                      __umulhi(static_cast<unsigned>(low), size);
+        return static_cast<int>(hi >> 32) + offset;
+    }
+}
+
+template <int C>
+__device__ __forceinline__ float row_dot(const float (&gv)[C], const float (&v)[C]) {
+    float t = 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) t = fmaf(gv[c], v[c], t);
+    return t;
+}
+
+// One (point, level)'s dL/dfrac: rows from the per-axis hashes hx[bit] (x,
+// with the style term), hy[bit], hz[bit].
+template <int C, bool kPow2>
+__device__ __forceinline__ void position_dfrac(const float* __restrict__ table, bool simplex,
+                                               unsigned size, unsigned long long m, int offset,
+                                               const unsigned (&hx)[2], const unsigned (&hy)[2],
+                                               const unsigned (&hz)[2], const float (&frac)[3],
+                                               const float (&gv)[C], float (&dfrac)[3]) {
+    if (!simplex) {
+        float v[8][C];
+#pragma unroll
+        for (int s = 0; s < 8; ++s) {
+            const int row = position_row<kPow2>(hx[s & 1] ^ hy[(s >> 1) & 1] ^ hz[s >> 2], size,
+                                                m, offset);
+            load_row<C>(table + static_cast<long long>(row) * C, v[s]);
+        }
+        float t[8];
+#pragma unroll
+        for (int s = 0; s < 8; ++s) t[s] = row_dot<C>(gv, v[s]);
+        const float f0[3] = {1.f - frac[0], 1.f - frac[1], 1.f - frac[2]};
+        // Axis d's difference at the other two bits (a, b), weighed by the
+        // other two axes' factors.
+        auto axis = [&](int d, int da, int db) {
+            const int sd = 1 << d, sa = 1 << da, sb = 1 << db;
+            const float d00 = t[sd] - t[0], d10 = t[sd | sa] - t[sa];
+            const float d01 = t[sd | sb] - t[sb], d11 = t[sd | sa | sb] - t[sa | sb];
+            const float i0 = fmaf(frac[da], d10, f0[da] * d00);
+            const float i1 = fmaf(frac[da], d11, f0[da] * d01);
+            return fmaf(frac[db], i1, f0[db] * i0);
+        };
+        dfrac[0] = axis(0, 1, 2);
+        dfrac[1] = axis(1, 0, 2);
+        dfrac[2] = axis(2, 0, 1);
+        return;
+    }
+    const float fx = frac[0], fy = frac[1], fz = frac[2];
+    const int rank[3] = {(fy > fx) + (fz > fx), (fx >= fy) + (fz > fy), (fx >= fz) + (fy >= fz)};
+    float v[4][C];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        // Vertex k takes the upper corner on the axes ranked below k
+        // (selects: an index into the register pairs would compile to a
+        // compare chain).
+        const unsigned h = (rank[0] < k ? hx[1] : hx[0]) ^ (rank[1] < k ? hy[1] : hy[0]) ^
+                           (rank[2] < k ? hz[1] : hz[0]);
+        const int row = position_row<kPow2>(h, size, m, offset);
+        load_row<C>(table + static_cast<long long>(row) * C, v[k]);
+    }
+    float tv[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) tv[k] = row_dot<C>(gv, v[k]);
+    // dL/ds1, dL/ds2, dL/ds3 of w = (1 - s1, s1 - s2, s2 - s3, s3); s2's
+    // own term reaches every axis, s1's and s3's less s2's through the max
+    // and the min.
+    const float d2 = tv[2] - tv[1];
+    const float d1 = (tv[1] - tv[0]) - d2, d3 = (tv[3] - tv[2]) - d2;
+    // max(fx, m), m = max(fy, fz): a tie halves (JAX's _balanced_eq).
+    const float mx = fmaxf(fy, fz), s1 = fmaxf(fx, mx);
+    const float gx1 = fx == s1 ? (mx == s1 ? 0.5f : 1.f) : 0.f;
+    const float gm1 = mx == s1 ? (fx == s1 ? 0.5f : 1.f) : 0.f;
+    const float gy1 = fy == mx ? (fz == mx ? 0.5f : 1.f) : 0.f;
+    const float gz1 = fz == mx ? (fy == mx ? 0.5f : 1.f) : 0.f;
+    const float n = fminf(fy, fz), s3 = fminf(fx, n);
+    const float gx3 = fx == s3 ? (n == s3 ? 0.5f : 1.f) : 0.f;
+    const float gn3 = n == s3 ? (fx == s3 ? 0.5f : 1.f) : 0.f;
+    const float gy3 = fy == n ? (fz == n ? 0.5f : 1.f) : 0.f;
+    const float gz3 = fz == n ? (fy == n ? 0.5f : 1.f) : 0.f;
+    dfrac[0] = d2 + d1 * gx1 + d3 * gx3;
+    dfrac[1] = d2 + d1 * (gm1 * gy1) + d3 * (gn3 * gy3);
+    dfrac[2] = d2 + d1 * (gm1 * gz1) + d3 * (gn3 * gz3);
+}
+
+
+// K2x's mapping: kPts points a lane, kW warps a CTA.
+constexpr int kPts = 2, kW = 4;
+
+// At most 64 registers a thread (32 / kW CTAs of kW warps an SM), so that
+// 32 warps an SM stay resident.
 template <int C, bool kStyled>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kW * 32, 32 / kW)
 hashgrid_position_grad_kernel(const float* __restrict__ x, const float* __restrict__ g,
                               const float* __restrict__ table, const int* __restrict__ levels,
                               float* __restrict__ dx, long long num_points, int num_levels,
                               unsigned style_term) {
-    __shared__ float part[kWarps][32][3];
-    const unsigned h0 = kStyled ? style_term : 0u;
-    const Tile t = enter_tile(levels, num_levels, num_points);
-    const int stride = tile_stride(num_levels, C);
-    load_cotangent<C>(g, t, num_levels);
-    float p[3];
-    tile_point(x, t, p);
-    const bool live = t.lane < t.n && !outside(p);
+    constexpr int kThr = kW * 32, kTile = 32 * kPts;
+    __shared__ float part[kW][kTile][3];
+    extern __shared__ __align__(16) int lv[];  // the level table
+    for (int i = threadIdx.x; i < 6 * num_levels; i += kThr) lv[i] = levels[i];
+    const long long first = static_cast<long long>(blockIdx.x) * kTile;
+    const int n = static_cast<int>(min(static_cast<long long>(kTile), num_points - first));
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    // The lane's points (lanes past the tile's end take its last point and
+    // drop their result) and their cotangent rows.
+    float p[kPts][3];
+    bool live[kPts];
+    const float* gp[kPts];
+#pragma unroll
+    for (int k = 0; k < kPts; ++k) {
+        const long long b = first + min(lane + 32 * k, n - 1);
+#pragma unroll
+        for (int d = 0; d < 3; ++d) p[k][d] = x[3 * b + d];
+        live[k] = lane + 32 * k < n && !outside(p[k]);
+        gp[k] = g + b * num_levels * C;
+    }
     __syncthreads();
-    float acc[3] = {0.f, 0.f, 0.f};
-    for (int l = t.warp; l < num_levels; l += kWarps) {
-        const Level lv = t.level(l, num_levels);
-        float gv[C];
+    const unsigned h0 = kStyled ? style_term : 0u;
+    float acc[kPts][3] = {};
+    for (int l = warp; l < num_levels; l += kW) {
+        const int res = lv[l], offset = lv[2 * num_levels + l];
+        const unsigned size = static_cast<unsigned>(lv[num_levels + l]);
+        const bool simplex = lv[3 * num_levels + l] != 0;
+        const unsigned long long m =
+            static_cast<unsigned long long>(static_cast<unsigned>(lv[4 * num_levels + l])) |
+            static_cast<unsigned long long>(static_cast<unsigned>(lv[5 * num_levels + l])) << 32;
+        float dfrac[kPts][3];
+        auto level = [&](auto pow2) {
 #pragma unroll
-        for (int c = 0; c < C; ++c) gv[c] = live ? t.rows[t.lane * stride + l * C + c] : 0.f;
-        unsigned pg[3];
-        float frac[3];
-        cell_of(p, lv.res, pg, frac);
-        float dfrac[3] = {0.f, 0.f, 0.f};
-        on_level(lv, [&](auto pow2) {
-            constexpr bool kPow2 = decltype(pow2)::value;
-            // The cotangent's dot with the row of a corner.
-            auto dot = [&](unsigned h) {
-                float v[C];
-                load_row<C>(table + static_cast<long long>(row_of<kPow2>(h, lv)) * C, v);
-                float t_s = 0.f;
-#pragma unroll
-                for (int c = 0; c < C; ++c) t_s = fmaf(gv[c], v[c], t_s);
-                return t_s;
-            };
-            if (!lv.simplex) {
-                float f[2][3];  // f[bit][d]: the factor of axis d for that bit
-#pragma unroll
-                for (int d = 0; d < 3; ++d) f[0][d] = 1.f - frac[d], f[1][d] = frac[d];
-#pragma unroll
-                for (int s = 0; s < 8; ++s) {
-                    unsigned h = h0;
-#pragma unroll
-                    for (int d = 0; d < 3; ++d) h ^= (pg[d] + ((s >> d) & 1u)) * prime(d);
-                    const float t_s = dot(h);
-                    const int b0 = s & 1, b1 = (s >> 1) & 1, b2 = (s >> 2) & 1;
-                    const float w0 = f[b1][1] * f[b2][2], w1 = f[b0][0] * f[b2][2],
-                                w2 = f[b0][0] * f[b1][1];
-                    dfrac[0] += b0 ? t_s * w0 : -t_s * w0;
-                    dfrac[1] += b1 ? t_s * w1 : -t_s * w1;
-                    dfrac[2] += b2 ? t_s * w2 : -t_s * w2;
-                }
-                return;
+            for (int k = 0; k < kPts; ++k) {
+                float gv[C];
+                load_row<C>(gp[k] + l * C, gv);
+                unsigned pg[3];
+                float frac[3];
+                cell_of(p[k], res, pg, frac);
+                const unsigned hy0 = pg[1] * prime(1), hz0 = pg[2] * prime(2);
+                const unsigned hx[2] = {h0 ^ pg[0], h0 ^ (pg[0] + 1u)};
+                const unsigned hy[2] = {hy0, hy0 + prime(1)}, hz[2] = {hz0, hz0 + prime(2)};
+                position_dfrac<C, decltype(pow2)::value>(table, simplex, size, m, offset, hx, hy,
+                                                         hz, frac, gv, dfrac[k]);
             }
-            const float fx = frac[0], fy = frac[1], fz = frac[2];
-            const int rank[3] = {(fy > fx) + (fz > fx), (fx >= fy) + (fz > fy),
-                                 (fx >= fz) + (fy >= fz)};
-            float tv[4];
+        };
+        if ((size & (size - 1u)) == 0u) {
+            level(std::integral_constant<bool, true>());
+        } else {
+            level(std::integral_constant<bool, false>());
+        }
+        const float r = static_cast<float>(res);
 #pragma unroll
-            for (int v = 0; v < 4; ++v) {
-                unsigned h = h0;
+        for (int k = 0; k < kPts; ++k) {
 #pragma unroll
-                for (int d = 0; d < 3; ++d) h ^= (pg[d] + (rank[d] < v ? 1u : 0u)) * prime(d);
-                tv[v] = dot(h);
-            }
-            // dL/ds1, dL/ds2, dL/ds3 of w = (1 - s1, s1 - s2, s2 - s3, s3);
-            // s2's own term reaches every axis, s1's and s3's less s2's
-            // through the max and the min.
-            const float d2 = tv[2] - tv[1];
-            const float d1 = (tv[1] - tv[0]) - d2, d3 = (tv[3] - tv[2]) - d2;
-            // max(fx, m), m = max(fy, fz): a tie halves (JAX's _balanced_eq).
-            const float m = fmaxf(fy, fz), s1 = fmaxf(fx, m);
-            const float gx1 = fx == s1 ? (m == s1 ? 0.5f : 1.f) : 0.f;
-            const float gm1 = m == s1 ? (fx == s1 ? 0.5f : 1.f) : 0.f;
-            const float gy1 = fy == m ? (fz == m ? 0.5f : 1.f) : 0.f;
-            const float gz1 = fz == m ? (fy == m ? 0.5f : 1.f) : 0.f;
-            const float n = fminf(fy, fz), s3 = fminf(fx, n);
-            const float gx3 = fx == s3 ? (n == s3 ? 0.5f : 1.f) : 0.f;
-            const float gn3 = n == s3 ? (fx == s3 ? 0.5f : 1.f) : 0.f;
-            const float gy3 = fy == n ? (fz == n ? 0.5f : 1.f) : 0.f;
-            const float gz3 = fz == n ? (fy == n ? 0.5f : 1.f) : 0.f;
-            dfrac[0] = d2 + d1 * gx1 + d3 * gx3;
-            dfrac[1] = d2 + d1 * (gm1 * gy1) + d3 * (gn3 * gy3);
-            dfrac[2] = d2 + d1 * (gm1 * gz1) + d3 * (gn3 * gz3);
-        });
-        const float res = static_cast<float>(lv.res);
-#pragma unroll
-        for (int d = 0; d < 3; ++d) acc[d] += res * dfrac[d];
+            for (int d = 0; d < 3; ++d) acc[k][d] += r * dfrac[k][d];
+        }
     }
 #pragma unroll
-    for (int d = 0; d < 3; ++d) part[t.warp][t.lane][d] = live ? acc[d] : 0.f;
+    for (int k = 0; k < kPts; ++k) {
+#pragma unroll
+        for (int d = 0; d < 3; ++d) part[warp][lane + 32 * k][d] = live[k] ? acc[k][d] : 0.f;
+    }
     __syncthreads();
     // The tile's n rows of d x are 3n contiguous floats.
-    for (int j = threadIdx.x; j < 3 * t.n; j += kThreads) {
+    for (int j = threadIdx.x; j < 3 * n; j += kThr) {
         const int q = j / 3, d = j - 3 * q;
         float sum = 0.f;
 #pragma unroll
-        for (int w = 0; w < kWarps; ++w) sum += part[w][q][d];
-        dx[3 * t.first + j] = sum;
+        for (int w = 0; w < kW; ++w) sum += part[w][q][d];
+        dx[3 * first + j] = sum;
     }
 }
 
@@ -579,6 +683,30 @@ auto position_grad_kernel(bool styled) {
                   : hashgrid_position_grad_kernel<C, false>;
 }
 
+// K2x's launch: a CTA a tile of 32 * kPts points, kW warps, the level table
+// (int32 [6, L]) in dynamic shared memory.
+int launch_position_grad(const float* x, const float* g, const float* table, const int* levels,
+                         float* dx, long long num_points, int num_levels, int channels,
+                         unsigned style_term, cudaStream_t stream) {
+    if (channels != 1 && channels != 2 && channels != 4) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const bool styled = style_term != 0u;
+    auto kernel = channels == 1 ? position_grad_kernel<1>(styled)
+                                : (channels == 2 ? position_grad_kernel<2>(styled)
+                                                 : position_grad_kernel<4>(styled));
+    const size_t smem = sizeof(int) * 6 * num_levels;
+    if (smem > 48 * 1024 - sizeof(float) * kW * 32 * kPts * 3) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    const long long tiles = (num_points + 32 * kPts - 1) / (32 * kPts);
+    kernel<<<static_cast<unsigned>(tiles), kW * 32, smem, stream>>>(
+        x, g, table, levels, dx, num_points, num_levels, style_term);
+    return nst::launch_status();
+}
+
 }  // namespace
 
 // x [B, 3] f32, table [T, C] f32, levels int32 [4, L], out [B, L*C] f32;
@@ -615,24 +743,19 @@ NST_API int nst_hashgrid_backward(const void* x, const void* g, const void* leve
                         static_cast<float*>(grad));
 }
 
-// K2x.  x [B, 3] f32, g [B, L*C] f32, table [T, C] f32, levels int32 [4, L],
-// dx [B, 3] f32 (every row written); style_term as above.
-// cudaErrorInvalidValue for an unsupported row width C.
+// K2x.  x [B, 3] f32, g [B, L*C] f32, table [T, C] f32, levels int32 [6, L]
+// (ops.hashgrid.position_grad_table), dx [B, 3] f32 (every row written);
+// style_term as above.  cudaErrorInvalidValue for an unsupported row width C.
 NST_API int nst_hashgrid_position_grad(const void* x, const void* g, const void* table,
                                        const void* levels, void* dx, long long num_points,
                                        int num_levels, int channels, unsigned style_term,
                                        void* stream) {
     if (num_points <= 0) return 0;
-    auto pick = [](int c, bool styled) {
-        return c == 1 ? position_grad_kernel<1>(styled)
-                      : (c == 2 ? position_grad_kernel<2>(styled)
-                                : position_grad_kernel<4>(styled));
-    };
-    return launch_width(
-        pick, channels, style_term, num_points, num_levels, static_cast<cudaStream_t>(stream),
+    return launch_position_grad(
         static_cast<const float*>(x), static_cast<const float*>(g),
         static_cast<const float*>(table), static_cast<const int*>(levels),
-        static_cast<float*>(dx));
+        static_cast<float*>(dx), num_points, num_levels, channels, style_term,
+        static_cast<cudaStream_t>(stream));
 }
 
 // ---------------------------------------------------------------------------

@@ -37,46 +37,41 @@
 // _dilate3 :85), which the JAX package rebuilds after every merge (:174) and
 // every restore (:78): each cell holds the first k of 0..dmax-1 at which k
 // 3x3x3 dilations (the grid not wrapping) of its cascade's occupancy cover
-// it, and dmax (15) if none does.
+// it, and dmax (15) if none does.  One entry, one launch, at every grid
+// size 1..kSkipMaxGrid; bits and integer logic only (no atomics: two
+// launches give equal bits).
 //
-// One launch, one fused pass over a tile in shared memory, bits and integer
-// logic only (no atomics: two launches give equal bits).  A CTA takes
-// kSkipSlab x-planes of one cascade and loads them with a halo of dmax-1
-// planes each side (clipped at the grid's faces), at full y and z extent,
-// packed as bits:
-// a z-line of h cells is W = ceil(h/32) 32-bit words (h = 128: a plane is 2
-// KiB, 30 planes 60 KiB, two ping-pong buffers 120 KiB of dynamic shared
-// memory, with the counters 136 KiB).  The pack reads 32 bytes a thread
-// (two 16-byte loads, coalesced) and folds 4 bool bytes into 4 bits with
-// one multiply.  Then dmax-1 rounds, each one dilation from one buffer into
-// the other: a thread walks a run of planes along one line y, keeping three
-// planes' "yz" in registers (lines y-1..y+1 ORed, then z-dilated by shifts
-// with carries across the line's words) and ORing them across x.  A round
-// is exact one plane further in from each halo side than the last, so it
-// computes only the planes still exact, and after dmax-1 rounds the central
-// planes are.  The distance is the number of rounds 0..dmax-1 in which a
-// cell is not yet covered: a 4-bit counter kept bit-sliced in four words a
-// word, in shared memory.  At the end a thread a central line expands its
-// counters to bytes (a multiply a 4 cells) and writes them with 16-byte
-// stores.  h must be a multiple of 16 (a tail word is masked) and at most
-// 128 (W <= 4; the wrapper raises above).
-// Bound on the H100: bytes, the bitfield in and the distances out (2 x 128^3
-// cells: 4 MiB each, ~2.5 us).  The kernel is held by instructions instead:
-// ~40 a line a round from shared memory, 14 rounds over a slab 15 times
-// wider than its central planes, at ~1 CTA an SM.
+// A CTA takes one (x, y) tile of a cascade, at most kTileMax cells a side,
+// and its region: the tile and a halo of dmax - 1 cells each side in x and
+// y, clipped at the grid's faces.  It packs the region's z-lines as bits in
+// shared memory, W = ceil(h / 32) words a line: the whole line up to W = 4
+// (h <= 128), else a chunk of two central words and a word of halo each
+// side (of which only the 16 cells next to the chunk are read), a CTA a
+// chunk.  A word comes from the aligned 16-byte pieces that hold its 32
+// bytes, 4 bool bytes folded into 4 bits by one multiply; two words' reads
+// a thread in flight.  Then dmax - 1 rounds, each one 3x3x3 dilation on
+// the lines still exact (r cells in from each halo side that is not a
+// face, so after dmax - 1 rounds the tile's own cells are), in two phases
+// between two buffers, a thread a line: the OR of lines y-1..y+1 of a
+// plane, z-dilated by funnel shifts across the chunk's words; then the OR
+// of three planes of that.  The distance is the number of rounds 0..dmax-1
+// that have not covered a cell, kept as four bit-sliced words a central
+// word in registers: the covered sets are nested, so bit j of the count
+// flips at each round r with 2^j dividing r + 1.  At the end the counts
+// go through shared memory and leave four cells (one 4-byte store where
+// aligned) a thread, neighbouring threads on neighbouring cells.  The host
+// picks the tile side with the least modelled time (tiles in waves of one
+// an SM, times the words a tile's pack and rounds touch).
 //
-// K6c general: every other grid size (not a multiple of 16, or above 128)
-// takes three separable axis passes instead, one launch an axis (z, y, x),
-// one thread a cell.  The L-inf distance is separable:
-//     d(x, y, z) = min_x' max(|x - x'|, min_y' max(|y - y'|,
-//                  min_z' max(|z - z'|, occupied(x', y', z') ? 0 : dmax)))
-// and the cap commutes with each step (a window never reaches past dmax).
-// A pass takes the min of max(|delta|, d_prev) over the cell's neighbours
-// along its axis, walking outward from delta 0 and stopping once |delta|
-// reaches the best so far; the first pass reads the bitfield.  Integer
-// arithmetic: equal bits to the iterated dilation at any grid size.  Each
-// pass reads up to 2 (dmax - 1) neighbours a cell again from L1/L2 and
-// writes a 1-byte intermediate.
+// Bound on the H100: bytes, the bitfield in and the distances out (2 x
+// 256^3 cells: 32 MiB each, ~0.020 ms).  What holds the kernel is the
+// halo: at 2 x 256^3 a 32-cell tile packs 3.5 times its own lines (and the
+// chunk's halo words), and its rounds touch 2 times its own words; the
+// pack and the write alone take about half the time, the rounds the rest,
+// each round a few hundred cycles of latency-bound shared-memory work at
+// one or two CTAs an SM.
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
@@ -284,34 +279,8 @@ int launch_merge(const float* grid, const float* tmp, float decay, long long n, 
     return nst::launch_status();
 }
 
-// One K6c axis pass over n cells (cascade * h^3), axis stride 1 (z), h (y)
-// or h * h (x).  from_bits: in is the bitfield (0 where occupied, dmax
-// elsewhere); else in holds the previous pass's distances.
-__global__ void skipdist_pass_kernel(const unsigned char* __restrict__ in, bool from_bits,
-                                     int h, long long n, long long stride, int dmax,
-                                     unsigned char* __restrict__ out) {
-    const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const int c = static_cast<int>((i / stride) % h);
-    auto dist = [&](long long j) -> int {
-        const int v = in[j];
-        return from_bits ? (v ? 0 : dmax) : v;
-    };
-    int best = dist(i);
-    for (int r = 1; r < best; ++r) {
-        if (c - r >= 0) best = min(best, max(r, dist(i - r * stride)));
-        if (c + r < h) best = min(best, max(r, dist(i + r * stride)));
-    }
-    out[i] = static_cast<unsigned char>(best);
-}
-
-// K6c, see the header.  Shared memory: two buffers of pmax planes x h lines
-// x W words, pmax = min(h, kSkipSlab + 2 (dmax - 1)), and the counters, 4
-// words a word of the central planes.
-constexpr int kSkipSlab = 2;       // central x-planes a CTA
-constexpr int kSkipThreads = 512;
-constexpr int kSkipMaxGrid = 128;  // W <= 4 words a line (kernels.SKIPDIST_MAX_GRID)
-
+// A line chunk of NW words to registers and back (16- or 8-byte accesses
+// where NW is 4 or 2).
 template <int W>
 __device__ __forceinline__ void load_line(const uint32_t* s, uint32_t (&v)[W]) {
     if constexpr (W == 4) {
@@ -338,189 +307,330 @@ __device__ __forceinline__ void store_line(uint32_t* s, const uint32_t (&v)[W]) 
     }
 }
 
-// The line's z-dilation: each bit ORed with its two z-neighbours, carries
-// across words, nothing past either end; the tail word masked.
-template <int W>
-__device__ __forceinline__ void dilate_z(const uint32_t (&v)[W], uint32_t (&d)[W], uint32_t tail) {
-#pragma unroll
-    for (int i = 0; i < W; ++i) {
-        uint32_t x = v[i] | (v[i] << 1) | (v[i] >> 1);
-        if (i > 0) x |= v[i - 1] >> 31;
-        if (i < W - 1) x |= v[i + 1] << 31;
-        d[i] = x;
-    }
-    d[W - 1] &= tail;
-}
-
 // Four bool bytes (0 or 1) -> 4 bits, byte k at bit k.
 __device__ __forceinline__ uint32_t nibble(uint32_t x) { return (x * 0x01020408u) >> 24 & 0xFu; }
 
 // 4 bits -> 4 bytes of 0 or 1, bit k at byte k.
 __device__ __forceinline__ uint32_t spread(uint32_t x) { return (x * 0x00204081u) & 0x01010101u; }
 
-template <int W>
-__global__ void __launch_bounds__(kSkipThreads)
-skipdist_kernel(const unsigned char* __restrict__ bits, int h, int dmax, int pmax,
-                unsigned char* __restrict__ out) {
-    extern __shared__ uint4 skip_smem4[];
-    const int halo = dmax - 1;
-    const int nslab = (h + kSkipSlab - 1) / kSkipSlab;
-    const int cas = blockIdx.x / nslab;
-    const int x0 = (blockIdx.x % nslab) * kSkipSlab;
-    const int sc = min(kSkipSlab, h - x0);
-    const int xs = max(0, x0 - halo), xe = min(h, x0 + sc + halo);
-    const int np = xe - xs, c0 = x0 - xs;
-    const int t = threadIdx.x;
-    const size_t h2 = static_cast<size_t>(h) * h;
-    const size_t base = static_cast<size_t>(cas) * h2 * h + static_cast<size_t>(xs) * h2;
-    uint32_t* A = reinterpret_cast<uint32_t*>(skip_smem4);  // [pmax][h][W]
-    uint32_t* B = A + pmax * h * W;
-    uint32_t* cnt = B + pmax * h * W;  // [4 bits][kSkipSlab * h lines][W]: the counters
-    const int cl = kSkipSlab * h;      // counter lines a bit
-    const uint32_t tail = (h & 31) ? (1u << (h & 31)) - 1u : ~0u;
+// K6c, see the header.
+constexpr int kTileThreads = 512;
+constexpr int kTileMax = 32;    // central cells of a tile along x and y
+constexpr int kTileOwn = 4;     // central words a thread counts: a tile has at most 2048
+constexpr int kPackUnroll = 2;  // words a thread packs with their reads in flight
+constexpr int kSkipMaxGrid = 2048;  // kernels.SKIPDIST_MAX_GRID
+constexpr int kTileMaxSmem = 227 * 1024;
 
-    // Pack the slab: word q = (line, w) from its 32 bytes (16 at a tail).
-    for (int q = t; q < np * h * W; q += kSkipThreads) {
-        const int line = q / W, w = q - line * W;
-        const unsigned char* src = bits + base + static_cast<size_t>(line) * h + 32 * w;
-        const uint4 lo = *reinterpret_cast<const uint4*>(src);
-        uint32_t word = nibble(lo.x) | nibble(lo.y) << 4 | nibble(lo.z) << 8 | nibble(lo.w) << 12;
-        if (32 * w + 16 < h) {
-            const uint4 hi = *reinterpret_cast<const uint4*>(src + 16);
-            word |= (nibble(hi.x) | nibble(hi.y) << 4 | nibble(hi.z) << 8 | nibble(hi.w) << 12)
-                    << 16;
-        }
-        A[q] = word;
+// Tile b: cascade cas, central cells [x0, x0 + sx) x [y0, y0 + sy) and
+// z-words [w0, w0 + swc); its region, the central cells and a halo of dmax
+// - 1 cells each side clipped at the faces, [xs, xs + nx) x [ys, ys + ny),
+// the central cells at (cx, cy) in it.
+struct SkipTile {
+    int h, W, halo, cas;
+    int x0, sx, xs, nx, cx;
+    int y0, sy, ys, ny, cy;
+    int w0, swc;
+    // The z-line of region line (px, py): its index, and its first cell.
+    __device__ size_t line_index(int px, int py) const {
+        return (static_cast<size_t>(cas) * h + xs + px) * h + ys + py;
     }
-    for (int q = t; q < 4 * cl * W; q += kSkipThreads) cnt[q] = 0u;
+    __device__ size_t line(int px, int py) const { return line_index(px, py) * h; }
+};
 
-    // Adds 1 to the counter of each cell of central line (p, y) that v does
-    // not cover: a ripple carry through the four bit-sliced words.
-    auto count = [&](int p, int y, const uint32_t (&v)[W]) {
-        uint32_t* c = cnt + ((p - c0) * h + y) * W;
-        uint32_t k[4][W];
+__device__ __forceinline__ SkipTile skip_tile(int h, int dmax, int tile, int wc, int b) {
+    SkipTile t;
+    t.h = h;
+    t.W = (h + 31) >> 5;
+    t.halo = dmax - 1;
+    const int nt = (h + tile - 1) / tile, nwz = (t.W + wc - 1) / wc;
+    const int tz = b % nwz;
+    b /= nwz;
+    const int ty = b % nt;
+    b /= nt;
+    const int tx = b % nt;
+    t.cas = b / nt;
+    t.x0 = tx * tile;
+    t.sx = min(tile, h - t.x0);
+    t.xs = max(0, t.x0 - t.halo);
+    t.nx = min(h, t.x0 + t.sx + t.halo) - t.xs;
+    t.cx = t.x0 - t.xs;
+    t.y0 = ty * tile;
+    t.sy = min(tile, h - t.y0);
+    t.ys = max(0, t.y0 - t.halo);
+    t.ny = min(h, t.y0 + t.sy + t.halo) - t.ys;
+    t.cy = t.y0 - t.ys;
+    t.w0 = tz * wc;
+    t.swc = min(wc, t.W - t.w0);
+    return t;
+}
+
+// 16 bool bytes -> 16 bits, byte k at bit k.
+__device__ __forceinline__ uint32_t fold16(uint4 q) {
+    return nibble(q.x) | nibble(q.y) << 4 | nibble(q.z) << 8 | nibble(q.w) << 12;
+}
+
+// A word of cells bits[s, s + n) (n in 0..32), from the aligned 16-byte
+// pieces that hold them: the bitfield is 16-byte aligned, and a piece is
+// read only if it holds one of the cells, so no read leaves the
+// allocation's last 16-byte piece.  load issues the reads, word assembles
+// them, so that a thread keeps several words' reads in flight.
+struct PackedWord {
+    uint4 q[3];
+    int m, n, at;
+    // Cells [s, s + cells) (cells 0: none) to bits at, at + 1, ...
+    __device__ __forceinline__ void load(const unsigned char* __restrict__ bits, size_t s,
+                                         int cells, int first_bit) {
+        m = static_cast<int>(s & 15u);
+        n = cells;
+        at = first_bit;
+        const unsigned char* c = bits + (s - m);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) load_line<W>(c + j * cl * W, k[j]);
-#pragma unroll
-        for (int i = 0; i < W; ++i) {
-            uint32_t carry = ~v[i] & (i == W - 1 ? tail : ~0u);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const uint32_t next = k[j][i] & carry;
-                k[j][i] ^= carry;
-                carry = next;
-            }
+        for (int k = 0; k < 3; ++k) {
+            q[k] = 16 * k < m + n ? __ldg(reinterpret_cast<const uint4*>(c + 16 * k))
+                                  : make_uint4(0u, 0u, 0u, 0u);
         }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) store_line<W>(c + j * cl * W, k[j]);
-    };
-    __syncthreads();
-    for (int L = t; L < sc * h; L += kSkipThreads) {
-        uint32_t v[W];
-        load_line<W>(A + (c0 * h + L) * W, v);
-        count(c0 + L / h, L % h, v);
     }
-
-    // y and z of plane p, line y: the OR of lines y-1..y+1, z-dilated.
-    auto yz = [&](const uint32_t* src, int p, int y, uint32_t (&d)[W]) {
-        uint32_t v[W], u[W];
-        load_line<W>(src + (p * h + y) * W, v);
-        if (y > 0) {
-            load_line<W>(src + (p * h + y - 1) * W, u);
-#pragma unroll
-            for (int i = 0; i < W; ++i) v[i] |= u[i];
-        }
-        if (y < h - 1) {
-            load_line<W>(src + (p * h + y + 1) * W, u);
-#pragma unroll
-            for (int i = 0; i < W; ++i) v[i] |= u[i];
-        }
-        dilate_z<W>(v, d, tail);
-    };
-    const int nchunks = max(1, kSkipThreads / h);
-    for (int r = 1; r <= halo; ++r) {
-        // Planes exact after r dilations: [a, b); a thread takes a run of
-        // them along one line (y), three planes of yz in registers:
-        // B[p] = yz(A[p-1]) | yz(A[p]) | yz(A[p+1]).
-        const int a = xs > 0 ? r : 0;
-        const int b = xe < h ? np - r : np;
-        const int len = b - a, run = (len + nchunks - 1) / nchunks;
-        __syncthreads();
-        for (int task = t; task < h * nchunks; task += kSkipThreads) {
-            const int y = task % h, j = task / h;
-            const int p0 = a + j * run, p1 = min(b, p0 + run);
-            if (p0 >= p1) continue;
-            uint32_t prev[W], cur[W], next[W], v[W];
-            if (p0 > 0) {
-                yz(A, p0 - 1, y, prev);
-            } else {
-#pragma unroll
-                for (int i = 0; i < W; ++i) prev[i] = 0u;
-            }
-            yz(A, p0, y, cur);
-            for (int p = p0; p < p1; ++p) {
-                if (p + 1 < np) {
-                    yz(A, p + 1, y, next);
-                } else {
-#pragma unroll
-                    for (int i = 0; i < W; ++i) next[i] = 0u;
-                }
-#pragma unroll
-                for (int i = 0; i < W; ++i) {
-                    v[i] = prev[i] | cur[i] | next[i];
-                    prev[i] = cur[i];
-                    cur[i] = next[i];
-                }
-                store_line<W>(B + (p * h + y) * W, v);
-                if (p >= c0 && p < c0 + sc) count(p, y, v);
-            }
-        }
-        uint32_t* swap = A;
-        A = B;
-        B = swap;
+    __device__ __forceinline__ uint32_t word() const {
+        const unsigned long long acc = fold16(q[0]) |
+                                       static_cast<unsigned long long>(fold16(q[1])) << 16 |
+                                       static_cast<unsigned long long>(fold16(q[2])) << 32;
+        const uint32_t w = static_cast<uint32_t>(acc >> m);
+        return (n >= 32 ? w : w & ((1u << n) - 1u)) << at;
     }
-    __syncthreads();
+};
 
-    // A central line's distances, 16 cells (bytes) a store.
-    for (int L = t; L < sc * h; L += kSkipThreads) {
-        const int p = c0 + L / h, y = L % h;
-        uint32_t k[4][W];
+// Adds round r's uncovered cells (~d) to the bit-sliced count c of rounds
+// 0..r that have not covered a cell.  The sets are nested, so a cell's
+// count is the first round that covers it; bit j of it is the XOR over m =
+// 2^j, 2 * 2^j, ... of [count >= m], and [count >= r + 1] = ~d: bit j flips
+// at each round r with 2^j dividing r + 1.
+__device__ __forceinline__ void count_round(uint32_t (&c)[4], uint32_t d, int r) {
+    const uint32_t nd = ~d;
+    c[0] ^= nd;
+    if (((r + 1) & 1) == 0) c[1] ^= nd;
+    if (((r + 1) & 3) == 0) c[2] ^= nd;
+    if (((r + 1) & 7) == 0) c[3] ^= nd;
+}
+
+// The z-dilated OR of lines y-1..y+1 of region plane p: each bit ORed with
+// its z-neighbours by funnel shifts across the chunk's words, nothing past
+// its ends.
+template <int NW>
+__device__ __forceinline__ void tile_yz(const uint32_t* src, int ny, int p, int y,
+                                        uint32_t (&d)[NW]) {
+    const uint32_t* at = src + (p * ny + y) * NW;
+    uint32_t v[NW], u[NW];
+    load_line<NW>(at, v);
+    if (y > 0) {
+        load_line<NW>(at - NW, u);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) load_line<W>(cnt + (j * cl + L) * W, k[j]);
-        unsigned char* dst = out + base + static_cast<size_t>(p) * h2 + static_cast<size_t>(y) * h;
+        for (int i = 0; i < NW; ++i) v[i] |= u[i];
+    }
+    if (y + 1 < ny) {
+        load_line<NW>(at + NW, u);
 #pragma unroll
-        for (int i = 0; i < W; ++i) {
+        for (int i = 0; i < NW; ++i) v[i] |= u[i];
+    }
 #pragma unroll
-            for (int half = 0; half < 2; ++half) {
-                if (32 * i + 16 * half >= h) continue;
-                uint32_t q[4];
+    for (int i = 0; i < NW; ++i) {
+        d[i] = v[i] | __funnelshift_l(i > 0 ? v[i - 1] : 0u, v[i], 1) |
+               __funnelshift_r(v[i], i + 1 < NW ? v[i + 1] : 0u, 1);
+    }
+}
+
+// Writes tile t's central cells from their bit-sliced distances,
+// stage[j * ncw + u] for bit j of central word u = (i * sy + jy) * swc +
+// jw, four cells (one 4-byte store where aligned) a thread, neighbouring
+// threads on neighbouring cells of a line.
+__device__ void write_tile(const SkipTile& t, const uint32_t* stage,
+                           unsigned char* __restrict__ out) {
+    const int ncw = t.sx * t.sy * t.swc;
+    const int zc = min(t.h, 32 * (t.w0 + t.swc)) - 32 * t.w0;  // cells of a central line
+    const int ng = (zc + 3) >> 2;
+    for (int q = threadIdx.x; q < t.sx * t.sy * ng; q += kTileThreads) {
+        const int li = q / ng, z = 4 * (q - li * ng);
+        const int i = li / t.sy, jy = li - i * t.sy;
+        const int u = li * t.swc + (z >> 5), b = z & 31;
+        uint32_t v = 0u;
 #pragma unroll
-                for (int m = 0; m < 4; ++m) {
-                    const int sh = 16 * half + 4 * m;
-                    q[m] = spread(k[0][i] >> sh & 0xFu) | spread(k[1][i] >> sh & 0xFu) << 1 |
-                           spread(k[2][i] >> sh & 0xFu) << 2 | spread(k[3][i] >> sh & 0xFu) << 3;
-                }
-                *reinterpret_cast<uint4*>(dst + 32 * i + 16 * half) =
-                    make_uint4(q[0], q[1], q[2], q[3]);
+        for (int j = 0; j < 4; ++j) v |= spread(stage[j * ncw + u] >> b & 0xFu) << j;
+        unsigned char* dst = out + t.line(t.cx + i, t.cy + jy) + 32 * t.w0 + z;
+        if (z + 4 <= zc && (reinterpret_cast<uintptr_t>(dst) & 3u) == 0u) {
+            *reinterpret_cast<uint32_t*>(dst) = v;
+        } else {
+            for (int k = 0; k < 4 && z + k < zc; ++k) {
+                dst[k] = static_cast<unsigned char>(v >> 8 * k);
             }
         }
     }
 }
 
-template <int W>
-int launch_skipdist(const unsigned char* bits, int h, int cascades, int dmax,
-                    unsigned char* out, cudaStream_t stream) {
-    const int pmax = min(h, kSkipSlab + 2 * (dmax - 1));
-    const int smem = (2 * pmax + 4 * kSkipSlab) * h * W * static_cast<int>(sizeof(uint32_t));
-    static int smem_set = 0;  // the largest dynamic shared memory allowed so far
-    if (smem > smem_set) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            skipdist_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        if (e != cudaSuccess) return static_cast<int>(e);
-        smem_set = smem;
+// K6c, see the header.  NW words a line chunk: the whole line (W <= 4), or
+// 4 (W > 4: central words w0, w0 + 1 and a word each side).
+template <int NW>
+__global__ void __launch_bounds__(kTileThreads, 2)
+skipdist_kernel(const unsigned char* __restrict__ bits, int h, int dmax, int tile, int wc,
+                unsigned char* __restrict__ out) {
+    extern __shared__ uint4 tile_smem4[];
+    const SkipTile t = skip_tile(h, dmax, tile, wc, blockIdx.x);
+    const int zoff = t.W > NW ? 1 : 0;  // the chunk slot of word w0
+    const int nl = t.nx * t.ny;
+    uint32_t* A = reinterpret_cast<uint32_t*>(tile_smem4);  // [nx][ny][NW]
+    uint32_t* B = A + nl * NW;
+    for (int q0 = threadIdx.x; q0 < nl * NW; q0 += kPackUnroll * kTileThreads) {
+        PackedWord pw[kPackUnroll];
+#pragma unroll
+        for (int u = 0; u < kPackUnroll; ++u) {
+            const int q = min(q0 + u * kTileThreads, nl * NW - 1);
+            const int L = q / NW, j = q - L * NW, word = t.w0 - zoff + j, px = L / t.ny;
+            // A halo word's cells within dmax - 1 of the central words: its
+            // upper half (before them) or its lower half (after them).
+            const int lo = zoff && j == 0 ? 16 : 0;
+            const int hi = min(zoff && j == NW - 1 ? 16 : 32, h - 32 * word);
+            const bool in = word >= 0 && word < t.W;
+            pw[u].load(bits, in ? t.line(px, L - px * t.ny) + 32 * word + lo : 0,
+                       in ? hi - lo : 0, lo);
+        }
+#pragma unroll
+        for (int u = 0; u < kPackUnroll; ++u) {
+            if (q0 + u * kTileThreads < nl * NW) A[q0 + u * kTileThreads] = pw[u].word();
+        }
     }
-    const int nslab = (h + kSkipSlab - 1) / kSkipSlab;
-    skipdist_kernel<W><<<cascades * nslab, kSkipThreads, smem, stream>>>(bits, h, dmax, pmax, out);
+    // The central words a thread counts: u = threadIdx.x + k * kTileThreads.
+    const int ncw = t.sx * t.sy * t.swc;
+    uint32_t cnt[kTileOwn][4];
+    int own[kTileOwn];
+#pragma unroll
+    for (int k = 0; k < kTileOwn; ++k) {
+        const int u = threadIdx.x + k * kTileThreads;
+        const int li = u / t.swc, i = li / t.sy, jy = li - i * t.sy;
+        own[k] = ((t.cx + i) * t.ny + t.cy + jy) * NW + zoff + (u - li * t.swc);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) cnt[k][j] = 0u;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kTileOwn; ++k) {
+        if (threadIdx.x + k * kTileThreads < ncw) count_round(cnt[k], A[own[k]], 0);
+    }
+    for (int r = 1; r < dmax; ++r) {
+        // Lines exact after r rounds: [ax, bx) x [ay, by).  First B = yz(A)
+        // on those planes and one more each side, then A = the OR of three
+        // planes of B; a thread a line: line y of every ystep-th plane from
+        // tp on.
+        const int ax = t.xs > 0 ? r : 0, bx = t.xs + t.nx < h ? t.nx - r : t.nx;
+        const int ay = t.ys > 0 ? r : 0, by = t.ys + t.ny < h ? t.ny - r : t.ny;
+        const int rows = by - ay, ystep = kTileThreads / rows;
+        const int tp = threadIdx.x / rows, y = ay + threadIdx.x - tp * rows;
+        if (tp < ystep) {
+            for (int p = max(0, ax - 1) + tp; p < min(t.nx, bx + 1); p += ystep) {
+                uint32_t d[NW];
+                tile_yz<NW>(A, t.ny, p, y, d);
+                store_line<NW>(B + (p * t.ny + y) * NW, d);
+            }
+        }
+        __syncthreads();
+        if (tp < ystep) {
+            for (int p = ax + tp; p < bx; p += ystep) {
+                const uint32_t* at = B + (p * t.ny + y) * NW;
+                uint32_t v[NW], u[NW];
+                load_line<NW>(at, v);
+                if (p > 0) {
+                    load_line<NW>(at - t.ny * NW, u);
+#pragma unroll
+                    for (int i = 0; i < NW; ++i) v[i] |= u[i];
+                }
+                if (p + 1 < t.nx) {
+                    load_line<NW>(at + t.ny * NW, u);
+#pragma unroll
+                    for (int i = 0; i < NW; ++i) v[i] |= u[i];
+                }
+                store_line<NW>(A + (p * t.ny + y) * NW, v);
+            }
+        }
+        __syncthreads();
+#pragma unroll
+        for (int k = 0; k < kTileOwn; ++k) {
+            if (threadIdx.x + k * kTileThreads < ncw) count_round(cnt[k], A[own[k]], r);
+        }
+    }
+    __syncthreads();
+    uint32_t* stage = reinterpret_cast<uint32_t*>(tile_smem4);
+#pragma unroll
+    for (int k = 0; k < kTileOwn; ++k) {
+        const int u = threadIdx.x + k * kTileThreads;
+        if (u < ncw) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) stage[j * ncw + u] = cnt[k][j];
+        }
+    }
+    __syncthreads();
+    write_tile(t, stage, out);
+}
+
+int num_sms() {
+    static int sms = 0;
+    if (sms == 0) {
+        int dev = 0;
+        if (cudaGetDevice(&dev) != cudaSuccess ||
+            cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+            return 0;
+        }
+    }
+    return sms;
+}
+
+// A launch of K6c: the central tile's side, words a line chunk
+// and central words of it, tiles (a CTA each) and shared memory.
+struct TilePlan {
+    int tile, nw, wc, tiles;
+    size_t smem;
+};
+
+// The tile side with the least modelled time: the tiles in waves of one an
+// SM, times a tile's word updates (its region's pack, then each round over
+// the lines still exact); a fixed side when tile > 0.
+TilePlan plan_tiles(int h, int cascades, int dmax, int tile, int sms) {
+    sms = std::max(sms, 1);
+    const long long W = (h + 31) / 32, halo = dmax - 1;
+    TilePlan best{0, W <= 4 ? static_cast<int>(W) : 4, W <= 4 ? static_cast<int>(W) : 2, 0, 0};
+    const long long nwz = (W + best.wc - 1) / best.wc, nw = best.nw, wc = best.wc;
+    const int t0 = tile > 0 ? tile : 1, t1 = tile > 0 ? tile : std::min(h, kTileMax);
+    double best_cost = 0.0;
+    for (int T = t0; T <= t1; ++T) {
+        const long long c = std::min(T, h), e = std::min<long long>(h, T + 2 * halo);
+        const long long smem = 4 * std::max(2 * e * e * nw, 4 * c * c * wc);
+        if (smem > kTileMaxSmem || c * c * wc > kTileOwn * kTileThreads) continue;
+        const long long nt = (h + T - 1) / T, tiles = cascades * nt * nt * nwz;
+        double work = static_cast<double>(e * e * nw);  // the region's load
+        for (long long r = 1; r <= halo; ++r) {
+            const double er = static_cast<double>(std::min<long long>(h, T + 2 * (halo - r)));
+            work += er * er * static_cast<double>(nw);
+        }
+        const double cost = static_cast<double>((tiles + sms - 1) / sms) * work;
+        if (best.tile == 0 || cost < best_cost) {
+            best.tile = T;
+            best.tiles = static_cast<int>(tiles);
+            best.smem = static_cast<size_t>(smem);
+            best_cost = cost;
+        }
+    }
+    return best;
+}
+
+template <int NW>
+int launch_skipdist(const TilePlan& p, const unsigned char* bits, int h, int dmax,
+                    unsigned char* out, cudaStream_t stream) {
+    static size_t smem_set = 0;  // the largest dynamic shared memory allowed so far
+    if (p.smem > smem_set) {
+        const cudaError_t e = cudaFuncSetAttribute(skipdist_kernel<NW>,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   static_cast<int>(p.smem));
+        if (e != cudaSuccess) return static_cast<int>(e);
+        smem_set = p.smem;
+    }
+    skipdist_kernel<NW><<<p.tiles, kTileThreads, p.smem, stream>>>(bits, h, dmax, p.tile, p.wc,
+                                                                    out);
     return nst::launch_status();
 }
 
@@ -565,36 +675,40 @@ NST_API int nst_occupancy_merge(const void* grid, const void* tmp, float decay, 
 }
 
 // K6c: bitfield [cascades * h^3] bool (16-byte aligned) -> out [same] u8,
-// h a multiple of 16 and at most kSkipMaxGrid, 1 <= dmax <= 15.
+// 1 <= h <= kSkipMaxGrid, 1 <= dmax <= 15; one launch.  tile > 0 fixes the
+// central tile's side (the host's model picks it at 0).
 NST_API int nst_occupancy_skipdist(const void* bitfield, int grid_size, long long n, int dmax,
-                                   void* out, void* stream) {
+                                   int tile, void* out, void* stream) {
     const int h = grid_size;
     const long long h3 = static_cast<long long>(h) * h * h;
-    if (h <= 0 || h % 16 || h > kSkipMaxGrid || dmax < 1 || dmax > 15 || n % h3)
+    if (h <= 0 || h > kSkipMaxGrid || dmax < 1 || dmax > 15 || n % h3 ||
+        tile > kTileMax || reinterpret_cast<uintptr_t>(bitfield) % 16)
         return static_cast<int>(cudaErrorInvalidValue);
     if (n == 0) return 0;
+    const int sms = num_sms();
+    if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+    const TilePlan p = plan_tiles(h, static_cast<int>(n / h3), dmax, tile, sms);
+    if (p.tile == 0) return static_cast<int>(cudaErrorInvalidValue);
     const auto* in = static_cast<const unsigned char*>(bitfield);
     auto* o = static_cast<unsigned char*>(out);
-    const int cascades = static_cast<int>(n / h3);
     const auto s = static_cast<cudaStream_t>(stream);
-    switch ((h + 31) / 32) {
-        case 1: return launch_skipdist<1>(in, h, cascades, dmax, o, s);
-        case 2: return launch_skipdist<2>(in, h, cascades, dmax, o, s);
-        case 3: return launch_skipdist<3>(in, h, cascades, dmax, o, s);
-        default: return launch_skipdist<4>(in, h, cascades, dmax, o, s);
+    switch (p.nw) {
+        case 1: return launch_skipdist<1>(p, in, h, dmax, o, s);
+        case 2: return launch_skipdist<2>(p, in, h, dmax, o, s);
+        case 3: return launch_skipdist<3>(p, in, h, dmax, o, s);
+        default: return launch_skipdist<4>(p, in, h, dmax, o, s);
     }
 }
 
-// K6c general, one axis pass: in [n] u8 (the bitfield when from_bits), out
-// [n] u8; any grid size.
-NST_API int nst_occupancy_skipdist_pass(const void* in, int from_bits, int grid_size,
-                                        long long n, long long stride, int dmax, void* out,
-                                        void* stream) {
-    if (grid_size <= 0 || dmax < 1 || dmax > 255) return static_cast<int>(cudaErrorInvalidValue);
-    if (n <= 0) return 0;
-    skipdist_pass_kernel<<<nst::blocks_for(n), nst::kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const unsigned char*>(in), from_bits != 0, grid_size, n, stride, dmax,
-        static_cast<unsigned char*>(out));
-    return nst::launch_status();
+// The launch nst_occupancy_skipdist makes: plan[0..3] = tile side,
+// words a line chunk, central words of it, tiles; returns the shared memory
+// (0 if no tile fits).
+NST_API long long nst_occupancy_skipdist_plan(int grid_size, int cascades, int dmax, int tile,
+                                              int* plan) {
+    const TilePlan p = plan_tiles(grid_size, cascades, dmax, tile, num_sms());
+    plan[0] = p.tile;
+    plan[1] = p.nw;
+    plan[2] = p.wc;
+    plan[3] = p.tiles;
+    return static_cast<long long>(p.smem);
 }

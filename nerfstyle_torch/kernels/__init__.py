@@ -58,7 +58,6 @@ launch_counts: Dict[str, int] = {
     "occupancy_scatter_max": 0,
     "occupancy_merge": 0,
     "occupancy_skipdist": 0,
-    "occupancy_skipdist_general": 0,
     "packbits": 0,
     "unpackbits": 0,
     "morton3d": 0,
@@ -101,8 +100,8 @@ _SIGNATURES = {
     "nst_occupancy_scatter_max": (_P, _P, _P, _LL, _P),
     "nst_occupancy_num_partials": (),
     "nst_occupancy_merge": (_P, _P, _F, _LL, _F, _P, _P, _P, _P, _P),
-    "nst_occupancy_skipdist": (_P, _I, _LL, _I, _P, _P),
-    "nst_occupancy_skipdist_pass": (_P, _I, _I, _LL, _LL, _I, _P, _P),
+    "nst_occupancy_skipdist": (_P, _I, _LL, _I, _I, _P, _P),
+    "nst_occupancy_skipdist_plan": (_I, _I, _I, _I, ctypes.POINTER(_I)),
     "nst_packbits": (_P, _LL, _P, _P),
     "nst_unpackbits": (_P, _LL, _P, _P),
     "nst_morton3d": (_P, _LL, _P, _P),
@@ -189,6 +188,7 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
+            lib.nst_occupancy_skipdist_plan.restype = ctypes.c_longlong
             lib.nst_error_string.argtypes = [ctypes.c_int]
             lib.nst_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -254,10 +254,12 @@ def hashgrid_encode(x: torch.Tensor, table: torch.Tensor, levels: torch.Tensor,
     return out
 
 
-def _hashgrid_cotangent(x: torch.Tensor, g: torch.Tensor, levels: torch.Tensor) -> int:
-    """Check K2's and K2x's points, cotangent and level table; return C."""
+def _hashgrid_cotangent(x: torch.Tensor, g: torch.Tensor, levels: torch.Tensor,
+                        rows: int = 4) -> int:
+    """Check K2's and K2x's points, cotangent and level table (``rows``
+    rows); return C."""
     _check("x", x, torch.float32, (None, 3))
-    _check("levels", levels, torch.int32, (4, None))
+    _check("levels", levels, torch.int32, (rows, None))
     num_levels = levels.shape[1]
     _check("g", g, torch.float32, (x.shape[0], None))
     _same_device(x, g, levels)
@@ -292,9 +294,10 @@ def hashgrid_position_grad(
 ) -> torch.Tensor:
     """K2x: the [B, 3] position gradient of K1 for the output cotangent
     ``g`` [B, L*C] at points ``x`` [B, 3] in ``table`` [T, C] (see
-    csrc/hashgrid.cu); rows of points outside [0, 1]^3 are 0."""
+    csrc/hashgrid.cu); rows of points outside [0, 1]^3 are 0.  ``levels``
+    is K2x's int32 [6, L] table (``ops.hashgrid.position_grad_table``)."""
     b = x.shape[0]
-    c = _hashgrid_cotangent(x, g, levels)
+    c = _hashgrid_cotangent(x, g, levels, rows=6)
     _check("table", table, torch.float32, (None, c))
     _same_device(x, table)
     dx = torch.empty((b, 3), dtype=torch.float32, device=x.device)
@@ -717,73 +720,49 @@ def occupancy_merge(grid: torch.Tensor, tmp: torch.Tensor, decay: float, density
     return out, bitfield, mean
 
 
-# Launches a call of occupancy_skipdist (K6c): one fused pass; of
-# occupancy_skipdist_general: three axis passes.
+# Launches a call of occupancy_skipdist (K6c).
 SKIPDIST_LAUNCHES = 1
-SKIPDIST_GENERAL_LAUNCHES = 3
-# Largest grid size the one-launch K6c takes (kSkipMaxGrid, csrc/occupancy.cu).
-SKIPDIST_MAX_GRID = 128
+# Largest grid size K6c takes (kSkipMaxGrid, csrc/occupancy.cu): 2 x 2048^3
+# bytes, a cascade's bitfield and distances, are 17 GB.
+SKIPDIST_MAX_GRID = 2048
 
 
-def skipdist_one_launch_holds(grid_size: int) -> bool:
-    """True for the grid sizes the one-launch K6c takes: multiples of 16 up
-    to SKIPDIST_MAX_GRID (a slab and its halo in shared memory)."""
-    return grid_size % 16 == 0 and 0 < grid_size <= SKIPDIST_MAX_GRID
-
-
-def _skipdist_args(bitfield: torch.Tensor, grid_size: int) -> Tuple[int, torch.Tensor]:
+def occupancy_skipdist(bitfield: torch.Tensor, grid_size: int, dmax: int, *,
+                       tile: int = 0) -> torch.Tensor:
+    """K6c: the [cascade*H^3] u8 skip distance of a bool bitfield (L-inf
+    cells to the nearest occupied cell of the cascade, capped at ``dmax``),
+    at any grid size up to SKIPDIST_MAX_GRID and ``dmax`` up to 15, in one
+    launch: a CTA packs an (x, y) tile and its halo as bits in shared memory
+    and dilates it there (see csrc/occupancy.cu).  ``tile`` > 0 fixes the
+    tile's side, which the host's model picks by the SM count at 0."""
+    if not 0 < grid_size <= SKIPDIST_MAX_GRID:
+        raise ValueError(f"K6c takes grid sizes 1..{SKIPDIST_MAX_GRID}, got {grid_size}")
     _check("bitfield", bitfield, torch.bool, (None,))
     n, h3 = bitfield.shape[0], grid_size**3
     if n % h3:
         raise ValueError(f"bitfield of {n} cells does not fit a {grid_size}^3 grid")
-    return n, torch.empty((n,), dtype=torch.uint8, device=bitfield.device)
-
-
-def occupancy_skipdist(bitfield: torch.Tensor, grid_size: int, dmax: int) -> torch.Tensor:
-    """K6c: the [cascade*H^3] u8 skip distance of a bool bitfield (L-inf
-    cells to the nearest occupied cell of the cascade, capped at ``dmax``),
-    in one launch: a CTA dilates a slab of x-planes and its halo, packed as
-    bits, in shared memory (see csrc/occupancy.cu).  Takes grid sizes that
-    are multiples of 16 up to 128, and ``dmax`` up to 15; other grid sizes
-    go to :func:`occupancy_skipdist_general`."""
-    n, out = _skipdist_args(bitfield, grid_size)
+    out = torch.empty((n,), dtype=torch.uint8, device=bitfield.device)
     if n == 0:
         return out
-    if not skipdist_one_launch_holds(grid_size):
-        raise ValueError(f"K6c takes grid sizes that are multiples of 16 up to "
-                         f"{SKIPDIST_MAX_GRID} (a slab and its halo in shared memory), got "
-                         f"{grid_size}")
     if not 1 <= dmax <= 15:
         raise ValueError(f"K6c counts distances in 4 bits: dmax 1..15, got {dmax}")
     if bitfield.data_ptr() % 16:
         raise ValueError("bitfield: K6c reads 16 cells at once and needs a 16-byte aligned "
                          "tensor")
     lib = library()
-    status = lib.nst_occupancy_skipdist(bitfield.data_ptr(), grid_size, n, dmax, out.data_ptr(),
-                                        _stream(bitfield))
+    status = lib.nst_occupancy_skipdist(bitfield.data_ptr(), grid_size, n, dmax, tile,
+                                        out.data_ptr(), _stream(bitfield))
     _launched(lib, status, "occupancy_skipdist")
     return out
 
 
-def occupancy_skipdist_general(bitfield: torch.Tensor, grid_size: int,
-                               dmax: int) -> torch.Tensor:
-    """K6c at any grid size: the same skip distance as
-    :func:`occupancy_skipdist`, in three separable axis passes (z, y, x),
-    one launch each (see csrc/occupancy.cu)."""
-    n, out = _skipdist_args(bitfield, grid_size)
-    if n == 0:
-        return out
-    if not 1 <= dmax <= 255:
-        raise ValueError(f"K6c general keeps distances in a byte: dmax 1..255, got {dmax}")
-    tmp = torch.empty_like(out)
-    lib = library()
-    stream = _stream(bitfield)
-    for src, dst, stride in ((bitfield, out, 1), (out, tmp, grid_size),
-                             (tmp, out, grid_size * grid_size)):
-        status = lib.nst_occupancy_skipdist_pass(src.data_ptr(), int(src is bitfield), grid_size,
-                                                 n, stride, dmax, dst.data_ptr(), stream)
-        _launched(lib, status, "occupancy_skipdist_general")
-    return out
+def skipdist_plan(grid_size: int, cascades: int, dmax: int, tile: int = 0) -> dict:
+    """K6c's launch on the current device: the tile's side, words a line
+    chunk and central words of it, tiles (a CTA each) and shared memory
+    (tile 0 if no tile fits)."""
+    plan = (ctypes.c_int * 4)()
+    smem = library().nst_occupancy_skipdist_plan(grid_size, cascades, dmax, tile, plan)
+    return dict(tile=plan[0], words=plan[1], central_words=plan[2], tiles=plan[3], smem=smem)
 
 
 def _aligned8(name: str, t: torch.Tensor) -> None:

@@ -150,6 +150,27 @@ def level_table(spec: HashGridSpec, device: torch.device) -> torch.Tensor:
     return torch.tensor(rows, dtype=torch.int32, device=device)
 
 
+def remainder_magic(size: int) -> int:
+    """K2x's constant for ``hash % size`` on a table whose size is not a
+    power of two: ``M = ceil(2^64 / size)``, with which ``((M * hash) mod
+    2^64 * size) >> 64`` is ``hash % size`` for every 32-bit hash (Lemire,
+    Kaser and Kurz, "Faster remainder by direct computation", 2019); 0 on a
+    power-of-two size, where the kernel masks."""
+    return 0 if size & (size - 1) == 0 else (2**64 - 1) // size + 1
+
+
+@functools.lru_cache(maxsize=16)
+def position_grad_table(spec: HashGridSpec, device: torch.device) -> torch.Tensor:
+    """int32 [6, L]: K2x's level table, :func:`level_table`'s four rows and
+    each level's :func:`remainder_magic` as its low and high 32-bit words
+    (bit patterns)."""
+    magic = [remainder_magic(size) for size in spec.table_sizes]
+    words = [[(m >> shift & _U32) - ((m >> shift & _U32) >> 31 << 32) for m in magic]
+             for shift in (0, 32)]
+    return torch.cat([level_table(spec, device),
+                      torch.tensor(words, dtype=torch.int32, device=device)])
+
+
 def _cells(spec: HashGridSpec, x: torch.Tensor, lv0: int, lv1: int):
     """Integer corners pg [B, L', 3] i64 and fractions [B, L', 3] of levels
     [lv0, lv1), in the JAX order of operations."""
@@ -288,7 +309,7 @@ class HashGridEncode(torch.autograd.Function):
         if ctx.needs_input_grad[1] and not ctx.fast_vjp:  # else zero (None)
             dx = kernels.hashgrid_position_grad(
                 x.contiguous(), g.contiguous(), ctx.saved_tensors[1].contiguous(),
-                level_table(spec, x.device), style_term(style))
+                position_grad_table(spec, x.device), style_term(style))
         return grad, dx, None, None, None, None
 
 

@@ -131,14 +131,11 @@ def skipdist_from_bitfield(bitfield: torch.Tensor, grid_size: int, *,
                            plain: bool = False) -> torch.Tensor:
     """[cascade * H^3] bool -> [cascade * H^3] u8: each cell's L-inf distance
     in cells to the nearest occupied cell of its cascade, capped at
-    SKIP_DMAX, the grid not wrapping.  On CUDA tensors kernel K6c: the
-    one-launch kernel at the grid sizes its tiles hold (multiples of 16 up
-    to 128), its general form (three axis passes) at every other size."""
+    SKIP_DMAX, the grid not wrapping.  On CUDA tensors kernel K6c, one
+    launch at every grid size."""
     if not use_kernel(bitfield, plain):
         return skipdist_plain(bitfield, grid_size)
-    if kernels.skipdist_one_launch_holds(grid_size):
-        return kernels.occupancy_skipdist(bitfield.contiguous(), grid_size, SKIP_DMAX)
-    return kernels.occupancy_skipdist_general(bitfield.contiguous(), grid_size, SKIP_DMAX)
+    return kernels.occupancy_skipdist(bitfield.contiguous(), grid_size, SKIP_DMAX)
 
 
 def cell_linear_index(coords: torch.Tensor, grid_size: int) -> torch.Tensor:

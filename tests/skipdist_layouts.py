@@ -1,13 +1,11 @@
 """Crafted occupancy grids for K6c (the skip distance), and a numpy emulation
-of the kernel's algorithm (``nerfstyle_torch/csrc/occupancy.cu``): the
-bitfield packed as 32-bit words a z-line, a CTA's slab of SLAB x-planes with a
-halo of dmax - 1 planes each side, dmax - 1 rounds of a dilation (y and z
-of each plane, then x across three planes, into the other buffer) over the
-planes still exact, and the distance kept as a bit-sliced 4-bit counter,
-expanded to bytes at the end.  Beside it, :func:`emulate_axis_passes`,
-the general K6c's three separable axis passes, which take every grid size.
-The CPU tests hold both against the JAX package's iterated dilation; the
-card tests hand the same grids to the kernels.
+of the kernel's algorithm (``nerfstyle_torch/csrc/occupancy.cu``,
+:func:`emulate_tiles`): (x, y) tiles with a halo of dmax - 1 cells each
+side clipped at the faces, z-lines packed as 32-bit words and cut into
+chunks with a word of halo each side, rounds of dilation over the lines
+still exact, and the distance's bits flipped round by round.  The CPU
+tests hold it against the JAX package's iterated dilation; the card tests
+hand the same grids to the kernel.
 
 A grid is a flat bool array ``[cascade * h^3]``, cell (c, x, y, z) at
 ``((c * h + x) * h + y) * h + z``.
@@ -17,7 +15,7 @@ from __future__ import annotations
 
 import numpy as np
 
-SLAB = 2  # central x-planes a CTA (kSkipSlab)
+SLAB = 2  # planes SLAB - 1 and SLAB: a border between two x-slabs of the grid
 DMAX = 15  # SKIP_DMAX
 
 
@@ -59,11 +57,13 @@ def _points(name: str, h: int, cascade: int):
 
 def names(h: int):
     """The crafted grids of a grid size (probe distances need h >= 16; the
-    word border h > 32)."""
+    slab border and halo cells h >= 6; the word border h > 32)."""
     out = ["empty", "full", "corner", "far corner", "edge", "centre"]
-    out += [f"{d} along {a}" for d in (14, 15) for a in ("x", "y", "z", "the diagonal")]
-    out += ["slab border", "inside a halo"] + (["word border"] if h > 32 else [])
-    return out
+    if h >= 16:
+        out += [f"{d} along {a}" for d in (14, 15) for a in ("x", "y", "z", "the diagonal")]
+    if h >= 6:
+        out += ["slab border", "inside a halo"]
+    return out + (["word border"] if h > 32 else [])
 
 
 def grid(name: str, h: int, cascade: int) -> np.ndarray:
@@ -109,77 +109,68 @@ def _dilate_z(v: np.ndarray, tail: np.uint32) -> np.ndarray:
     return d
 
 
-def _count(b, v, tail):
-    c = ~v
-    c[..., -1] &= tail
-    for i in range(3):
-        k = b[i] & c
-        b[i] ^= c
-        c = k
-    b[3] ^= c
+def tiling(h: int, tile: int):
+    """The kernel's tiling of a grid size at a tile side: (tile, words a
+    line chunk, central words of it) -- whole lines up to 4 words, else
+    chunks of 2 central words and a word of halo each side."""
+    w = -(-h // 32)
+    return (tile, w, w) if w <= 4 else (tile, 4, 2)
 
 
-def emulate(bits: np.ndarray, h: int, dmax: int = DMAX) -> np.ndarray:
-    """The kernel's algorithm, one CTA (cascade, slab) at a time -> u8 [n]."""
-    assert h % 16 == 0 and 1 <= dmax <= 15
+def emulate_tiles(bits: np.ndarray, h: int, tile: int, nw: int, wc: int,
+                  dmax: int = DMAX) -> np.ndarray:
+    """K6c's scheme (``skipdist_kernel`` in csrc/occupancy.cu) -> u8 [n], one
+    CTA (cascade, x tile, y tile, chunk of z-words) at a time: central
+    cells ``tile`` a side, ``wc`` central words a line chunk of ``nw`` words
+    (a word of halo each side when nw > wc; the kernel takes nw = wc = W up
+    to W = 4, else nw = 4 and wc = 2).  A chunk's words past the grid are 0
+    and the cells past h in a tail word are not masked: no occupied cell
+    lies outside the grid, so dilating into those cells changes no cell
+    inside it.  Rounds compute only the lines still exact: r cells in from
+    each halo side that is not a face.  The count of rounds 0..dmax-1 that
+    have not covered a cell keeps its bit j flipped at round r when 2^j
+    divides r + 1."""
+    assert 1 <= dmax <= 15 and nw >= wc
     occ = bits.reshape(-1, h, h, h)
     out = np.empty(occ.shape, np.uint8)
-    halo = dmax - 1
-    tail = np.uint32((1 << (h % 32)) - 1 if h % 32 else 0xFFFFFFFF)
-    zero = np.zeros((1, h, -(-h // 32)), np.uint32)
+    halo, w_all, zoff = dmax - 1, -(-h // 32), (nw - wc + 1) // 2
+    words = pack(occ)  # [cascade, h, h, W]
     for cas in range(occ.shape[0]):
-        for x0 in range(0, h, SLAB):
-            sc = min(SLAB, h - x0)
-            xs, xe = max(0, x0 - halo), min(h, x0 + sc + halo)
-            np_, c0 = xe - xs, x0 - xs
-            a_buf = pack(occ[cas, xs:xe])  # [np, h, W]
-            b_buf = np.zeros_like(a_buf)
-            cnt = [np.zeros((sc, h, a_buf.shape[2]), np.uint32) for _ in range(4)]
-            _count(cnt, a_buf[c0:c0 + sc].copy(), tail)
-            for r in range(1, halo + 1):
-                a = r if xs > 0 else 0
-                b = np_ - r if xe < h else np_
-                # yz(p): lines y-1..y+1 ORed, then z-dilated; then
-                # B[p] = yz(p-1) | yz(p) | yz(p+1), the buffers swapped.
-                y = a_buf.copy()
-                y[:, 1:] |= a_buf[:, :-1]
-                y[:, :-1] |= a_buf[:, 1:]
-                yz = _dilate_z(y, tail)
-                lo = yz[a - 1:b - 1] if a > 0 else np.concatenate([zero, yz[:b - 1]])
-                hi = yz[a + 1:b + 1] if b < np_ else np.concatenate([yz[a + 1:b], zero])
-                b_buf[a:b] = lo | yz[a:b] | hi
-                a_buf, b_buf = b_buf, a_buf
-                _count(cnt, a_buf[c0:c0 + sc].copy(), tail)
-            # Expand: 4 cells a multiply a bit plane.
-            cells = np.zeros((sc, h, cnt[0].shape[2] * 32), np.uint8)
-            for k in range(8):
-                q = np.zeros(cnt[0].shape, np.uint32)
-                for j in range(4):
-                    q |= _spread((cnt[j] >> np.uint32(4 * k)) & np.uint32(0xF)) << np.uint32(j)
-                four = q[..., None].view(np.uint8).reshape(q.shape + (4,))
-                idx = (np.arange(cnt[0].shape[2])[:, None] * 32 + 4 * k + np.arange(4)).reshape(-1)
-                cells[..., idx] = four.reshape(sc, h, -1)
-            out[cas, x0:x0 + sc] = cells[..., :h]
+        for x0 in range(0, h, tile):
+            for y0 in range(0, h, tile):
+                for w0 in range(0, w_all, wc):
+                    sx, sy, swc = min(tile, h - x0), min(tile, h - y0), min(wc, w_all - w0)
+                    xs, ys = max(0, x0 - halo), max(0, y0 - halo)
+                    xe, ye = min(h, x0 + sx + halo), min(h, y0 + sy + halo)
+                    cx, cy = x0 - xs, y0 - ys
+                    a_buf = np.zeros((xe - xs, ye - ys, nw), np.uint32)
+                    for j in range(nw):
+                        word = w0 - zoff + j
+                        if 0 <= word < w_all:
+                            a_buf[..., j] = words[cas, xs:xe, ys:ye, word]
+                    cnt = np.zeros((4, sx, sy, nw), np.uint32)
+                    central = (slice(cx, cx + sx), slice(cy, cy + sy))
+                    for r in range(halo + 1):
+                        if r:
+                            ax, ay = (r if xs > 0 else 0), (r if ys > 0 else 0)
+                            bx = a_buf.shape[0] - r if xe < h else a_buf.shape[0]
+                            by = a_buf.shape[1] - r if ye < h else a_buf.shape[1]
+                            y = a_buf.copy()
+                            y[:, 1:] |= a_buf[:, :-1]
+                            y[:, :-1] |= a_buf[:, 1:]
+                            yz = _dilate_z(y, np.uint32(0xFFFFFFFF))
+                            pad = np.zeros((1,) + yz.shape[1:], np.uint32)
+                            yz = np.concatenate([pad, yz, pad])  # planes -1 .. nx
+                            b_buf = a_buf.copy()
+                            b_buf[ax:bx, ay:by] = (yz[ax:bx] | yz[ax + 1:bx + 1]
+                                                   | yz[ax + 2:bx + 2])[:, ay:by]
+                            a_buf = b_buf
+                        for j in range(4):
+                            if (r + 1) % (1 << j) == 0:
+                                cnt[j] ^= ~a_buf[central]
+                    z = np.arange(32 * w0, min(h, 32 * (w0 + swc)))
+                    word, bit = z // 32 - w0 + zoff, (z % 32).astype(np.uint32)
+                    val = sum(((cnt[j][..., word] >> bit) & np.uint32(1)) << np.uint32(j)
+                              for j in range(4))
+                    out[cas, x0:x0 + sx, y0:y0 + sy, z[0]:z[-1] + 1] = val
     return out.reshape(-1)
-
-
-def emulate_axis_passes(bits: np.ndarray, h: int, dmax: int = DMAX) -> np.ndarray:
-    """The general K6c -> u8 [n]: passes along z, y, then x, each taking a
-    cell's min over its axis neighbours of max(|delta|, the previous pass's
-    distance), from the bitfield's 0 (occupied) or dmax.  The kernel walks
-    outward and stops once |delta| reaches the best so far; every farther
-    neighbour gives max(|delta|, .) >= the best, so the full min is the
-    same."""
-    d = np.where(bits.reshape(-1, h, h, h), 0, dmax).astype(np.int64)
-    for ax in (3, 2, 1):
-        best = d.copy()
-        for r in range(1, dmax):
-            if r >= h:
-                break
-            fwd = [slice(None)] * 4
-            bwd = [slice(None)] * 4
-            fwd[ax], bwd[ax] = slice(r, None), slice(None, -r)
-            best[tuple(bwd)] = np.minimum(best[tuple(bwd)], np.maximum(r, d[tuple(fwd)]))
-            best[tuple(fwd)] = np.minimum(best[tuple(fwd)], np.maximum(r, d[tuple(bwd)]))
-        d = best
-    return d.astype(np.uint8).reshape(-1)

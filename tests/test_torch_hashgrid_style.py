@@ -174,3 +174,41 @@ def test_torch_no_spec_of_the_configs_takes_the_dense_law():
         for res, size in zip(spec.resolutions, spec.table_sizes):
             assert not th.dense_level(res, size), (spec, res, size)
             assert (res + 1) ** 3 * th.MAX_STYLES > size
+
+
+def test_torch_position_grad_remainder_magic():
+    """K2x's row index on tables that are not a power of two: the host's
+    constant M = ceil(2^64 / size) (``remainder_magic``, rows 4 and 5 of
+    ``position_grad_table``) gives ((M * h) mod 2^64 * size) >> 64 = h %
+    size for every table size that ``hashgrid_spec`` builds at the default
+    network (bounds 1-8), the tests' and the README's small grids and
+    random specs, on edge hashes (0, 1, around the size and its last
+    multiple below 2^32, around 2^31, 2^32 - 1) and random 32-bit ones, in
+    Python integers; a power-of-two size gets 0 (the kernel masks)."""
+    rng = np.random.default_rng(5)
+    specs = [make_grid_spec(16, 2, 19, 16, 1024, b) for b in (2.0, 4.0, 8.0, 16.0)]
+    specs += [make_grid_spec(4, 2, 12, 16, 16, b) for b in (2.0, 4.0)]
+    specs += [th.hashgrid_spec(**GRID), th.hashgrid_spec(),
+              th.hashgrid_spec(4, 2, 16, 1.5, 10), th.hashgrid_spec(48, 2, 4, 1.1, 10)]
+    specs += [th.hashgrid_spec(int(rng.integers(1, 25)), 2, int(rng.integers(1, 65)),
+                               float(rng.uniform(1.01, 3.0)), int(rng.integers(3, 25)))
+              for _ in range(40)]
+    sizes = sorted({s for spec in specs for s in spec.table_sizes})
+    odd = [s for s in sizes if s & (s - 1)]
+    assert len(odd) > 50 and 13824 in odd  # the default network's level 1 at bound 2
+    mask = 2**64 - 1
+    for spec in specs[:6]:
+        lv = th.position_grad_table(spec, torch.device("cpu")).numpy().astype(np.int64)
+        for l, size in enumerate(spec.table_sizes):
+            m = (int(lv[4, l]) & 0xFFFFFFFF) | (int(lv[5, l]) & 0xFFFFFFFF) << 32
+            assert m == th.remainder_magic(size)
+    for size in sizes:
+        m = th.remainder_magic(size)
+        if not size & (size - 1):
+            assert m == 0
+            continue
+        last = (2**32 - 1) // size * size
+        edges = [0, 1, size - 1, size, size + 1, 2 * size - 1, last - 1, last, 2**32 - 1,
+                 2**32 - 2, 2**31 - 1, 2**31, 2**31 + 1]
+        for h in edges + [int(v) for v in rng.integers(0, 2**32, size=500, dtype=np.uint64)]:
+            assert ((m * h & mask) * size) >> 64 == h % size, (size, h)

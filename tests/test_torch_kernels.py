@@ -126,7 +126,7 @@ def test_torch_two_stage_march_kernel_matches_plain_and_dense(cuda_device, bound
 @pytest.mark.parametrize("grid,cascade,density", [(16, 1, 0.01), (32, 2, 0.0005), (32, 2, 0.2),
                                                   (16, 2, 0.0)])
 def test_torch_skipdist_kernel_matches_plain(cuda_device, grid, cascade, density):
-    """K6c (one fused pass over a slab and its halo in shared memory) equals
+    """K6c ((x, y) tiles and their halos dilated in shared memory) equals
     the plain iterated dilation bit for bit, in one launch."""
     bits = torch.from_numpy(
         np.random.default_rng(grid + cascade).random(cascade * grid**3) < density).to(cuda_device)
@@ -182,8 +182,8 @@ def test_torch_skipdist_kernel_on_a_sparse_random_grid(cuda_device):
     _skipdist_case(sl.sparse_random(), 128, cuda_device)
 
 
-GENERAL_CASES = [(h, cas, name) for h in (24, 40, 100, 256) for cas in (1, 2)
-                 for name in sl.names(h)]
+GENERAL_CASES = [(h, cas, name) for h in (1, 15, 17, 24, 40, 100, 129, 200, 256)
+                 for cas in (1, 2) for name in sl.names(h)]
 
 
 def _skipdist_general_case(bits: np.ndarray, h: int, device) -> None:
@@ -192,20 +192,19 @@ def _skipdist_general_case(bits: np.ndarray, h: int, device) -> None:
     got = to.skipdist_from_bitfield(t, h)
     again = to.skipdist_from_bitfield(t, h)
     torch.cuda.synchronize()
-    assert kernels.launch_counts["occupancy_skipdist_general"] == (
-        2 * kernels.SKIPDIST_GENERAL_LAUNCHES)
-    assert kernels.launch_counts["occupancy_skipdist"] == 0
+    assert kernels.launch_counts["occupancy_skipdist"] == 2 * kernels.SKIPDIST_LAUNCHES == 2
     want = to.skipdist_from_bitfield(t, h, plain=True)
     assert torch.equal(got, want) and torch.equal(got, again)
 
 
 @pytest.mark.parametrize("h,cascade,name", GENERAL_CASES)
 def test_torch_skipdist_general_kernel_on_crafted_grids(cuda_device, h, cascade, name):
-    """K6c's general entry (three axis passes) at grid sizes the one-launch
-    kernel does not take (24, 40, 100: not multiples of 16; 256: above
-    128), reached through skipdist_from_bitfield, on the crafted grids of
-    tests/skipdist_layouts.py: equal to the plain version bit for bit, two
-    calls equal, three launches a call."""
+    """K6c at grid sizes other than 16, 32 and 128 (1: one cell a cascade;
+    15, 17, 24, 40, 100: not multiples of 16, tail words; 129, 200, 256:
+    z-lines in chunks of words with a word of halo each side), reached
+    through skipdist_from_bitfield, on the crafted grids of
+    tests/skipdist_layouts.py that fit the size: equal to the plain version
+    bit for bit, two calls equal, one launch a call."""
     _skipdist_general_case(sl.grid(name, h, cascade), h, cuda_device)
 
 
@@ -214,10 +213,32 @@ def test_torch_skipdist_general_kernel_on_a_sparse_random_grid(cuda_device):
     _skipdist_general_case(sl.sparse_random(h=256), 256, cuda_device)
 
 
+def test_torch_skipdist_kernel_on_a_sparse_random_512_grid(cuda_device):
+    """2 x 512^3 cells, 0.02% occupied: 16 words a z-line, 8 chunks."""
+    _skipdist_general_case(sl.sparse_random(h=512), 512, cuda_device)
+
+
+def test_torch_skipdist_kernel_at_fixed_tile_sides(cuda_device):
+    """Every tile side the kernel takes (1..32 cells; the host picks one by
+    its cost model) gives the same bits on a sparse and a dense grid at 40
+    and 200 cells a side; the plan reports the tile it launched."""
+    for h in (40, 200):
+        for density in (3e-4, 0.05):
+            t = torch.from_numpy(sl.sparse_random(h=h, density=density)).to(cuda_device)
+            want = to.skipdist_from_bitfield(t, h, plain=True)
+            for tile in range(1, 33):
+                plan = kernels.skipdist_plan(h, 2, to.SKIP_DMAX, tile=tile)
+                if plan["tile"] == 0:
+                    continue
+                assert plan["tile"] == tile
+                got = kernels.occupancy_skipdist(t, h, to.SKIP_DMAX, tile=tile)
+                assert torch.equal(got, want), (h, density, tile)
+
+
 @pytest.mark.parametrize("h", [24, 100, 256])
 def test_torch_occupancy_restore_and_merge_at_grid_sizes_off_the_tiles(cuda_device, h):
     """A restore and a merge at such a grid size rebuild the skip distance
-    through the general entry: no one-launch K6c, the plain result."""
+    through K6c, one launch each: the plain result."""
     rng = np.random.default_rng(h)
     grid = torch.from_numpy(rng.exponential(1.0, size=(2, h**3)).astype(np.float32))
     state = to.occupancy_init(2, h)._replace(density_grid=grid)
@@ -227,18 +248,16 @@ def test_torch_occupancy_restore_and_merge_at_grid_sizes_off_the_tiles(cuda_devi
     merged = to.merge_and_threshold(restored, torch.full_like(restored.density_grid, -1.0),
                                     0.95, 1.0, grid_size=h)
     torch.cuda.synchronize()
-    assert kernels.launch_counts["occupancy_skipdist_general"] == (
-        2 * kernels.SKIPDIST_GENERAL_LAUNCHES)
-    assert kernels.launch_counts["occupancy_skipdist"] == 0
+    assert kernels.launch_counts["occupancy_skipdist"] == 2 * kernels.SKIPDIST_LAUNCHES
     for s in (restored, merged):
         assert torch.equal(s.skipdist, to.skipdist_from_bitfield(s.bitfield, h, plain=True))
 
 
-@pytest.mark.parametrize("h", [24, 256])
+@pytest.mark.parametrize("h", [2049, 4096])
 def test_torch_skipdist_kernel_refuses_grids_its_tiles_do_not_hold(cuda_device, h):
-    """Grid sizes that are not a multiple of 16, or above 128, raise."""
-    bits = torch.zeros(h**3, dtype=torch.bool, device=cuda_device)
-    with pytest.raises(ValueError, match="multiples of 16 up to 128"):
+    """Grid sizes above SKIPDIST_MAX_GRID raise, naming the limit."""
+    bits = torch.zeros(0, dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError, match=f"1..{kernels.SKIPDIST_MAX_GRID}"):
         kernels.occupancy_skipdist(bits, h, to.SKIP_DMAX)
 
 
@@ -476,6 +495,54 @@ def test_torch_position_grad_kernel_matches_plain(cuda_device, grid, channels, s
     pts.grad = None
     th.hashgrid_encode(spec, table, pts, style=style).backward(g)
     assert kernels.launch_counts["hashgrid_position_grad"] == 0 and pts.grad is None
+
+
+# A grid whose tables are not powers of two (a prime, 3 * 2^16, a multiple
+# of 8 and 2^20 - 8 rows), the last two levels simplex: every level takes
+# K2x's magic remainder.
+MAGIC_GRID = dict(num_levels=4, level_dim=2, base_resolution=64, per_level_scale=2.0,
+                  log2_hashmap_size=20, resolutions=(64, 100, 257, 1000),
+                  table_sizes=(1000003, 196608, 12344, 1048568), simplex_from=2)
+
+
+@pytest.mark.parametrize("hash_value", ["2^32 - 1", "a multiple of the size"])
+@pytest.mark.parametrize("level", range(4))
+def test_torch_position_grad_magic_remainder(cuda_device, level, hash_value):
+    """K2x's remainder on tables whose size is not a power of two: a point
+    of the level's cell (pg) and a style slot chosen so that the cell's
+    corner 0 hashes to 2^32 - 1, or to the largest multiple of the table
+    size below 2^32 (row 0 of the level), among random points and points
+    outside [0, 1]^3: within 1e-5 of the largest |d x| of the plain
+    version (autograd through the plain encode), and exactly 0 outside."""
+    sizes = MAGIC_GRID["table_sizes"]
+    offsets = tuple(int(o) for o in np.concatenate([[0], np.cumsum(sizes)]))
+    spec = th.HashGridSpec(**MAGIC_GRID, offsets=offsets)
+    rng = np.random.default_rng(31 + level)
+    res = spec.resolutions[level]
+    pg = rng.integers(0, res, size=3)
+    primes = (1, 2654435761, 805459861)
+    cell = 0
+    for d in range(3):
+        cell ^= (int(pg[d]) * primes[d]) & 0xFFFFFFFF
+    last_multiple = (2**32 - 1) // sizes[level] * sizes[level]
+    want_hash = 2**32 - 1 if hash_value == "2^32 - 1" else last_multiple
+    style = ((want_hash ^ cell) * pow(th.STYLE_PRIME, -1, 2**32)) % 2**32
+    assert th.style_term(style) ^ cell == want_hash
+    planted = (pg[None, :] + rng.uniform(0.05, 0.95, size=(64, 3))) / res
+    x = np.concatenate([planted, rng.uniform(-0.1, 1.1, size=(999, 3))]).astype(np.float32)
+    x = torch.from_numpy(x).to(cuda_device)
+    table = torch.from_numpy(rng.uniform(-1, 1, size=(spec.total_params, 2))
+                             .astype(np.float32)).to(cuda_device)
+    g = torch.from_numpy(rng.normal(size=(x.shape[0], 8)).astype(np.float32)).to(cuda_device)
+    kernels.reset_launch_counts()
+    got = kernels.hashgrid_position_grad(x, g, table, th.position_grad_table(spec, cuda_device),
+                                         th.style_term(style))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["hashgrid_position_grad"] == 1
+    want = th.hashgrid_position_grad_plain(spec, table, x, g, style)
+    inside = ((x >= 0) & (x <= 1)).all(dim=-1)
+    assert not bool(got[~inside].any()) and bool(got[:64].any())
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))
 
 
 def test_torch_interop_kernels_match_plain(cuda_device):

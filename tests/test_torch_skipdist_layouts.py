@@ -1,9 +1,11 @@
 """K6c (the skip distance) on crafted grids, against the JAX package's
 iterated dilation (``nerfstyle_tpu.ops.occupancy.skipdist_from_bitfield``):
-a numpy emulation of the kernel's algorithm (bits packed a z-line, a slab
-and its halo, dmax - 1 rounds, a bit-sliced counter; ``skipdist_layouts``)
-and the port's plain version, both bit for bit.  The kernel itself meets
-the same grids in ``tests/test_torch_kernels.py`` on the card.
+a numpy emulation of the kernel's algorithm (bits packed a z-line, (x, y)
+tiles and their halos, dmax - 1 rounds, a bit-sliced count;
+``skipdist_layouts.emulate_tiles``, at the tile side the kernel takes on the
+H100 at 128 and sides that clip the halos at 16 and 32) and the port's plain
+version, both bit for bit.  The kernel itself meets the same grids in
+``tests/test_torch_kernels.py`` on the card.
 """
 
 import itertools
@@ -34,10 +36,14 @@ def _jax(bits: np.ndarray, h: int) -> np.ndarray:
     return np.asarray(jo.skipdist_from_bitfield(jnp.asarray(bits), h))
 
 
+# Central tile sides: 16 is the kernel's choice at 128 on 132 SMs.
+TILE = {16: 7, 32: 12, 128: 16}
+
+
 def _check(bits: np.ndarray, h: int) -> None:
     want = _jax(bits, h)
     assert want.dtype == np.uint8
-    np.testing.assert_array_equal(sl.emulate(bits, h), want)
+    np.testing.assert_array_equal(sl.emulate_tiles(bits, h, *sl.tiling(h, TILE[h])), want)
     got = to.skipdist_from_bitfield(torch.from_numpy(bits), h)
     np.testing.assert_array_equal(got.numpy(), want)
 

@@ -180,6 +180,20 @@
    device-to-host copies, the rest; every train-path hand kernel must
    appear in it by its ``__global__`` name.
 
+16. Data parallelism over rays (``dp_phase``, after every other path):
+   dp_run unsharded in this process, then in dp_world()'s ranks (two
+   processes sharing the card over gloo; NCCL over every card where there
+   are two or more), started together: the train phase's run resumed at
+   step 300 (the first late batch's losses and gradient, 8 late steps
+   with an occupancy update, 4 more with each collective between device
+   syncs), a cached style step (pinned to the unsharded step's choices,
+   and unpinned), pass 1 and pass 2 of the two-pass scheme on one pose,
+   and the 1008x756 frame, each held against the unsharded run at its
+   path's card tolerance; the ranks' params and grids must agree, and each
+   part must launch its kernels on every rank.  Prints one JSON line
+   ``{"dp": ...}``: the card, the late step with and without the mesh, the
+   collectives a step, their bytes and their share of a step.
+
 Before the main path: K5d's first entry (sh_encode) at a frame chunk's
 kept stream (129,929 rows) and at a style cache's size (640,000), and its
 second (sh_assemble: features, SH basis and K5's zero padding in one
@@ -254,6 +268,12 @@ warm and cold, each held against its plain version, with K6c at fixed
 tile sides, and the SASS instructions of K2x, K1, K2 and K6c, as one
 JSON line (k6c_k2x_rows); a copy in another checkout that has this mode
 times that tree's kernels in turns as above.
+
+    python3 chip_smoke.py --dp
+
+writes the render checkpoint, trains the train phase's 300 steps and
+writes the style assets, then runs the dp phase alone and prints its JSON
+line.
 """
 
 from __future__ import annotations
@@ -4564,6 +4584,303 @@ def gif_frames(path: Path) -> int:
     return frames
 
 
+# ---------------------------------------------------------------------------
+# Data parallelism over rays (nerfstyle_torch.parallel): the dp phase
+# ---------------------------------------------------------------------------
+
+DP_STEPS = 8  # late train steps a run (from step 300: one occupancy update, at 304)
+DP_TIMED_STEPS = 4  # then with each collective bracketed by device syncs
+DP_POSE = 0  # the style steps' train pose
+DP_TRAIN_COUNTERS = ("hashgrid_encode", "hashgrid_backward", "march_skip_count",
+                     "march_skip_write", "composite_weights", "composite_backward",
+                     "mlp_forward", "mlp_backward", "occupancy_scatter_max", "occupancy_merge",
+                     "occupancy_skipdist", "segment_sum")
+DP_STYLE_COUNTERS = ("hashgrid_encode", "hashgrid_backward", "mlp_forward", "mlp_backward",
+                     "segment_sum", "segment_sum_backward")
+DP_PASS2_COUNTERS = ("hashgrid_encode", "hashgrid_backward", "march_skip_count",
+                     "composite_weights", "composite_backward", "mlp_forward", "mlp_backward")
+DP_FRAME_COUNTERS = ("hashgrid_encode", "march_skip_count", "march_skip_write",
+                     "composite_weights", "mlp_forward", "segment_sum")
+
+
+def dp_world() -> tuple:
+    """(ranks, backend): NCCL over every card where there are two or more,
+    else two ranks sharing the one card over gloo."""
+    n = torch.cuda.device_count()
+    return (n, "nccl") if n >= 2 else (2, "gloo")
+
+
+def dp_train_argv(ckpt: Path, log_dir: Path) -> list:
+    """The train phase's run resumed from its checkpoint (step 300), every
+    interval off."""
+    return ["--ckpt", str(ckpt), "--log-dir", str(log_dir), "--data-cfg", str(WORK / "data.yaml"),
+            "--num_iterations", str(TRAIN_STEPS + 1000), "--intervals.print", "0",
+            "--intervals.log", "0", "--intervals.test", "0", "--intervals.ckpt", "0", "--yes"]
+
+
+def dp_style_argv(ckpt: Path, log_dir: Path) -> list:
+    """The style phase's configuration from the train checkpoint, every
+    interval off (the scheme does not matter: the checks call the steps'
+    parts)."""
+    return ["--ckpt", str(ckpt), "--log-dir", str(log_dir),
+            "--data-cfg", str(WORK / "style_data.yaml"), "--style-image", str(STYLE_JPEG),
+            "--style_seg_path", str(WORK / "style_seg.npz"), "--max_steps", "512",
+            "--intervals.print", "0", "--intervals.log", "0", "--intervals.test", "0",
+            "--intervals.ckpt", "0", "--yes"]
+
+
+def dp_trainer(argv: list, device, mesh=None):
+    from nerfstyle_torch.config import BaseConfig
+    from nerfstyle_torch.training.trainer import get_trainer
+
+    cfg, nargs = BaseConfig.read_nargs(argv)
+    return get_trainer(cfg, nargs, device, mesh)
+
+
+def dp_run(tt, st, renderer, params, pose, pin=None) -> dict:
+    """The dp phase's work on one rank (or unsharded, without a mesh): the
+    first late batch's losses and gradient (no step applied), DP_STEPS late
+    steps, DP_TIMED_STEPS more with the collectives timed, a cached style
+    step (pinned to ``pin``'s choices, and unpinned), pass 1 and pass 2 of
+    the two-pass scheme on one pose, and a 1008x756 frame; each part's
+    kernel launches."""
+    from nerfstyle_torch import kernels
+    from nerfstyle_torch.parallel import MeshStats
+
+    out: dict = {"launches": {}}
+    mesh = tt.mesh
+
+    def counted(part, fn):
+        kernels.reset_launch_counts()
+        r = fn()
+        torch.cuda.synchronize()
+        out["launches"][part] = dict(kernels.launch_counts)
+        return r
+
+    batch = tt.ray_batch(*tt.sample_batch())
+    losses, grads, counts = counted("first batch", lambda: tt.loss_and_grads(*batch))
+    out["first"] = {"losses": {k: float(v) for k, v in losses.items()}, "counts": counts,
+                    "grads": {k: [g.detach() for g in (v if isinstance(v, list) else [v])]
+                              for k, v in grads.items()}}
+    if mesh is None:  # the run-to-run noise of the same batch (K2's atomics)
+        again = tt.loss_and_grads(*batch)[1]
+        out["first"]["noise"] = {
+            f"{k}.{i}": rel_l2(a, b) for k, v in again.items()
+            for i, (a, b) in enumerate(zip(v if isinstance(v, list) else [v],
+                                           out["first"]["grads"][k]))}
+        del again
+    del grads, batch
+
+    def steps(n):
+        before = len(tt.iter_ms)
+        for _ in range(n):
+            tt.run_iter()
+        torch.cuda.synchronize()
+        return tt.iter_ms[before:]
+
+    if mesh is not None:
+        mesh.stats = MeshStats()
+    out["step_ms"] = counted("train steps", lambda: steps(DP_STEPS))
+    out["step_losses"] = [float(tt.last_losses["total"])]
+    if mesh is not None:
+        out["untimed_stats"] = dataclasses.asdict(mesh.stats)
+        mesh.stats, mesh.timed = MeshStats(), True
+        out["timed_step_ms"] = steps(DP_TIMED_STEPS)
+        mesh.timed = False
+        out["timed_stats"] = dataclasses.asdict(mesh.stats)
+    out["update_ms"] = {k: list(v) for k, v in tt.renderer.update_ms.items()}
+    out["params_sum"] = float(sum(w.detach().double().sum() for v in tt.params.values()
+                                  for w in (v if isinstance(v, list) else [v])))
+    out["bitfield_sum"] = int(tt.renderer.occ_state.bitfield.sum())
+
+    cache = st.geom_cache(DP_POSE)
+    st.init_matching(cache)
+    if pin is not None:
+        k = style_step_run(st, cache, pin=pin)
+        out["cached_pinned"] = {"losses": {n: float(v) for n, v in k[0].items()}, "grad": k[1]}
+    k = style_step_run(st, cache)
+    out["launches"]["cached step"] = k[3]
+    out["cached"] = {"losses": {n: float(v) for n, v in k[0].items()}, "grad": k[1],
+                     "choices": (k[2].made, k[2].pool_live)}
+    if pin is not None:
+        out["cached"]["flips"] = k[2].flips(pin)
+    with torch.no_grad():
+        rgb, cls = st.render_frame(st.params, DP_POSE)
+    _, pix = st.pixel_grad(rgb, st.target(DP_POSE), st._preds(cls))
+    out["pass1"] = {"rgb": rgb, "classes": cls}
+    out["pass2"] = counted("pass 2", lambda: st.window_grads(st.params, DP_POSE, pix))[
+        "x_color_embedder"]
+    with torch.no_grad():
+        frame = counted("frame", lambda: renderer.render(params, pose))
+    out["frame"] = {k: frame[k] for k in ("rgb_map", "trans_map", "classes", "weights_sum",
+                                          "num_marched", "num_sig", "num_cand")}
+    return out
+
+
+def dp_rank(rank: int, world: int, backend: str, job_dir: str) -> None:
+    """One rank of the dp phase (a process of its own): the mesh, the
+    trainers on it, dp_run; rank 0 writes its results, every rank its
+    checksums and launches."""
+    sys.path.insert(0, str(ROOT))
+    from nerfstyle_torch.parallel import make_mesh
+    from nerfstyle_torch.render import cli
+
+    job_dir = Path(job_dir)
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    mesh = make_mesh(dev, backend, init_method=f"file://{job_dir / 'init'}", rank=rank,
+                     world_size=world)
+    try:
+        tt = dp_trainer(dp_train_argv(WORK / "train" / f"iter_{TRAIN_STEPS}.ckpt",
+                                      job_dir / "train"), dev, mesh)
+        st = dp_trainer(dp_style_argv(WORK / "train" / f"iter_{TRAIN_STEPS}.ckpt",
+                                      job_dir / "style"), dev, mesh)
+        renderer, params, test_set, _ = cli.load_renderer(WORK / "smoke.ckpt", dev, OUT_DIMS,
+                                                          max_count=1, mesh=mesh)
+        assert tt.mesh is mesh and st.mesh is mesh and renderer.mesh is mesh
+        pin = StepChoices()
+        pin.made, pin.pool_live = torch.load(job_dir / "choices.pt", map_location=dev,
+                                             weights_only=False)
+        pose = torch.from_numpy(np.asarray(test_set[0][1]))
+        out = dp_run(tt, st, renderer, params, pose, pin)
+        if rank:
+            out = {k: out[k] for k in ("launches", "params_sum", "bitfield_sum", "step_losses")}
+        out["cached"] = {k: v for k, v in out.get("cached", {}).items() if k != "choices"}
+        torch.save(out, job_dir / f"rank{rank}.pt")
+    finally:
+        mesh.close()
+
+
+def dp_phase(card: str, fails) -> dict:
+    """Data parallelism over rays on the card(s): the unsharded run of
+    dp_run here, then the same run on dp_world()'s ranks (processes of
+    their own, started together), each held against the unsharded run at
+    its path's card tolerance: the first late batch's losses (1e-5
+    relative) and gradient (5e-3 relative L2 a leaf), the losses after the
+    late steps (1e-3 relative: the same steps' updates in another order of
+    sums), the cached style step with its discrete choices pinned to the
+    unsharded step's (losses 1e-5, gradient 5e-3) and its flips unpinned
+    (at most STYLE_FLIP_BOUND), pass 1 (the gathered frame: 2e-3 absolute),
+    pass 2 (5e-3 relative L2) and the 1008x756 frame (the crop's
+    tolerances; bit-equality counted).  Every rank's parameters and grid
+    must be equal after the steps (their sums), and every part must launch
+    its kernels on every rank.  Logs and returns the step times with and
+    without the mesh, the collectives a step, the bytes they move and their
+    share of a step."""
+    import torch.multiprocessing as mp
+
+    from nerfstyle_torch.render import cli
+
+    world, backend = dp_world()
+    job_dir = WORK / "dp"
+    shutil.rmtree(job_dir, ignore_errors=True)
+    job_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    ckpt = WORK / "train" / f"iter_{TRAIN_STEPS}.ckpt"
+    tt = dp_trainer(dp_train_argv(ckpt, job_dir / "train_ref"), DEVICE)
+    st = dp_trainer(dp_style_argv(ckpt, job_dir / "style_ref"), DEVICE)
+    renderer, params, test_set, _ = cli.load_renderer(WORK / "smoke.ckpt", DEVICE, OUT_DIMS,
+                                                      max_count=1)
+    pose = torch.from_numpy(np.asarray(test_set[0][1]))
+    ref = dp_run(tt, st, renderer, params, pose)
+    del tt, st, renderer, params
+    torch.cuda.empty_cache()
+    torch.save(ref["cached"]["choices"], job_dir / "choices.pt")
+    ref_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    mp.spawn(dp_rank, args=(world, backend, str(job_dir)), nprocs=world, join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(job_dir / f"rank{r}.pt", map_location=DEVICE, weights_only=False)
+             for r in range(world)]
+    got = ranks[0]
+
+    checks = {}
+    lerr = {k: abs(got["first"]["losses"][k] - v) / max(abs(v), 1e-30)
+            for k, v in ref["first"]["losses"].items()}
+    checks["first losses"] = (max(lerr.values()), 1e-5)
+    gerr = {f"{k}.{i}": rel_l2(a, b) for k, v in ref["first"]["grads"].items()
+            for i, (a, b) in enumerate(zip(got["first"]["grads"][k], v))}
+    checks["first gradient"] = (max(gerr.values()), 5e-3)
+    worst = max(gerr, key=gerr.get)
+    noise = ref["first"]["noise"]
+    if got["first"]["counts"] != ref["first"]["counts"]:
+        fails.append(f"dp: the first batch's counts {got['first']['counts']} differ from the "
+                     f"unsharded {ref['first']['counts']}")
+    checks["late losses"] = (abs(got["step_losses"][0] - ref["step_losses"][0])
+                             / abs(ref["step_losses"][0]), 1e-3)
+    pl = got["cached_pinned"]["losses"]
+    checks["cached losses"] = (max(abs(pl[k] - v) / max(abs(v), 1e-30)
+                                   for k, v in ref["cached"]["losses"].items()), 1e-5)
+    checks["cached gradient, pinned"] = (rel_l2(got["cached_pinned"]["grad"],
+                                                ref["cached"]["grad"]), 5e-3)
+    checks["pass 1 rgb"] = (float((got["pass1"]["rgb"] - ref["pass1"]["rgb"]).abs().max()), 2e-3)
+    checks["pass 2 gradient"] = (rel_l2(got["pass2"], ref["pass2"]), 5e-3)
+    frame_err = {k: float((got["frame"][k] - ref["frame"][k]).abs().max())
+                 for k in ("rgb_map", "trans_map", "weights_sum", "classes")}
+    for k, tol in {"rgb_map": 2e-3, "trans_map": 2e-3, "weights_sum": 2e-3,
+                   "classes": 2e-2}.items():
+        checks[f"frame {k}"] = (frame_err[k], tol)
+    frame_equal = all(torch.equal(got["frame"][k], ref["frame"][k]) for k in frame_err)
+    for name, (err, tol) in checks.items():
+        if not err <= tol:
+            fails.append(f"dp: {name} off the unsharded run by {err} (tol {tol})")
+    if any(got["frame"][k] != ref["frame"][k] for k in ("num_marched", "num_sig", "num_cand")):
+        fails.append("dp: the sharded frame's counters differ from the unsharded frame's")
+    same = [(r["params_sum"], r["bitfield_sum"], r["step_losses"]) for r in ranks]
+    if any(s != same[0] for s in same):
+        fails.append(f"dp: the ranks' params, grids or losses differ after the steps: {same}")
+    need = {"first batch": TRAIN_COUNTERS[:2], "train steps": DP_TRAIN_COUNTERS,
+            "cached step": DP_STYLE_COUNTERS, "pass 2": DP_PASS2_COUNTERS,
+            "frame": DP_FRAME_COUNTERS}
+    for r, res in enumerate(ranks):
+        for part, names in need.items():
+            missing = [n for n in names if res["launches"][part].get(n, 0) <= 0]
+            if missing:
+                fails.append(f"dp: rank {r}'s {part} launched no {missing}")
+    unpinned = rel_l2(got["cached"]["grad"], ref["cached"]["grad"])
+    flips = got["cached"]["flips"]
+    over = {n: v for n, v in flips.items() if v > STYLE_FLIP_BOUND[n]}
+    if over:
+        fails.append(f"dp: the sharded style step's choices flipped more than "
+                     f"{STYLE_FLIP_BOUND}: {over}")
+
+    ts, us = got["timed_stats"], got["untimed_stats"]
+    timed_ms = float(np.median(got["timed_step_ms"]))
+    coll_ms = ts["seconds"] * 1e3 / DP_TIMED_STEPS
+    res = {
+        "card": card, "ranks": world, "backend": backend,
+        "shared_card": backend == "gloo", "late_steps": DP_STEPS,
+        "step_ms_one_rank": float(np.median(ref["step_ms"])),
+        "step_ms_sharded": float(np.median(got["step_ms"])),
+        "step_ms_sharded_timed": timed_ms,
+        "collective_ms_a_step": coll_ms,
+        "collective_share": coll_ms / timed_ms,
+        "collectives_a_step": us["collectives"] / DP_STEPS,
+        "bytes_a_step": us["bytes"] / DP_STEPS,
+        "occupancy_update_ms": {"one rank": ref["update_ms"]["random"][-1:],
+                                "sharded": got["update_ms"]["random"][-1:]},
+        "frame_bit_equal": frame_equal,
+        "cached_gradient_unpinned_rel_l2": unpinned, "cached_flips": flips,
+        "first_gradient_worst_leaf": [worst, gerr[worst], noise[worst]],
+        "first_gradient_noise_max": max(noise.values()),
+        "errors": {k: v[0] for k, v in checks.items()},
+        "reference_s": ref_s, "ranks_s": spawn_s,
+    }
+    log(f"dp ({card}): {world} ranks over {backend}{' sharing one card' if backend == 'gloo' else ''}"
+        f"; late step {res['step_ms_one_rank']:.2f} ms on one rank, {res['step_ms_sharded']:.2f} "
+        f"ms sharded ({timed_ms:.2f} ms with the collectives timed: {coll_ms:.2f} ms of "
+        f"collectives, share {res['collective_share']:.3f}); {res['collectives_a_step']:.1f} "
+        f"collectives and {res['bytes_a_step'] / 2**20:.1f} MiB a rank a step; errors against "
+        f"the unsharded run {res['errors']}; cached gradient unpinned {unpinned:.3e} (flips "
+        f"{flips}); first gradient worst leaf {worst} {gerr[worst]:.3e} (one rank against itself "
+        f"on the same batch: {noise[worst]:.3e}, all leaves at most {max(noise.values()):.3e}); "
+        f"frame "
+        f"bit-equal: {frame_equal}; unsharded run {ref_s:.1f} s, ranks {spawn_s:.1f} s")
+    print(json.dumps({"dp": res}), flush=True)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs an NVIDIA GPU",
@@ -4717,6 +5034,12 @@ def main() -> int:
     # The simplex configuration: a short run and a frame from its checkpoint.
     runs["simplex"], simplex_table = simplex_phase(card, fails)
     table.update(simplex_table)
+
+    # Data parallelism over rays: the late train steps, a cached style step,
+    # pass 1 and 2 of the two-pass scheme and the 1008x756 frame on
+    # dp_world()'s ranks against the same work unsharded.
+    dp_phase(card, fails)
+    torch.cuda.empty_cache()
 
     # A kernel's launches: its counts on the paths it serves (K3's on the
     # adaptive_march=False frame and steps; K1s's and K2s's on the simplex
@@ -5040,6 +5363,37 @@ def round_kernels_main() -> int:
     return 0
 
 
+def dp_main() -> int:
+    """``--dp``: the render checkpoint, the train phase's 300 steps and the
+    style assets, then the dp phase alone; one JSON line of its numbers."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this check needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from nerfstyle_torch import kernels, train
+
+    card = card_line()
+    log(f"card: {card}")
+    kernels.build()
+    kernels.library()
+    WORK.mkdir(parents=True, exist_ok=True)
+    write_checkpoint(WORK / "smoke.ckpt")  # and the synthetic scene
+    (WORK / "data.yaml").write_text(
+        f"root_path: {WORK / 'scene'}\ntype: Synthetic\nbound: 2.0\nscale: 1.0\n")
+    train.main(train_argv(TRAIN_STEPS))
+    fails = []
+    style_assets(fails)
+    res = dp_phase(card, fails)
+    if fails:
+        for f in fails:
+            print(f"FAIL: {f}", file=sys.stderr)
+        return 1
+    print(card)
+    print(json.dumps({"dp": res}))
+    return 0
+
+
 def sass_counts(lib: Path, path: Path,
                 names=("position_grad", "hashgrid_encode_kernel", "hashgrid_backward_kernel",
                        "skipdist"),
@@ -5194,7 +5548,7 @@ def k6c_k2x_main() -> int:
 
 
 MODES = {"--late-step": late_step_main, "--view-frame": view_frame_main,
-         "--round-kernels": round_kernels_main, "--k6c-k2x": k6c_k2x_main}
+         "--round-kernels": round_kernels_main, "--k6c-k2x": k6c_k2x_main, "--dp": dp_main}
 
 if __name__ == "__main__":
     sys.exit(MODES[sys.argv[1]]() if sys.argv[1:] and sys.argv[1] in MODES else main())

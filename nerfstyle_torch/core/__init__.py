@@ -1,6 +1,14 @@
 """Core types and camera rays of the port."""
 
-from .types import BBox, Box2D, DatasetCoordSystem, DatasetSplit, Intrinsics, RayBundle
+from .types import (
+    BBox,
+    Box2D,
+    DatasetCoordSystem,
+    DatasetSplit,
+    Intrinsics,
+    LossValue,
+    RayBundle,
+)
 
 __all__ = [
     "BBox",
@@ -8,5 +16,6 @@ __all__ = [
     "DatasetCoordSystem",
     "DatasetSplit",
     "Intrinsics",
+    "LossValue",
     "RayBundle",
 ]

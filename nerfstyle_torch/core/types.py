@@ -89,6 +89,16 @@ class Intrinsics:
         return dataclasses.asdict(self)
 
 
+@dataclass
+class LossValue:
+    """A named loss record: the name the status line prints, the name the
+    scalar log takes and the value (a scalar tensor or a float)."""
+
+    print_name: str
+    log_name: str
+    value: object
+
+
 class RayBundle(NamedTuple):
     """A batch of N rays; ``dirs`` are unit-normalized by :func:`make_rays`."""
 

@@ -6,6 +6,12 @@ package; ``--out-dims W H`` re-renders at a scaled resolution and
 ``--device cpu`` is given::
 
     python -m nerfstyle_torch.render logs/room/iter_15000.ckpt --out-dims 1008 756
+
+Under ``torchrun --nproc_per_node N -m nerfstyle_torch.render ...`` each
+rank renders its slice of every chunk's rays on ``cuda:LOCAL_RANK`` (or the
+CPU with ``--device cpu``), every rank holds the gathered frame and rank 0
+writes it (:mod:`nerfstyle_torch.parallel`; ``--dist-backend`` as for
+training).
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from ..data import get_dataset
 from ..data.base import BaseDataset
 from ..models.fields import FieldSpec, Params, check_kernel_config, make_grid_spec, style_field_spec
 from ..ops.occupancy import occupancy_init, occupancy_persistable
+from ..parallel.mesh import BACKENDS, Mesh, active, init_from_env
 from ..training import checkpoint as ckpt_lib
 from .renderer import Renderer, RenderSettings
 
@@ -75,8 +82,10 @@ def load_renderer(
     device: DeviceLike = None,
     out_dims: Optional[Tuple[int, int]] = None,
     max_count: Optional[int] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[Renderer, Params, BaseDataset, Dict]:
-    """Build the renderer, params and test split a checkpoint describes."""
+    """Build the renderer, params and test split a checkpoint describes
+    (the renderer sharded over ``mesh`` where it has several ranks)."""
     dev = resolve_device(device)
     meta, groups = ckpt_lib.load_checkpoint(ckpt_path)
     dataset_cfg = _from_dict(DatasetConfig, meta["dataset_cfg"])
@@ -85,9 +94,15 @@ def load_renderer(
     train_cfg = _from_dict(TrainConfig, meta["train_cfg"])
     check_kernel_config(net_cfg, dev)
 
-    # Train split only for the class count, then the test poses.
+    # Train split only for the class count, then the test poses (rank 0
+    # first: a generated scene is written on its first load).
+    mesh = active(mesh)
+    if mesh is not None and not mesh.is_main:
+        mesh.barrier()
     train_set = get_dataset(dataset_cfg, split=DatasetSplit.TRAIN)
     test_set = get_dataset(dataset_cfg, split=DatasetSplit.TEST, max_count=max_count)
+    if mesh is not None and mesh.is_main:
+        mesh.barrier()
     max_bound = float(train_set.bbox.size.max())
     pe = net_cfg.pos_enc
     grid_spec = make_grid_spec(
@@ -129,6 +144,7 @@ def load_renderer(
     renderer.restore_occupancy(ckpt_lib.restore_tree(template, groups["occ"]))
     if "renderer_static" in meta:
         renderer.load_state_dict_static(meta["renderer_static"])
+    renderer.mesh = mesh
     return renderer, params, test_set, meta
 
 
@@ -149,27 +165,40 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     parser.add_argument("--depth", action="store_true", help="also save depth maps")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     parser.add_argument("--yes", action="store_true", help="assume yes for confirmation prompts")
+    parser.add_argument("--dist-backend", default=None, choices=BACKENDS,
+                        help="under torchrun: the ranks' backend (nccl on cuda, gloo on the cpu)")
     args = parser.parse_args(argv)
+    mesh = init_from_env(args.device, args.dist_backend)
+    try:
+        return _render(args, mesh)
+    finally:
+        if mesh is not None:
+            mesh.close()
 
+
+def _render(args, mesh: Optional[Mesh]) -> Dict[str, object]:
     renderer, params, test_set, meta = load_renderer(
-        args.ckpt_path, args.device, args.out_dims, args.max_count
+        args.ckpt_path, args.device if mesh is None else mesh.device, args.out_dims,
+        args.max_count, mesh,
     )
+    main_rank = mesh is None or mesh.is_main
     dev = renderer.device
     out_dir = args.out_dir
     if out_dir is None:
         out_dir = Path(meta["log_dir"]) / f"render_{args.ckpt_path.stem}"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    if next(out_dir.iterdir(), None) is not None:
-        if utils.prompt_bool(
-            f'Output directory "{out_dir}" is not empty. Clean directory?', assume_yes=args.yes
-        ):
-            shutil.rmtree(out_dir)
-            out_dir.mkdir()
-        else:
-            logger.info("Keeping existing files; renders may mix with them.")
-    logger.info("Loaded %s", str(test_set))
+    if main_rank:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        if next(out_dir.iterdir(), None) is not None:
+            if utils.prompt_bool(f'Output directory "{out_dir}" is not empty. Clean directory?',
+                                 assume_yes=args.yes):
+                shutil.rmtree(out_dir)
+                out_dir.mkdir()
+            else:
+                logger.info("Keeping existing files; renders may mix with them.")
     intr = renderer.intr
-    logger.info("Rendering at %dx%d on %s", intr.w, intr.h, dev)
+    if main_rank:
+        logger.info("Loaded %s", str(test_set))
+        logger.info("Rendering at %dx%d on %s", intr.w, intr.h, dev)
 
     frame_ms: List[float] = []
     counts = {"num_marched": 0, "num_sig": 0}
@@ -183,6 +212,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
         frame_ms.append((time.perf_counter() - t0) * 1e3)
         for k in counts:
             counts[k] += out[k]
+        if not main_rank:
+            continue
         utils.save_image(rgb.reshape(intr.h, intr.w, 3), out_dir / f"{test_set.fns[i]}.png")
         if args.depth:
             depth = out["trans_map"].cpu().numpy().reshape(intr.h, intr.w)
@@ -194,7 +225,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
 
     seconds = sum(frame_ms) / 1e3
     fps = len(frame_ms) / seconds if seconds > 0 else 0.0
-    logger.info("Done: %d frames, %.2f FPS at %dx%d -> %s", len(frame_ms), fps, intr.w, intr.h, out_dir)
+    if main_rank:
+        logger.info("Done: %d frames, %.2f FPS at %dx%d -> %s", len(frame_ms), fps, intr.w,
+                    intr.h, out_dir)
     return {
         "frames": len(frame_ms), "frame_ms": frame_ms, "fps": fps, "out_dir": out_dir,
         "intr": intr, "last": out, **counts,

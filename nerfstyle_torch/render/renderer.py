@@ -41,6 +41,13 @@ there are no capacity buckets to grow and nothing is truncated: the output
 equals the JAX one once its ladders have grown to the demand.  A frame is
 cut into chunks, and a chunk's field evaluations into batches, only to bound
 device memory.
+
+With a data-parallel mesh (``Renderer.mesh``, set by the trainer or the
+render CLI; :mod:`nerfstyle_torch.parallel`) each rank renders its slice of
+each chunk's rays, one all-gather gives every rank the chunk's maps and one
+more its counters (JAX ``renderer.py:429-450``, ``:694-720``); an
+occupancy update's density sweep splits its points over the ranks and
+gathers them (``:777-845``), so every rank keeps the same grid.
 """
 
 from __future__ import annotations
@@ -356,6 +363,7 @@ def render_rays(
         "weights_sum": ws,
         "num_points": sb.num_kept,
         "num_sig": out["num_sig"],
+        "num_cand": sb.num_cand,
     }
 
 
@@ -402,6 +410,8 @@ class Renderer:
         self.update_occ = True
         self._local_step_host = 0
         self._last_num_rays = 1
+        # The data-parallel mesh (None: one rank).
+        self.mesh = None
         # Host clock of every occupancy update by kind, each ending in a
         # device sync.
         self.update_ms: Dict[str, List[float]] = {"full": [], "random": []}
@@ -415,9 +425,17 @@ class Renderer:
         kind = "full" if self._local_step_host < s.update_thres else "random"
         t0 = time.perf_counter()
 
-        def sigma_fn(pts):
-            return field_density(self.field_spec, params, self.bbox, pts, self.compute_dtype,
+        def density(p, pts):
+            return field_density(self.field_spec, p, self.bbox, pts, self.compute_dtype,
                                  plain=plain)
+
+        if self.mesh is not None:
+            from ..parallel.mesh import sharded_density_fn
+
+            density = sharded_density_fn(self.mesh, density)
+
+        def sigma_fn(pts):
+            return density(params, pts)
 
         kw = dict(bound=self.bound, density_scale=s.density_scale,
                   density_decay=s.density_decay, density_thresh=s.density_thresh,
@@ -503,15 +521,37 @@ class Renderer:
         else:
             chunk_fn, keys = render_chunk_incremental, INCREMENTAL_COUNT_KEYS
             common["round_size"] = s.infer_round_size
-        pieces = [
-            chunk_fn(self.field_spec, self.plan, params, self.occ_field, self.bbox,
-                     origins[i:i + chunk], dirs[i:i + chunk], **common)
-            for i in range(0, origins.shape[0], chunk)
-        ]
+        pieces = []
+        for i in range(0, origins.shape[0], chunk):
+            o, d = origins[i:i + chunk], dirs[i:i + chunk]
+            if self.mesh is None:
+                pieces.append(chunk_fn(self.field_spec, self.plan, params, self.occ_field,
+                                       self.bbox, o, d, **common))
+                continue
+            sl = self.mesh.rows(o.shape[0])
+            piece = chunk_fn(self.field_spec, self.plan, params, self.occ_field, self.bbox,
+                             o[sl], d[sl], **common)
+            pieces.append(self._gather_chunk(piece, o.shape[0], keys))
         out: Dict[str, object] = {k: torch.cat([p[k] for p in pieces]) for k in MAP_KEYS}
         for k in keys:
             out[k] = sum(p[k] for p in pieces)
         return out
+
+    def _gather_chunk(self, piece: Dict[str, object], n: int, keys) -> Dict[str, object]:
+        """A chunk of n rays from this rank's slice ``piece``: the maps
+        gathered from every rank (one all-gather of the packed rows) and the
+        counters ``keys`` from every rank (one all-gather), summed but for
+        ``rounds``, the chunk's being its slowest rank's."""
+        k = piece["classes"].shape[1]
+        packed = torch.cat([piece["rgb_map"], piece["trans_map"][:, None], piece["classes"],
+                            piece["weights_sum"][:, None]], dim=1)
+        whole = self.mesh.all_gather_rows(packed, n)
+        mine = torch.tensor([[piece[c] for c in keys]], dtype=torch.int64, device=packed.device)
+        per_rank = self.mesh.all_gather_rows(mine, self.mesh.size)
+        counts = {c: int(per_rank[:, i].max() if c == "rounds" else per_rank[:, i].sum())
+                  for i, c in enumerate(keys)}
+        return {"rgb_map": whole[:, :3], "trans_map": whole[:, 3], "classes": whole[:, 4:4 + k],
+                "weights_sum": whole[:, 4 + k], **counts}
 
     def render_ray_batch(self, params: Params, origins: torch.Tensor, dirs: torch.Tensor,
                          plain: bool = False) -> Dict[str, object]:

@@ -15,6 +15,16 @@ Any (nested) config field is a flag (``--num_iterations 300``,
 ``--intervals.print 50``); flags chain through the dataset, train, network
 and renderer configs and must all be consumed.  Runs on ``cuda`` unless
 ``--device cpu`` is given, and raises without a CUDA device.
+
+Data-parallel over rays on several ranks (:mod:`nerfstyle_torch.parallel`),
+one process a rank under torchrun::
+
+    torchrun --nproc_per_node 8 -m nerfstyle_torch.train --log-dir logs/synthetic \
+        --data-cfg cfgs/dataset/synthetic.yaml [--dist-backend nccl|gloo]
+
+Each rank runs on ``cuda:LOCAL_RANK`` (NCCL, one rank a card, by default;
+``--dist-backend gloo`` lets ranks share a card) or, with ``--device cpu``,
+on the CPU over gloo.  Without torchrun's variables nothing changes.
 """
 
 from __future__ import annotations
@@ -24,28 +34,36 @@ from typing import Optional, Sequence
 
 from . import utils
 from .config import BaseConfig, ConfigError
+from .parallel.mesh import BACKENDS, init_from_env
 from .training.trainer import Trainer, get_trainer
 
-logger = utils.create_logger("train")
+# A config error is logged, then raised as SystemExit(1) here.
+logger = utils.create_logger("train", exit_on_error=False)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Trainer:
     """Parse ``argv`` (default ``sys.argv[1:]``), train, return the trainer."""
     parser = argparse.ArgumentParser(add_help=False, allow_abbrev=False)
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    parser.add_argument("--dist-backend", default=None, choices=BACKENDS)
     args, rest = parser.parse_known_args(argv)
     cfg, nargs = BaseConfig.read_nargs(rest)
+    mesh = init_from_env(args.device, args.dist_backend)
     try:
-        trainer = get_trainer(cfg, nargs, args.device)
-    except ConfigError as e:
-        logger.error("%s", e)
-        raise SystemExit(1) from e
-    try:
-        trainer.run()
-    except KeyboardInterrupt:
-        pass
+        try:
+            trainer = get_trainer(cfg, nargs, args.device if mesh is None else mesh.device, mesh)
+        except ConfigError as e:
+            logger.error("%s", e)
+            raise SystemExit(1) from e
+        try:
+            trainer.run()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            trainer.close()
     finally:
-        trainer.close()
+        if mesh is not None:
+            mesh.close()
     return trainer
 
 

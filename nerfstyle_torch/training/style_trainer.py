@@ -46,10 +46,21 @@ Both schemes end in Adam (eps 1e-15, skipped on a non-finite gradient) on
 that table alone.  There is no EMA update.  The first iteration computes
 the Hungarian class-to-cluster matching from the render.
 
+With a data-parallel mesh (:mod:`nerfstyle_torch.parallel`; JAX
+``style_trainer.py:282-310`` and ``:724-783``) every rank builds the same
+pose caches and takes the same poses.  A cached step colours rank r's rows
+``[r S // n, (r + 1) S // n)`` of the cache's stream of S samples (any S;
+JAX splits only when n divides S) and segment-sums a partial image (K7);
+one all-reduce gives every rank the whole image, the VGG loss and the
+matching run replicated, and one all-reduce sums the table gradients.  In
+the two-pass scheme pass 1 renders each rank's slice of each chunk and
+gathers the frame; pass 2 gives each rank a slice of each window's rays and
+their cotangents (no window is truncated: JAX splits each window's budget
+evenly) and sums the gradients in one all-reduce after the last window.
+
 Not ported: the TPU's windowed step (``style_step_window_slots``: it bounds
 JAX's sort temporaries, which the port's atomic K2 does not have), the
-significant-sample and window budget ladders, Wikiart, the GIF collage,
-mesh sharding.
+significant-sample and window budget ladders, Wikiart, the GIF collage.
 """
 
 from __future__ import annotations
@@ -72,6 +83,7 @@ from ..models.vgg import VGG16FeatureExtractor, VggParams
 from ..ops.aabb import near_far_from_aabb
 from ..ops.compositing import sample_weights, segment_sum, segment_sum_grad
 from ..ops.marching import march_rays
+from ..parallel.mesh import Mesh, all_reduce_grads, rank_sum
 from ..render.renderer import CHUNK_RAYS, FIELD_BATCH, _batched, render_rays
 from .trainer import Trainer, _leaves
 
@@ -107,21 +119,20 @@ def _tile_windows(w: int, h: int, pw: int, ph: int):
 
 class StyleTrainer(Trainer):
     OPTIM_KEYS = ["x_color_embedder"]
-    _PRINT_NAMES = {"content": "Content", "style": "Style", "total": "Total"}
-    _LOG_NAMES = {"content": "content_loss", "style": "style_loss", "total": "total_loss"}
     # The phases of a two-pass iteration, in order (two_pass_ms).
     TWO_PASS_PHASES = ("pass 1", "pixel grad", "pass 2", "optimizer")
 
     def __init__(self, cfg: BaseConfig, nargs: List[str], device: DeviceLike = None,
-                 vgg_params: Optional[VggParams] = None):
+                 vgg_params: Optional[VggParams] = None, mesh: Optional[Mesh] = None):
         """``vgg_params`` replaces the extractor's weights (the tests carry
-        the JAX package's fallback filters over this way)."""
+        the JAX package's fallback filters over this way); ``mesh``: the
+        rank's data-parallel mesh."""
         if cfg.style_image is None:
             raise ConfigError("the style stage needs a style image (--style-image)")
         if cfg.style_image is ConfigValue.EmptyPassed:
             raise NotImplementedError("multi-style (Wikiart) training is dormant in the "
                                       "reference and not ported")
-        super().__init__(cfg, nargs, device, load_model_only=True)
+        super().__init__(cfg, nargs, device, load_model_only=True, mesh=mesh)
         tc = self.train_cfg
         keys = ["relu3"]
         self.content_feat = "relu3"
@@ -283,10 +294,19 @@ class StyleTrainer(Trainer):
     def render_cache(self, params: Params, cache: Cache, plain: bool = False):
         """(rgb_map [HW, 3], class logits [HW, K]) of the cached stream: the
         color branch, per-ray sums with the cached weights (K7, backward
-        K7b) and the white background."""
-        ch = field_color(self.field_spec, params, self.renderer.bbox, cache["xyz"],
-                         self.compute_dtype, dirs=cache.get("dirs"), plain=plain)
-        img = segment_sum_grad(cache["w"], ch, cache["offsets"], plain=plain)
+        K7b) and the white background.  With a mesh each rank colours its
+        rows of the stream and the partial images are summed over the
+        ranks (:func:`~nerfstyle_torch.parallel.mesh.rank_sum`)."""
+        xyz, w, offsets, dirs = cache["xyz"], cache["w"], cache["offsets"], cache.get("dirs")
+        if self.mesh is not None:
+            sl = self.mesh.rows(w.shape[0])
+            xyz, w, dirs = xyz[sl], w[sl], None if dirs is None else dirs[sl]
+            offsets = torch.clamp(offsets - sl.start, min=0, max=sl.stop - sl.start)
+        ch = field_color(self.field_spec, params, self.renderer.bbox, xyz, self.compute_dtype,
+                         dirs=dirs, plain=plain)
+        img = segment_sum_grad(w, ch, offsets, plain=plain)
+        if self.mesh is not None:
+            img = rank_sum(self.mesh, img)
         return img[:, :3] + (1.0 - cache["acc_ws"])[:, None], img[:, 3:]
 
     def _image_losses(self, rgb_map: torch.Tensor, target_chw: torch.Tensor,
@@ -339,7 +359,10 @@ class StyleTrainer(Trainer):
                                            cache["tgt_feat"])
         gs = torch.autograd.grad(total, [self.params[k] for k in self.params
                                          if self.optim.mask[k]])
-        return {k: v.detach() for k, v in losses.items()}, self._table_grads(gs)
+        grads = self._table_grads(gs)
+        if self.mesh is not None:
+            grads = all_reduce_grads(self.mesh, grads)
+        return {k: v.detach() for k, v in losses.items()}, grads
 
     # ---- the two-pass step ----
 
@@ -354,11 +377,20 @@ class StyleTrainer(Trainer):
     def render_frame(self, params: Params, pose_idx: int, plain: bool = False):
         """Pass 1: (rgb_map [HW, 3], class logits [HW, K]) of train pose
         ``pose_idx`` through the train path, ``CHUNK_RAYS`` rays at a time,
-        without gradients."""
+        without gradients (with a mesh: each rank's slice of a chunk,
+        gathered)."""
         rays = self.pose_rays(pose_idx)
-        outs = [self._render_rays(params, RayBundle(rays.origins[i:i + CHUNK_RAYS],
-                                                    rays.dirs[i:i + CHUNK_RAYS]), plain)
-                for i in range(0, len(rays), CHUNK_RAYS)]
+        outs = []
+        for i in range(0, len(rays), CHUNK_RAYS):
+            o, d = rays.origins[i:i + CHUNK_RAYS], rays.dirs[i:i + CHUNK_RAYS]
+            if self.mesh is None:
+                outs.append(self._render_rays(params, RayBundle(o, d), plain))
+                continue
+            sl = self.mesh.rows(o.shape[0])
+            out = self._render_rays(params, RayBundle(o[sl], d[sl]), plain)
+            whole = self.mesh.all_gather_rows(torch.cat([out["rgb_map"], out["classes"]], 1),
+                                              o.shape[0])
+            outs.append({"rgb_map": whole[:, :3], "classes": whole[:, 3:]})
         return (torch.cat([o["rgb_map"] for o in outs]),
                 torch.cat([o["classes"] for o in outs]))
 
@@ -389,17 +421,25 @@ class StyleTrainer(Trainer):
         the train path under autograd and the VJP of its owned pixels'
         cotangents ``pixel_grad`` [HW, 3] taken into the optimized tables,
         summed over the windows.  A window that marches no sample has zero
-        gradient and is skipped."""
+        gradient and is skipped.  With a mesh each rank takes its slice of
+        each window's rays and their cotangents, and the sum of the windows
+        is summed over the ranks in one all-reduce."""
         tables = [params[k] for k in params if self.optim.mask[k]]
         acc = [torch.zeros_like(t) for t in tables]
         for idx, own in zip(*self.window_tiling()):
+            if self.mesh is not None:
+                sl = self.mesh.rows(idx.shape[0])
+                idx, own = idx[sl], own[sl]
             out = self._render_rays(params, self.pose_rays(pose_idx, idx), plain)
             if out["num_points"] == 0:
                 continue
             gs = torch.autograd.grad(out["rgb_map"], tables, pixel_grad[idx] * own[:, None])
             for a, g in zip(acc, gs):
                 a.add_(g)
-        return self._table_grads(acc)
+        grads = self._table_grads(acc)
+        if self.mesh is not None:
+            grads = all_reduce_grads(self.mesh, grads)
+        return grads
 
     def _run_iter_two_pass(self, pose_idx: int) -> Dict[str, torch.Tensor]:
         """Pass 1, the pixel gradient, pass 2 and Adam; each phase's host
@@ -445,16 +485,7 @@ class StyleTrainer(Trainer):
         self.last_losses = losses
         self.loss_history.append(losses)
         self.iter_ms.append((time.perf_counter() - t0) * 1e3)
-
-        iv = self.train_cfg.intervals
-        if self._check_interval(iv.print):
-            self.print_status(losses)
-        if self._check_interval(iv.test):
-            self.test_networks()
-        if self._check_interval(iv.log):
-            self.log_status(losses)
-        if self._check_interval(iv.ckpt, final=True):
-            self.save_ckpt()
+        self._after_iter(losses)
 
     # ---- evaluation ----
 
@@ -462,10 +493,12 @@ class StyleTrainer(Trainer):
         """Render the test views with the current params; each frame is
         saved as a PNG, and the frames' collages with the style image as
         ``video.gif`` (3.75 frames a second, looping), as the JAX package
-        does."""
+        does.  With a mesh every rank renders its share of each frame and
+        rank 0 writes."""
         img_dir = self.log_dir / "epoch_{:0{w}d}".format(
             self.iter_ctr, w=len(str(self.train_cfg.num_iterations)))
-        img_dir.mkdir(exist_ok=True)
+        if self.is_main:
+            img_dir.mkdir(exist_ok=True)
         h, w = self.test_set.intr.h, self.test_set.intr.w
         style = self.style_image.cpu().numpy()
         frames = []
@@ -476,6 +509,8 @@ class StyleTrainer(Trainer):
                 rgb = out["rgb_map"].cpu().numpy().T.reshape(3, h, w)
                 collage = utils.collage_h(rgb, style[:3])
                 frames.append((np.clip(np.moveaxis(collage, 0, -1), 0, 1) * 255).astype(np.uint8))
-                utils.save_image(rgb, img_dir / f"{self.test_set.fns[i]}.png")
-        utils.save_gif(frames, img_dir / "video.gif", fps=3.75)
+                if self.is_main:
+                    utils.save_image(rgb, img_dir / f"{self.test_set.fns[i]}.png")
+        if self.is_main:
+            utils.save_gif(frames, img_dir / "video.gif", fps=3.75)
         return {}

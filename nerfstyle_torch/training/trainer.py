@@ -19,9 +19,18 @@ One iteration (:meth:`Trainer.run_iter`), as in the JAX package:
   4. the EMA of the params updates and the batch's marched-sample count
      feeds the grid's ``mean_count``.
 
+With a mesh of more than one rank (``mesh``, :mod:`nerfstyle_torch.parallel`;
+JAX's ``trainer.py:250-269`` and ``:458-520``) every rank draws the whole
+batch from the same seeded streams and renders its slice of the rays; the
+loss terms are sums over the ranks (one all-reduce), turned into means with
+the global counts, and the gradients are summed (one all-reduce) before
+Adam, so every rank takes the same step and the replicas stay equal.  The
+occupancy sweeps and the test frames shard through the ``Renderer``.  Only
+rank 0 writes checkpoints, images, logs and scalars.
+
 The TPU package's workarounds are not ported: every buffer is sized from
-the counts (no bucket ladders, no kept-prefix budget, no truncation), and
-there is no mesh.  Checkpoints are the JAX package's ``.npz`` with the
+the counts (no bucket ladders, no kept-prefix budget, no truncation).
+Checkpoints are the JAX package's ``.npz`` with the
 groups ``params``, ``opt_state``, ``ema`` and ``occ`` in JAX leaf order, so
 a checkpoint of either trainer resumes or renders in the other package.
 """
@@ -50,7 +59,7 @@ from ..config import (
     TrainConfig,
 )
 from ..core.cameras import camera_dir_grid, pixel_rays, sample_pixels
-from ..core.types import DatasetSplit
+from ..core.types import DatasetSplit, LossValue
 from ..data import get_dataset
 from ..losses.recon import cross_entropy_ignore, mse_loss, sparsity_loss, weight_reg_loss
 from ..models.fields import (
@@ -62,6 +71,7 @@ from ..models.fields import (
     style_field_spec,
 )
 from ..ops.occupancy import occupancy_init, occupancy_persistable
+from ..parallel.mesh import Mesh, active, all_reduce_grads, sharded_loss_terms
 from ..render.renderer import Renderer, RenderSettings, render_rays
 from . import checkpoint as ckpt_lib
 from .ema import EmaState, ema_init, ema_params, ema_update
@@ -87,13 +97,35 @@ def _leaves(params: Params) -> List[Tuple[str, int, torch.Tensor]]:
     return out
 
 
+def _grad_tree(params: Params, total: torch.Tensor) -> Params:
+    """The gradient of ``total`` as a params-shaped tree (zeros where a leaf
+    does not reach it)."""
+    leaves = _leaves(params)
+    gs = torch.autograd.grad(total, [w for _, _, w in leaves], allow_unused=True)
+    grads: Params = {}
+    for (k, i, w), g in zip(leaves, gs):
+        g = torch.zeros_like(w) if g is None else g
+        if isinstance(params[k], list):
+            grads.setdefault(k, []).append(g)
+        else:
+            grads[k] = g
+    return grads
+
+
 class Trainer:
     OPTIM_KEYS = ["x_density_embedder", "x_color_embedder", "net"]
-    _PRINT_NAMES = {"mse": "MSE", "psnr": "PSNR", "class": "Class", "sparsity": "Sparsity",
-                    "weight_reg": "Weight Reg.", "total": "Total"}
-    _LOG_NAMES = {"mse": "mse_loss", "psnr": "psnr", "class": "class_loss",
-                  "sparsity": "sparsity_loss", "weight_reg": "weight_reg_loss",
-                  "total": "total_loss"}
+    # A loss's print and log names (JAX's one map, both stages' keys).
+    _PRINT_NAMES = {
+        "mse": ("MSE", "mse_loss"),
+        "psnr": ("PSNR", "psnr"),
+        "class": ("Class", "class_loss"),
+        "sparsity": ("Sparsity", "sparsity_loss"),
+        "weight_reg": ("Weight Reg.", "weight_reg_loss"),
+        "total": ("Total", "total_loss"),
+        "content": ("Content", "content_loss"),
+        "style": ("Style", "style_loss"),
+        "photo": ("Photo", "photo_loss"),
+    }
 
     def __init__(
         self,
@@ -101,9 +133,19 @@ class Trainer:
         nargs: List[str],
         device: DeviceLike = None,
         load_model_only: bool = False,
+        mesh: Optional[Mesh] = None,
     ):
-        self.logger = utils.create_logger(type(self).__name__)
+        """``mesh``: the data-parallel mesh this rank belongs to (None, or a
+        mesh of one rank: no sharding)."""
         self.device = resolve_device(device)
+        # The ranks (writes and barriers) and the sharding mesh, which is
+        # None where the batch does not divide them (as in JAX).
+        self.world = active(mesh)
+        self.mesh = self.world
+        self.is_main = self.world is None or self.world.is_main
+        # Rank 0 logs; the others only warn (and end on an error).
+        self.logger = utils.create_logger(type(self).__name__,
+                                          "info" if self.is_main else "warning")
         # fp32 products must not run in TF32 (see ops/mlp.py).
         torch.backends.cuda.matmul.allow_tf32 = False
         self.iter_ctr = 0
@@ -152,19 +194,32 @@ class Trainer:
         if tc.adaptive_batch:
             raise NotImplementedError("adaptive_batch is a TPU workaround the port does not have")
         check_kernel_config(self.net_cfg, self.device)
+        if self.mesh is not None:
+            if tc.num_rays_per_batch % self.mesh.size:
+                self.logger.warning("num_rays_per_batch (%d) does not divide %d ranks; running "
+                                    "unsharded", tc.num_rays_per_batch, self.mesh.size)
+                self.mesh = None
+            else:
+                self.logger.info("Data-parallel over %d ranks (rays sharded, params replicated)",
+                                 self.mesh.size)
 
         dev = self.device
         self._data_gen = torch.Generator(device=dev).manual_seed(tc.rng_seed)
         self._occ_gen = torch.Generator(device=dev).manual_seed(tc.rng_seed + 1)
         # The JAX trainer's frame stream (same seed, same numpy generator).
         self._frame_rng = np.random.default_rng(tc.rng_seed ^ 0x5EED)
-        self.writer = ScalarLogger(self.log_dir) if tc.intervals.log > 0 else None
+        self.writer = ScalarLogger(self.log_dir) if tc.intervals.log > 0 and self.is_main else None
 
+        # Rank 0 loads first: a generated scene is written on its first load.
+        if self.world is not None and not self.is_main:
+            self.world.barrier()
         self.train_set = get_dataset(self.dataset_cfg, split=DatasetSplit.TRAIN)
         self.logger.info("Loaded %s", str(self.train_set))
         self.test_set = get_dataset(self.dataset_cfg, split=DatasetSplit.TEST,
                                     max_count=tc.max_eval_count)
         self.logger.info("Loaded %s", str(self.test_set))
+        if self.world is not None and self.is_main:
+            self.world.barrier()
         self.class_cmap = utils.tab10_colormap(max(self.train_set.num_classes, 1))
 
         pe = self.net_cfg.pos_enc
@@ -202,6 +257,7 @@ class Trainer:
             compute_dtype=self.compute_dtype, device=dev,
         )
         self.renderer.precrop_frac = tc.precrop_fraction
+        self.renderer.mesh = self.mesh
 
         self.optim = Adam(keyword_mask(self.params, self.OPTIM_KEYS),
                           tc.initial_learning_rate, tc.learning_rate_decay)
@@ -230,13 +286,17 @@ class Trainer:
     # ---- set-up ----
 
     def _init_new_log_dir(self, log_dir, assume_yes: bool) -> None:
+        """A new, empty log directory (rank 0 asks before it cleans one)."""
         self.log_dir = Path(log_dir)
-        self.log_dir.mkdir(parents=True, exist_ok=True)
-        if next(self.log_dir.iterdir(), None) is not None:
-            if not utils.prompt_bool("Log directory not empty. Clean directory?", assume_yes):
-                sys.exit(1)
-            shutil.rmtree(self.log_dir)
-            self.log_dir.mkdir()
+        if self.is_main:
+            self.log_dir.mkdir(parents=True, exist_ok=True)
+            if next(self.log_dir.iterdir(), None) is not None:
+                if not utils.prompt_bool("Log directory not empty. Clean directory?", assume_yes):
+                    sys.exit(1)
+                shutil.rmtree(self.log_dir)
+                self.log_dir.mkdir()
+        if self.world is not None:
+            self.world.barrier()
 
     @staticmethod
     def _trainable(params: Params) -> Params:
@@ -288,7 +348,10 @@ class Trainer:
     def loss_and_grads(self, origins: torch.Tensor, dirs: torch.Tensor, target: torch.Tensor,
                        plain: bool = False):
         """Losses (detached), gradients (a params-shaped tree) and the host
-        counts ``num_points``/``num_sig`` of one batch."""
+        counts ``num_points``/``num_sig`` of one batch (with a mesh: the
+        whole batch's, each rank rendering its slice)."""
+        if self.mesh is not None:
+            return self._sharded_loss_and_grads(origins, dirs, target, plain)
         tc, s, spec = self.train_cfg, self.settings, self.field_spec
         out = render_rays(
             spec, self.renderer.plan, self.params, self.renderer.occ_field,
@@ -316,16 +379,52 @@ class Trainer:
             losses["weight_reg"] = weight_reg_loss(self.params) * tc.weight_reg_lambda
             total = total + losses["weight_reg"]
         losses["total"] = total
-        leaves = _leaves(self.params)
-        gs = torch.autograd.grad(total, [w for _, _, w in leaves], allow_unused=True)
-        grads: Params = {}
-        for (k, i, w), g in zip(leaves, gs):
-            g = torch.zeros_like(w) if g is None else g
-            if isinstance(self.params[k], list):
-                grads.setdefault(k, []).append(g)
-            else:
-                grads[k] = g
+        grads = _grad_tree(self.params, total)
         counts = {"num_points": out["num_points"], "num_sig": out["num_sig"]}
+        return {k: v.detach() for k, v in losses.items()}, grads, counts
+
+    def _sharded_loss_and_grads(self, origins: torch.Tensor, dirs: torch.Tensor,
+                                target: torch.Tensor, plain: bool = False):
+        """:meth:`loss_and_grads` over the mesh (JAX ``trainer.py:458-520``):
+        the loss terms as sums over the ranks, means over the global counts
+        (``3 K``, ``max(n_lab, 1)``, ``n_sparse = max(1, s // n) * n``
+        sparsity points drawn whole on every rank), each rank's gradient
+        share summed in one all-reduce.  The weight regularizer is
+        replicated: only rank 0's backward takes it."""
+        tc, s, spec, mesh = self.train_cfg, self.settings, self.field_spec, self.mesh
+        has_seg = spec.class_dim > 0 and target.shape[1] == 4
+        pts, n_sparse = None, 0
+        if tc.sparsity_lambda > 0.0:
+            n_sparse = max(1, tc.sparsity_samples // mesh.size) * mesh.size
+            bbox = self.renderer.bbox
+            pts = torch.rand((n_sparse, 3), generator=self._data_gen,
+                             device=self.device) * bbox.size + bbox.min_pt
+        terms = sharded_loss_terms(
+            mesh, spec, self.renderer.plan, self.params, self.renderer.occ_field,
+            self.renderer.bbox, origins, dirs, target, pts, t_thresh=s.t_thresh,
+            density_scale=s.density_scale, compute_dtype=self.compute_dtype, with_class=has_seg,
+            sparsity_exp_coeff=tc.sparsity_exp_coeff if tc.sparsity_lambda > 0.0 else 0.0,
+            two_phase=tc.two_phase_train, plain=plain,
+        )
+        losses: Dict[str, torch.Tensor] = {}
+        mse = terms["sq"] / (3.0 * origins.shape[0])
+        losses["mse"] = mse
+        losses["psnr"] = -10.0 * torch.log(mse.detach()) / math.log(10.0)
+        total = mse
+        if has_seg:
+            losses["class"] = terms["nll"] / torch.clamp(terms["n_lab"], min=1.0) * tc.class_lambda
+            total = total + losses["class"]
+        if tc.sparsity_lambda > 0.0:
+            losses["sparsity"] = terms["sp"] / n_sparse * tc.sparsity_lambda
+            total = total + losses["sparsity"]
+        grad_total = total
+        if tc.weight_reg_lambda > 0.0:
+            losses["weight_reg"] = weight_reg_loss(self.params) * tc.weight_reg_lambda
+            total = total + losses["weight_reg"]
+            grad_total = total if mesh.is_main else grad_total + losses["weight_reg"].detach()
+        losses["total"] = total
+        grads = all_reduce_grads(mesh, _grad_tree(self.params, grad_total))
+        counts = {"num_points": terms["num_points"], "num_sig": terms["num_sig"]}
         return {k: v.detach() for k, v in losses.items()}, grads, counts
 
     def apply_grads(self, grads: Params) -> bool:
@@ -349,14 +448,19 @@ class Trainer:
         self.last_losses, self.last_counts = losses, counts
         self.iter_ms.append((time.perf_counter() - t0) * 1e3)
         self.iter_counts.append(counts)
+        self._after_iter(losses)
 
+    def _after_iter(self, losses: Dict[str, torch.Tensor]) -> None:
+        """The interval work after an iteration: status (rank 0), test
+        frames (every rank renders its share, rank 0 writes), scalars (rank
+        0), checkpoint (rank 0 writes, the others wait)."""
         iv = self.train_cfg.intervals
-        if self._check_interval(iv.print):
-            self.print_status(losses)
+        if self._check_interval(iv.print) and self.is_main:
+            self.print_status(self._to_loss_values(losses))
         if self._check_interval(iv.test):
             self.test_networks()
-        if self._check_interval(iv.log):
-            self.log_status(losses)
+        if self._check_interval(iv.log) and self.is_main:
+            self.log_status(self._to_loss_values(losses))
         if self._check_interval(iv.ckpt, final=True):
             self.save_ckpt()
 
@@ -366,14 +470,15 @@ class Trainer:
         of them, run under ``torch.profiler`` (the host, and the card on
         CUDA), each in a ``step <iter_ctr>`` range, and the window is written
         to ``profile_dir`` as a Chrome trace (:attr:`trace_path`), also when
-        training ends inside it."""
+        training ends inside it (rank 0's iterations, with a mesh)."""
         tc = self.train_cfg
         if tc.test_before_train:
             self.test_networks()
         prof, first = None, 0
+        trace = tc.profile_dir is not None and self.is_main
         try:
             while self.iter_ctr < tc.num_iterations:
-                if tc.profile_dir is not None and prof is None and self.iter_ctr == tc.profile_start:
+                if trace and prof is None and self.iter_ctr == tc.profile_start:
                     prof, first = self._start_trace(), self.iter_ctr
                 if prof is None:
                     self.run_iter()
@@ -414,15 +519,22 @@ class Trainer:
         is_final = final and self.iter_ctr == self.train_cfg.num_iterations
         return (self.iter_ctr % interval == 0 or is_final) and self.iter_ctr > after
 
-    def print_status(self, losses: Dict[str, torch.Tensor], phase: str = "TRAIN") -> None:
-        items = [f"{self._PRINT_NAMES.get(k, k)}: {float(v):.5f}" for k, v in losses.items()]
+    def _to_loss_values(self, losses: Dict[str, torch.Tensor]) -> Dict[str, LossValue]:
+        out = {}
+        for k, v in losses.items():
+            pn, ln = self._PRINT_NAMES.get(k, (k, k))
+            out[k] = LossValue(pn, ln, v)
+        return out
+
+    def print_status(self, losses: Dict[str, LossValue], phase: str = "TRAIN") -> None:
+        items = [f"{lv.print_name}: {float(lv.value):.5f}" for lv in losses.values()]
         self.logger.info("[%s] Iter: %d, %s", phase, self.iter_ctr, ", ".join(items))
 
-    def log_status(self, losses: Dict[str, torch.Tensor]) -> None:
+    def log_status(self, losses: Dict[str, LossValue]) -> None:
         if self.writer is None:
             return
-        for k, v in losses.items():
-            self.writer.add_scalar(f"train/{self._LOG_NAMES.get(k, k)}", float(v), self.iter_ctr)
+        for lv in losses.values():
+            self.writer.add_scalar(f"train/{lv.log_name}", float(lv.value), self.iter_ctr)
         self.writer.add_scalar("misc/iter_time", self.iter_ms[-1] / 1e3, self.iter_ctr)
 
     # ---- evaluation ----
@@ -432,10 +544,12 @@ class Trainer:
 
     def test_networks(self) -> Dict[str, float]:
         """Render the test split with the EMA params; saves PNGs and returns
-        the mean MSE and its PSNR."""
+        the mean MSE and its PSNR.  With a mesh every rank renders its
+        share of each frame and rank 0 saves them."""
         img_dir = self.log_dir / "epoch_{:0{w}d}".format(
             self.iter_ctr, w=len(str(self.train_cfg.num_iterations)))
-        img_dir.mkdir(exist_ok=True)
+        if self.is_main:
+            img_dir.mkdir(exist_ok=True)
         params = self.eval_params()
         h, w = self.test_set.intr.h, self.test_set.intr.w
         mses = []
@@ -444,8 +558,10 @@ class Trainer:
                 img, pose = self.test_set[i]
                 out = self.renderer.render(params, torch.from_numpy(np.asarray(pose)))
                 rgb = out["rgb_map"].cpu().numpy()
-                utils.save_image(rgb.reshape(h, w, 3), img_dir / f"{self.test_set.fns[i]}.png")
-                if self.train_set.num_classes > 0:
+                if self.is_main:
+                    utils.save_image(rgb.reshape(h, w, 3),
+                                     img_dir / f"{self.test_set.fns[i]}.png")
+                if self.train_set.num_classes > 0 and self.is_main:
                     preds = out["classes"].argmax(dim=1).cpu().numpy().reshape(h, w)
                     utils.save_image(self.class_cmap[preds],
                                      img_dir / f"{self.test_set.fns[i]}_seg.png")
@@ -456,8 +572,9 @@ class Trainer:
             return {}
         mse = float(np.mean(mses))
         metrics = {"iter": self.iter_ctr, "mse": mse, "psnr": utils.compute_psnr(mse)}
-        self.logger.info("[TEST] Iter: %d, MSE: %.5f, PSNR: %.5f", self.iter_ctr, mse,
-                         metrics["psnr"])
+        if self.is_main:
+            self.logger.info("[TEST] Iter: %d, MSE: %.5f, PSNR: %.5f", self.iter_ctr, mse,
+                             metrics["psnr"])
         self.test_history.append(metrics)
         return metrics
 
@@ -480,8 +597,11 @@ class Trainer:
         }
         trees = {"params": self.params, "opt_state": self.opt_state, "ema": self.ema_state,
                  "occ": occupancy_persistable(self.renderer.occ_state)}
-        ckpt_lib.save_checkpoint(path, meta, trees)
-        self.logger.info("Saved checkpoint at %s", path)
+        if self.is_main:
+            ckpt_lib.save_checkpoint(path, meta, trees)
+            self.logger.info("Saved checkpoint at %s", path)
+        if self.world is not None:
+            self.world.barrier()
         return path
 
     def _restore(self, meta: Dict, groups: Dict, load_model_only: bool = False) -> None:
@@ -505,11 +625,12 @@ class Trainer:
         self.ema_state = EmaState(shadow=ema.shadow, num_updates=ema.num_updates.cpu())
 
 
-def get_trainer(cfg: BaseConfig, nargs: List[str], device: DeviceLike = None) -> Trainer:
+def get_trainer(cfg: BaseConfig, nargs: List[str], device: DeviceLike = None,
+                mesh: Optional[Mesh] = None) -> Trainer:
     """The trainer of a run: the style stage when a style image is given,
-    else stage 1 (reconstruction)."""
+    else stage 1 (reconstruction); ``mesh``: the rank's data-parallel mesh."""
     if cfg.style_image is None:
-        return Trainer(cfg, nargs, device)
+        return Trainer(cfg, nargs, device, mesh=mesh)
     from .style_trainer import StyleTrainer
 
-    return StyleTrainer(cfg, nargs, device)
+    return StyleTrainer(cfg, nargs, device, mesh=mesh)

@@ -3,8 +3,9 @@
 ``tests/test_torch_style_two_pass_amp.py``, AMP), which hold the style
 stage's two-pass scheme (``style_geom_cache`` false) and the style cache's
 view-direction input (``nerfstyle_torch/training/style_trainer.py``)
-against the JAX package's StyleTrainer on the CPU.  Each file builds its own
-stage-1 checkpoint and only its own JAX trainer.
+against the JAX package's StyleTrainer on the CPU.  The two files share one
+stage-1 checkpoint (:func:`make_stage1`); each builds only its own JAX
+trainer.
 
 All on a 32x24 synthetic scene with a port-written stage-1 checkpoint, the
 JAX extractor's fallback VGG filters carried into the port, and windows of
@@ -22,7 +23,11 @@ sizes buffers only; one group compiles once).
 
 import contextlib
 import dataclasses
+import fcntl
 import functools
+import hashlib
+import inspect
+import os
 import shutil
 from pathlib import Path
 
@@ -58,23 +63,48 @@ BUDGET = 64  # JAX's samples-a-ray bucket here: no truncation (see the module do
 
 def make_stage1(tmp_path_factory):
     """A 32x24 scene, a port-written stage-1 checkpoint (40 steps), a style
-    PNG and a 4-quadrant segment map."""
-    root = tmp_path_factory.mktemp("style_two_pass")
+    PNG and a 4-quadrant segment map, built once a run and shared by the
+    files that ask for it: under xdist in the parent of the workers' base
+    temp directories, under a file lock, in a directory named by a hash of
+    its inputs (the build's source, the flags and the sizes).  The 40
+    steps run on one torch thread: beside other busy workers the CPU
+    build's threads contend (137 s against 5.7 s measured with two builds
+    side by side)."""
+    src = inspect.getsource(_build_stage1) + repr((NET, QUIET, W, H))
+    key = hashlib.sha256(src.encode()).hexdigest()[:16]
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent
+    root = base / f"style_two_pass_stage1_{key}"
+    with open(base / f"style_two_pass_stage1_{key}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not (root / "done").exists():
+            shutil.rmtree(root, ignore_errors=True)
+            _build_stage1(root)
+            (root / "done").touch()
+    return root, root / "data.yaml", root / "recon" / "iter_40.ckpt", root / "style.png", \
+        root / "style_seg.npz"
+
+
+def _build_stage1(root: Path) -> None:
     generate_scene(root / "scene", num_train=4, num_test=1, h=H, w=W)
     data_cfg = root / "data.yaml"
     data_cfg.write_text(f"root_path: {root / 'scene'}\ntype: Synthetic\nbound: 2.0\nscale: 1.0\n")
-    tt = Trainer(BaseConfig(log_dir=root / "recon", data_cfg=data_cfg),
-                 NET + QUIET[:-2] + ["--num_iterations", "40", "--num_rays_per_batch", "256",
-                                     "--update_thres", "4", "--intervals.ckpt", "40",
-                                     "--enable_amp"],
-                 device="cpu")
-    tt.run()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        tt = Trainer(BaseConfig(log_dir=root / "recon", data_cfg=data_cfg),
+                     NET + QUIET[:-2] + ["--num_iterations", "40", "--num_rays_per_batch", "256",
+                                         "--update_thres", "4", "--intervals.ckpt", "40",
+                                         "--enable_amp"],
+                     device="cpu")
+        tt.run()
+    finally:
+        torch.set_num_threads(threads)
     yy, xx = np.meshgrid(np.linspace(0, 1, 30), np.linspace(0, 1, 40), indexing="ij")
-    png, seg = root / "style.png", root / "style_seg.npz"
-    utils.save_image(np.stack([yy, xx, 1 - yy], axis=-1).astype(np.float32), png)
-    np.savez(seg, seg_map=(yy > 0.5).astype(np.int64) * 2 + (xx > 0.5).astype(np.int64))
-    yield root, data_cfg, root / "recon" / "iter_40.ckpt", png, seg
-    shutil.rmtree(root, ignore_errors=True)
+    utils.save_image(np.stack([yy, xx, 1 - yy], axis=-1).astype(np.float32), root / "style.png")
+    np.savez(root / "style_seg.npz",
+             seg_map=(yy > 0.5).astype(np.int64) * 2 + (xx > 0.5).astype(np.int64))
 
 
 def trainers(stage1, log_dir: Path, extra, jax_side=True):

@@ -44,12 +44,12 @@ def _close(got: torch.Tensor, want, rtol=1e-6, atol=1e-6):
 
 
 def test_torch_box2d_coord_system_and_bbox_match_jax():
-    """The types, and ``core``'s exports: JAX's but ``LossValue`` (the
-    trainer's status printers' record, still to port)."""
+    """The types, and ``core``'s exports: JAX's, ``LossValue`` (the
+    trainer's status printers' record) among them."""
     import nerfstyle_torch.core as tcore
     import nerfstyle_tpu.core as jcore
 
-    assert set(tcore.__all__) == set(jcore.__all__) - {"LossValue"}
+    assert set(tcore.__all__) == set(jcore.__all__)
     box = tt.Box2D(x=2, y=3, w=5, h=4)
     jbox = jt.Box2D(x=2, y=3, w=5, h=4)
     assert (box.wrange(), box.hrange()) == (jbox.wrange(), jbox.hrange())

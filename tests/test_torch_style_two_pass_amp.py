@@ -19,8 +19,9 @@ from nerfstyle_tpu.training import checkpoint as jckpt
 @pytest.fixture(scope="module")
 def stage1(tmp_path_factory):
     """A 32x24 scene, a port-written stage-1 checkpoint (40 steps), a style
-    PNG and a 4-quadrant segment map (this file's own)."""
-    yield from common.make_stage1(tmp_path_factory)
+    PNG and a 4-quadrant segment map (one a run, shared by both two-pass
+    files)."""
+    return common.make_stage1(tmp_path_factory)
 
 
 @pytest.fixture(scope="module")

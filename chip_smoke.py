@@ -194,6 +194,21 @@
    ``{"dp": ...}``: the card, the late step with and without the mesh, the
    collectives a step, their bytes and their share of a step.
 
+17. The reconstruction quality run (``psnr_phase``, before the dp phase):
+   ``python -m nerfstyle_torch.tools.psnr_room_run`` in-process on the
+   open bench scene (378x504, 30 train views, 3 test views), PSNR_ITERS
+   (2000) steps of 4096 rays, the untrained field evaluated first, launch
+   counters set to 0 just before and read just after: every train kernel
+   must launch, no step may be non-finite, every 500-step held-out PSNR
+   must lie 5 dB above the untrained field's and the last reach 28.0 dB
+   (PSNR_GATE_DB).  Its checkpoint through ``python -m
+   nerfstyle_torch.render`` at 1008x756 (finite maps of the frame's
+   shapes), then ``Renderer.render_ray_batch_incremental`` on a 4096-ray
+   crop of that view (K4i and P0 must launch; their kernel-table rows
+   count these launches beside the incremental frame's) against the
+   incremental ``Renderer.render`` frame's crop.  Logs the PSNR by step,
+   train_s, the late step's median and peak memory.
+
 Before the main path: K5d's first entry (sh_encode) at a frame chunk's
 kept stream (129,929 rows) and at a style cache's size (640,000), and its
 second (sh_assemble: features, SH basis and K5's zero padding in one
@@ -282,6 +297,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -361,6 +377,18 @@ K1_POINTS = 1 << 20
 # channels; the two-stage march before.
 INCREMENTAL_COUNTERS = ("composite_weights_entering", "take_rows", "hashgrid_encode",
                         "mlp_forward", "segment_sum", "march_skip_count", "march_skip_write")
+# The reconstruction quality run (psnr_phase): python -m
+# nerfstyle_torch.tools.psnr_room_run on the open bench scene (378x504, 30
+# train views, 3 test views) for PSNR_ITERS steps at 4096 rays, a test
+# evaluation every 500.  Each evaluation must rise PSNR_RISE_DB above the
+# untrained field's and the last must reach PSNR_GATE_DB: 3.5 dB below the
+# JAX package's 31.48 dB at 2,000 steps (BASELINE.md), a margin for the
+# fixed 4096-ray batch against its adaptive one.  Then
+# Renderer.render_ray_batch_incremental on a 4096-ray crop of the
+# checkpoint's 1008x756 test view must launch K4i and P0.
+PSNR_ITERS = 2000
+PSNR_GATE_DB, PSNR_RISE_DB = 28.0, 5.0
+PSNR_BATCH_COUNTERS = ("composite_weights_entering", "take_rows")
 # The style path's style image: a JPEG written by PIL and the array PIL
 # decodes from it (the chip machine has no PIL: the port's decoder must give
 # the same bits).
@@ -538,6 +566,14 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_FP32_PER_S):
 # ---------------------------------------------------------------------------
 
 
+def central_crop(w: int, h: int, half: int = 32) -> torch.Tensor:
+    """Row-major pixel indices of the central (2 half)^2 window of a w x h
+    frame, on the card."""
+    ys, xs = np.meshgrid(np.arange(h // 2 - half, h // 2 + half),
+                         np.arange(w // 2 - half, w // 2 + half), indexing="ij")
+    return torch.from_numpy((ys * w + xs).reshape(-1)).to(DEVICE)
+
+
 def sphere_bitfield(cascade: int, grid: int, bound: float, spheres: np.ndarray) -> np.ndarray:
     """Cells (of every cascade) that a sphere of the scene intersects."""
     idx = np.arange(grid, dtype=np.float64)
@@ -649,10 +685,16 @@ ENCODE_STREAMS = (
     ("probe random", ("occupancy_update_random",)),
     ("train A", ("eval_composite",)),
     ("frame A", ("render_chunk", "_build_geom_cache")),
+    ("sparsity", ("loss_and_grads",)),
 )
 BACKWARD_STREAMS = {4: "train B", 2: "style"}
 _stream_counts: dict = {}
 _two_pass_phase: list = []  # the two-pass phase running, if any (count_two_pass_streams)
+# Set while a stage-1 train step computes its losses and gradients: K2 on a
+# C=2 table there is the sparsity term's (density at random points; the
+# quality run's regime).  Autograd runs it off the caller's stack, so K1's
+# sparsity launches are found by caller instead (ENCODE_STREAMS).
+_train_step: list = []
 
 
 def count_two_pass_streams() -> None:
@@ -703,11 +745,24 @@ def _encode_stream() -> str:
 
 def count_hashgrid_streams() -> None:
     """Wrap the K1 and K2 wrappers so that each launch also counts under
-    ``<kernel>:<stream>`` (read_counts); the wrappers' own counts are
-    untouched."""
+    ``<kernel>:<stream>`` (read_counts), and the stage-1 trainer's
+    ``loss_and_grads`` so that the sparsity term's launches are told apart;
+    the wrappers' own counts are untouched."""
+    import functools
+
     from nerfstyle_torch import kernels
+    from nerfstyle_torch.training.trainer import Trainer
 
     enc, bwd = kernels.hashgrid_encode, kernels.hashgrid_backward
+    step = Trainer.loss_and_grads
+
+    @functools.wraps(step)
+    def loss_and_grads(*args, **kwargs):
+        _train_step.append(True)
+        try:
+            return step(*args, **kwargs)
+        finally:
+            _train_step.pop()
 
     def encode(x, table, levels, *style_term):
         before = kernels.launch_counts["hashgrid_encode"]
@@ -719,12 +774,17 @@ def count_hashgrid_streams() -> None:
         before = kernels.launch_counts["hashgrid_backward"]
         out = bwd(x, g, levels, num_rows, *style_term)
         c = g.shape[1] // levels.shape[1]
-        stream = (f"{_two_pass_phase[-1]} B" if _two_pass_phase
-                  else BACKWARD_STREAMS.get(c, "other"))
+        if _two_pass_phase:
+            stream = f"{_two_pass_phase[-1]} B"
+        elif _train_step and c == 2:
+            stream = "sparsity"
+        else:
+            stream = BACKWARD_STREAMS.get(c, "other")
         _tally("hashgrid_backward", stream, before)
         return out
 
     kernels.hashgrid_encode, kernels.hashgrid_backward = encode, backward
+    Trainer.loss_and_grads = loss_and_grads
 
 
 # ---------------------------------------------------------------------------
@@ -1356,9 +1416,7 @@ def skipdist_sizes_phase(renderer, params, rays_o, rays_d, fails) -> dict:
     reset_counts()
     r_big.restore_occupancy(persisted)
     w, h = OUT_DIMS
-    ys, xs = np.meshgrid(np.arange(h // 2 - 32, h // 2 + 32), np.arange(w // 2 - 32, w // 2 + 32),
-                         indexing="ij")
-    crop = torch.from_numpy((ys * w + xs).reshape(-1)).to(dev)
+    crop = central_crop(w, h)
     with torch.no_grad():
         got = r_big.render_rays(params, rays_o[crop], rays_d[crop])
         torch.cuda.synchronize()
@@ -3721,9 +3779,7 @@ def view_phase(renderer, default_params, pose, rays, card: str, fails) -> dict:
     persisted = occupancy_persistable(renderer.occ_state)
     w, h = OUT_DIMS
     npix = w * h
-    ys, xs = np.meshgrid(np.arange(h // 2 - 32, h // 2 + 32), np.arange(w // 2 - 32, w // 2 + 32),
-                         indexing="ij")
-    crop = torch.from_numpy((ys * w + xs).reshape(-1)).to(DEVICE)
+    crop = central_crop(w, h)
     runs, frames = {}, {"default": (renderer, default_params)}
     for name, (r, params) in view_families(renderer).items():
         fspec = r.field_spec
@@ -4138,10 +4194,7 @@ def incremental_phase(renderer, params, pose, rays, card: str, fails):
         fails.append(f"incremental frame against the two-phase frame at sig_eps 0: marched "
                      f"{out['num_marched']} vs {every['num_marched']}, max abs err {errs} (tol "
                      f"{tol})")
-    half = min(32, h // 4, w // 4)
-    ys, xs = np.meshgrid(np.arange(h // 2 - half, h // 2 + half),
-                         np.arange(w // 2 - half, w // 2 + half), indexing="ij")
-    crop = torch.from_numpy((ys * w + xs).reshape(-1)).to(DEVICE)
+    crop = central_crop(w, h, min(32, h // 4, w // 4))
     ref = frame(inc, rays.origins[crop], rays.dirs[crop], plain=True)
     crop_tol = {"rgb_map": 2e-3, "trans_map": 2e-3, "weights_sum": 2e-3, "classes": 2e-2}
     crop_err = {k: float((out[k][crop] - ref[k]).abs().max()) for k in crop_tol}
@@ -4212,6 +4265,149 @@ def incremental_phase(renderer, params, pose, rays, card: str, fails):
              (params["color1_net"], h_c, None), (params["color2_net"], c1, "sigmoid")]
     table["K5f incremental"] = k5f_heads_row(heads, dtype, what, fails)
     return launches, table
+
+
+def psnr_phase(card: str, fails) -> dict:
+    """The reconstruction quality run through its entry point (``python -m
+    nerfstyle_torch.tools.psnr_room_run``, in-process) on the open bench
+    scene, PSNR_ITERS steps with the untrained field evaluated first
+    (``--test_before_train``), launch counters set to 0 just before and read
+    just after: every train kernel must launch, no step may be non-finite
+    or skipped, every 500-step evaluation must lie PSNR_RISE_DB above the
+    untrained field and the last reach PSNR_GATE_DB.  Then its checkpoint
+    through ``python -m nerfstyle_torch.render`` at 1008x756 (finite maps of
+    the frame's shapes), and ``Renderer.render_ray_batch_incremental`` on a
+    4096-ray crop of that view (K4i and P0 must launch), whose maps must
+    equal the incremental ``Renderer.render`` frame's crop within the
+    incremental phase's tolerance.  K1 and K2 on the sparsity term's stream
+    (its random points on the density table, C=2) get kernel-table rows.
+    Returns the three runs' launches and those rows."""
+    from nerfstyle_torch.core.cameras import generate_rays
+    from nerfstyle_torch.core.types import RayBundle
+    from nerfstyle_torch.models.fields import _encoder_input
+    from nerfstyle_torch.render import cli
+    from nerfstyle_torch.tools import psnr_room_run
+
+    env = {"NERFSTYLE_BENCH_SCENE": "spheres", "NERFSTYLE_BENCH_RES": "378x504",
+           "NERFSTYLE_BENCH_VIEWS": "30", "PSNR_ITERS": str(PSNR_ITERS),
+           "EXTRA": "--test_before_train"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    torch.cuda.synchronize()
+    reset_counts()
+    try:
+        trainer = psnr_room_run.main([str(WORK / "psnr"), "--device", DEVICE])
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    torch.cuda.synchronize()
+    runs = {"psnr": read_counts()}
+    for name in TRAIN_COUNTERS:
+        if runs["psnr"][name] <= 0:
+            fails.append(f"psnr run launched no {name} kernel")
+    res = trainer.result
+    if res["skipped_steps"] or not all(bool(torch.isfinite(v))
+                                       for v in trainer.last_losses.values()):
+        fails.append(f"psnr run: {res['skipped_steps']} non-finite steps skipped, last losses "
+                     f"{trainer.last_losses}")
+    untrained, *evals = trainer.test_history
+    curve = {m["iter"]: round(m["psnr"], 3) for m in evals}
+    if untrained["iter"] != 0 or list(curve) != list(range(500, PSNR_ITERS + 1, 500)):
+        fails.append(f"psnr run evaluated at {[untrained['iter'], *curve]}")
+    low = {i: p for i, p in curve.items() if not p >= untrained["psnr"] + PSNR_RISE_DB}
+    if low:
+        fails.append(f"psnr run: evaluations {low} less than {PSNR_RISE_DB} dB above the "
+                     f"untrained field's {untrained['psnr']:.3f} dB")
+    if not res["psnr"] >= PSNR_GATE_DB:
+        fails.append(f"psnr run: held-out PSNR {res['psnr']} dB at step {PSNR_ITERS} < "
+                     f"{PSNR_GATE_DB} dB")
+    log(f"psnr run ({card}): open scene 378x504, 30 views, {PSNR_ITERS} steps of "
+        f"{trainer.train_cfg.num_rays_per_batch} rays, train_s {res['train_s']} (evaluations "
+        f"included); held-out PSNR (3 views, EMA params) untrained {untrained['psnr']:.3f} dB, "
+        f"by step {curve}, final {res['psnr']} dB (JAX package at 2,000 steps: 31.48 dB, "
+        f"BASELINE.md; gate {PSNR_GATE_DB}); late step median {res['late_step_ms']:.2f} ms "
+        f"(last {psnr_room_run.LATE_STEPS}), early (steps 1-15) "
+        f"{float(np.median(trainer.iter_ms[1:16])):.2f} ms; peak memory {res['peak_mib']} MiB; "
+        f"launches {runs['psnr']}")
+    # The sparsity term's stream, drawn as the trainer draws it.
+    gen = torch.Generator(device=DEVICE).manual_seed(21)
+    bbox, grid = trainer.renderer.bbox, trainer.field_spec.grid
+    pts = torch.rand((trainer.train_cfg.sparsity_samples, 3), generator=gen,
+                     device=DEVICE) * bbox.size + bbox.min_pt
+    x = _encoder_input(bbox, pts).contiguous()
+    what = f"the sparsity term's {x.shape[0]} random points (density, C=2)"
+    dens = trainer.params["x_density_embedder"].detach()
+    table = {"K1 sparsity": k1_row(grid, dens, x, what, fails),
+             "K2 sparsity": k2_row(grid, x, grid.level_dim, what, gen, fails)}
+    # Kernels of a few µs: their cold times (the 50 MB table from HBM) and
+    # the empty kernel's, to tell a launch floor from the kernel's own time.
+    from nerfstyle_torch import kernels
+    from nerfstyle_torch.ops import hashgrid
+
+    lv = hashgrid.level_table(grid, x.device)
+    cot = torch.randn((x.shape[0], grid.num_levels * grid.level_dim), generator=gen,
+                      device=DEVICE)
+    floor = launch_floor()
+    for kid, fn in (("K1 sparsity", lambda: hashgrid.hashgrid_encode(grid, dens, x)),
+                    ("K2 sparsity", lambda: kernels.hashgrid_backward(
+                        x, cot, lv, grid.total_params, hashgrid.style_term(0)))):
+        c_ms = cold_ms(fn)
+        share = cold_share(kid, table[kid]["bound_ms"], c_ms, fails)
+        table[kid].update(cold_ms=c_ms, cold_share=share, **floor)
+        log(f"{kid}: ms {table[kid]['ms']:.4f} warm, cold {c_ms:.4f} (the bound "
+            f"{share:.0%} of it); empty kernel {floor['empty_kernel_ms']:.4f} warm, "
+            f"{floor['empty_kernel_cold_ms']:.4f} cold")
+    del cot
+    ckpt = Path(res["ckpt"])
+    del trainer
+    torch.cuda.empty_cache()
+
+    reset_counts()
+    summary = cli.main([str(ckpt), "--out-dims", *map(str, OUT_DIMS), "--max-count", "1",
+                        "--yes", "--out-dir", str(WORK / "psnr_render"), "--device", DEVICE])
+    runs["psnr render"] = read_counts()
+    out = summary["last"]
+    w, h = OUT_DIMS
+    shapes = {"rgb_map": (w * h, 3), "trans_map": (w * h,), "weights_sum": (w * h,),
+              "classes": (w * h, out["classes"].shape[1])}
+    for k, shp in shapes.items():
+        if tuple(out[k].shape) != shp or not bool(torch.isfinite(out[k]).all()):
+            fails.append(f"psnr checkpoint frame {k}: shape {tuple(out[k].shape)} (want {shp}) "
+                         "or not finite")
+
+    renderer, params, test_set, _ = cli.load_renderer(ckpt, DEVICE, OUT_DIMS, max_count=1)
+    pose = torch.from_numpy(np.asarray(test_set[0][1]))
+    rays, _ = generate_rays(pose.to(DEVICE), renderer.intr,
+                            camera_flip=renderer.settings.flip_camera)
+    crop = central_crop(w, h)
+    torch.cuda.synchronize()
+    reset_counts()
+    with torch.no_grad():
+        got = renderer.render_ray_batch_incremental(
+            params, RayBundle(rays.origins[crop], rays.dirs[crop]))
+    torch.cuda.synchronize()
+    runs["psnr batch"] = read_counts()
+    for name in PSNR_BATCH_COUNTERS:
+        if runs["psnr batch"][name] <= 0:
+            fails.append(f"render_ray_batch_incremental launched no {name} kernel")
+    renderer.settings = dataclasses.replace(renderer.settings, infer_two_phase=False)
+    with torch.no_grad():
+        frame = renderer.render(params, pose)
+    tol = {"rgb_map": 2e-4, "trans_map": 2e-4, "weights_sum": 2e-4, "classes": 2e-3}
+    errs = {k: float((got[k] - frame[k][crop]).abs().max()) for k in tol}
+    if not all(errs[k] <= t for k, t in tol.items()):
+        fails.append(f"render_ray_batch_incremental against the incremental frame's crop: max "
+                     f"abs err {errs} (tol {tol})")
+    log(f"psnr checkpoint: 1008x756 frame through the render CLI, {out['num_marched'] / (w * h):.2f}"
+        f" samples/ray marched, {out['num_sig'] / (w * h):.2f} significant, frame "
+        f"{summary['frame_ms'][0]:.1f} ms (first of the process); render_ray_batch_incremental "
+        f"on a 4096-ray crop: {got['rounds']} rounds, {got['num_points']} of "
+        f"{got['num_marched']} samples evaluated, max abs err against the incremental frame "
+        f"{errs} (tol {tol}), launches {runs['psnr batch']}")
+    return runs, table
 
 
 # ---------------------------------------------------------------------------
@@ -4956,9 +5152,7 @@ def main() -> int:
     # value where cuBLAS sums a different batch in another order: atol 2e-3
     # on rgb, opacity and depth, 2e-2 on class logits.
     w, h = OUT_DIMS
-    ys, xs = np.meshgrid(np.arange(h // 2 - 32, h // 2 + 32), np.arange(w // 2 - 32, w // 2 + 32),
-                         indexing="ij")
-    crop = torch.from_numpy((ys * w + xs).reshape(-1)).to(DEVICE)
+    crop = central_crop(w, h)
     ref = renderer.render_rays(params, rays.origins[crop], rays.dirs[crop], plain=True)
     crop_err = {k: float((out[k][crop] - ref[k]).abs().max()) for k in shapes}
     crop_tol = {"rgb_map": 2e-3, "trans_map": 2e-3, "weights_sum": 2e-3, "classes": 2e-2}
@@ -5035,6 +5229,13 @@ def main() -> int:
     runs["simplex"], simplex_table = simplex_phase(card, fails)
     table.update(simplex_table)
 
+    # The reconstruction quality run to 2,000 steps on the open bench scene,
+    # its checkpoint through the render CLI and render_ray_batch_incremental.
+    psnr_runs, psnr_table = psnr_phase(card, fails)
+    runs.update(psnr_runs)
+    table.update(psnr_table)
+    torch.cuda.empty_cache()
+
     # Data parallelism over rays: the late train steps, a cached style step,
     # pass 1 and 2 of the two-pass scheme and the 1008x756 frame on
     # dp_world()'s ranks against the same work unsharded.
@@ -5049,7 +5250,11 @@ def main() -> int:
     # their plain versions only.  K3 and K3s are two passes each (count and
     # write), K6c kernels.SKIPDIST_LAUNCHES a rebuild: their launches are all
     # of theirs.
-    main_paths = ("render", "train", "style", "two-pass", "incremental")
+    main_paths = ("render", "train", "style", "two-pass", "incremental", "psnr", "psnr render",
+                  "psnr batch")
+    # The incremental rounds' kernels: the incremental frame's and
+    # render_ray_batch_incremental's launches.
+    inc_paths = ("incremental", "psnr batch")
     # K1 and K2: a row a stream, with that stream's launches (see
     # ENCODE_STREAMS); every launch of theirs must fall in a stream with a
     # row.
@@ -5112,6 +5317,11 @@ def main() -> int:
          "nerfstyle_tpu/ops/hashgrid.py:959", ("hashgrid_backward:style",), main_paths),
         ("K2s train B", f"K2s hashgrid_backward (simplex levels), {encode_rows['train B']}", hg,
          "nerfstyle_tpu/ops/hashgrid.py:979", ("hashgrid_backward:train B",), ("simplex",)),
+        ("K1 sparsity", "K1 hashgrid_encode, the sparsity term's random points (density, C=2; "
+         "the quality run's regime)", hg, "nerfstyle_tpu/ops/hashgrid.py:818",
+         ("hashgrid_encode:sparsity",), main_paths),
+        ("K2 sparsity", "K2 hashgrid_backward, the sparsity term's random points (density, C=2)",
+         hg, "nerfstyle_tpu/ops/hashgrid.py:959", ("hashgrid_backward:sparsity",), main_paths),
         ("K3", "K3 march_rays (dense)", "nerfstyle_torch/csrc/march.cu",
          "nerfstyle_tpu/ops/marching.py:166", DENSE_COUNTERS, ("dense frame", "dense train")),
         ("K3s", "K3s march_rays (two-stage)", "nerfstyle_torch/csrc/march.cu",
@@ -5189,23 +5399,23 @@ def main() -> int:
         ("K4i", "K4i composite_weights_entering, an incremental frame chunk's round (each "
          "ray entering with the transmittance of its earlier rounds)", cp,
          "nerfstyle_tpu/render/renderer.py:364", ("composite_weights_entering",),
-         ("incremental",)),
+         inc_paths),
         ("K4i later", "K4i composite_weights_entering, a later round of the incremental frame "
          "at round size 4 (rays entering with T < 1; on no path: the default round size is 32)",
          cp, "nerfstyle_tpu/render/renderer.py:364", ("composite_weights_entering",), ()),
         ("P0 incremental", "P0 take_rows, an incremental round's gather of its samples' [xyz, "
          "tau] rows (16 bytes a row)", "nerfstyle_torch/csrc/gather.cu",
-         "tools/exp_encoder_r4.py:120", ("take_rows",), ("incremental",)),
+         "tools/exp_encoder_r4.py:120", ("take_rows",), inc_paths),
         ("P0 incremental 32 B", "P0 take_rows, the same positions into the view-dependent "
          "fields' [xyz, tau, dirs, 0] rows (32 bytes a row; on no path: those fields are library "
          "API)", "nerfstyle_torch/csrc/gather.cu", "tools/exp_encoder_r4.py:120", ("take_rows",),
          ()),
         ("K1 incremental", "K1 hashgrid_encode, an incremental round's samples (fused [T, 4])",
          hg, "nerfstyle_tpu/ops/hashgrid.py:818", ("hashgrid_encode:incremental",),
-         ("incremental",)),
+         inc_paths),
         ("K5f incremental", "K5 mlp_forward, an incremental round's samples (density, class, "
          "color1 and color2 heads)", "nerfstyle_torch/csrc/mlp.cu", "nerfstyle_tpu/ops/mlp.py:45",
-         ("mlp_forward",), ("incremental",)),
+         ("mlp_forward",), inc_paths),
         ("P0", "P0 take_rows, 256 int32 indices into [1024, 128] f32 (the TPU kernel's own "
          "shape, on no path)",
          "nerfstyle_torch/csrc/gather.cu", "tools/exp_encoder_r4.py:120", ("take_rows",), ()),

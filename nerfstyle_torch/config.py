@@ -182,6 +182,8 @@ class Config:
     """Base of every config group: the layered load and the CLI parser."""
 
     default_path: ClassVar[Optional[str]] = None
+    # Width of the key column of :meth:`print` (a class variable: no flag).
+    print_col_width: ClassVar[int] = 30
 
     @classmethod
     def read_nargs(cls: Type[T], argv: Optional[Sequence[str]] = None) -> Tuple[T, List[str]]:
@@ -274,6 +276,12 @@ class Config:
             return v
 
         return {k: enc(v) for k, v in dataclasses.asdict(self).items()}
+
+    def print(self) -> None:
+        """The flattened config as ``key | value`` rows, the key padded to
+        :attr:`print_col_width` (JAX's ``Config.print``)."""
+        for k, v in flatten(dataclasses.asdict(self)).items():
+            print("{: <{w}}| {}".format(k, str(v), w=self.print_col_width))
 
 
 @dataclass

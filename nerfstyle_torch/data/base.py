@@ -133,6 +133,12 @@ class BaseDataset(ABC):
     def __len__(self):
         return len(self.poses)
 
+    def iter_shuffled(self, seed: int = 0):
+        """Endless items of the split in :meth:`iter_shuffled_indexed`'s
+        order, without their index."""
+        for _i, item in self.iter_shuffled_indexed(seed):
+            yield item
+
     def iter_shuffled_indexed(self, seed: int = 0):
         """Endless ``(index, item)`` over the split, each pass in a new
         order of numpy's ``default_rng(seed)``: the JAX package's pose order

@@ -44,7 +44,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .. import utils
+from .. import DeviceLike, resolve_device, utils
 
 logger = utils.create_logger(__name__)
 
@@ -270,3 +270,29 @@ class VGG19FeatureExtractor(VGGFeatureExtractor):
     kind = "vgg19"
     blocks = _VGG19_BLOCKS
     layers = VGG19_LAYERS
+
+
+def test_fx(fx_type: str, h: int = 224, w: int = 224, device: DeviceLike = None) -> None:
+    """Smoke harness (JAX's ``test_fx``): an extractor of ``fx_type``
+    (``vgg16`` or ``vgg19``) on every layer and block key runs a zero
+    [1, 3, h, w] image on ``device`` (``cuda`` unless given) and prints each
+    feature's size."""
+    cls = {"vgg16": VGG16FeatureExtractor, "vgg19": VGG19FeatureExtractor}[fx_type]
+    all_layers = [
+        f"conv{i + 1}_{j + 1}" for i, lvl in enumerate(cls.layers) for j in range(len(lvl))
+    ] + [f"conv{i + 1}" for i in range(len(cls.layers))]
+    dev = resolve_device(device)
+    fx = cls(all_layers, device=dev)
+    out = fx(torch.zeros((1, 3, h, w), device=dev))
+    for k, v in out.items():
+        print(f"Feature: {k}, size: {tuple(v.shape)}")
+
+
+if __name__ == "__main__":
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Print the feature sizes of a VGG extractor.")
+    parser.add_argument("fx_type", nargs="?", default="vgg16", choices=("vgg16", "vgg19"))
+    parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    args = parser.parse_args()
+    test_fx(args.fx_type, device=args.device)

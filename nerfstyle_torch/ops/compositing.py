@@ -33,11 +33,16 @@ g[ray]``, and it gives ``d w`` only when ``w`` asks for one.
 (:class:`CompositeRays`): K4 forward then K7, and in the backward kernel
 K4b, one reverse pass per ray for the density and channel gradients.  Its
 plain backward is autograd through the plain forward.
+
+:class:`CompositeOutput`, :func:`segment_exclusive_cumsum` and
+:func:`significance` are JAX's names for the compositor's record and its
+scan over a padded ``ray_id`` stream; no path calls them (the kernels
+scan inside a ray's warp), so they stay tensor operations.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -46,6 +51,54 @@ from .. import kernels, use_kernel
 # Optical-depth cap: alpha == 1 and T == 0 exactly in fp32 above ~88, so the
 # cap changes nothing but keeps an inf density from making inf - inf.
 OPTICAL_DEPTH_CAP = 100.0
+
+
+class CompositeOutput(NamedTuple):
+    """Per-ray outputs of a compositor (JAX's ``CompositeOutput``)."""
+
+    image: torch.Tensor  # [N, C] accumulated channels (rgb + class logits)
+    weights_sum: torch.Tensor  # [N] pixel alpha
+    depth: torch.Tensor  # [N] weighted depth integral (before normalization)
+
+
+def segment_exclusive_cumsum(x: torch.Tensor, ray_id: torch.Tensor, num_rays: int) -> torch.Tensor:
+    """Exclusive cumulative sum of ``x`` [M] within each ray's contiguous
+    segment (JAX's ``segment_exclusive_cumsum``): samples sorted by
+    ``ray_id`` [M], padding rows at ``ray_id == num_rays``.
+
+    Library API, as :func:`significance`: no path calls either.  Kernels
+    K4 and K4i scan each ray's optical depth in their own warps, so these
+    stay tensor operations on either device, JAX's formula (a flat cumsum
+    less the sum of the segments in front) with float64 sums (integer x:
+    int64), returned in x's dtype."""
+    acc = torch.float64 if x.is_floating_point() else torch.int64
+    x64 = x.to(acc)
+    seg_totals = torch.zeros((num_rays + 1,), dtype=acc, device=x.device)
+    seg_totals.index_add_(0, ray_id.to(torch.int64), x64)
+    prev_total = torch.cumsum(seg_totals, 0) - seg_totals
+    return (torch.cumsum(x64, 0) - x64 - prev_total[ray_id.to(torch.int64)]).to(x.dtype)
+
+
+def significance(
+    sigmas: torch.Tensor,
+    ray_id: torch.Tensor,
+    valid: torch.Tensor,
+    num_rays: int,
+    dt: float,
+    t_thresh: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The inclusion math of the compositor (JAX's ``significance``) on a
+    stream of densities ``sigmas`` [M] (density_scale applied), their
+    ``ray_id`` and ``valid`` mask: ``(included, sdt, trans)``, the mask
+    ``T_i >= t_thresh`` (not and-ed with ``valid``: an invalid row's
+    optical depth is 0), each sample's optical depth capped at
+    ``OPTICAL_DEPTH_CAP`` and the transmittance entering it.  Library API
+    on plain tensor operations (see :func:`segment_exclusive_cumsum`):
+    the paths' compositors compute the same inside K4 and K4i."""
+    sdt = torch.where(valid, torch.clamp(sigmas * dt, max=OPTICAL_DEPTH_CAP),
+                      torch.zeros_like(sigmas))
+    trans = torch.exp(-segment_exclusive_cumsum(sdt, ray_id, num_rays))
+    return trans >= t_thresh, sdt, trans
 
 
 def ray_ids(offsets: torch.Tensor) -> torch.Tensor:

@@ -24,6 +24,10 @@ prime on hashed levels, ``style * stride`` on dense ones, JAX's
 ``_level_indices``); the encoder's :func:`_rows` is its hashed branch, the
 style slot's term :func:`style_term` XOR-ed in.
 
+:func:`corner_indices_weights` gives every level's 8 corner rows and
+weights in JAX's ``[B, L, 8]`` layout (simplex weights on their corners'
+slots), library API on tensor operations.
+
 :func:`grid_initialize` copies a reference table's style-0 rows into every
 style slot of a new table (JAX's ``grid_initialize``): kernel K9 on CUDA
 tensors, :func:`grid_initialize_plain` on CPU tensors.
@@ -220,16 +224,52 @@ def _corners(spec: HashGridSpec, x: torch.Tensor, style: int = 0):
                                          style), w))
     if lc < nl:
         pg, frac = _cells(spec, x, lc, nl)
-        fx, fy, fz = frac.unbind(-1)
-        rank = torch.stack([(fy > fx).long() + (fz > fx).long(),
-                            (fx >= fy).long() + (fz > fy).long(),
-                            (fx >= fz).long() + (fy >= fz).long()], dim=-1)
-        s1 = torch.maximum(fx, torch.maximum(fy, fz))
-        s3 = torch.minimum(fx, torch.minimum(fy, fz))
-        s2 = fx + fy + fz - s1 - s3
-        for v, w in enumerate((1.0 - s1, s1 - s2, s2 - s3, s3)):
+        rank, vertex_w = _simplex(frac)
+        for v, w in enumerate(vertex_w):
             corners.append((lc, nl, _rows(spec, pg + (rank < v).long(), lc, nl, style), w))
     return corners, oob
+
+
+def _simplex(frac: torch.Tensor):
+    """The Freudenthal simplex of cell fractions [..., 3]: each axis's
+    descending rank [..., 3] i64 (ties x before y before z) and the four
+    vertices' weights (1 - s1, s1 - s2, s2 - s3, s3), in the JAX order of
+    operations."""
+    fx, fy, fz = frac.unbind(-1)
+    rank = torch.stack([(fy > fx).long() + (fz > fx).long(),
+                        (fx >= fy).long() + (fz > fy).long(),
+                        (fx >= fz).long() + (fy >= fz).long()], dim=-1)
+    s1 = torch.maximum(fx, torch.maximum(fy, fz))
+    s3 = torch.minimum(fx, torch.minimum(fy, fz))
+    s2 = fx + fy + fz - s1 - s3
+    return rank, (1.0 - s1, s1 - s2, s2 - s3, s3)
+
+
+def corner_indices_weights(spec: HashGridSpec, x: torch.Tensor, style: int = 0):
+    """Every level's 8 corner rows and weights in JAX's layout (JAX's
+    ``corner_indices_weights``): ``(flat_idx [B, L, 8] i32, weights [B, L,
+    8] f32, oob [B] bool)``, slot s the corner with bits ``(s >> d) & 1``
+    on axis d.  Weights are trilinear on the levels below
+    ``simplex_start``; on the levels from it the four simplex vertices'
+    weights sit on their corners' slots and the other four slots are 0.
+    Library API: K1, K2 and K2x find the corners inside the kernel, so this
+    stays tensor operations (the hash in int64, masked to 32 bits) on
+    either device."""
+    nl, lc = spec.num_levels, spec.simplex_start
+    corners, oob = _corners(spec, x, style)
+    pg, frac = _cells(spec, x, 0, nl)
+    bits = torch.tensor([[(s >> d) & 1 for d in range(3)] for s in range(8)], device=x.device)
+    flat_idx = torch.stack([_rows(spec, pg + bits[s], 0, nl, style) for s in range(8)], dim=-1)
+    weights = torch.zeros(flat_idx.shape, dtype=torch.float32, device=x.device)
+    if lc > 0:
+        weights[:, :lc] = torch.stack([w for _, _, _, w in corners[:8]], dim=-1)
+    if lc < nl:
+        rank, vertex_w = _simplex(frac[:, lc:])
+        slots = [((rank < v).long() << torch.arange(3, device=x.device)).sum(-1)
+                 for v in range(4)]
+        for slot, w in zip(slots, vertex_w):
+            weights[:, lc:].scatter_(-1, slot[..., None], w[..., None])
+    return flat_idx.to(torch.int32), weights, oob
 
 
 def hashgrid_encode_plain(spec: HashGridSpec, table: torch.Tensor, x: torch.Tensor,

@@ -21,6 +21,9 @@ truncated — the same samples the JAX marcher emits once its budget covers
 the demand.  The two-stage march reports its candidate-window count
 ``num_cand`` beside the samples, for observability; there is no
 window-budget ladder to feed.
+
+:func:`occupancy_lookup` is JAX's gather of points' cell bits, library
+API: the marchers look cells up inside their kernels.
 """
 
 from __future__ import annotations
@@ -112,6 +115,19 @@ def cell_index_and_size(
     coords = coords.clamp(0, h - 1)
     idx = level * (h * h * h) + cell_linear_index(coords, h)
     return idx, 2.0 * mip_bound / h, level, mx
+
+
+def occupancy_lookup(
+    xyz: torch.Tensor, bitfield: torch.Tensor, *, bound: float, cascade: int, grid_size: int,
+    mip_dt_level: int = 0,
+) -> torch.Tensor:
+    """Occupancy bits [...] of world points [..., 3] in the cascaded grid
+    ``bitfield`` [cascade * grid_size^3] (JAX's ``occupancy_lookup``).
+    Library API: the marchers K3 and K3s look their cells up inside the
+    kernel, so this stays a tensor gather on either device."""
+    idx, _, _, _ = cell_index_and_size(xyz, bound=bound, cascade=cascade, grid_size=grid_size,
+                                       mip_dt_level=mip_dt_level)
+    return bitfield[idx]
 
 
 def _positions(origins, dirs, t, bound):

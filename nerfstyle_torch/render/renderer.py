@@ -30,7 +30,9 @@ field runs on them (K1, K5, and K5d where it reads directions), kernel K4i
 composites them with the transmittance each ray carries from its earlier
 rounds, K7 sums their channels, and a ray dies once its transmittance
 falls below ``t_thresh`` or its samples run out.  A saturated ray's later
-samples are never evaluated.
+samples are never evaluated.  ``Renderer.render_ray_batch_incremental``
+renders one ray batch this way whatever ``infer_two_phase`` says (JAX's
+method of that name).
 
 A train batch (:func:`render_rays`) marches the same way, then evaluates
 and composites through ``render/pipeline.py``, whose phase B keeps each
@@ -61,7 +63,7 @@ import torch
 
 from .. import DeviceLike, resolve_device
 from ..core.cameras import generate_rays
-from ..core.types import BBox, Box2D, Intrinsics
+from ..core.types import BBox, Box2D, Intrinsics, RayBundle
 from ..models.fields import (FieldSpec, Params, check_field_spec, field_apply, field_color,
                              field_density)
 from ..ops.aabb import near_far_from_aabb
@@ -521,21 +523,26 @@ class Renderer:
         else:
             chunk_fn, keys = render_chunk_incremental, INCREMENTAL_COUNT_KEYS
             common["round_size"] = s.infer_round_size
-        pieces = []
-        for i in range(0, origins.shape[0], chunk):
-            o, d = origins[i:i + chunk], dirs[i:i + chunk]
-            if self.mesh is None:
-                pieces.append(chunk_fn(self.field_spec, self.plan, params, self.occ_field,
-                                       self.bbox, o, d, **common))
-                continue
-            sl = self.mesh.rows(o.shape[0])
-            piece = chunk_fn(self.field_spec, self.plan, params, self.occ_field, self.bbox,
-                             o[sl], d[sl], **common)
-            pieces.append(self._gather_chunk(piece, o.shape[0], keys))
+        pieces = [self._render_piece(chunk_fn, keys, params, origins[i:i + chunk],
+                                     dirs[i:i + chunk], common)
+                  for i in range(0, origins.shape[0], chunk)]
         out: Dict[str, object] = {k: torch.cat([p[k] for p in pieces]) for k in MAP_KEYS}
         for k in keys:
             out[k] = sum(p[k] for p in pieces)
         return out
+
+    def _render_piece(self, chunk_fn: Callable[..., Dict[str, object]], keys, params: Params,
+                      o: torch.Tensor, d: torch.Tensor, common: Dict[str, object]
+                      ) -> Dict[str, object]:
+        """One chunk of rays through ``chunk_fn``; with a mesh, this rank
+        renders its slice and the chunk is gathered (counters ``keys``)."""
+        if self.mesh is None:
+            return chunk_fn(self.field_spec, self.plan, params, self.occ_field, self.bbox, o, d,
+                            **common)
+        sl = self.mesh.rows(o.shape[0])
+        piece = chunk_fn(self.field_spec, self.plan, params, self.occ_field, self.bbox, o[sl],
+                         d[sl], **common)
+        return self._gather_chunk(piece, o.shape[0], keys)
 
     def _gather_chunk(self, piece: Dict[str, object], n: int, keys) -> Dict[str, object]:
         """A chunk of n rays from this rank's slice ``piece``: the maps
@@ -561,6 +568,26 @@ class Renderer:
         return render_rays(self.field_spec, self.plan, params, self.occ_field, self.bbox,
                            origins, dirs, t_thresh=s.t_thresh, density_scale=s.density_scale,
                            compute_dtype=self.compute_dtype, plain=plain)
+
+    def render_ray_batch_incremental(self, params: Params, rays: RayBundle,
+                                     round_size: Optional[int] = None) -> Dict[str, object]:
+        """One ray batch through the incremental scheme (JAX's method of
+        this name): :func:`render_chunk_incremental` in rounds of
+        ``round_size`` samples an alive ray (``settings.infer_round_size``
+        by default), whatever ``infer_two_phase`` says; kernels P0, K1, K5,
+        K4i and K7 on CUDA tensors.  Returns the maps of JAX's incremental
+        chunk and its exact counters ``num_marched``, ``num_points`` and
+        ``num_cand``, with ``rounds`` beside them.  The batch is one chunk
+        whatever its size: every buffer is sized from the march, so JAX's
+        bucket ladder, its re-render and its truncation warning have no
+        counterpart."""
+        s = self.settings
+        common = dict(t_thresh=s.t_thresh, density_scale=s.density_scale,
+                      compute_dtype=self.compute_dtype, plain=False,
+                      round_size=s.infer_round_size if round_size is None else round_size)
+        return self._render_piece(render_chunk_incremental, INCREMENTAL_COUNT_KEYS, params,
+                                  rays.origins.to(self.device, torch.float32),
+                                  rays.dirs.to(self.device, torch.float32), common)
 
     def render(
         self,

@@ -197,17 +197,23 @@
 17. The reconstruction quality run (``psnr_phase``, before the dp phase):
    ``python -m nerfstyle_torch.tools.psnr_room_run`` in-process on the
    open bench scene (378x504, 30 train views, 3 test views), PSNR_ITERS
-   (2000) steps of 4096 rays, the untrained field evaluated first, launch
-   counters set to 0 just before and read just after: every train kernel
-   must launch, no step may be non-finite, every 500-step held-out PSNR
-   must lie 5 dB above the untrained field's and the last reach 28.0 dB
-   (PSNR_GATE_DB).  Its checkpoint through ``python -m
+   (2000) steps in the JAX bench's regime (``--adaptive_batch`` from 1024
+   rays: a fixed budget of 2^20 marched samples a step, the ray count on a
+   ladder of powers of two from 256 to 32,768), the untrained field
+   evaluated first, launch counters set to 0 just before and read just
+   after: every train kernel must launch, no step may be non-finite, every
+   step's ray count must be the starting count or a rung and the count must
+   move, every 500-step held-out PSNR must lie 5 dB above the untrained
+   field's and the last reach 28.0 dB (PSNR_GATE_DB).  K1 (phase A and B),
+   K2, K4 (phase A and B) and K4b get kernel-table rows on a late batch at
+   the run's last rung, with the run's launches.  Its checkpoint through
+   ``python -m
    nerfstyle_torch.render`` at 1008x756 (finite maps of the frame's
    shapes), then ``Renderer.render_ray_batch_incremental`` on a 4096-ray
    crop of that view (K4i and P0 must launch; their kernel-table rows
    count these launches beside the incremental frame's) against the
-   incremental ``Renderer.render`` frame's crop.  Logs the PSNR by step,
-   train_s, the late step's median and peak memory.
+   incremental ``Renderer.render`` frame's crop.  Logs the PSNR and ray
+   count by step, train_s, rays/s, the late step's median and peak memory.
 
 Before the main path: K5d's first entry (sh_encode) at a frame chunk's
 kept stream (129,929 rows) and at a style cache's size (640,000), and its
@@ -379,11 +385,11 @@ INCREMENTAL_COUNTERS = ("composite_weights_entering", "take_rows", "hashgrid_enc
                         "mlp_forward", "segment_sum", "march_skip_count", "march_skip_write")
 # The reconstruction quality run (psnr_phase): python -m
 # nerfstyle_torch.tools.psnr_room_run on the open bench scene (378x504, 30
-# train views, 3 test views) for PSNR_ITERS steps at 4096 rays, a test
-# evaluation every 500.  Each evaluation must rise PSNR_RISE_DB above the
-# untrained field's and the last must reach PSNR_GATE_DB: 3.5 dB below the
-# JAX package's 31.48 dB at 2,000 steps (BASELINE.md), a margin for the
-# fixed 4096-ray batch against its adaptive one.  Then
+# train views, 3 test views) for PSNR_ITERS steps in the JAX bench's regime
+# (the adaptive ray count from 1024 rays), a test evaluation every 500.
+# Each evaluation must rise PSNR_RISE_DB above the untrained field's and the
+# last must reach PSNR_GATE_DB: 3.5 dB below the JAX package's 31.48 dB at
+# 2,000 steps in the same regime (BASELINE.md).  Then
 # Renderer.render_ray_batch_incremental on a 4096-ray crop of the
 # checkpoint's 1008x756 test view must launch K4i and P0.
 PSNR_ITERS = 2000
@@ -4267,21 +4273,55 @@ def incremental_phase(renderer, params, pose, rays, card: str, fails):
     return launches, table
 
 
+def psnr_late_rows(trainer, fails) -> dict:
+    """K1 (phase A and B), K2 (phase B), K4 (phase A and B) and K4b (phase
+    B) on a late batch of the quality run, drawn at its last rung, as
+    train_kernel_phases measures them on the train phase's 4096-ray batch;
+    returns their kernel-table entries."""
+    from nerfstyle_torch.models.fields import field_apply
+
+    r, spec, s, params = trainer.renderer, trainer.field_spec, trainer.settings, trainer.params
+    gen = torch.Generator(device=trainer.device).manual_seed(23)
+    batch = late_batch(trainer)
+    sb, keep, offsets = batch["sb"], batch["keep"], batch["offsets"]
+    with torch.no_grad():
+        tau = sb.tau[keep].contiguous()
+        ch, sig = field_apply(spec, params, r.bbox, sb.xyz[keep], trainer.compute_dtype)
+    sigmas = (sig * s.density_scale).contiguous()
+    fused = torch.cat([params["x_density_embedder"], params["x_color_embedder"]], dim=1).detach()
+    what = f"the quality run's late batch at its last rung ({batch['o'].shape[0]} rays)"
+    a, b = f"{what}: marched samples (phase A)", f"{what}: kept prefix (phase B)"
+    table = {
+        "K1 psnr A": k1_row(spec.grid, params["x_density_embedder"].detach(), batch["x_a"], a,
+                            fails),
+        "K1 psnr B": k1_row(spec.grid, fused, batch["x_b"], b, fails),
+        "K2 psnr B": k2_row(spec.grid, batch["x_b"], fused.shape[1], b, gen, fails),
+    }
+    table["K4 psnr A"], _ = k4_row(batch["sig_a"], sb.tau, sb.offsets, r.plan.dt, s.t_thresh, a,
+                                   fails)
+    table["K4 psnr B"], _ = k4_row(sigmas, tau, offsets, r.plan.dt, s.t_thresh, b, fails)
+    table["K4b psnr B"] = k4b_row(sigmas, ch, tau, offsets, r.plan.dt, s.t_thresh, b, gen, fails)
+    return table
+
+
 def psnr_phase(card: str, fails) -> dict:
     """The reconstruction quality run through its entry point (``python -m
     nerfstyle_torch.tools.psnr_room_run``, in-process) on the open bench
     scene, PSNR_ITERS steps with the untrained field evaluated first
     (``--test_before_train``), launch counters set to 0 just before and read
     just after: every train kernel must launch, no step may be non-finite
-    or skipped, every 500-step evaluation must lie PSNR_RISE_DB above the
-    untrained field and the last reach PSNR_GATE_DB.  Then its checkpoint
+    or skipped, every step's ray count must be the starting count or a rung
+    of the adaptive ladder and the count must move, every 500-step
+    evaluation must lie PSNR_RISE_DB above the untrained field and the last
+    reach PSNR_GATE_DB.  Then its checkpoint
     through ``python -m nerfstyle_torch.render`` at 1008x756 (finite maps of
     the frame's shapes), and ``Renderer.render_ray_batch_incremental`` on a
     4096-ray crop of that view (K4i and P0 must launch), whose maps must
     equal the incremental ``Renderer.render`` frame's crop within the
-    incremental phase's tolerance.  K1 and K2 on the sparsity term's stream
-    (its random points on the density table, C=2) get kernel-table rows.
-    Returns the three runs' launches and those rows."""
+    incremental phase's tolerance.  K1, K2, K4 and K4b on a late batch at
+    the run's last rung (psnr_late_rows), and K1 and K2 on the sparsity
+    term's stream (its random points on the density table, C=2) get
+    kernel-table rows.  Returns the three runs' launches and those rows."""
     from nerfstyle_torch.core.cameras import generate_rays
     from nerfstyle_torch.core.types import RayBundle
     from nerfstyle_torch.models.fields import _encoder_input
@@ -4313,8 +4353,22 @@ def psnr_phase(card: str, fails) -> dict:
                                        for v in trainer.last_losses.values()):
         fails.append(f"psnr run: {res['skipped_steps']} non-finite steps skipped, last losses "
                      f"{trainer.last_losses}")
+    # The ray count: the starting count or a rung at every step, and moved.
+    tc, ladder = trainer.train_cfg, trainer._ray_ladder
+    start = min(max(ladder[0], tc.num_rays_per_batch), ladder[-1])
+    off = sorted(set(trainer.iter_rays) - set(ladder) - {start})
+    if not tc.adaptive_batch or off or len(set(trainer.iter_rays)) < 2:
+        fails.append(f"psnr run: adaptive_batch {tc.adaptive_batch}, ray counts "
+                     f"{sorted(set(trainer.iter_rays))} (off the ladder {ladder}: {off}); the "
+                     "count must move")
+    if trainer.rays_trained != sum(trainer.iter_rays):
+        fails.append(f"psnr run: rays_trained {trainer.rays_trained} is not the sum of the "
+                     f"steps' counts {sum(trainer.iter_rays)}")
+    moves = [(i, a, b) for i, (a, b) in enumerate(zip(trainer.iter_rays, trainer.iter_rays[1:]),
+                                                  start=1) if a != b]
     untrained, *evals = trainer.test_history
     curve = {m["iter"]: round(m["psnr"], 3) for m in evals}
+    rungs = {m["iter"]: trainer.iter_rays[m["iter"] - 1] for m in evals}
     if untrained["iter"] != 0 or list(curve) != list(range(500, PSNR_ITERS + 1, 500)):
         fails.append(f"psnr run evaluated at {[untrained['iter'], *curve]}")
     low = {i: p for i, p in curve.items() if not p >= untrained["psnr"] + PSNR_RISE_DB}
@@ -4324,14 +4378,18 @@ def psnr_phase(card: str, fails) -> dict:
     if not res["psnr"] >= PSNR_GATE_DB:
         fails.append(f"psnr run: held-out PSNR {res['psnr']} dB at step {PSNR_ITERS} < "
                      f"{PSNR_GATE_DB} dB")
-    log(f"psnr run ({card}): open scene 378x504, 30 views, {PSNR_ITERS} steps of "
-        f"{trainer.train_cfg.num_rays_per_batch} rays, train_s {res['train_s']} (evaluations "
-        f"included); held-out PSNR (3 views, EMA params) untrained {untrained['psnr']:.3f} dB, "
-        f"by step {curve}, final {res['psnr']} dB (JAX package at 2,000 steps: 31.48 dB, "
-        f"BASELINE.md; gate {PSNR_GATE_DB}); late step median {res['late_step_ms']:.2f} ms "
+    log(f"psnr run ({card}): open scene 378x504, 30 views, {PSNR_ITERS} steps in JAX's regime "
+        f"(adaptive_batch from {start} rays, budget {trainer._adaptive_budget} samples, "
+        f"ladder {ladder}), train_s {res['train_s']} (evaluations included), "
+        f"{res['rays_trained']} rays trained ({res['rays_trained'] / res['train_s']:.0f} rays/s); "
+        f"ray count moves (step, from, to) {moves}; held-out PSNR (3 views, EMA params) "
+        f"untrained {untrained['psnr']:.3f} dB, by step {curve} at rays {rungs}, final "
+        f"{res['psnr']} dB (JAX package at 2,000 steps: 31.48 dB, BASELINE.md; gate "
+        f"{PSNR_GATE_DB}); late step median {res['late_step_ms']:.2f} ms "
         f"(last {psnr_room_run.LATE_STEPS}), early (steps 1-15) "
         f"{float(np.median(trainer.iter_ms[1:16])):.2f} ms; peak memory {res['peak_mib']} MiB; "
         f"launches {runs['psnr']}")
+    table = psnr_late_rows(trainer, fails)
     # The sparsity term's stream, drawn as the trainer draws it.
     gen = torch.Generator(device=DEVICE).manual_seed(21)
     bbox, grid = trainer.renderer.bbox, trainer.field_spec.grid
@@ -4340,8 +4398,8 @@ def psnr_phase(card: str, fails) -> dict:
     x = _encoder_input(bbox, pts).contiguous()
     what = f"the sparsity term's {x.shape[0]} random points (density, C=2)"
     dens = trainer.params["x_density_embedder"].detach()
-    table = {"K1 sparsity": k1_row(grid, dens, x, what, fails),
-             "K2 sparsity": k2_row(grid, x, grid.level_dim, what, gen, fails)}
+    table.update({"K1 sparsity": k1_row(grid, dens, x, what, fails),
+                  "K2 sparsity": k2_row(grid, x, grid.level_dim, what, gen, fails)})
     # Kernels of a few µs: their cold times (the 50 MB table from HBM) and
     # the empty kernel's, to tell a launch floor from the kernel's own time.
     from nerfstyle_torch import kernels
@@ -5305,14 +5363,26 @@ def main() -> int:
                              "C=2)",
         "two-pass window B": "a two-pass pass-2 window's kept samples (phase B: fused [T, 4])",
     }
+    # The quality run's late batch at its last rung (JAX's regime); these
+    # rows count the quality run's launches of the train streams, the train
+    # A and B rows the other paths'.
+    train_paths = tuple(p for p in main_paths if p != "psnr")
+
+    def stream_paths(stream: str) -> tuple:
+        return train_paths if stream.startswith("train") else main_paths
+
+    psnr_rows = {"A": "the quality run's late batch at its last rung: marched samples (phase "
+                      "A; K1: density, C=2)",
+                 "B": "the quality run's late batch at its last rung: kept samples (phase B; "
+                      "K1, K2: fused [T, 4])"}
     meta = [(f"K1 {k}", f"K1 hashgrid_encode, {v}", hg, "nerfstyle_tpu/ops/hashgrid.py:818",
-             (f"hashgrid_encode:{k}",), main_paths) for k, v in encode_rows.items()]
+             (f"hashgrid_encode:{k}",), stream_paths(k)) for k, v in encode_rows.items()]
     meta += [(f"K1s {k}", f"K1s hashgrid_encode (simplex levels), {encode_rows[k]}", hg,
               "nerfstyle_tpu/ops/hashgrid.py:483", (f"hashgrid_encode:{k}",), ("simplex",))
              for k in ("frame A", "frame B", "train A", "train B", "probe full")]
     meta += [
         ("K2 train B", f"K2 hashgrid_backward, {encode_rows['train B']}", hg,
-         "nerfstyle_tpu/ops/hashgrid.py:959", ("hashgrid_backward:train B",), main_paths),
+         "nerfstyle_tpu/ops/hashgrid.py:959", ("hashgrid_backward:train B",), train_paths),
         ("K2 style", f"K2 hashgrid_backward, {encode_rows['style']}", hg,
          "nerfstyle_tpu/ops/hashgrid.py:959", ("hashgrid_backward:style",), main_paths),
         ("K2s train B", f"K2s hashgrid_backward (simplex levels), {encode_rows['train B']}", hg,
@@ -5331,9 +5401,18 @@ def main() -> int:
          hg, "nerfstyle_tpu/ops/hashgrid.py:959", ("hashgrid_backward:two-pass window B",),
          main_paths),
         *[(f"K4 {k}", f"K4 composite_weights, {v}", cp, "nerfstyle_tpu/ops/compositing.py:94",
-           (f"composite_weights:{k}",), main_paths) for k, v in composite_rows.items()],
+           (f"composite_weights:{k}",), stream_paths(k)) for k, v in composite_rows.items()],
         ("K4b train B", f"K4b composite_backward, {composite_rows['train B']}", cp,
-         "nerfstyle_tpu/ops/compositing.py:116", ("composite_backward:train B",), main_paths),
+         "nerfstyle_tpu/ops/compositing.py:116", ("composite_backward:train B",), train_paths),
+        *[(f"K1 psnr {ab}", f"K1 hashgrid_encode, {v}", hg, "nerfstyle_tpu/ops/hashgrid.py:818",
+           (f"hashgrid_encode:train {ab}",), ("psnr",)) for ab, v in psnr_rows.items()],
+        ("K2 psnr B", f"K2 hashgrid_backward, {psnr_rows['B']}", hg,
+         "nerfstyle_tpu/ops/hashgrid.py:959", ("hashgrid_backward:train B",), ("psnr",)),
+        *[(f"K4 psnr {ab}", f"K4 composite_weights, {v}", cp,
+           "nerfstyle_tpu/ops/compositing.py:94", (f"composite_weights:train {ab}",), ("psnr",))
+          for ab, v in psnr_rows.items()],
+        ("K4b psnr B", f"K4b composite_backward, {psnr_rows['B']}", cp,
+         "nerfstyle_tpu/ops/compositing.py:116", ("composite_backward:train B",), ("psnr",)),
         ("K4b two-pass window B", f"K4b composite_backward, {composite_rows['two-pass window B']}",
          cp, "nerfstyle_tpu/ops/compositing.py:116", ("composite_backward:two-pass window B",),
          main_paths),

@@ -349,6 +349,8 @@ class RendererConfig(Config):
     max_samples_per_ray: int = 256
     max_budget_samples: int = 1_048_576
     window_init_bucket: int = 0
+    """JAX's seed of its candidate-window capacity; read, not acted on
+    (the port sizes every buffer from the march)."""
 
     default_path = "cfgs/renderer/default.yaml"
 
@@ -381,10 +383,23 @@ class TrainConfig(Config):
     """Mixed precision: bf16 matmul inputs with fp32 accumulation."""
     ema_decay: Optional[float] = 0.95
     adaptive_batch: bool = False
+    """Train with a FIXED total sample budget and an adaptive ray count
+    instead of a fixed ray count: the ray count rides a power-of-two ladder
+    sized so that demand * 1.25 fits the budget (with a >=262k budget, 256
+    rays fit even max_steps=1024 samples each; with a smaller budget the
+    trainer warns when demand pins the controller at the minimum)."""
     adaptive_batch_max_rays: int = 32768
+    """Ray-count ladder ceiling under adaptive_batch.  When free-space
+    pruning drives per-ray demand down, the ray count grows up to this bound
+    to keep the (fixed) sample budget utilized."""
     adaptive_batch_budget: int = 0
+    """Total marched-sample budget per step under adaptive_batch; 0 uses
+    the renderer's max_budget_samples.  Must be divisible by the number of
+    data-parallel ranks."""
     two_phase_train: bool = True
     two_phase_init_bucket: int = 0
+    """JAX's seed of its kept-prefix capacity; read, not acted on (the
+    port sizes every buffer from the march)."""
     sparsity_lambda: float = 0.0
     sparsity_exp_coeff: float = 0.05
     sparsity_samples: int = 50000

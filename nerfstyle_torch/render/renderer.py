@@ -412,6 +412,8 @@ class Renderer:
         self.update_occ = True
         self._local_step_host = 0
         self._last_num_rays = 1
+        # The host copy of mean_count (sync_demand), for adaptive ray batching.
+        self._mean_count_host = 0
         # The data-parallel mesh (None: one rank).
         self.mesh = None
         # Host clock of every occupancy update by kind, each ending in a
@@ -458,6 +460,12 @@ class Renderer:
             self.update_state(params, generator, plain)
             return True
         return False
+
+    def sync_demand(self) -> None:
+        """Take the host copy of ``mean_count`` (JAX ``renderer.py:904``),
+        right after an occupancy update, whose sync it shares: the demand
+        estimate that adaptive ray batching reads."""
+        self._mean_count_host = int(self.occ_state.mean_count)
 
     def note_batch_points(self, num_points: int, num_rays: Optional[int] = None) -> None:
         """Feed a train batch's marched-sample count into mean_count."""

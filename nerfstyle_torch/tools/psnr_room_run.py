@@ -9,24 +9,25 @@ spheres on white by default, ``NERFSTYLE_BENCH_SCENE=room`` for the enclosed
 room, at ``NERFSTYLE_BENCH_RES`` (HxW, 378x504) with
 ``NERFSTYLE_BENCH_VIEWS`` train views (30) and 3 test views.  Then trains
 ``PSNR_ITERS`` steps (2000; the reference's schedule is 15000) at the
-default network, renderer and train configs with the bench's regime: a
-sample cap that cannot bind (``--max_samples_per_ray 1024``), the sparsity
-term (0.001 on 8192 samples a step), ``--update_thres 64``, and the test
-split's 3 views rendered every 500 steps.  ``EXTRA`` appends flags.
-
-The JAX run also passes ``--adaptive_batch``, ``--num_rays_per_batch
-1024``, ``--two_phase_init_bucket`` and ``--window_init_bucket``: they pin
-its TPU shapes, and the port, which sizes every buffer from the march,
-has none of them.  So the port trains at the reference's fixed 4096 rays a
-step, where JAX's adaptive batch moves the ray count with the demand.
+default network, renderer and train configs with the JAX bench's whole
+regime: a sample cap that cannot bind (``--max_samples_per_ray 1024``), the
+sparsity term (0.001 on 8192 samples a step), ``--update_thres 64``,
+``--adaptive_batch`` from ``--num_rays_per_batch 1024`` (a fixed budget of
+1,048,576 marched samples a step, the ray count on a ladder of powers of two
+from 256 to 32,768 that the demand a ray moves), and the test split's 3
+views rendered every 500 steps.  The JAX regime's ``--two_phase_init_bucket``
+and ``--window_init_bucket`` seed its compiled shapes; the port reads them
+and does not act on them.  ``EXTRA`` appends flags.
 
 Prints one JSON line a test evaluation (``step``, ``mse``, ``psnr``, and the
-state the trajectory rests on: ``occ_share``, the share of occupied cells of
-the occupancy grid, ``mean_density``, its mean, whose minimum with
-``density_thresh`` is the occupancy threshold, and ``marched`` and ``kept``,
-the samples a ray marched and significant over the steps since the last
-evaluation), then the JAX tool's last line (``iters``, ``train_s``, the
-final test metrics) with ``device`` (the card's name, or ``cpu``),
+state the trajectory rests on: ``rays``, the ray count at that step,
+``occ_share``, the share of occupied cells of the occupancy grid,
+``mean_density``, its mean, whose minimum with ``density_thresh`` is the
+occupancy threshold, and ``marched`` and ``kept``, the samples a ray marched
+and significant over the steps since the last evaluation), then the JAX
+tool's last line (``iters``, ``train_s``, the final test metrics) with
+``rays_trained`` (the rays of all the steps), ``device`` (the card's name,
+or ``cpu``),
 ``late_step_ms`` (the median step of the last 500), ``peak_mib`` (peak
 device memory, null on the CPU), ``skipped_steps`` (non-finite steps the
 optimizer skipped) and ``ckpt``, the final ``.npz`` checkpoint, which both
@@ -54,9 +55,10 @@ from ..config import BaseConfig
 from ..data.synthetic import generate_scene
 from ..training.trainer import Trainer
 
-# The JAX bench's train regime that the port has: intervals off, the
-# occupancy grid's full sweeps for 64 steps, the sparsity term, a sample cap
-# that cannot bind (it only sizes the checkpoint's budget bucket here).
+# The JAX bench's train regime (bench.TRAIN_REGIME_FLAGS): intervals off,
+# the occupancy grid's full sweeps for 64 steps, the sparsity term, a sample
+# cap that cannot bind (it only sizes the checkpoint's budget bucket here),
+# the adaptive ray count from 1024 rays, and JAX's two shape seeds.
 TRAIN_FLAGS = [
     "--intervals.print", "0",
     "--intervals.log", "0",
@@ -66,6 +68,10 @@ TRAIN_FLAGS = [
     "--sparsity_lambda", "0.001",
     "--sparsity_samples", "8192",
     "--max_samples_per_ray", "1024",
+    "--adaptive_batch",
+    "--num_rays_per_batch", "1024",
+    "--two_phase_init_bucket", "128",
+    "--window_init_bucket", "192",
 ]
 # Steps whose median is the late step time.
 LATE_STEPS = 500
@@ -95,15 +101,15 @@ class PsnrTrainer(Trainer):
     def test_networks(self) -> Dict[str, float]:
         metrics = super().test_networks()
         if metrics and self.is_main:
-            counts, rays = self.iter_counts[self._counted:], self.train_cfg.num_rays_per_batch
+            counts, rays = self.iter_counts[self._counted:], sum(self.iter_rays[self._counted:])
             self._counted = len(self.iter_counts)
             occ = self.renderer.occ_state
             line = {"step": metrics["iter"], "mse": metrics["mse"], "psnr": metrics["psnr"],
+                    "rays": self.iter_rays[-1] if self.iter_rays else self.batch_rays,
                     "occ_share": float(occ.bitfield.float().mean()),
                     "mean_density": float(occ.mean_density)}
             for key, name in (("marched", "num_points"), ("kept", "num_sig")):
-                line[key] = (sum(int(c[name]) for c in counts) / (len(counts) * rays)
-                             if counts else None)
+                line[key] = sum(int(c[name]) for c in counts) / rays if counts else None
             print(json.dumps(line), flush=True)
         return metrics
 
@@ -145,6 +151,7 @@ def main(argv: Optional[Sequence[str]] = None) -> PsnrTrainer:
         "iters": iters,
         "train_s": round(dt, 1),
         **{k: round(float(metrics[k]), 3) for k in ("mse", "psnr") if k in metrics},
+        "rays_trained": trainer.rays_trained,
         "device": torch.cuda.get_device_name(device) if cuda else "cpu",
         "late_step_ms": float(np.median(trainer.iter_ms[-LATE_STEPS:])) if trainer.iter_ms
         else None,

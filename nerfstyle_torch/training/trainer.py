@@ -8,8 +8,10 @@ One iteration (:meth:`Trainer.run_iter`), as in the JAX package:
      ``update_thres`` steps, a random update after; kernel K6, then K6c
      rebuilds the skip distance);
   2. a train frame is drawn (the JAX trainer's numpy stream, same seed) and
-     ``num_rays_per_batch`` of its pixels WITH replacement
-     (:meth:`ray_batch`);
+     :attr:`batch_rays` of its pixels WITH replacement (:meth:`ray_batch`):
+     ``num_rays_per_batch``, or under ``adaptive_batch`` the ray count that
+     fits a fixed sample budget (:meth:`_retune_adaptive_rays`, after each
+     occupancy update);
   3. the batch renders differentiably (``render_rays``: the K3s march
      over the skip distance (``adaptive_march``; K3 without), phase A
      K1 + density MLP + K4, phase B K1 on the [T, 4] tables + MLPs + K4 +
@@ -30,6 +32,9 @@ rank 0 writes checkpoints, images, logs and scalars.
 
 The TPU package's workarounds are not ported: every buffer is sized from
 the counts (no bucket ladders, no kept-prefix budget, no truncation).
+``adaptive_batch`` is JAX's controller decision for decision, but a step
+whose demand overflows the budget at the ladder's minimum runs whole, where
+JAX's truncates.
 Checkpoints are the JAX package's ``.npz`` with the
 groups ``params``, ``opt_state``, ``ema`` and ``occ`` in JAX leaf order, so
 a checkpoint of either trainer resumes or renders in the other package.
@@ -42,6 +47,7 @@ import math
 import shutil
 import sys
 import time
+import warnings
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
@@ -191,8 +197,6 @@ class Trainer:
         if nargs:
             raise ConfigError("Unrecognized arguments: " + " ".join(nargs))
         tc = self.train_cfg
-        if tc.adaptive_batch:
-            raise NotImplementedError("adaptive_batch is a TPU workaround the port does not have")
         check_kernel_config(self.net_cfg, self.device)
         if self.mesh is not None:
             if tc.num_rays_per_batch % self.mesh.size:
@@ -202,6 +206,9 @@ class Trainer:
             else:
                 self.logger.info("Data-parallel over %d ranks (rays sharded, params replicated)",
                                  self.mesh.size)
+        self._adaptive_budget = 0
+        if tc.adaptive_batch:
+            self._init_adaptive_batch(self.mesh.size if self.mesh is not None else 1)
 
         dev = self.device
         self._data_gen = torch.Generator(device=dev).manual_seed(tc.rng_seed)
@@ -280,10 +287,45 @@ class Trainer:
         self.last_counts: Dict[str, int] = {}
         self.iter_ms: List[float] = []  # host clock of each run_iter
         self.iter_counts: List[Dict[str, int]] = []  # num_points, num_sig of each step
+        self.iter_rays: List[int] = []  # the rays of each step
         self.test_history: List[Dict[str, float]] = []
         self.trace_path: Optional[Path] = None  # the profiler window's trace, once written
 
     # ---- set-up ----
+
+    def _init_adaptive_batch(self, ranks: int) -> None:
+        """Adaptive ray batching (JAX ``trainer.py:287-319``): the sample
+        budget a step, the ladder of ray counts (powers of two from 256 up to
+        ``adaptive_batch_max_rays``, each rounded up to a multiple of
+        ``ranks`` so that every rung shards), the starting count
+        (``num_rays_per_batch`` clamped to the ladder, not snapped to a rung)
+        and the growth streak."""
+        tc = self.train_cfg
+        self._adaptive_budget = tc.adaptive_batch_budget or self.render_cfg.max_budget_samples
+        if self._adaptive_budget % ranks:
+            raise ValueError(f"adaptive_batch budget {self._adaptive_budget} must divide the "
+                             f"{ranks}-device mesh")
+        ladder, v = [], 256
+        while v <= max(256, tc.adaptive_batch_max_rays):
+            rung = -(-v // ranks) * ranks
+            if rung not in ladder:
+                ladder.append(rung)
+            v *= 2
+        self._ray_ladder = tuple(ladder)
+        self._adaptive_rays = min(max(ladder[0], tc.num_rays_per_batch), ladder[-1])
+        self._ray_grow_streak = 0
+        self._ray_grow_cand = 0
+
+    def _rung_at_most(self, rays: int) -> int:
+        """The largest rung of the ladder not above ``rays``, else the
+        smallest."""
+        return max((v for v in self._ray_ladder if v <= rays), default=self._ray_ladder[0])
+
+    @property
+    def batch_rays(self) -> int:
+        """The rays the next step draws."""
+        return self._adaptive_rays if self.train_cfg.adaptive_batch else \
+            self.train_cfg.num_rays_per_batch
 
     def _init_new_log_dir(self, log_dir, assume_yes: bool) -> None:
         """A new, empty log directory (rank 0 asks before it cleans one)."""
@@ -332,8 +374,7 @@ class Trainer:
         """The next frame (host draw) and pixel indices (drawn on the device)."""
         frame = int(self._frame_rng.integers(0, len(self.train_set)))
         cam_dirs = self._camera_grid(self._precrop())[0]
-        idx = sample_pixels(self.train_cfg.num_rays_per_batch, cam_dirs.shape[0],
-                            self._data_gen, self.device)
+        idx = sample_pixels(self.batch_rays, cam_dirs.shape[0], self._data_gen, self.device)
         return frame, idx
 
     def ray_batch(self, frame: int, idx: torch.Tensor):
@@ -436,18 +477,72 @@ class Trainer:
 
     # ---- the loop ----
 
+    def _retune_adaptive_rays(self) -> None:
+        """Fit the ray count to the fixed sample budget (``adaptive_batch``;
+        JAX ``trainer.py:620-699``), from the renderer's host copy of
+        ``mean_count`` taken after an occupancy update.  The candidate is the
+        largest rung under budget / (1.25 x demand a ray).  Shrink at once;
+        grow only when two retunes in a row want the same rung (any other
+        retune resets the streak), so a demand still falling does not walk
+        every rung.  On a move ``mean_count``, an EMA of whole-batch counts,
+        is rescaled to the new count so the demand a ray stays the same."""
+        r = self.renderer
+        if r._mean_count_host <= 0:
+            return
+        demand = r._mean_count_host / max(1, r._last_num_rays)
+        want = int(self._adaptive_budget / (1.25 * max(demand, 1.0)))
+        cand = self._rung_at_most(want)
+        cur = self._adaptive_rays
+        new = cur
+        if cand < cur:
+            new = cand
+            self._ray_grow_streak = 0
+        elif cand > cur:
+            if cand == self._ray_grow_cand:
+                self._ray_grow_streak += 1
+            else:
+                self._ray_grow_cand = cand
+                self._ray_grow_streak = 1
+            if self._ray_grow_streak >= 2:
+                new = cand
+                self._ray_grow_streak = 0
+        else:
+            self._ray_grow_streak = 0
+        if (new == self._ray_ladder[0] and demand * 1.25 * new > self._adaptive_budget
+                and r._local_step_host > r.settings.update_thres):
+            # JAX truncates such a step to the budget; here it runs whole,
+            # above the budget.
+            warnings.warn(
+                f"adaptive_batch pinned at the {new}-ray ladder minimum with steady-state "
+                f"demand {demand:.0f} samples/ray ({demand * 1.25 * new:.0f} > budget "
+                f"{self._adaptive_budget}); the steps run above the budget (untruncated) "
+                "— raise adaptive_batch_budget", stacklevel=2)
+        if new != cur:
+            scale = new / cur
+            r.occ_state = r.occ_state._replace(
+                mean_count=(r.occ_state.mean_count.to(torch.float32) * scale).to(torch.int32))
+            r._mean_count_host = int(r._mean_count_host * scale)
+            r._last_num_rays = new
+            self._adaptive_rays = new
+            self.logger.info("Adaptive batch: %d -> %d rays (demand %.1f samples/ray, budget %d)",
+                             cur, new, demand, self._adaptive_budget)
+
     def run_iter(self) -> None:
         t0 = time.perf_counter()
-        self.renderer.maybe_update_state(self.params, self._occ_gen)
+        if self.renderer.maybe_update_state(self.params, self._occ_gen) and \
+                self.train_cfg.adaptive_batch:
+            self.renderer.sync_demand()
+            self._retune_adaptive_rays()
+        num_rays = self.batch_rays
         losses, grads, counts = self.loss_and_grads(*self.ray_batch(*self.sample_batch()))
         self.apply_grads(grads)
-        num_rays = self.train_cfg.num_rays_per_batch
         self.renderer.note_batch_points(counts["num_points"], num_rays)
         self.rays_trained += num_rays
         self.iter_ctr += 1
         self.last_losses, self.last_counts = losses, counts
         self.iter_ms.append((time.perf_counter() - t0) * 1e3)
         self.iter_counts.append(counts)
+        self.iter_rays.append(num_rays)
         self._after_iter(losses)
 
     def _after_iter(self, losses: Dict[str, torch.Tensor]) -> None:
@@ -593,7 +688,10 @@ class Trainer:
             "net_cfg": self.net_cfg.asdict(),
             "render_cfg": self.render_cfg.asdict(),
             "renderer_static": self.renderer.state_dict_static(),
-            "trainer_static": {"adaptive_rays": None, "sig_bucket_train": None},
+            "trainer_static": {
+                "adaptive_rays": self._adaptive_rays if self.train_cfg.adaptive_batch else None,
+                "sig_bucket_train": None,
+            },
         }
         trees = {"params": self.params, "opt_state": self.opt_state, "ema": self.ema_state,
                  "occ": occupancy_persistable(self.renderer.occ_state)}
@@ -613,6 +711,10 @@ class Trainer:
         sd = meta.get("renderer_static")
         if sd is not None:
             self.renderer.load_state_dict_static(sd)
+        # A run resumes at the rung it had settled on (JAX trainer.py:344-355).
+        saved_rays = (meta.get("trainer_static") or {}).get("adaptive_rays")
+        if saved_rays and self.train_cfg.adaptive_batch:
+            self._adaptive_rays = self._rung_at_most(int(saved_rays))
         if load_model_only:
             return
         try:

@@ -6,9 +6,9 @@ samples a ray logged beside it::
         [--scene spheres|room] [--res 48x64] [--views 30] [--steps 1000] [--every 100] \\
         [--rays 1024] [--threads 4] [-- EXTRA FLAGS]
 
-Both trainers run the quality run's regime (``psnr_room_run.TRAIN_FLAGS``:
-the JAX bench's less the flags that pin TPU shapes) at a fixed ``--rays``
-rays a step on the bench scene (``psnr_room_run.make_bench_scene``, equal
+Both trainers run the quality run's regime (``psnr_room_run.TRAIN_FLAGS``,
+the JAX bench's) less ``--adaptive_batch``, at a fixed ``--rays`` rays a
+step, on the bench scene (``psnr_room_run.make_bench_scene``, equal
 to the JAX bench's) and start from the same state: the JAX trainer's
 initial params, Adam and EMA state, loaded into the port's trainer.  Their
 pixel draws come from each package's own generators, so the curves agree
@@ -144,7 +144,8 @@ def main(argv=None) -> list:
                       NERFSTYLE_BENCH_SCENE=args.scene)
     data_cfg, _ = psnr_room_run.make_bench_scene(work)
     nargs = ["--num_iterations", str(args.steps), "--max_eval_count", "3",
-             *psnr_room_run.TRAIN_FLAGS, "--num_rays_per_batch", str(args.rays), *args.extra]
+             *(f for f in psnr_room_run.TRAIN_FLAGS if f != "--adaptive_batch"),
+             "--num_rays_per_batch", str(args.rays), *args.extra]
     jt = JTrainer(JBaseConfig(log_dir=work / "jax_logs", data_cfg=data_cfg), list(nargs),
                   assume_yes=True)
     if args.impl == "jax":

@@ -11,8 +11,7 @@ busy test workers its threads contend: 622 s on all of them).
 * Its scene and data config are the JAX bench's (``bench.make_bench_scene``
   at the same knobs): every array of the scene's files equal, the config's
   text equal but for the directory.
-* Its regime is the JAX bench's ``TRAIN_REGIME_FLAGS`` less the four flags
-  that pin TPU shapes.
+* Its regime is the JAX bench's ``TRAIN_REGIME_FLAGS``, flag for flag.
 * Its checkpoint restores in JAX's checkpoint reader (params into JAX's
   field template, the occupancy grid) and renders through the port's CLI.
 * It imports neither JAX, the JAX package nor ``bench``, and it runs on
@@ -50,9 +49,6 @@ ENV = {
              "--pos_enc.hashmap_size 12 --pos_enc.max_res_coeff 16 --grid_size 32 "
              "--max_steps 128 --enable_amp",
 }
-# The JAX bench's flags that pin TPU shapes; the port has none of them.
-TPU_FLAGS = {"--adaptive_batch", "--num_rays_per_batch", "--two_phase_init_bucket",
-             "--window_init_bucket"}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -87,14 +83,18 @@ def run(tmp_path_factory):
 
 
 def test_torch_psnr_tool_prints_evals_and_final_line(run):
-    """An evaluation at steps 10 and 20, each with the occupancy grid's
-    state and the samples a ray of its 10 steps, then ``iters``,
-    ``train_s``, the final metrics (those of step 20), the device and the
-    checkpoint."""
+    """An evaluation at steps 10 and 20, each with the ray count of its
+    step, the occupancy grid's state and the samples a ray of its 10 steps,
+    then ``iters``, ``train_s``, the final metrics (those of step 20),
+    ``rays_trained``, the device and the checkpoint.  The run is adaptive
+    from 256 rays; its one retune with a demand estimate (step 16) wants a
+    rung once, which does not grow the count."""
     _, lines, trainer = run
     evals, final = lines[:-1], lines[-1]
     assert [e["step"] for e in evals] == [10, 20]
+    assert trainer.train_cfg.adaptive_batch and trainer.iter_rays == [256] * 20
     for e in evals:
+        assert e["rays"] == 256
         assert np.isfinite(e["psnr"]) and e["mse"] > 0
         assert 0.0 <= e["occ_share"] <= 1.0 and np.isfinite(e["mean_density"])
         assert e["marched"] >= e["kept"] >= 0.0 and e["marched"] > 0.0
@@ -103,6 +103,7 @@ def test_torch_psnr_tool_prints_evals_and_final_line(run):
         assert e["marched"] == sum(c["num_points"] for c in steps) / (10 * 256)
         assert e["kept"] == sum(c["num_sig"] for c in steps) / (10 * 256)
     assert final["iters"] == 20 == trainer.iter_ctr
+    assert final["rays_trained"] == 20 * 256 == trainer.rays_trained
     assert final["device"] == "cpu" and final["peak_mib"] is None
     assert np.isfinite(final["psnr"]) and final["psnr"] == round(evals[-1]["psnr"], 3)
     assert final["skipped_steps"] == 0 and final["train_s"] > 0 and final["late_step_ms"] > 0
@@ -142,9 +143,11 @@ def _flag_pairs(flags):
 
 
 def test_torch_psnr_tool_regime_is_the_jax_bench_less_tpu_flags():
-    want = [p for p in _flag_pairs(bench.TRAIN_REGIME_FLAGS) if p[0] not in TPU_FLAGS]
-    assert _flag_pairs(psnr_room_run.TRAIN_FLAGS) == want
-    assert {p[0] for p in _flag_pairs(bench.TRAIN_REGIME_FLAGS)} >= TPU_FLAGS
+    """The tool's flags are the JAX bench's TRAIN_REGIME_FLAGS, pair for
+    pair: no TPU flag is left out any more (the name is kept from when four
+    were)."""
+    assert _flag_pairs(psnr_room_run.TRAIN_FLAGS) == _flag_pairs(bench.TRAIN_REGIME_FLAGS)
+    assert psnr_room_run.TRAIN_FLAGS == bench.TRAIN_REGIME_FLAGS
 
 
 def test_torch_psnr_tool_checkpoint_loads_in_jax_and_renders(run, tmp_path):

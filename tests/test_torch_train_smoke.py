@@ -76,12 +76,16 @@ def test_torch_train_entry_point_defaults_to_cuda(scene):
 
 
 def test_torch_train_rejects_leftover_flags_and_adaptive_batch(scene):
+    """A leftover flag ends the entry point with 1.  ``--adaptive_batch``
+    is no longer refused (the name is kept from when it was): the entry
+    point trains at the controller's starting count, 256 rays."""
     root, data_cfg = scene
     with pytest.raises(SystemExit) as exc:
         train.main(_argv(root, data_cfg, "--num_iterations", "1", "--not_a_flag", "3"))
     assert exc.value.code == 1
-    with pytest.raises(NotImplementedError):
-        train.main(_argv(root, data_cfg, "--num_iterations", "1", "--adaptive_batch"))
+    trainer = train.main(_argv(root, data_cfg, "--num_iterations", "2", "--adaptive_batch"))
+    assert trainer.train_cfg.adaptive_batch and trainer._ray_ladder[0] == 256
+    assert trainer.iter_rays == [256, 256] and trainer.rays_trained == 512
 
 
 def test_torch_train_rejects_profile_dir(scene, tmp_path):

@@ -4378,6 +4378,7 @@ def psnr_phase(card: str, fails) -> dict:
     if not res["psnr"] >= PSNR_GATE_DB:
         fails.append(f"psnr run: held-out PSNR {res['psnr']} dB at step {PSNR_ITERS} < "
                      f"{PSNR_GATE_DB} dB")
+    occ = trainer.renderer.occ_state
     log(f"psnr run ({card}): open scene 378x504, 30 views, {PSNR_ITERS} steps in JAX's regime "
         f"(adaptive_batch from {start} rays, budget {trainer._adaptive_budget} samples, "
         f"ladder {ladder}), train_s {res['train_s']} (evaluations included), "
@@ -4385,7 +4386,9 @@ def psnr_phase(card: str, fails) -> dict:
         f"ray count moves (step, from, to) {moves}; held-out PSNR (3 views, EMA params) "
         f"untrained {untrained['psnr']:.3f} dB, by step {curve} at rays {rungs}, final "
         f"{res['psnr']} dB (JAX package at 2,000 steps: 31.48 dB, BASELINE.md; gate "
-        f"{PSNR_GATE_DB}); late step median {res['late_step_ms']:.2f} ms "
+        f"{PSNR_GATE_DB}); the grid at the end: mean density {float(occ.mean_density):.4g}, "
+        f"{psnr_room_run.grid_stats(occ.density_grid, trainer.settings.density_thresh)}; "
+        f"late step median {res['late_step_ms']:.2f} ms "
         f"(last {psnr_room_run.LATE_STEPS}), early (steps 1-15) "
         f"{float(np.median(trainer.iter_ms[1:16])):.2f} ms; peak memory {res['peak_mib']} MiB; "
         f"launches {runs['psnr']}")

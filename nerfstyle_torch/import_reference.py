@@ -166,7 +166,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Path:
     # records raymarch_channels = 3 + class_dim.
     class_dim = max(0, int(ren.get("raymarch_channels", 3)) - 3)
     spec = style_field_spec(
-        grid_spec, class_dim=class_dim, density_hidden_dims=net_cfg.density_hidden_dims,
+        grid_spec, class_dim=class_dim, sh_degree=net_cfg.dir_enc_sh_deg,
+        density_hidden_dims=net_cfg.density_hidden_dims,
         density_hidden_layers=net_cfg.density_hidden_layers,
         rgb_hidden_dims=net_cfg.rgb_hidden_dims, rgb_hidden_layers=net_cfg.rgb_hidden_layers,
         density_offset=net_cfg.density_offset,

@@ -113,6 +113,7 @@ def load_renderer(
     field_spec = style_field_spec(
         grid_spec,
         class_dim=train_set.num_classes,
+        sh_degree=net_cfg.dir_enc_sh_deg,
         density_hidden_dims=net_cfg.density_hidden_dims,
         density_hidden_layers=net_cfg.density_hidden_layers,
         rgb_hidden_dims=net_cfg.rgb_hidden_dims,

@@ -23,8 +23,11 @@ Prints one JSON line a test evaluation (``step``, ``mse``, ``psnr``, and the
 state the trajectory rests on: ``rays``, the ray count at that step,
 ``occ_share``, the share of occupied cells of the occupancy grid,
 ``mean_density``, its mean, whose minimum with ``density_thresh`` is the
-occupancy threshold, and ``marched`` and ``kept``, the samples a ray marched
-and significant over the steps since the last evaluation), then the JAX
+occupancy threshold, ``max_density`` and ``p999_density``, its largest cell
+and its 99.9th percentile, ``hot_cells``, the count a cascade of the cells
+above ``HOT_FACTOR`` x ``density_thresh`` (:func:`grid_stats`), and
+``marched`` and ``kept``, the samples a ray marched and significant over
+the steps since the last evaluation), then the JAX
 tool's last line (``iters``, ``train_s``, the final test metrics) with
 ``rays_trained`` (the rays of all the steps), ``device`` (the card's name,
 or ``cpu``),
@@ -75,6 +78,22 @@ TRAIN_FLAGS = [
 ]
 # Steps whose median is the late step time.
 LATE_STEPS = 500
+# A cell is hot above this many times the renderer's density_thresh.
+HOT_FACTOR = 100.0
+
+
+def grid_stats(density_grid, density_thresh: float) -> Dict[str, object]:
+    """What an evaluation line says of the occupancy grid's cells beyond
+    their mean: ``max_density``, ``p999_density`` (numpy's linear 99.9th
+    percentile over every cell of every cascade) and ``hot_cells``, a count
+    a cascade of the cells above ``HOT_FACTOR * density_thresh``.  Takes the
+    [cascade, H^3] grid as a tensor or an array of either package."""
+    if isinstance(density_grid, torch.Tensor):
+        density_grid = density_grid.detach().cpu().numpy()
+    g = np.asarray(density_grid, dtype=np.float32)
+    return {"max_density": float(g.max()),
+            "p999_density": float(np.percentile(g, 99.9)),
+            "hot_cells": [int(n) for n in (g > HOT_FACTOR * density_thresh).sum(axis=1)]}
 
 
 def make_bench_scene(work: Path) -> Tuple[Path, Dict[str, object]]:
@@ -107,7 +126,8 @@ class PsnrTrainer(Trainer):
             line = {"step": metrics["iter"], "mse": metrics["mse"], "psnr": metrics["psnr"],
                     "rays": self.iter_rays[-1] if self.iter_rays else self.batch_rays,
                     "occ_share": float(occ.bitfield.float().mean()),
-                    "mean_density": float(occ.mean_density)}
+                    "mean_density": float(occ.mean_density),
+                    **grid_stats(occ.density_grid, self.settings.density_thresh)}
             for key, name in (("marched", "num_points"), ("kept", "num_sig")):
                 line[key] = sum(int(c[name]) for c in counts) / rays if counts else None
             print(json.dumps(line), flush=True)

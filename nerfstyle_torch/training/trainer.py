@@ -237,7 +237,7 @@ class Trainer:
         )
         nc = self.net_cfg
         self.field_spec = style_field_spec(
-            grid_spec, class_dim=self.train_set.num_classes,
+            grid_spec, class_dim=self.train_set.num_classes, sh_degree=nc.dir_enc_sh_deg,
             density_hidden_dims=nc.density_hidden_dims,
             density_hidden_layers=nc.density_hidden_layers,
             rgb_hidden_dims=nc.rgb_hidden_dims, rgb_hidden_layers=nc.rgb_hidden_layers,

@@ -14,6 +14,8 @@ busy test workers its threads contend: 622 s on all of them).
 * Its regime is the JAX bench's ``TRAIN_REGIME_FLAGS``, flag for flag.
 * Its checkpoint restores in JAX's checkpoint reader (params into JAX's
   field template, the occupancy grid) and renders through the port's CLI.
+* ``tests/quality_curve_compare.py --resume`` starts both packages'
+  trainers from that checkpoint with equal params and occupancy grids.
 * It imports neither JAX, the JAX package nor ``bench``, and it runs on
   ``cuda`` unless told otherwise.
 """
@@ -85,6 +87,7 @@ def run(tmp_path_factory):
 def test_torch_psnr_tool_prints_evals_and_final_line(run):
     """An evaluation at steps 10 and 20, each with the ray count of its
     step, the occupancy grid's state and the samples a ray of its 10 steps,
+    the last one's grid statistics those of the grid the trainer ends with,
     then ``iters``, ``train_s``, the final metrics (those of step 20),
     ``rays_trained``, the device and the checkpoint.  The run is adaptive
     from 256 rays; its one retune with a demand estimate (step 16) wants a
@@ -98,6 +101,15 @@ def test_torch_psnr_tool_prints_evals_and_final_line(run):
         assert np.isfinite(e["psnr"]) and e["mse"] > 0
         assert 0.0 <= e["occ_share"] <= 1.0 and np.isfinite(e["mean_density"])
         assert e["marched"] >= e["kept"] >= 0.0 and e["marched"] > 0.0
+    grid = trainer.renderer.occ_state.density_grid.numpy()
+    thresh = 100.0 * trainer.settings.density_thresh
+    assert evals[-1]["max_density"] == float(grid.max())
+    assert evals[-1]["p999_density"] == float(np.percentile(grid, 99.9))
+    assert evals[-1]["hot_cells"] == [int((row > thresh).sum()) for row in grid]
+    for e in evals:
+        assert e["max_density"] >= e["p999_density"] >= 0.0
+        assert e["max_density"] >= e["mean_density"]
+        assert len(e["hot_cells"]) == trainer.renderer.cascade
     counts = trainer.iter_counts
     for e, steps in zip(evals, (counts[:10], counts[10:])):
         assert e["marched"] == sum(c["num_points"] for c in steps) / (10 * 256)
@@ -196,3 +208,48 @@ def test_torch_psnr_tool_stands_alone_and_defaults_to_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         psnr_room_run.main([str(tmp_path / "work")])
     assert not (tmp_path / "work").exists()
+
+
+def test_torch_quality_compare_resume_starts_both_from_the_checkpoint(run, tmp_path,
+                                                                      monkeypatch):
+    """``quality_curve_compare.py --resume CKPT`` at zero steps: JAX's
+    trainer (JAX's reader) and the port's (the port's reader, no JAX
+    trainer built) hold the checkpoint's step count, params, Adam moments
+    and EMA and its occupancy grid, leaf for leaf."""
+    import jax.tree_util as jtu
+
+    import quality_curve_compare as qcc
+    from nerfstyle_torch.training import checkpoint as pckpt
+
+    _, lines, _ = run
+    ckpt = lines[-1]["ckpt"]
+    for k in ("NERFSTYLE_BENCH_RES", "NERFSTYLE_BENCH_VIEWS", "NERFSTYLE_BENCH_SCENE"):
+        monkeypatch.setenv(k, "")
+    monkeypatch.chdir(ROOT)
+    meta, groups = pckpt.load_checkpoint(Path(ckpt))
+    net = [f for f in ENV["EXTRA"].split() if f not in ("--intervals.test", "10")]
+    runs = {}
+    for impl in ("jax", "port"):
+        args = qcc.parse_args([str(tmp_path), "--impl", impl, "--res", "24x32", "--views", "6",
+                               "--steps", "0", "--threads", "1", "--resume", ckpt, "--", *net])
+        runs[impl], path = qcc.setup(args)
+        assert path == tmp_path / f"spheres_{impl}.jsonl"
+    jt, pt = runs["jax"].t, runs["port"].t
+    assert jt.iter_ctr == pt.iter_ctr == meta["iter_ctr"] == 20
+    for group, want in groups.items():
+        if group == "occ":
+            continue
+        jtree, ptree = {"params": (jt.params, pt.params), "opt_state": (jt.opt_state, pt.opt_state),
+                        "ema": (jt.ema_state, pt.ema_state)}[group]
+        jleaves, pleaves = jtu.tree_leaves(jtree), pckpt.tree_flatten(ptree)
+        assert len(jleaves) == len(pleaves) == len(want), group
+        for i, (a, b, w) in enumerate(zip(jleaves, pleaves, want)):
+            np.testing.assert_array_equal(np.asarray(a), w, err_msg=f"jax {group}.{i}")
+            got = b.detach().cpu().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+            np.testing.assert_array_equal(got, w, err_msg=f"port {group}.{i}")
+    jo, po = jt.renderer.occ_state, pt.renderer.occ_state
+    for name in ("density_grid", "bitfield", "skipdist", "mean_density", "mean_count",
+                 "local_step"):
+        np.testing.assert_array_equal(np.asarray(getattr(jo, name)).reshape(-1),
+                                      getattr(po, name).numpy().reshape(-1), err_msg=name)
+    assert runs["jax"].occ()[2] == runs["port"].occ()[2]
